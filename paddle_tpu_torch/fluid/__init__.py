@@ -1,0 +1,26 @@
+"""paddle_tpu_torch.fluid — the Fluid-compatible frontend on PyTorch.
+
+The same program-building API as ``paddle_tpu.fluid``; ``Executor.run``
+interprets the program op by op on a torch device, by default the CUDA card
+(``CUDAPlace(0)``).
+"""
+
+from . import core
+from .core import CPUPlace, CUDAPlace, LoDTensor, Scope
+from . import framework
+from .framework import (Program, Operator, Variable, Parameter,
+                        default_main_program, default_startup_program,
+                        program_guard)
+from . import executor
+from .executor import Executor, global_scope, scope_guard
+from . import initializer
+from . import layers
+from .param_attr import ParamAttr
+from . import unique_name
+from . import io
+from .io import params_from_numpy
+
+__all__ = framework.__all__ + executor.__all__ + [
+    'io', 'initializer', 'layers', 'LoDTensor', 'CPUPlace', 'CUDAPlace',
+    'Scope', 'ParamAttr', 'unique_name', 'params_from_numpy',
+]

@@ -1,0 +1,56 @@
+"""Tensor layers (counterpart of ``paddle_tpu/fluid/layers/tensor.py``)."""
+
+import numpy as np
+
+from .. import core
+from ..framework import Variable
+from ..layer_helper import LayerHelper
+
+__all__ = ['assign', 'fill_constant']
+
+
+def assign(input, output=None):
+    helper = LayerHelper('assign', **locals())
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=input.dtype)
+            output.shape = input.shape
+        helper.append_op(
+            type='assign', inputs={'X': [input]},
+            outputs={'Out': [output]})
+    elif isinstance(input, np.ndarray):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=core.convert_np_dtype_to_dtype_(input.dtype))
+            output.shape = input.shape
+        helper.append_op(
+            type='assign_value',
+            outputs={'Out': [output]},
+            attrs={
+                'shape': list(input.shape),
+                'dtype': output.dtype,
+                'values': input
+            })
+    else:
+        raise ValueError('assign expects Variable or numpy.ndarray')
+    return output
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper('fill_constant', **locals())
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=dtype)
+    out.shape = tuple(shape)
+    helper.append_op(
+        type='fill_constant',
+        inputs={},
+        outputs={'Out': [out]},
+        attrs={
+            'shape': list(shape),
+            'dtype': out.dtype,
+            'value': float(value),
+            'force_cpu': force_cpu
+        })
+    out.stop_gradient = True
+    return out

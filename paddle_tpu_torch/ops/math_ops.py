@@ -1,0 +1,106 @@
+"""Math op lowerings (counterpart of ``paddle_tpu/ops/math_ops.py``): ``mul``,
+the ``elementwise_*`` broadcast family, ``scale`` and ``mean``.
+
+``mul``'s product is ``torch.matmul``, as the JAX package leaves its
+product to XLA.
+"""
+
+import math
+
+import torch
+
+from .registry import register_lowering, amp_matmul
+
+
+@register_lowering('mul')
+def _mul(ctx, op):
+    x = ctx.get(op, 'X')
+    y = ctx.get(op, 'Y')
+    xn = op.attrs.get('x_num_col_dims', 1)
+    yn = op.attrs.get('y_num_col_dims', 1)
+    rows = math.prod(y.shape[:yn]) if yn > 0 else 1
+    y2 = torch.reshape(y, (rows, -1))
+    k = y2.shape[0]
+    # choose x's split point from the right so trailing dims contract with k
+    # (a padded runtime rank may exceed the desc rank)
+    split = x.dim()
+    acc = 1
+    while split > 0 and acc != k:
+        split -= 1
+        acc *= x.shape[split]
+    if acc != k:
+        split = xn  # fall back to declared semantics (will raise clearly)
+    x2 = torch.reshape(x, (-1, math.prod(x.shape[split:])))
+    out = amp_matmul(x2, y2)
+    ctx.set(op, 'Out', torch.reshape(
+        out, tuple(x.shape[:split]) + tuple(y.shape[yn:])))
+
+
+def _bcast_y(x, y, axis):
+    """Reference broadcast: Y's shape aligns into X starting at `axis`;
+    axis=-1 aligns trailing dims.  If the requested axis does not fit, fall
+    back to trailing alignment."""
+    if x.shape == y.shape:
+        return y
+    # trim trailing 1s of y (fluid allows y shape (C,1,1) matching mid dims)
+    yshape = list(y.shape)
+    while yshape and yshape[-1] == 1 and len(yshape) > 1:
+        yshape = yshape[:-1]
+
+    def _aligned(ax):
+        if ax < 0 or ax + len(yshape) > x.dim():
+            return None
+        if any(ys not in (1, x.shape[ax + i])
+               for i, ys in enumerate(yshape)):
+            return None
+        return [1] * ax + yshape + [1] * (x.dim() - ax - len(yshape))
+
+    if axis == -1 or axis is None:
+        axis = x.dim() - len(yshape)
+    new_shape = _aligned(axis)
+    if new_shape is None:
+        new_shape = _aligned(x.dim() - len(yshape))
+    if new_shape is None:
+        return y  # let torch's own broadcasting rules apply (or raise)
+    return torch.reshape(y, new_shape)
+
+
+def _register_elementwise(name, fn):
+    @register_lowering('elementwise_' + name)
+    def _lower(ctx, op, fn=fn):
+        x = ctx.get(op, 'X')
+        y = ctx.get(op, 'Y')
+        axis = op.attrs.get('axis', -1)
+        # the axis attr was chosen for X's DECLARED rank; when the runtime
+        # rank differs the only meaningful alignment is trailing
+        xd = ctx.var_desc(op.input('X')[0])
+        if xd is not None and xd.shape and len(xd.shape) != x.dim():
+            axis = -1
+        ctx.set(op, 'Out', fn(x, _bcast_y(x, y, axis)))
+
+
+_register_elementwise('add', torch.add)
+_register_elementwise('sub', torch.sub)
+_register_elementwise('mul', torch.mul)
+_register_elementwise('div', torch.div)
+_register_elementwise('max', torch.maximum)
+_register_elementwise('min', torch.minimum)
+_register_elementwise('pow', torch.pow)
+
+
+@register_lowering('scale')
+def _scale(ctx, op):
+    x = ctx.get(op, 'X')
+    scale = op.attrs.get('scale', 1.0)
+    bias = op.attrs.get('bias', 0.0)
+    if op.attrs.get('bias_after_scale', True):
+        out = x * scale + bias
+    else:
+        out = (x + bias) * scale
+    ctx.set(op, 'Out', out)
+
+
+@register_lowering('mean')
+def _mean(ctx, op):
+    # fluid MeanOp fixes the output dim to {1}
+    ctx.set(op, 'Out', torch.reshape(torch.mean(ctx.get(op, 'X')), (1, )))
