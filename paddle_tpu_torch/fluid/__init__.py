@@ -1,7 +1,8 @@
 """paddle_tpu_torch.fluid — the Fluid-compatible frontend on PyTorch.
 
-The same program-building API as ``paddle_tpu.fluid``; ``Executor.run``
-interprets the program op by op on a torch device, by default the CUDA card
+The same program-building API as ``paddle_tpu.fluid``, training included
+(``append_backward``, ``optimizer.Adam``); ``Executor.run`` interprets the
+program op by op on a torch device, by default the CUDA card
 (``CUDAPlace(0)``).
 """
 
@@ -18,9 +19,16 @@ from . import layers
 from .param_attr import ParamAttr
 from . import unique_name
 from . import io
-from .io import params_from_numpy
+from .io import params_from_numpy, persistables_from_numpy
+from . import backward
+from .backward import append_backward
+from . import clip
+from . import regularizer
+from . import optimizer
 
 __all__ = framework.__all__ + executor.__all__ + [
     'io', 'initializer', 'layers', 'LoDTensor', 'CPUPlace', 'CUDAPlace',
     'Scope', 'ParamAttr', 'unique_name', 'params_from_numpy',
+    'persistables_from_numpy', 'backward', 'append_backward', 'clip',
+    'regularizer', 'optimizer',
 ]

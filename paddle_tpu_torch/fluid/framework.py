@@ -15,8 +15,14 @@ from . import unique_name
 __all__ = [
     'Program', 'Block', 'Operator', 'Variable', 'Parameter', 'program_guard',
     'default_main_program', 'default_startup_program', 'switch_main_program',
-    'switch_startup_program',
+    'switch_startup_program', 'grad_var_name',
 ]
+
+GRAD_VAR_SUFFIX = '@GRAD'
+
+
+def grad_var_name(name):
+    return name + GRAD_VAR_SUFFIX
 
 
 class Variable(object):
@@ -188,6 +194,12 @@ class Block(object):
             blk = blk.parent_block
         return None
 
+    def var_recursive(self, name):
+        v = self._find_var_recursive(name)
+        if v is None:
+            raise ValueError('var %r not found (block %d)' % (name, self.idx))
+        return v
+
     def all_parameters(self):
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
@@ -228,6 +240,11 @@ class Program(object):
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
+
+    def list_vars(self):
+        for blk in self.blocks:
+            for v in blk.vars.values():
+                yield v
 
     def all_parameters(self):
         return self.global_block().all_parameters()

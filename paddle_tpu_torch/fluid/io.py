@@ -1,4 +1,4 @@
-"""Parameter hand-over into the PyTorch port's scope."""
+"""Parameter and optimizer-state hand-over into the PyTorch port's scope."""
 
 import numpy as np
 import torch
@@ -6,7 +6,7 @@ import torch
 from . import core
 from .executor import global_scope
 
-__all__ = ['params_from_numpy']
+__all__ = ['params_from_numpy', 'persistables_from_numpy']
 
 
 def params_from_numpy(program, arrays, scope=None, place=None):
@@ -18,26 +18,36 @@ def params_from_numpy(program, arrays, scope=None, place=None):
     Raises ValueError, before writing anything, when a parameter of the
     program has no array, when an array names no parameter of the program,
     or when an array's shape or dtype differs from its parameter's."""
+    _vars_from_numpy(program.all_parameters(), arrays, scope, place)
+
+
+def persistables_from_numpy(program, arrays, scope=None, place=None):
+    """``params_from_numpy`` over every persistable var of ``program``: the
+    parameters and, in a training program, the optimizer's accumulators and
+    learning rate."""
+    _vars_from_numpy([v for v in program.list_vars() if v.persistable],
+                     arrays, scope, place)
+
+
+def _vars_from_numpy(variables, arrays, scope, place):
     scope = scope if scope is not None else global_scope()
     place = place if place is not None else core.CUDAPlace(0)
-    params = {p.name: p for p in program.all_parameters()}
-    missing = sorted(set(params) - set(arrays))
-    unknown = sorted(set(arrays) - set(params))
+    declared = {v.name: v for v in variables}
+    missing = sorted(set(declared) - set(arrays))
+    unknown = sorted(set(arrays) - set(declared))
     if missing or unknown:
-        raise ValueError('params_from_numpy: parameters without an array: '
-                         '%s; arrays naming no parameter: %s' %
-                         (missing, unknown))
+        raise ValueError('from_numpy: vars without an array: %s; arrays '
+                         'naming no var: %s' % (missing, unknown))
     staged = {}
-    for name, param in params.items():
+    for name, var in declared.items():
         arr = np.asarray(arrays[name])
-        if tuple(arr.shape) != tuple(param.shape):
-            raise ValueError('params_from_numpy: %r has shape %s, the '
-                             'program declares %s' %
-                             (name, tuple(arr.shape), tuple(param.shape)))
-        if arr.dtype != param.np_dtype:
-            raise ValueError('params_from_numpy: %r has dtype %s, the '
-                             'program declares %s' %
-                             (name, arr.dtype, param.np_dtype))
+        if tuple(arr.shape) != tuple(var.shape):
+            raise ValueError('from_numpy: %r has shape %s, the program '
+                             'declares %s' %
+                             (name, tuple(arr.shape), tuple(var.shape)))
+        if arr.dtype != var.np_dtype:
+            raise ValueError('from_numpy: %r has dtype %s, the program '
+                             'declares %s' % (name, arr.dtype, var.np_dtype))
         staged[name] = arr
     for name, arr in staged.items():
         # a copy: the scope never aliases the caller's array

@@ -142,6 +142,16 @@ class LayerHelper(object):
         return self.main_program.global_block().create_var(
             *args, persistable=persistable, **kwargs)
 
+    def set_variable_initializer(self, var, initializer):
+        startup_block = self.startup_program.global_block()
+        sv = startup_block.create_var(
+            name=var.name,
+            shape=var.shape,
+            dtype=var.dtype,
+            persistable=True)
+        initializer(sv, startup_block)
+        return var
+
     def append_bias_op(self, input_var, dim_start=1, dim_end=None):
         size = list(input_var.shape[dim_start:dim_end])
         bias_attr = self.bias_attr

@@ -11,7 +11,7 @@ from ..initializer import Constant
 __all__ = [
     'fc', 'embedding', 'layer_norm', 'dropout', 'softmax',
     'softmax_with_cross_entropy', 'mean', 'reshape', 'unsqueeze',
-    'flash_attention',
+    'flash_attention', 'reduce_sum', 'clip', 'clip_by_norm',
 ]
 
 
@@ -259,4 +259,58 @@ def flash_attention(q, k, v, num_heads=None, causal=False, scale=None,
         })
     if squeeze_back:
         out = reshape(out, [0, 0, int(num_heads) * int(v.shape[-1])])
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper('reduce_sum', **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    if dim is not None and not isinstance(dim, (list, tuple)):
+        dim = [dim]
+    shape = list(input.shape)
+    if dim is None or not shape:
+        out.shape = (1, )
+    else:
+        dims = sorted(d % len(shape) for d in dim)
+        if keep_dim:
+            for d in dims:
+                shape[d] = 1
+            out.shape = tuple(shape)
+        else:
+            out.shape = tuple(s for i, s in enumerate(shape)
+                              if i not in dims) or (1, )
+    helper.append_op(
+        type='reduce_sum',
+        inputs={'X': [input]},
+        outputs={'Out': [out]},
+        attrs={
+            'dim': dim if dim is not None else [0],
+            'keep_dim': keep_dim,
+            'reduce_all': dim is None
+        })
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper('clip', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(
+        type='clip',
+        inputs={'X': [x]},
+        outputs={'Out': [out]},
+        attrs={'min': min,
+               'max': max})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper('clip_by_norm', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(
+        type='clip_by_norm',
+        inputs={'X': [x]},
+        outputs={'Out': [out]},
+        attrs={'max_norm': max_norm})
     return out

@@ -1,13 +1,34 @@
 """Op wrapper layers (counterpart of ``paddle_tpu/fluid/layers/ops.py``:
-``scale`` and the ``elementwise_*`` builders)."""
+``scale``, the ``elementwise_*`` builders, and the unary ``square`` and
+``sqrt`` that gradient clipping builds with)."""
 
 from ..layer_helper import LayerHelper
 
 __all__ = [
-    'elementwise_add', 'elementwise_sub', 'elementwise_mul',
+    'square', 'sqrt', 'elementwise_add', 'elementwise_sub', 'elementwise_mul',
     'elementwise_div', 'elementwise_max', 'elementwise_min',
     'elementwise_pow', 'scale',
 ]
+
+
+def _unary_layer(op_type):
+    def func(x, name=None, **kwargs):
+        helper = LayerHelper(op_type, **locals())
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+        out.shape = x.shape
+        helper.append_op(
+            type=op_type,
+            inputs={'X': [x]},
+            outputs={'Out': [out]},
+            attrs=kwargs)
+        return out
+
+    func.__name__ = op_type
+    return func
+
+
+square = _unary_layer('square')
+sqrt = _unary_layer('sqrt')
 
 
 def _elementwise_layer(op_type):

@@ -4,9 +4,37 @@ import numpy as np
 
 from .. import core
 from ..framework import Variable
+from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
-__all__ = ['assign', 'fill_constant']
+__all__ = ['assign', 'fill_constant', 'create_global_var', 'sums']
+
+
+def create_global_var(shape,
+                      value,
+                      dtype,
+                      persistable=False,
+                      force_cpu=False,
+                      name=None):
+    helper = LayerHelper('global_var', **locals())
+    var = helper.create_global_variable(
+        dtype=dtype, shape=shape, persistable=persistable, name=name)
+    helper.set_variable_initializer(
+        var, initializer=Constant(value=float(value)))
+    return var
+
+
+def sums(input, out=None):
+    helper = LayerHelper('sum', **locals())
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=helper.input_dtype())
+        out.shape = input[0].shape
+    helper.append_op(
+        type='sum',
+        inputs={'X': input},
+        outputs={'Out': [out]})
+    return out
 
 
 def assign(input, output=None):

@@ -66,14 +66,14 @@ def build(src_vocab=1000,
           n_head=4,
           d_model=64,
           d_ff=128,
-          dropout=0.0):
-    """Encoder-decoder over [B, max_len] int64 ids.
+          dropout=0.0,
+          lr=0.001):
+    """Training program: encoder-decoder over [B, max_len] int64 ids.
     Feeds: src_ids, trg_ids (decoder input), lbl_ids (next tokens).
 
-    The same programs and parameter names as the JAX package's ``build``,
-    without the optimizer: ``main`` is the forward program and ``test`` its
-    ``clone(for_test=True)``.  Training (append_backward and Adam) comes
-    with the training slice of the port."""
+    The same programs and parameter names as the JAX package's ``build``:
+    ``test`` is the forward program's ``clone(for_test=True)``, and ``main``
+    then gets the backward pass and Adam at ``lr``."""
     main = fluid.Program()
     startup = fluid.Program()
     with fluid.program_guard(main, startup):
@@ -108,6 +108,7 @@ def build(src_vocab=1000,
         avg_cost = fluid.layers.mean(cost)
         prediction = fluid.layers.softmax(logits)
         test_program = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(avg_cost)
     return dict(
         main=main,
         startup=startup,

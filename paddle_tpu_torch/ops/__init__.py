@@ -11,3 +11,4 @@ from . import tensor_ops  # noqa: F401
 from . import loss_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import attention_ops  # noqa: F401
+from . import optimizer_ops  # noqa: F401

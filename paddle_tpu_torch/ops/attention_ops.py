@@ -2,8 +2,11 @@
 ``paddle_tpu/ops/attention_ops.py``).
 
 ``impl='auto'`` (and ``'pallas'``, the JAX package's name for the flash
-kernel) runs ``ops/kernels/flash_attention``: the hand-written Hopper kernel
-for CUDA tensors, its plain version for CPU tensors.  The JAX package keeps
+kernel) runs ``ops/kernels/flash_attention``: the hand-written Hopper kernels
+for CUDA tensors, their plain versions for CPU tensors.  It goes through the
+``FlashAttention`` autograd.Function, so the op's generic grad
+(``torch.func.vjp`` of this lowering) replays the forward kernel and then
+runs the dQ and dK/dV kernels.  The JAX package keeps
 dense XLA attention below a score-size budget measured on a TPU v5e
 (``_DENSE_SCORE_BYTES_BUDGET``); that threshold does not carry over to the
 card and is not used here.  V's head_dim differing from Q's runs

@@ -1,5 +1,5 @@
 """Math op lowerings (counterpart of ``paddle_tpu/ops/math_ops.py``): ``mul``,
-the ``elementwise_*`` broadcast family, ``scale`` and ``mean``.
+the ``elementwise_*`` broadcast family, ``sum``, ``scale`` and ``mean``.
 
 ``mul``'s product is ``torch.matmul``, as the JAX package leaves its
 product to XLA.
@@ -86,6 +86,16 @@ _register_elementwise('div', torch.div)
 _register_elementwise('max', torch.maximum)
 _register_elementwise('min', torch.minimum)
 _register_elementwise('pow', torch.pow)
+
+
+@register_lowering('sum')
+def _sum(ctx, op):
+    # dense accumulation (the backward pass sums renamed gradient parts)
+    xs = [ctx.env[n] for n in op.input('X')]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    ctx.set(op, 'Out', out)
 
 
 @register_lowering('scale')

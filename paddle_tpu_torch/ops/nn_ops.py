@@ -1,9 +1,13 @@
 """NN op lowerings (counterpart of ``paddle_tpu/ops/nn_ops.py``):
-``layer_norm``, ``lookup_table`` and ``dropout``."""
+``layer_norm``, ``lookup_table`` and ``dropout``, with the explicit grads of
+``dropout`` (it reuses the forward Mask: a generic vjp would draw anew) and
+of ``lookup_table`` (the dense scatter-add of ``paddle_tpu/ops/sparse.py``).
+"""
 
 import torch
 
-from .registry import register_lowering, amp_upcast_f32
+from .registry import (register_lowering, register_grad_lowering,
+                       amp_upcast_f32, fwd_structure, GRAD_SUFFIX)
 
 
 @register_lowering('layer_norm')
@@ -44,6 +48,19 @@ def _dropout(ctx, op):
     ctx.set(op, 'Mask', mask)
 
 
+@register_grad_lowering('dropout')
+def _dropout_grad(ctx, op):
+    _, fwd_outputs, attrs = fwd_structure(op)
+    dout = ctx.lookup(fwd_outputs['Out'][0] + GRAD_SUFFIX)
+    gnames = op.output('X' + GRAD_SUFFIX)
+    if not gnames:
+        return
+    if attrs.get('is_test', False) or ctx.is_test:
+        ctx.store(gnames[0], dout * (1.0 - attrs.get('dropout_prob', 0.5)))
+    else:
+        ctx.store(gnames[0], dout * ctx.lookup(fwd_outputs['Mask'][0]))
+
+
 @register_lowering('lookup_table')
 def _lookup_table(ctx, op):
     w = ctx.get(op, 'W')
@@ -56,3 +73,26 @@ def _lookup_table(ctx, op):
     lead = tuple(ids.shape[:-1] if ids.dim() and ids.shape[-1] == 1 else
                  ids.shape)
     ctx.set(op, 'Out', torch.reshape(out, lead + (w.shape[-1], )))
+
+
+@register_grad_lowering('lookup_table')
+def _lookup_table_grad(ctx, op):
+    fwd_inputs, fwd_outputs, fwd_attrs = fwd_structure(op)
+    gnames = op.output('W' + GRAD_SUFFIX)
+    if not gnames or not gnames[0]:
+        return
+    if fwd_attrs.get('is_sparse', False):
+        raise NotImplementedError('lookup_table with is_sparse=True needs '
+                                  'SparseRows gradients, not ported yet')
+    gname = gnames[0]
+    w = ctx.lookup(fwd_inputs['W'][0])
+    flat = torch.reshape(ctx.lookup(fwd_inputs['Ids'][0]), (-1, )).long()
+    vals = torch.reshape(ctx.lookup(fwd_outputs['Out'][0] + GRAD_SUFFIX),
+                         (flat.shape[0], w.shape[-1])).to(w.dtype)
+    padding_idx = fwd_attrs.get('padding_idx', -1)
+    if padding_idx is not None and padding_idx >= 0:
+        vals = torch.where((flat == padding_idx)[:, None], 0.0, vals)
+    g = torch.zeros_like(w).index_add_(0, flat, vals)
+    if ctx.has(gname):
+        g = ctx.lookup(gname) + g
+    ctx.store(gname, g)

@@ -9,14 +9,28 @@ time, eagerly, on the place's device.
 The ``@SEQLEN`` side-band (per-row valid lengths riding beside a padded
 tensor) propagates from inputs to outputs exactly as in the JAX package.
 The AMP helpers are identities until mixed precision is ported.
+
+Gradients: ``backward.append_backward`` appends one ``<op>_grad`` OpDesc per
+forward op.  Unless an op registers an explicit grad lowering (random ops
+must: the generic one would redraw their randomness), ``<op>_grad`` runs
+``torch.func.vjp`` of the forward lowering, where the JAX package runs
+``jax.vjp``.  The executor runs eagerly, so the vjp recomputes the forward
+op: nothing merges the recompute with the first forward the way XLA's CSE
+does inside one jit.  ``torch.func.vjp`` is a function transform, so the
+executor's outer ``torch.no_grad()`` does not reach inside it.  A lowering
+replayed under it must be functional: no in-place op on an input or a
+captured tensor, and no ``.item()`` or ``.numpy()`` of a differentiated
+value.
 """
 
 import torch
 
-__all__ = ['register_lowering', 'get_lowering', 'LoweringContext', 'run_op',
-           'SEQLEN_SUFFIX']
+__all__ = ['register_lowering', 'register_grad_lowering', 'get_lowering',
+           'LoweringContext', 'run_op', 'fwd_structure', 'SEQLEN_SUFFIX',
+           'GRAD_SUFFIX']
 
 _LOWERINGS = {}
+_GRAD_LOWERINGS = {}
 
 SEQLEN_SUFFIX = '@SEQLEN'
 # ops that consume sequence structure and emit dense outputs — sequence
@@ -34,13 +48,29 @@ def register_lowering(op_type):
     return deco
 
 
+def register_grad_lowering(op_type):
+    """Register an explicit lowering for ``<op_type>_grad``."""
+
+    def deco(fn):
+        _GRAD_LOWERINGS[op_type] = fn
+        return fn
+
+    return deco
+
+
 def get_lowering(op_type):
     fn = _LOWERINGS.get(op_type)
-    if fn is None:
-        raise NotImplementedError(
-            'no PyTorch lowering registered for op %r (not ported yet)' %
-            op_type)
-    return fn
+    if fn is not None:
+        return fn
+    if op_type.endswith('_grad'):
+        fwd = op_type[:-5]
+        if fwd in _GRAD_LOWERINGS:
+            return _GRAD_LOWERINGS[fwd]
+        if fwd in _LOWERINGS:
+            return _make_generic_grad(fwd)
+    raise NotImplementedError(
+        'no PyTorch lowering registered for op %r (not ported yet)' %
+        op_type)
 
 
 class LoweringContext(object):
@@ -81,15 +111,30 @@ class LoweringContext(object):
         if names:
             self.env[names[0]] = value
 
+    def lookup(self, name):
+        return self.env[name]
+
+    def has(self, name):
+        return name in self.env
+
+    def store(self, name, value):
+        self.env[name] = value
+
     def var_desc(self, name):
         return self.block._find_var_recursive(name)
+
+    def sub_context(self, env):
+        """A context over ``env`` that shares this one's block, place and
+        mode but has no generator: a replayed forward must draw nothing."""
+        return LoweringContext(self.block, env, self.place,
+                               is_test=self.is_test)
 
 
 def run_op(ctx, op):
     """Run one op's lowering, then propagate sequence-length metadata from
     its inputs to its outputs."""
     get_lowering(op.type)(ctx, op)
-    if op.type in _SEQ_CONSUMERS:
+    if op.type in _SEQ_CONSUMERS or op.type.endswith('_grad'):
         return
     meta = None
     for n in op.input_arg_names:
@@ -99,6 +144,96 @@ def run_op(ctx, op):
     if meta is not None:
         for n in op.output_arg_names:
             ctx.env.setdefault(n + SEQLEN_SUFFIX, meta)
+
+
+GRAD_SUFFIX = '@GRAD'
+# attr keys on grad ops recording the forward op's slot structure
+FWD_IN_SLOTS_ATTR = '__fwd_in_slots__'
+FWD_OUT_SLOTS_ATTR = '__fwd_out_slots__'
+
+
+def fwd_structure(grad_op):
+    """Recover (fwd_inputs, fwd_outputs, fwd_attrs) slot->names maps from a
+    grad OpDesc built by backward.append_backward."""
+    in_slots = grad_op.attrs[FWD_IN_SLOTS_ATTR]
+    out_slots = grad_op.attrs[FWD_OUT_SLOTS_ATTR]
+    fwd_inputs = {s: grad_op.input(s) for s in in_slots}
+    fwd_outputs = {s: grad_op.input(s) for s in out_slots}
+    fwd_attrs = {
+        k: v
+        for k, v in grad_op.attrs.items()
+        if k not in (FWD_IN_SLOTS_ATTR, FWD_OUT_SLOTS_ATTR)
+    }
+    return fwd_inputs, fwd_outputs, fwd_attrs
+
+
+def _make_generic_grad(fwd_type):
+    """Build a grad lowering from the forward lowering via torch.func.vjp.
+
+    The grad OpDesc carries the forward op's inputs, outputs and attrs;
+    declared grad outputs ``<slot>@GRAD`` name the inputs that need
+    gradients.  A missing output gradient is a zero cotangent.  A gradient
+    name that already holds a value (a contribution the rename pass did not
+    split) is accumulated into, as in the JAX package.
+    """
+    fwd_lower = _LOWERINGS[fwd_type]
+
+    def grad_lowering(ctx, op):
+        from ..fluid.framework import Operator
+        fwd_inputs, fwd_outputs, fwd_attrs = fwd_structure(op)
+
+        # differentiable primal args: those with a declared <slot>@GRAD
+        diff_specs = []  # (slot, idx, grad_out_name)
+        for slot, in_names in fwd_inputs.items():
+            for i, gname in enumerate(op.output(slot + GRAD_SUFFIX)):
+                if gname and i < len(in_names):
+                    diff_specs.append((slot, i, gname))
+        if not diff_specs:
+            return
+
+        fwd_input_vals = {slot: [ctx.lookup(n) for n in names]
+                          for slot, names in fwd_inputs.items()}
+        # only outputs the forward produced, and only floating ones: integer
+        # outputs carry no gradient
+        out_names = [n for names in fwd_outputs.values() for n in names
+                     if ctx.has(n) and ctx.lookup(n).is_floating_point()]
+        faux = Operator(ctx.block, fwd_type,
+                        inputs={s: list(n) for s, n in fwd_inputs.items()},
+                        outputs={s: list(n) for s, n in fwd_outputs.items()},
+                        attrs=fwd_attrs)
+        # sequence-length side-band entries the lowering may consult
+        seq_entries = {n + SEQLEN_SUFFIX: ctx.lookup(n + SEQLEN_SUFFIX)
+                       for names in fwd_inputs.values() for n in names
+                       if ctx.has(n + SEQLEN_SUFFIX)}
+
+        def primal(*diff_vals):
+            env2 = dict(seq_entries)
+            vals = {s: list(v) for s, v in fwd_input_vals.items()}
+            for (slot, i, _), v in zip(diff_specs, diff_vals):
+                vals[slot][i] = v
+            for slot, names in fwd_inputs.items():
+                for n, v in zip(names, vals[slot]):
+                    env2[n] = v
+            fwd_lower(ctx.sub_context(env2), faux)
+            return tuple(env2[n] for n in out_names)
+
+        diff_vals = [fwd_input_vals[s][i] for s, i, _ in diff_specs]
+        primal_outs, vjp_fn = torch.func.vjp(primal, *diff_vals)
+        cotangents = tuple(
+            ctx.lookup(n + GRAD_SUFFIX).to(ref.dtype)
+            if ctx.has(n + GRAD_SUFFIX) else torch.zeros_like(ref)
+            for n, ref in zip(out_names, primal_outs))
+        grads = vjp_fn(cotangents)
+        # when an op writes a var it also reads, the input-grad name is the
+        # output-cotangent name: that value is this op's own cotangent and is
+        # overwritten, not accumulated
+        cotangent_names = {n + GRAD_SUFFIX for n in out_names}
+        for (_, _, gname), g in zip(diff_specs, grads):
+            if ctx.has(gname) and gname not in cotangent_names:
+                g = ctx.lookup(gname) + g  # rename pass didn't split it
+            ctx.store(gname, g)
+
+    return grad_lowering
 
 
 # ---- mixed precision: identities until AMP is ported ----

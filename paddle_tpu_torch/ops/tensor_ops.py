@@ -10,7 +10,8 @@ same seed gives other numbers than the JAX package.
 import numpy as np
 import torch
 
-from .registry import register_lowering
+from .registry import (register_lowering, register_grad_lowering,
+                       fwd_structure, GRAD_SUFFIX)
 from ..fluid import core
 
 
@@ -78,6 +79,18 @@ def _unsqueeze(ctx, op):
 @register_lowering('assign')
 def _assign(ctx, op):
     ctx.set(op, 'Out', ctx.get(op, 'X'))
+
+
+@register_grad_lowering('assign')
+def _assign_grad(ctx, op):
+    """Identity pass-through, explicit as in the JAX package (assign
+    snapshots loop-carried state, which a replayed forward would read at its
+    final value)."""
+    _, fwd_outputs, _ = fwd_structure(op)
+    gsrc = fwd_outputs['Out'][0] + GRAD_SUFFIX
+    gnames = op.output('X' + GRAD_SUFFIX)
+    if ctx.has(gsrc) and gnames and gnames[0]:
+        ctx.store(gnames[0], ctx.lookup(gsrc))
 
 
 @register_lowering('assign_value')

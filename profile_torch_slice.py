@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""Where a Transformer-base request's time goes in the PyTorch/CUDA port.
+"""Where a Transformer-base request's and training step's time goes in the
+PyTorch/CUDA port.
 
     python3 profile_torch_slice.py [--out build/profile]
 
 Builds Transformer-base at full width (the configuration chip_smoke.py
-serves, at its batch of 16 x 256 tokens; random weights from a seed), warms
-up, then on one CUDA card:
+serves and trains, at its batch of 16 x 256 tokens; random weights from a
+seed), warms up, then on one CUDA card:
 
 - host wall time of a request fetching loss and the full prediction, and of
   one fetching the loss only (the difference is the prediction's copy to the
   host);
 - one loss-only request under ``torch.profiler``: device time summed by
   kernel name, the flash-attention kernel's share, and the device's idle
-  share of the request's wall time.
+  share of the request's wall time;
+- host wall time of a training step (backward and Adam, loss fetched), and
+  one step under ``torch.profiler``: device time by kernel, the three flash
+  kernels' share, the idle share, and the device time of the generic grads'
+  forward replays (each ``torch.func.vjp`` call, which replays its op's
+  forward, is wrapped in a ``grad/recompute`` range for this run).
 
-Prints the card's name and power limit, a table, and one JSON line; writes
-the Chrome trace under ``--out``.  Needs a CUDA card; imports nothing of JAX.
+Prints the card's name and power limit, tables, and one JSON line; writes
+the Chrome traces under ``--out``.  Needs a CUDA card; imports nothing of
+JAX.
 """
 
 import argparse
@@ -84,48 +91,110 @@ def main():
     wall_full = _wall(full, REPS)
     wall_loss = _wall(loss_only, REPS)
 
+    request = _profile(loss_only, os.path.join(args.out, 'slice_request.json'))
+    flash_ms = sum(ms for name, ms in request['by_name'].items()
+                   if 'fwd_kernel' in name)
+    print('request (batch %d x seq %d) [%s]:' % (BATCH, seq, card))
+    print('  wall, loss + prediction fetched : %.4f s' % wall_full)
+    print('  wall, loss fetched              : %.4f s' % wall_loss)
+    _report(request, {'flash fwd': flash_ms})
+
+    train = lambda: exe.run(model['main'], feed=feed, scope=scope,
+                            fetch_list=[model['loss']])
+    train()
+    train()
+    wall_train = _wall(train, REPS)
+    real_vjp = torch.func.vjp
+
+    def annotated_vjp(fn, *primals):
+        with torch.profiler.record_function(_RECOMPUTE):
+            return real_vjp(fn, *primals)
+
+    torch.func.vjp = annotated_vjp
+    try:
+        step = _profile(train, os.path.join(args.out, 'slice_train_step.json'))
+    finally:
+        torch.func.vjp = real_vjp
+    flash = {kind: sum(ms for name, ms in step['by_name'].items()
+                       if kind + '_kernel' in name)
+             for kind in ('fwd', 'dq', 'dkv')}
+    print('training step (batch %d x seq %d, Adam) [%s]:' % (BATCH, seq, card))
+    print('  wall, loss fetched              : %.4f s (median of %d)' %
+          (wall_train, REPS))
+    _report(step, {'flash ' + k: v for k, v in flash.items()})
+    if step['busy_ms']:
+        print('  eager recompute: generic grads replaying their forward ops '
+              '%.3f ms of device time (%.3f of busy), of which the flash '
+              'forward kernel %.3f ms (18 of its 36 launches); the forward '
+              'request above took %.3f ms' %
+              (step['recompute_ms'], step['recompute_ms'] / step['busy_ms'],
+               flash['fwd'] / 2, request['busy_ms']))
+    print(json.dumps({
+        'card': card, 'batch': BATCH, 'seq': seq,
+        'wall_full_s': wall_full, 'wall_loss_only_s': wall_loss,
+        'wall_profiled_s': request['wall_s'],
+        'device_busy_ms': request['busy_ms'] or None,
+        'flash_kernel_ms': flash_ms if request['busy_ms'] else None,
+        'top_kernels_ms': dict(request['top']),
+        'train_wall_s': wall_train,
+        'train_wall_profiled_s': step['wall_s'],
+        'train_device_busy_ms': step['busy_ms'] or None,
+        'train_flash_ms': flash if step['busy_ms'] else None,
+        'train_recompute_ms': step['recompute_ms'],
+        'train_top_kernels_ms': dict(step['top'])}))
+
+
+_RECOMPUTE = 'grad/recompute'
+
+
+def _profile(fn, trace_path):
+    """Run fn once under torch.profiler: device time by kernel name and of
+    the kernels launched inside ``_RECOMPUTE`` ranges, and the host wall of
+    the run."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        loss_only()
+        fn()
         torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.out, 'slice_request.json'))
-
+        wall = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    prof.export_chrome_trace(trace_path)
     by_name = {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, 'self_device_time_total', None)
         if dev_us is None:
             dev_us = getattr(evt, 'self_cuda_time_total', 0)
+        # a range's device-side span (idle gaps included) is no kernel
+        if evt.key == _RECOMPUTE:
+            continue
         if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + dev_us / 1e3
-    busy_ms = sum(by_name.values())
-    flash_ms = sum(ms for name, ms in by_name.items()
-                   if 'fwd_kernel' in name)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    print('request (batch %d x seq %d) [%s]:' % (BATCH, seq, card))
-    print('  wall, loss + prediction fetched : %.4f s' % wall_full)
-    print('  wall, loss fetched              : %.4f s' % wall_loss)
-    print('  profiled loss-only request wall : %.4f s' % wall_prof)
-    if busy_ms == 0:
+    # a host range's device time: the kernels its ops launched (the
+    # backward runs on autograd's own thread, outside any range)
+    recompute = sum(evt.device_time_total / 1e3 for evt in prof.events()
+                    if evt.name == _RECOMPUTE and
+                    evt.device_type == torch.autograd.DeviceType.CPU)
+    busy = sum(by_name.values())
+    return {'wall_s': wall, 'busy_ms': busy, 'by_name': by_name,
+            'recompute_ms': recompute,
+            'top': sorted(by_name.items(), key=lambda kv: -kv[1])[:12]}
+
+
+def _report(prof, shares):
+    print('  profiled wall                   : %.4f s' % prof['wall_s'])
+    busy = prof['busy_ms']
+    if busy == 0:
         print('  device time: not measured (the profiler saw no device '
               'kernels)')
-    else:
-        print('  device busy %.3f ms, idle share %.3f; flash kernel %.3f ms '
-              '(%.3f of busy)' % (busy_ms, 1 - busy_ms / 1e3 / wall_prof,
-                                  flash_ms, flash_ms / busy_ms))
-        for name, ms in top:
-            print('  %9.3f ms  %5.3f  %s' % (ms, ms / busy_ms, name[:100]))
-    print(json.dumps({
-        'card': card, 'batch': BATCH, 'seq': seq,
-        'wall_full_s': wall_full, 'wall_loss_only_s': wall_loss,
-        'wall_profiled_s': wall_prof,
-        'device_busy_ms': busy_ms if busy_ms else None,
-        'flash_kernel_ms': flash_ms if busy_ms else None,
-        'top_kernels_ms': dict(top)}))
+        return
+    print('  device busy %.3f ms, idle share %.3f' %
+          (busy, 1 - busy / 1e3 / prof['wall_s']))
+    for label, ms in shares.items():
+        print('  %s kernel %.3f ms (%.3f of busy)' % (label, ms, ms / busy))
+    for name, ms in prof['top']:
+        print('  %9.3f ms  %5.3f  %s' % (ms, ms / busy, name[:100]))
 
 
 if __name__ == '__main__':

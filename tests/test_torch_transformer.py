@@ -178,6 +178,9 @@ def test_params_from_numpy_rejects(fault):
 def test_port_imports_neither_jax_nor_paddle_tpu():
     code = ('import sys, paddle_tpu_torch, '
             'paddle_tpu_torch.models.transformer, '
+            'paddle_tpu_torch.fluid.backward, '
+            'paddle_tpu_torch.fluid.optimizer, '
+            'paddle_tpu_torch.fluid.clip, paddle_tpu_torch.fluid.regularizer, '
             'paddle_tpu_torch.ops.kernels.flash_attention, chip_smoke, '
             'profile_torch_slice; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
