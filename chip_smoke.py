@@ -1,42 +1,59 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py        # from the repository root
+    python3 chip_smoke.py [--seed N]   # from the repository root
+
+Weights, token ids, lengths and labels are drawn from ``--seed``.
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device: a CUDA card is required; prints its name and power limit (as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them) and turns TF32 off for matmuls and cuDNN, so f32 means f32;
-2. build: compiles the port's two CUDA libraries from
-   ``paddle_tpu_torch/csrc`` (one ``nvcc`` each, started together);
-3. kernel vs plain: the forward kernel, then the dQ and dK/dV kernels,
-   against their plain PyTorch versions on the card, over causal/non-causal,
-   with/without lengths (0, partial, full), self and cross attention, a
-   ragged Lq, every supported head_dim, f32 and bf16;
-4. serving: Transformer-base at full width (6+6 layers, 8 heads, d_model
-   512, d_ff 2048, vocab 30000, seq 256; random weights from a seed) serves
-   four requests of 16 x 256 tokens through ``Executor.run`` on
+2. build: compiles the port's four CUDA libraries from
+   ``paddle_tpu_torch/csrc`` (one ``nvcc`` each, all started together);
+3. kernel vs plain: the flash-attention forward kernel, then its dQ and
+   dK/dV kernels, against their plain PyTorch versions on the card, over
+   causal/non-causal, with/without lengths (0, partial, full), self and cross
+   attention, a ragged Lq, every supported head_dim, f32 and bf16; then the
+   LSTM forward kernel (with and without the saved activations), its
+   backward walk and its dW kernel against theirs, over f32/bf16, D 128, 256,
+   512, B 128 and 13, T 64 and 1, full and ragged lengths (0 and T among
+   them), nonzero h0/c0;
+4. Transformer serving: Transformer-base at full width (6+6 layers, 8 heads,
+   d_model 512, d_ff 2048, vocab 30000, seq 256; random weights from a seed)
+   serves four requests of 16 x 256 tokens through ``Executor.run`` on
    ``CUDAPlace(0)``; then one 2 x 256 batch runs on the card and on
    ``CPUPlace()`` (the plain versions) with the same weights and the two are
    compared;
-5. training: the same model's training program (append_backward + Adam at
-   lr 1e-3) takes five steps of 16 x 256 tokens on one fixed batch; the loss
-   must fall at every step; then the card's state (parameters, moments,
-   beta powers, learning rate) is handed to a ``CPUPlace()`` scope and one
-   2 x 256 step runs on each, comparing loss, gradients and updated
+5. Transformer training: the same model's training program (append_backward
+   + Adam at lr 1e-3) takes five steps of 16 x 256 tokens on one fixed batch;
+   the loss must fall at every step; then the card's state (parameters,
+   moments, beta powers, learning rate) is handed to a ``CPUPlace()`` scope
+   and one 2 x 256 step runs on each, comparing loss, gradients and updated
    parameters;
-6. times: each kernel, its plain version and the one PyTorch call computing
-   the same function, at the slice's shape (CUDA events, median), printed
-   as one ``{"kernels": [...]}`` JSON line;
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. stacked-LSTM serving: the IMDB stacked-LSTM model at its published widths
+   (dictionary 5149, embedding 128, hidden 128, 3 LSTM layers, 2 classes;
+   random weights from a seed) in two forms, as built (peepholes: the scan
+   path) and the same net without peepholes (the LSTM kernels), serves four
+   LoD requests of 128 rows with lengths in [1, 64]; each form's 8-row
+   request is compared with ``CPUPlace()``;
+7. stacked-LSTM training: five Adam steps (lr 0.002) of the kernel form on
+   one 128-row batch with exact launch counts and a falling loss; one step
+   of each form from the same state on the card and on the CPU;
+8. times: each kernel, its plain version and the one PyTorch call computing
+   the same function, at each slice's shape (CUDA events, median), and the
+   ``lstm`` op's scan and kernel paths, printed as one ``{"kernels": [...]}``
+   JSON line;
+9. the last line: ``{"ok": true, "device": {...}}``.
 
-Every launch counter is set to 0 just before the serving requests and just
-before the training steps, and read just after each.
+Every launch counter is set to 0 just before each serving and each training
+path, and read just after it.
 
 It imports nothing of JAX or of the JAX package ``paddle_tpu``.
 """
 
+import argparse
 import concurrent.futures
 import json
 import math
@@ -82,7 +99,30 @@ SLICE_RTOL, SLICE_ATOL = 1e-3, 1e-7
 GRAD_RTOL, GRAD_ATOL, GRAD_NORM_TOL = 1e-2, 1e-6, 1e-4
 PARAM_ATOL, PARAM_FRAC = 1e-6, 1e-4
 
-LIBRARIES = ('flash_attention_fwd', 'flash_attention_bwd')
+# the stacked-LSTM IMDB model at its published widths (bench.py's
+# stacked_lstm configuration: 3 layers, embedding and hidden 128, dictionary
+# 5149, batch 128, sequences up to 64)
+STACKED_LSTM = dict(dict_dim=5149, emb_dim=128, hid_dim=128, stacked_num=3,
+                    class_dim=2)
+LSTM_BATCH = 128
+LSTM_MAX_LEN = 64
+LSTM_LR = 0.002
+LSTM_CPU_ROWS = 8        # rows of the request compared with the CPU
+LSTM_CPU_TRAIN_ROWS = 16  # rows of the training step compared with the CPU
+# LSTM kernels vs their plain versions, scaled by max(1, max|plain|).  f32:
+# the same recurrence with h . W (and dgates . W^T, dW) summed in another
+# order, over up to 64 dependent steps.  bf16: h rounds to bf16 at every
+# step, so a sum taken in another order can land on the neighbouring bf16
+# value (2^-8 relative) and that difference travels through the remaining
+# steps; dW sums bf16 dgates and h in f32.
+LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# stacked-LSTM prediction, card vs CPU: 3 layers x 64 dependent steps of f32
+# in another summation order on each side (the card's LSTM kernel against
+# the CPU's scan path), then a 2-class softmax
+LSTM_PRED_RTOL, LSTM_PRED_ATOL = 1e-4, 1e-6
+
+LIBRARIES = ('flash_attention_fwd', 'flash_attention_bwd', 'lstm_fwd',
+             'lstm_bwd')
 
 
 def fail(msg):
@@ -136,7 +176,8 @@ def phase_build():
                 print('  ptxas: ' + line.strip())
         print('build: %s %.1f s%s' % (name, seconds, '' if log is not None
                                       else ' (previous build reused)'))
-    print('build: both libraries %.1f s' % (time.perf_counter() - t0),
+    print('build: %d libraries %.1f s' % (len(LIBRARIES),
+                                          time.perf_counter() - t0),
           flush=True)
 
 
@@ -243,6 +284,94 @@ def phase_bwd_vs_plain():
                        worst[torch.float32, 'dv'])}
 
 
+def _lstm_inputs(dtype, b, t, d, ragged, seed):
+    """Recurrence inputs on the card.  W is scaled by 1/sqrt(D): at a fixed
+    scale the recurrence turns chaotic as D grows (with N(0, 0.2^2) weights
+    the plain version's own f32 and f64 runs part at D=512 after 64 steps),
+    and a chaotic recurrence magnifies any summation-order difference."""
+    g = torch.Generator(device='cuda')
+    g.manual_seed(seed)
+    rnd = lambda scale, *shape: torch.randn(*shape, device='cuda',
+                                            generator=g) * scale
+    xs = rnd(0.3, t, b, 4 * d).to(dtype)
+    w = rnd(d**-0.5, d, 4 * d).to(dtype)
+    bias = rnd(0.1, 1, 4 * d)
+    h0, c0 = rnd(0.5, b, d).to(dtype), rnd(0.5, b, d)
+    if ragged:
+        lens = torch.randint(0, t + 1, (b, ), device='cuda', generator=g)
+        lens[0], lens[-1] = 0, t
+    else:
+        lens = torch.full((b, ), t, device='cuda')
+    mask = (torch.arange(t, device='cuda')[:, None] <
+            lens[None, :]).float().contiguous()
+    dhs, dcs = rnd(1.0, t, b, d).to(dtype), rnd(1.0, t, b, d)
+    return xs, w, bias, h0, c0, mask, dhs, dcs
+
+
+def phase_lstm_vs_plain():
+    """The LSTM forward kernel (with and without the saved activations), the
+    backward walk and the dW kernel against lstm_fwd_plain / lstm_bwd_plain
+    on the same inputs (the backward on the plain forward's hs, cs, acts)."""
+    from paddle_tpu_torch.ops.kernels import lstm as lk
+    worst = {(dt, k): 0.0 for dt in LSTM_TOL
+             for k in ('lstm_fwd', 'lstm_bwd', 'lstm_dw')}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (128, 256, 512):
+            for b in (LSTM_BATCH, 13):
+                for t in (LSTM_MAX_LEN, 1):
+                    for ragged in (False, True):
+                        xs, w, bias, h0, c0, mask, dhs, dcs = _lstm_inputs(
+                            dtype, b, t, d, ragged, SEED + 2000 + n)
+                        plain = lk.lstm_fwd_plain(xs, w, bias, h0, c0, mask)
+                        bare = lk.lstm_fwd(xs, w, bias, h0, c0, mask,
+                                           save_acts=False)
+                        full = lk.lstm_fwd(xs, w, bias, h0, c0, mask)
+                        phs, pcs, pacts = plain
+                        got_b = lk.lstm_bwd(w, mask, pacts, pcs, phs, h0, c0,
+                                            dhs, dcs)
+                        want_b = lk.lstm_bwd_plain(w, mask, pacts, pcs, phs,
+                                                   h0, c0, dhs, dcs)
+                        torch.cuda.synchronize()
+                        case = '%s D=%d B=%d T=%d %s' % (
+                            str(dtype)[6:], d, b, t,
+                            'ragged' if ragged else 'full')
+                        pairs = [('lstm_fwd', 'hs', bare[0], phs),
+                                 ('lstm_fwd', 'cs', bare[1], pcs),
+                                 ('lstm_fwd', 'hs+acts', full[0], phs),
+                                 ('lstm_fwd', 'cs+acts', full[1], pcs),
+                                 ('lstm_fwd', 'acts', full[2], pacts)]
+                        pairs += [(k, name, g_, w_) for k, name, g_, w_ in zip(
+                            ('lstm_bwd', 'lstm_dw', 'lstm_dw', 'lstm_bwd',
+                             'lstm_bwd'), ('dx', 'dW', 'db', 'dh0', 'dc0'),
+                            got_b, want_b)]
+                        errs = []
+                        for kernel, name, got, want in pairs:
+                            scale = max(1.0, want.float().abs().max().item())
+                            err = (got.float() - want.float()).abs().max().item()
+                            check(got.shape == want.shape and
+                                  err <= LSTM_TOL[dtype] * scale,
+                                  'LSTM kernel disagrees with plain: %s: '
+                                  'max|d%s| %g > %g * %g' %
+                                  (case, name, err, LSTM_TOL[dtype], scale))
+                            worst[dtype, kernel] = max(worst[dtype, kernel],
+                                                       err)
+                            errs.append('%s %.2g' % (name, err))
+                        n += 1
+                        print('lstm vs plain: %-28s %s' % (case,
+                                                           ', '.join(errs)))
+    for dtype in LSTM_TOL:
+        print('lstm vs plain: %s worst max|d| forward %.3g, walk %.3g, dW/db '
+              '%.3g (tol %g * max(1, max|plain|))' %
+              ((str(dtype)[6:], ) +
+               tuple(worst[dtype, k] for k in ('lstm_fwd', 'lstm_bwd',
+                                               'lstm_dw')) +
+               (LSTM_TOL[dtype], )))
+    print('lstm vs plain: %d cases agree' % n, flush=True)
+    return {k: worst[torch.float32, k]
+            for k in ('lstm_fwd', 'lstm_bwd', 'lstm_dw')}
+
+
 def build_model():
     """Transformer-base at full width, training program included, with its
     startup run on the card."""
@@ -267,12 +396,29 @@ def build_model():
 
 def _counts():
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    return {'fwd': fa.LAUNCHES, 'dq': fa.LAUNCHES_DQ, 'dkv': fa.LAUNCHES_DKV}
+    from paddle_tpu_torch.ops.kernels import lstm as lk
+    return {'fwd': fa.LAUNCHES, 'dq': fa.LAUNCHES_DQ, 'dkv': fa.LAUNCHES_DKV,
+            'lstm_fwd': lk.LAUNCHES_FWD, 'lstm_bwd': lk.LAUNCHES_BWD,
+            'lstm_dw': lk.LAUNCHES_DW}
 
 
 def _zero_counts():
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import lstm as lk
     fa.LAUNCHES = fa.LAUNCHES_DQ = fa.LAUNCHES_DKV = 0
+    lk.LAUNCHES_FWD = lk.LAUNCHES_BWD = lk.LAUNCHES_DW = 0
+
+
+def _grew(before):
+    after = _counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+def _expect(**nonzero):
+    """A full launch-count dict: the named counters, every other one 0."""
+    out = dict.fromkeys(_counts(), 0)
+    out.update(nonzero)
+    return out
 
 
 def phase_slice(card, model, scope, exe):
@@ -289,14 +435,16 @@ def phase_slice(card, model, scope, exe):
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()  # every launch counter to 0 just before the serving path
     for i, feed in enumerate(requests):
-        before = _counts()['fwd']
+        before = _counts()
         t0 = time.perf_counter()
         loss, pred = exe.run(model['test'], feed=feed, fetch_list=fetch,
                              scope=scope)
         walls.append(time.perf_counter() - t0)
-        grew = _counts()['fwd'] - before
-        check(grew == per_request, 'request %d launched the flash kernel %d '
-              'times, expected %d' % (i, grew, per_request))
+        grew = _grew(before)
+        check(grew == _expect(fwd=per_request), 'request %d launched %s, '
+              'expected %d flash forward launches and nothing else' %
+              (i, grew, per_request))
+        grew = grew['fwd']
         check(loss.shape == (1, ) and np.isfinite(loss).all(),
               'request %d: loss %s is not finite' % (i, loss))
         check(pred.shape == (BATCH, seq, vocab) and np.isfinite(pred).all(),
@@ -309,8 +457,6 @@ def phase_slice(card, model, scope, exe):
               'max|row sum - 1| %.2g [%s]' % (i + 1, walls[-1], loss[0], grew,
                                              row_err, card), flush=True)
     launches = _counts()
-    check(launches['dq'] == 0 and launches['dkv'] == 0,
-          'serving launched backward kernels: %s' % launches)
     peak = torch.cuda.max_memory_allocated()
     steady = statistics.median(walls[1:])
     tokens = BATCH * seq
@@ -364,7 +510,7 @@ def phase_train(card, model, scope, exe):
     # op; each op's generic grad replays its forward (one more forward
     # launch, eagerly: nothing merges it with the first) and then runs the
     # dQ and dK/dV kernels once each
-    per_step = {'fwd': 2 * n_flash, 'dq': n_flash, 'dkv': n_flash}
+    per_step = _expect(fwd=2 * n_flash, dq=n_flash, dkv=n_flash)
     losses, walls = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -375,8 +521,7 @@ def phase_train(card, model, scope, exe):
         loss, = exe.run(model['main'], feed=feed, fetch_list=[model['loss']],
                         scope=scope)
         walls.append(time.perf_counter() - t0)
-        after = _counts()
-        grew = {k: after[k] - before[k] for k in after}
+        grew = _grew(before)
         check(grew == per_step, 'training step %d launched %s, expected %s' %
               (step + 1, grew, per_step))
         check(loss.shape == (1, ) and np.isfinite(loss).all(),
@@ -400,20 +545,29 @@ def phase_train(card, model, scope, exe):
 
 
 def phase_train_card_vs_cpu(card, model, scope, exe):
-    """One training step on the card and on the CPU from the same state."""
-    import paddle_tpu_torch.fluid as fluid
-    main = model['main']
+    """One Transformer training step on the card and on the CPU from the
+    same state."""
     seq, vocab = TRANSFORMER_BASE['max_len'], TRANSFORMER_BASE['trg_vocab']
+    rng = np.random.RandomState(SEED + 2)
+    feed = {name: rng.randint(1, vocab, size=(2, seq)).astype('int64')
+            for name in model['feeds']}
+    compare_train_step(card, 'train', '2 x %d' % seq, model['main'],
+                       model['loss'].name, feed, scope, exe, LR)
+
+
+def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
+                       lr):
+    """Hand the card's state (parameters, moments, beta powers, learning
+    rate) to a CPUPlace() scope, run one step of ``main`` on each, and hold
+    the card to the CPU: loss, every ``<param>@GRAD``, updated parameters."""
+    import paddle_tpu_torch.fluid as fluid
     state = [v.name for v in main.list_vars() if v.persistable]
     cpu_scope = fluid.Scope()
     fluid.persistables_from_numpy(
         main, {n: scope.find_var(n).value().cpu().numpy() for n in state},
         scope=cpu_scope, place=fluid.CPUPlace())
-    rng = np.random.RandomState(SEED + 2)
-    feed = {name: rng.randint(1, vocab, size=(2, seq)).astype('int64')
-            for name in model['feeds']}
     params = [p.name for p in main.all_parameters()]
-    fetch = [model['loss'].name] + [p + '@GRAD' for p in params]
+    fetch = [loss_name] + [p + '@GRAD' for p in params]
     got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
     t0 = time.perf_counter()
     want = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
@@ -421,22 +575,22 @@ def phase_train_card_vs_cpu(card, model, scope, exe):
                                                 scope=cpu_scope)
     cpu_s = time.perf_counter() - t0
     loss_rel = float(abs(got[0][0] - want[0][0]) / abs(want[0][0]))
-    check(loss_rel < SLICE_RTOL, 'training step, card vs CPU: loss %.7f vs '
-          '%.7f (rel %g)' % (got[0][0], want[0][0], loss_rel))
+    check(loss_rel < SLICE_RTOL, '%s step, card vs CPU: loss %.7f vs %.7f '
+          '(rel %g)' % (tag, got[0][0], want[0][0], loss_rel))
     top = max(float(np.abs(w).max()) for w in want[1:])
     grad_err, diff_sq, norm_sq = 0.0, 0.0, 0.0
     for name, g, w in zip(params, got[1:], want[1:]):
         err = float(np.abs(g - w).max())
         own = float(np.abs(w).max())
         check(err <= GRAD_RTOL * own + GRAD_ATOL * top,
-              'training step, card vs CPU: %s@GRAD max|dg| %g > %g * %g + '
-              '%g * %g' % (name, err, GRAD_RTOL, own, GRAD_ATOL, top))
+              '%s step, card vs CPU: %s@GRAD max|dg| %g > %g * %g + %g * %g'
+              % (tag, name, err, GRAD_RTOL, own, GRAD_ATOL, top))
         grad_err = max(grad_err, err / (GRAD_RTOL * own + GRAD_ATOL * top))
         diff_sq += float(np.square(g - w, dtype=np.float64).sum())
         norm_sq += float(np.square(w, dtype=np.float64).sum())
     norm_err = math.sqrt(diff_sq / norm_sq)
-    check(norm_err <= GRAD_NORM_TOL, 'training step, card vs CPU: |dg| / |g| '
-          'over all gradients %g (tol %g)' % (norm_err, GRAD_NORM_TOL))
+    check(norm_err <= GRAD_NORM_TOL, '%s step, card vs CPU: |dg| / |g| over '
+          'all gradients %g (tol %g)' % (tag, norm_err, GRAD_NORM_TOL))
     worst, n_far, n_all = 0.0, 0, 0
     for name in params:
         dp = np.abs(scope.find_var(name).value().cpu().numpy() -
@@ -444,20 +598,259 @@ def phase_train_card_vs_cpu(card, model, scope, exe):
         worst = max(worst, float(dp.max()))
         n_far += int((dp > PARAM_ATOL).sum())
         n_all += dp.size
-    check(worst <= LR and n_far <= PARAM_FRAC * n_all,
-          'training step, card vs CPU: updated parameters differ by up to %g '
+    check(worst <= lr and n_far <= PARAM_FRAC * n_all,
+          '%s step, card vs CPU: updated parameters differ by up to %g '
           '(limit lr %g), %d of %d elements by more than %g (limit %g of '
-          'them)' % (worst, LR, n_far, n_all, PARAM_ATOL, PARAM_FRAC))
-    print('train: card vs CPU, one step on 2 x %d from the same state: loss '
-          '%.6f vs %.6f (rel %.2g, tol %g); %d gradients: the worst max|dg| '
-          'is %.3g of its allowance (%g of its max|g| + %g of the largest, '
-          '%.3g), |dg| / |g| over all %.3g (tol %g); updated parameters: '
-          'max|dp| %.3g (limit lr %g), %d of %d elements differ by more than '
-          '%g (limit %g of them); CPU step %.2f s [%s]' %
-          (seq, got[0][0], want[0][0], loss_rel, SLICE_RTOL, len(params),
-           grad_err, GRAD_RTOL, GRAD_ATOL, top, norm_err, GRAD_NORM_TOL,
-           worst, LR, n_far, n_all, PARAM_ATOL, PARAM_FRAC, cpu_s, card),
+          'them)' % (tag, worst, lr, n_far, n_all, PARAM_ATOL, PARAM_FRAC))
+    print('%s: card vs CPU, one step on %s from the same state: loss %.6f vs '
+          '%.6f (rel %.2g, tol %g); %d gradients: the worst max|dg| is %.3g '
+          'of its allowance (%g of its max|g| + %g of the largest, %.3g), '
+          '|dg| / |g| over all %.3g (tol %g); updated parameters: max|dp| '
+          '%.3g (limit lr %g), %d of %d elements differ by more than %g '
+          '(limit %g of them); CPU step %.2f s [%s]' %
+          (tag, what, got[0][0], want[0][0], loss_rel, SLICE_RTOL,
+           len(params), grad_err, GRAD_RTOL, GRAD_ATOL, top, norm_err,
+           GRAD_NORM_TOL, worst, lr, n_far, n_all, PARAM_ATOL, PARAM_FRAC,
+           cpu_s, card), flush=True)
+
+
+def stacked_lstm_programs(fluid, use_peepholes=True, dict_dim=5149,
+                          class_dim=2, emb_dim=128, hid_dim=128,
+                          stacked_num=3, lr=0.002):
+    """``stacked_lstm.build()``'s programs, built with the public
+    ``fluid.layers`` of ``fluid`` (either package) with every LSTM's
+    ``use_peepholes`` chosen: True gives the model as built, False the same
+    net at the same widths, whose LSTMs the kernels take."""
+    main, startup = fluid.Program(), fluid.Program()
+    layers = fluid.layers
+    with fluid.program_guard(main, startup):
+        data = layers.data(name='words', shape=[1], dtype='int64',
+                           lod_level=1)
+        label = layers.data(name='label', shape=[1], dtype='int64')
+        emb = layers.embedding(input=data, size=[dict_dim, emb_dim],
+                               is_sparse=False)
+        fc1 = layers.fc(input=emb, size=hid_dim * 4)
+        lstm1, _ = layers.dynamic_lstm(input=fc1, size=hid_dim * 4,
+                                       use_peepholes=use_peepholes)
+        inputs = [fc1, lstm1]
+        for i in range(2, stacked_num + 1):
+            fc = layers.fc(input=inputs, size=hid_dim * 4)
+            lstm, _ = layers.dynamic_lstm(input=fc, size=hid_dim * 4,
+                                          use_peepholes=use_peepholes,
+                                          is_reverse=(i % 2) == 0)
+            inputs = [fc, lstm]
+        fc_last = layers.sequence_pool(input=inputs[0], pool_type='max')
+        lstm_last = layers.sequence_pool(input=inputs[1], pool_type='max')
+        prediction = layers.fc(input=[fc_last, lstm_last], size=class_dim,
+                               act='softmax')
+        loss = layers.mean(layers.cross_entropy(input=prediction,
+                                                label=label))
+        acc = layers.accuracy(input=prediction, label=label)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return dict(main=main, startup=startup, test=test,
+                feeds=['words', 'label'], prediction=prediction, loss=loss,
+                acc=acc)
+
+
+def lstm_request(rng, rows):
+    """A LoD request of ``rows`` sequences, lengths in [1, LSTM_MAX_LEN] with
+    one row at LSTM_MAX_LEN, word ids and 0/1 labels, drawn from ``rng``."""
+    import paddle_tpu_torch.fluid as fluid
+    lengths = rng.randint(1, LSTM_MAX_LEN + 1, size=rows)
+    lengths[rng.randint(rows)] = LSTM_MAX_LEN
+    ids = rng.randint(0, STACKED_LSTM['dict_dim'],
+                      size=(int(lengths.sum()), 1)).astype('int64')
+    label = rng.randint(0, STACKED_LSTM['class_dim'],
+                        size=(rows, 1)).astype('int64')
+    return {'words': fluid.create_lod_tensor(ids, [lengths.tolist()]),
+            'label': label}
+
+
+def build_lstm_models():
+    """The two forms of the stacked-LSTM model, {'kernel': no peepholes,
+    'as built': stacked_lstm.build()}: (model, scope, executor), each with
+    its startup run on the card."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import stacked_lstm
+    forms = {}
+    for form in ('kernel', 'as built'):
+        with fluid.unique_name.guard():
+            if form == 'as built':
+                model = stacked_lstm.build(lr=LSTM_LR, **STACKED_LSTM)
+            else:
+                model = stacked_lstm_programs(fluid, use_peepholes=False,
+                                              lr=LSTM_LR, **STACKED_LSTM)
+        model['startup'].random_seed = SEED
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(model['startup'], scope=scope)
+        forms[form] = (model, scope, exe)
+    torch.cuda.synchronize()
+    n_params = sum(math.prod(p.shape)
+                   for p in forms['as built'][0]['test'].all_parameters())
+    print('model: stacked LSTM %s, %d parameters as built (peepholes), Adam '
+          'lr %g; FLAGS_fused_lstm=%r' % (STACKED_LSTM, n_params, LSTM_LR,
+                                          fluid.FLAGS.fused_lstm),
           flush=True)
+    return forms
+
+
+class _ScanCount(object):
+    """Counts calls of the lstm op's scan path while active."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import sequence_ops
+        self.calls = 0
+        self._real = sequence_ops._lstm_scan
+
+        def counted(*args):
+            self.calls += 1
+            return self._real(*args)
+
+        sequence_ops._lstm_scan = counted
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import sequence_ops
+        sequence_ops._lstm_scan = self._real
+
+
+def phase_lstm_serve(card, forms):
+    """Four 128-row LoD requests of each form's test program, then each
+    form's 8-row request on the card and on the CPU."""
+    import paddle_tpu_torch.fluid as fluid
+    n_layers = STACKED_LSTM['stacked_num']
+    rng = np.random.RandomState(SEED + 3)
+    requests = [lstm_request(rng, LSTM_BATCH) for _ in range(REQUESTS)]
+    small = lstm_request(rng, LSTM_CPU_ROWS)
+    launches = None
+    for form, (model, scope, exe) in forms.items():
+        fetch = [model['prediction'], model['acc']]
+        kernel = form == 'kernel'
+        per_request = _expect(lstm_fwd=n_layers) if kernel else _expect()
+        walls = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()  # every launch counter to 0 just before this path
+        for i, feed in enumerate(requests):
+            before = _counts()
+            with _ScanCount() as scans:
+                t0 = time.perf_counter()
+                pred, acc = exe.run(model['test'], feed=feed,
+                                    fetch_list=fetch, scope=scope)
+                walls.append(time.perf_counter() - t0)
+            grew = _grew(before)
+            check(grew == per_request and
+                  scans.calls == (0 if kernel else n_layers),
+                  'lstm serve (%s): request %d launched %s and ran the scan '
+                  'path %d times, expected %s and %d' %
+                  (form, i, grew, scans.calls, per_request,
+                   0 if kernel else n_layers))
+            row_err = float(np.abs(pred.sum(-1, dtype=np.float64) - 1).max())
+            check(pred.shape == (LSTM_BATCH, STACKED_LSTM['class_dim']) and
+                  np.isfinite(pred).all() and row_err < 1e-5 and
+                  0 <= acc[0] <= 1,
+                  'lstm serve (%s): request %d prediction %s, rows sum to 1 '
+                  '+- %g, accuracy %s' % (form, i, pred.shape, row_err, acc))
+            print('lstm serve (%s): request %d wall %.4f s, accuracy %.4f, '
+                  'launches %s, scan path %d times [%s]' %
+                  (form, i + 1, walls[-1], acc[0],
+                   {k: v for k, v in grew.items() if v}, scans.calls, card),
+                  flush=True)
+        if kernel:
+            launches = _counts()
+        steady = statistics.median(walls[1:])
+        tokens = sum(len(r['words'].numpy()) for r in requests[1:]) / (
+            REQUESTS - 1)
+        print('lstm serve (%s): %d requests of %d rows (T=%d); steady request '
+              'wall %.4f s (median of requests 2-%d), %.0f rows/s, %.0f '
+              'tokens/s; peak device memory %.1f MiB [%s]' %
+              (form, REQUESTS, LSTM_BATCH, LSTM_MAX_LEN, steady, REQUESTS,
+               LSTM_BATCH / steady, tokens / steady,
+               torch.cuda.max_memory_allocated() / 2**20, card), flush=True)
+
+        gpred, gacc = exe.run(model['test'], feed=small, fetch_list=fetch,
+                              scope=scope)
+        cpu_scope = fluid.Scope()
+        fluid.params_from_numpy(
+            model['test'],
+            {p.name: scope.find_var(p.name).value().cpu().numpy()
+             for p in model['test'].all_parameters()},
+            scope=cpu_scope, place=fluid.CPUPlace())
+        cpred, cacc = fluid.Executor(fluid.CPUPlace()).run(
+            model['test'], feed=small, fetch_list=fetch, scope=cpu_scope)
+        err = float(np.abs(gpred - cpred).max())
+        check(np.allclose(gpred, cpred, rtol=LSTM_PRED_RTOL,
+                          atol=LSTM_PRED_ATOL),
+              'lstm serve (%s): card and CPU disagree: max|dpred| %g (rtol '
+              '%g, atol %g)' % (form, err, LSTM_PRED_RTOL, LSTM_PRED_ATOL))
+        # accuracy may differ only through a row the two sides nearly tie on
+        ties = int((np.abs(cpred[:, 0] - cpred[:, 1]) < 2 * err + 1e-7).sum())
+        check(abs(gacc[0] - cacc[0]) * LSTM_CPU_ROWS <= ties + 1e-6,
+              'lstm serve (%s): accuracy %g on the card, %g on the CPU' %
+              (form, gacc[0], cacc[0]))
+        print('lstm serve (%s): card vs CPU on %d rows: max|dpred| %.3g (rtol '
+              '%g, atol %g), accuracy %.4f vs %.4f [%s]' %
+              (form, LSTM_CPU_ROWS, err, LSTM_PRED_RTOL, LSTM_PRED_ATOL,
+               gacc[0], cacc[0], card), flush=True)
+    return launches
+
+
+def phase_lstm_train(card, forms):
+    """TRAIN_STEPS Adam steps of the kernel form on one 128-row batch."""
+    model, scope, exe = forms['kernel']
+    n = STACKED_LSTM['stacked_num']
+    feed = lstm_request(np.random.RandomState(SEED + 4), LSTM_BATCH)
+    # each lstm op: one forward launch without the activations in the
+    # forward pass; its generic grad replays the forward (through LSTMCore,
+    # saving the activations) and runs the walk and the dW kernels once
+    per_step = _expect(lstm_fwd=2 * n, lstm_bwd=n, lstm_dw=n)
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()  # every launch counter to 0 just before the training path
+    for step in range(TRAIN_STEPS):
+        before = _counts()
+        t0 = time.perf_counter()
+        loss, = exe.run(model['main'], feed=feed, fetch_list=[model['loss']],
+                        scope=scope)
+        walls.append(time.perf_counter() - t0)
+        grew = _grew(before)
+        check(grew == per_step, 'lstm train: step %d launched %s, expected %s'
+              % (step + 1, grew, per_step))
+        check(loss.shape == (1, ) and np.isfinite(loss).all(),
+              'lstm train: step %d loss %s is not finite' % (step + 1, loss))
+        losses.append(float(loss[0]))
+        print('lstm train: step %d wall %.4f s, loss %.6f, launches %s [%s]' %
+              (step + 1, walls[-1], losses[-1],
+               {k: v for k, v in grew.items() if v}, card), flush=True)
+    launches = _counts()
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          'lstm train: the loss did not fall at every step: %s' % losses)
+    print('lstm train: %d Adam steps (lr %g) on one %d-row batch (T=%d), '
+          'loss %.6f -> %.6f, falling at every step; launches %s (%s per '
+          'step); steady step wall %.4f s (median of steps 2-%d); peak device '
+          'memory %.1f MiB [%s]' %
+          (TRAIN_STEPS, LSTM_LR, LSTM_BATCH, LSTM_MAX_LEN, losses[0],
+           losses[-1], {k: v for k, v in launches.items() if v},
+           {k: v for k, v in per_step.items() if v},
+           statistics.median(walls[1:]), TRAIN_STEPS,
+           torch.cuda.max_memory_allocated() / 2**20, card), flush=True)
+    return launches
+
+
+def phase_lstm_train_card_vs_cpu(card, forms):
+    """One training step of each form on the card and on the CPU from the
+    same state (the kernel form after its five steps, the form as built from
+    its startup)."""
+    feed = lstm_request(np.random.RandomState(SEED + 5), LSTM_CPU_TRAIN_ROWS)
+    for form, (model, scope, exe) in forms.items():
+        compare_train_step(card, 'lstm train (%s)' % form,
+                           '%d rows (T=%d)' % (LSTM_CPU_TRAIN_ROWS,
+                                               LSTM_MAX_LEN),
+                           model['main'], model['loss'].name, feed, scope,
+                           exe, LSTM_LR)
 
 
 def _time_ms(fn, launches_per_sample=10, samples=20, warmup=5):
@@ -579,17 +972,166 @@ def phase_times(card, launches, fwd_err, bwd_err):
     return kernels
 
 
+def _lstm_op(fluid, d):
+    """A one-op program: the ``lstm`` op of the kernel form's layers
+    (no peepholes) over a LoD input of width 4D; (block, op)."""
+    prog = fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog,
+                                                         fluid.Program()):
+        x = fluid.layers.data(name='x', shape=[4 * d], dtype='float32',
+                              lod_level=1)
+        fluid.layers.dynamic_lstm(input=x, size=4 * d, use_peepholes=False)
+    block = prog.global_block()
+    return block, [op for op in block.ops if op.type == 'lstm'][0]
+
+
+def phase_lstm_times(card, launches, err):
+    """The LSTM kernels, their plain versions and cuDNN's LSTM at the
+    slice's shape (f32, B=128, T=64, D=128, every row full length), and the
+    lstm op's two paths on the card."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.ops.kernels import lstm as lk
+    b, t, d = LSTM_BATCH, LSTM_MAX_LEN, STACKED_LSTM['hid_dim']
+    xs, w, bias, h0, c0, mask, dhs, dcs = _lstm_inputs(
+        torch.float32, b, t, d, False, SEED + 6)
+    hs, cs, acts = lk.lstm_fwd(xs, w, bias, h0, c0, mask)
+    dx, _, _, db_part = lk._launch_walk(w, mask, acts, cs, h0, c0, dhs, dcs)
+    ms = {
+        'lstm_fwd': _time_ms(lambda: lk.lstm_fwd(xs, w, bias, h0, c0, mask,
+                                                 save_acts=False)),
+        'lstm_bwd': _time_ms(lambda: lk._launch_walk(w, mask, acts, cs, h0,
+                                                     c0, dhs, dcs)),
+        'lstm_dw': _time_ms(lambda: lk._launch_dw(hs, h0, dx, db_part)),
+    }
+    fwd_acts_ms = _time_ms(lambda: lk.lstm_fwd(xs, w, bias, h0, c0, mask))
+    plain_ms = {'lstm_fwd': _time_ms(
+        lambda: lk.lstm_fwd_plain(xs, w, bias, h0, c0, mask,
+                                  save_acts=False), 2, 10)}
+    # the plain backward computes dx, dW and db in one call: both backward
+    # rows carry its time
+    plain_ms['lstm_bwd'] = plain_ms['lstm_dw'] = _time_ms(
+        lambda: lk.lstm_bwd_plain(w, mask, acts, cs, hs, h0, c0, dhs, dcs),
+        2, 10)
+    # cuDNN's LSTM at the same B, T and D; it also projects its 128-wide
+    # input (x . W_ih, which the port's lstm op receives done)
+    cudnn = torch.nn.LSTM(d, d).cuda()
+    x_in = torch.randn(t, b, d, device='cuda')
+    with torch.no_grad():
+        library_ms = {'lstm_fwd': _time_ms(lambda: cudnn(x_in))}
+    x_req = x_in.detach().requires_grad_()
+    out, _ = cudnn(x_req)
+    wrt = [x_req] + list(cudnn.parameters())
+    dout = torch.randn_like(out)
+    # cuDNN's backward gives dx and the weight gradients in one call: both
+    # backward rows carry its time
+    library_ms['lstm_bwd'] = library_ms['lstm_dw'] = _time_ms(
+        lambda: torch.autograd.grad(out, wrt, dout, retain_graph=True))
+
+    # the lstm op on the card, scan path ('never') and kernel ('auto'):
+    # CUDA events around back-to-back runs of the lowering, so the host's
+    # launch gaps count
+    block, op = _lstm_op(fluid, d)
+    env = {op.input('Input')[0]: xs.transpose(0, 1).contiguous(),
+           op.input('Input')[0] + registry.SEQLEN_SUFFIX:
+           torch.full((b, ), t, dtype=torch.int32, device='cuda'),
+           op.input('Weight')[0]: w, op.input('Bias')[0]: bias}
+    ctx = registry.LoweringContext(block, env, fluid.CUDAPlace(0))
+    op_ms = {}
+    with torch.no_grad():
+        for mode in ('never', 'auto', 'never', 'auto'):
+            fluid.FLAGS.fused_lstm = mode
+            op_ms.setdefault(mode, []).append(_time_ms(
+                lambda: registry.run_op(ctx, op), 2, 10))
+    fluid.FLAGS.fused_lstm = 'auto'
+    print('times: lstm op (B=%d T=%d D=%d f32, no peepholes) on the card: '
+          'scan path (FLAGS_fused_lstm=never) %s ms, kernel path (auto) %s '
+          'ms (two turns each, never/auto/never/auto) [%s]' %
+          (b, t, d, ', '.join('%.4f' % v for v in op_ms['never']),
+           ', '.join('%.4f' % v for v in op_ms['auto']), card), flush=True)
+
+    # least time: the products (2 FLOP per multiply-add) at the f32 peak,
+    # against the inputs read once and the outputs written once
+    gate_elems, h_elems = t * b * 4 * d, t * b * d
+    flops = 2.0 * t * b * d * 4 * d
+    work = {
+        # xs, w, bias, h0, c0, mask -> hs, cs
+        'lstm_fwd': (flops, 4 * (gate_elems + 4 * d * d + 4 * d + 2 * b * d +
+                                 t * b + 2 * h_elems)),
+        # w, mask, acts, cs, c0, dhs, dcs -> dx, dh0, dc0, db rows
+        'lstm_bwd': (flops, 4 * (4 * d * d + t * b + 2 * gate_elems +
+                                 3 * h_elems + 3 * b * d +
+                                 math.ceil(b / 4) * 4 * d)),
+        # hs, h0, dx, db rows -> dW, db
+        'lstm_dw': (flops, 4 * (h_elems + b * d + gate_elems +
+                                math.ceil(b / 4) * 4 * d + 4 * d * d +
+                                4 * d)),
+    }
+    sources = {
+        'lstm_fwd': ('lstm_fwd', 'lstm_fwd.cu', 41),
+        'lstm_bwd': ('lstm_bwd', 'lstm_bwd.cu', 83),
+        'lstm_dw': ('lstm_bwd_dw', 'lstm_bwd.cu', 83),
+    }
+    kernels = []
+    for key in ('lstm_fwd', 'lstm_bwd', 'lstm_dw'):
+        flops_k, nbytes = work[key]
+        t_ops, t_bytes = flops_k / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        name, src, line = sources[key]
+        print('times: %s f32 B=%d T=%d D=%d: kernel %.4f ms (%.2f us a step), '
+              'plain %.4f ms, cuDNN LSTM %.4f ms, bound %.4f ms (%.3g GFLOP '
+              'at 67 TFLOP/s f32, %.3g MB at 3.35 TB/s) [%s]' %
+              (name, b, t, d, ms[key], 1e3 * ms[key] / t, plain_ms[key],
+               library_ms[key], bound_ms, flops_k / 1e9, nbytes / 1e6, card),
+              flush=True)
+        entry = {
+            'name': name,
+            'route': 'cuda',
+            'source': 'paddle_tpu_torch/csrc/' + src,
+            'replaces': 'paddle_tpu/ops/pallas/lstm.py:%d' % line,
+            'launches': launches['lstm_train'][key],
+            'launches_by_path': {p: launches[p][key] for p in launches},
+            'max_abs_err': err[key],
+            'ms': ms[key],
+            'plain_ms': plain_ms[key],
+            'bound_ms': bound_ms,
+            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
+            'library_ms': library_ms[key],
+        }
+        if key == 'lstm_fwd':
+            entry['ms_with_acts'] = fwd_acts_ms
+        kernels.append(entry)
+    print('times: lstm_fwd with the activations saved %.4f ms; backward walk '
+          '+ dW %.4f ms against cuDNN backward %.4f ms (includes its input '
+          'projection\'s gradient); op scan path / kernel path %.1fx [%s]' %
+          (fwd_acts_ms, ms['lstm_bwd'] + ms['lstm_dw'],
+           library_ms['lstm_bwd'],
+           statistics.median(op_ms['never']) /
+           statistics.median(op_ms['auto']), card), flush=True)
+    return kernels
+
+
 def main():
+    global SEED
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--seed', type=int, default=SEED)
+    SEED = ap.parse_args().seed
     card = phase_device()
     sys.path.insert(0, REPO)
     phase_build()
     fwd_err = phase_kernel_vs_plain()
     bwd_err = phase_bwd_vs_plain()
+    lstm_err = phase_lstm_vs_plain()
     model, scope, exe = build_model()
     launches = {'serve': phase_slice(card, model, scope, exe),
                 'train': phase_train(card, model, scope, exe)}
     phase_train_card_vs_cpu(card, model, scope, exe)
+    forms = build_lstm_models()
+    launches['lstm_serve'] = phase_lstm_serve(card, forms)
+    launches['lstm_train'] = phase_lstm_train(card, forms)
+    phase_lstm_train_card_vs_cpu(card, forms)
     kernels = phase_times(card, launches, fwd_err, bwd_err)
+    kernels += phase_lstm_times(card, launches, lstm_err)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,11 +1,16 @@
 """paddle_tpu_torch.fluid — the Fluid-compatible frontend on PyTorch.
 
 The same program-building API as ``paddle_tpu.fluid``, training included
-(``append_backward``, ``optimizer.Adam``); ``Executor.run`` interprets the
-program op by op on a torch device, by default the CUDA card
-(``CUDAPlace(0)``).
+(``append_backward``, ``optimizer.Adam``), LoD feeds (``create_lod_tensor``)
+and flags (``FLAGS``, bootstrapped from ``FLAGS_<name>`` environment
+variables); ``Executor.run`` interprets the program op by op on a torch
+device, by default the CUDA card (``CUDAPlace(0)``).
 """
 
+from . import flags
+from .flags import FLAGS
+# environment bootstrap first, so flags govern everything imported below
+flags.try_from_env(flags.TRYFROMENV)
 from . import core
 from .core import CPUPlace, CUDAPlace, LoDTensor, Scope
 from . import framework
@@ -25,10 +30,13 @@ from .backward import append_backward
 from . import clip
 from . import regularizer
 from . import optimizer
+from . import lod_tensor
+from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
 
 __all__ = framework.__all__ + executor.__all__ + [
     'io', 'initializer', 'layers', 'LoDTensor', 'CPUPlace', 'CUDAPlace',
     'Scope', 'ParamAttr', 'unique_name', 'params_from_numpy',
     'persistables_from_numpy', 'backward', 'append_backward', 'clip',
-    'regularizer', 'optimizer',
+    'regularizer', 'optimizer', 'flags', 'FLAGS', 'lod_tensor',
+    'create_lod_tensor', 'create_random_int_lodtensor',
 ]

@@ -7,8 +7,9 @@ Counterpart of ``paddle_tpu/fluid/core.py``.  A ``Place`` carries an explicit
   ``CUDAPlace`` is an alias of ``TPUPlace``; here there is no TPU.
 - ``CPUPlace()`` is ``torch.device('cpu')``: the place tests pass to run the
   plain versions of the kernels.
-- ``LoDTensor`` is dense only; level-of-detail offsets come with the sequence
-  slice of the port.
+- ``LoDTensor`` wraps one torch tensor and, for a sequence feed, its
+  level-of-detail offsets (the reference's recursive sequence lengths); the
+  executor lowers a one-level LoD feed to a padded tensor plus lengths.
 """
 
 import numpy as np
@@ -133,14 +134,19 @@ def convert_dtype_to_torch(dtype):
 
 
 # ----------------------------------------------------------------------------
-# LoDTensor (dense)
+# LoDTensor
 # ----------------------------------------------------------------------------
 class LoDTensor(object):
-    """A dense tensor value as the fluid API hands it around: wraps one
-    torch tensor."""
+    """A tensor value as the fluid API hands it around: one torch tensor and
+    optional level-of-detail offsets.
+
+    ``lod`` is a list of offset vectors, one per nesting level, each starting
+    at 0 and non-decreasing; the last level's final offset equals dim 0 of
+    the data (the reference's recursive-sequence-length semantics)."""
 
     def __init__(self, tensor=None):
         self._tensor = None if tensor is None else torch.as_tensor(tensor)
+        self._lod = []
 
     def set(self, array, place=None):
         device = place.device if place is not None else torch.device('cpu')
@@ -148,6 +154,34 @@ class LoDTensor(object):
 
     def tensor(self):
         return self._tensor
+
+    def set_lod(self, lod):
+        self._lod = [list(l) for l in lod]
+
+    def lod(self):
+        return [list(l) for l in self._lod]
+
+    def set_recursive_sequence_lengths(self, lengths):
+        self._lod = []
+        for level in lengths:
+            offsets = [0]
+            for n in level:
+                offsets.append(offsets[-1] + n)
+            self._lod.append(offsets)
+
+    def recursive_sequence_lengths(self):
+        return [[l[i + 1] - l[i] for i in range(len(l) - 1)]
+                for l in self._lod]
+
+    def has_valid_recursive_sequence_lengths(self):
+        for level in self._lod:
+            if not level or level[0] != 0:
+                return False
+            if any(level[i] > level[i + 1] for i in range(len(level) - 1)):
+                return False
+        if self._tensor is not None and self._lod:
+            return self._lod[-1][-1] == self._tensor.shape[0]
+        return True
 
     def shape(self):
         return list(self._tensor.shape) if self._tensor is not None else []
@@ -160,7 +194,7 @@ class LoDTensor(object):
         return a.astype(dtype) if dtype is not None else a
 
     def __repr__(self):
-        return 'LoDTensor(shape=%s)' % self.shape()
+        return 'LoDTensor(shape=%s, lod=%s)' % (self.shape(), self._lod)
 
 
 # ----------------------------------------------------------------------------

@@ -5,7 +5,10 @@ package compiles a whole block into one XLA executable; this executor
 interprets the block eagerly, one lowering per op (the JAX package's
 ``_run_eager`` path), in four steps:
 
-  1. prepare and validate the feeds against the data-layer declarations;
+  1. prepare and validate the feeds against the data-layer declarations: a
+     one-level LoD feed becomes a padded [B, T, ...] tensor, T from
+     ``shape_policy.bucketed_len``, plus its int32 lengths under
+     ``<name>@SEQLEN`` (the JAX package's lowering of LoD to static shapes);
   2. walk the ops in program order to find the persistable vars read before
      they are written (state in, taken from the scope) and those written
      (state out, stored back into the scope);
@@ -13,7 +16,8 @@ interprets the block eagerly, one lowering per op (the JAX package's
   4. fetch to numpy.
 
 Not ported yet: the compile cache, multi-step dispatch (``run_multi``,
-``run_eval_multi``), decode and chunked-prefill paths, host ops, LoD feeds.
+``run_eval_multi``), decode and chunked-prefill paths, host ops, nested
+(two-level) LoD feeds.
 """
 
 import contextlib
@@ -23,6 +27,7 @@ import torch
 
 from . import core
 from .framework import default_main_program, Variable
+from .shape_policy import bucketed_len
 from .. import ops as _ops  # noqa: F401  (registers the lowerings)
 from ..ops import registry
 
@@ -54,8 +59,40 @@ def _as_tensor(value):
 
 
 def prepare_feed_arrays(feed):
-    """Normalize a user feed dict to {name: torch tensor} (dense feeds)."""
-    return {name: _as_tensor(value) for name, value in feed.items()}
+    """Normalize a user feed dict to {name: torch tensor}: a LoD feed lowers
+    to padded [B, T, ...] plus a ``<name>@SEQLEN`` int32 lengths entry."""
+    feed_arrays = {}
+    for name, value in feed.items():
+        if isinstance(value, core.LoDTensor) and value.lod():
+            if len(value.lod()) >= 2:
+                raise NotImplementedError(
+                    'feed %r: a nested (%d-level) LoD feed needs the '
+                    '@ROWS side-band, which comes with a later sequence '
+                    'slice of the PyTorch port' % (name, len(value.lod())))
+            padded, lengths = _lod_to_padded(value)
+            feed_arrays[name] = torch.from_numpy(padded)
+            feed_arrays[name + registry.SEQLEN_SUFFIX] = torch.from_numpy(
+                lengths)
+        else:
+            feed_arrays[name] = _as_tensor(value)
+    return feed_arrays
+
+
+def _lod_to_padded(lt):
+    """Concatenated LoD tensor -> (padded [B, T, ...], int32 lengths [B]),
+    numpy, with T = bucketed_len(longest row)."""
+    data = lt.numpy()
+    offsets = np.asarray(lt.lod()[-1], np.int64)
+    lengths = (offsets[1:] - offsets[:-1]).astype(np.int32)
+    b = len(lengths)
+    t = bucketed_len(int(lengths.max()) if b else 0)
+    out = np.zeros((b, t) + data.shape[1:], data.dtype)
+    if b and len(data):
+        # row i gets data[offsets[i]:offsets[i+1]]
+        row = np.repeat(np.arange(b), lengths)
+        pos = np.arange(len(data)) - np.repeat(offsets[:-1], lengths)
+        out[row, pos] = data
+    return out, lengths
 
 
 def validate_feed(program, feed_arrays):
@@ -63,17 +100,24 @@ def validate_feed(program, feed_arrays):
     data-layer declaration."""
     block = program.block(0)
     for name, value in feed_arrays.items():
+        if name.endswith(registry.SEQLEN_SUFFIX):
+            continue  # lengths side-band of a LoD feed, not a data var
         var = block.vars.get(name)
         if var is None or not getattr(var, 'shape', None):
             continue
         shape = tuple(var.shape)
         got = tuple(value.shape)
-        if len(got) != len(shape):
+        # a LoD feed arrives padded: one more (time) dim than declared
+        lod = getattr(var, 'lod_level', 0) or 0
+        ranks = (len(shape), ) if not lod else (len(shape) + 1, len(shape))
+        if len(got) not in ranks:
             raise ValueError(
-                'feed %r: expected rank %d (declared shape %s), got shape %s'
-                % (name, len(shape), shape, got))
-        # declared dims must match (-1 dims are wildcards)
-        for want, have in zip(shape, got):
+                'feed %r: expected rank %d (declared shape %s%s), got shape '
+                '%s' % (name, ranks[0], shape,
+                        ', lod_level=%d' % lod if lod else '', got))
+        # declared dims must match aligned from the right (leading batch and
+        # time dims are free; -1 dims are wildcards)
+        for want, have in zip(reversed(shape), reversed(got)):
             if want is not None and want > 0 and want != have:
                 raise ValueError(
                     'feed %r: dim mismatch, declared shape %s but got shape '

@@ -1,5 +1,5 @@
 """Neural-network layers (counterpart of ``paddle_tpu/fluid/layers/nn.py``,
-the layers the Transformer slice builds with).
+the layers the Transformer and stacked-LSTM slices build with).
 
 Each layer appends OpDescs to the current program block; shapes are inferred
 eagerly so later layers can read ``input.shape``.
@@ -10,8 +10,8 @@ from ..initializer import Constant
 
 __all__ = [
     'fc', 'embedding', 'layer_norm', 'dropout', 'softmax',
-    'softmax_with_cross_entropy', 'mean', 'reshape', 'unsqueeze',
-    'flash_attention', 'reduce_sum', 'clip', 'clip_by_norm',
+    'softmax_with_cross_entropy', 'cross_entropy', 'mean', 'reshape',
+    'unsqueeze', 'flash_attention', 'reduce_sum', 'clip', 'clip_by_norm',
 ]
 
 
@@ -30,7 +30,8 @@ def fc(input,
        act=None,
        is_test=False,
        name=None):
-    """Fully-connected layer: mul + elementwise_add + activation."""
+    """Fully-connected layer: one mul per input, a sum op over several
+    inputs, then elementwise_add + activation."""
     helper = LayerHelper('fc', **locals())
     dtype = helper.input_dtype()
     mul_results = []
@@ -51,10 +52,16 @@ def fc(input,
                 'y_num_col_dims': 1
             })
         mul_results.append(tmp)
-    if len(mul_results) != 1:
-        raise NotImplementedError(
-            'fc over several inputs (the sum op) is not ported yet')
-    pre_activation = helper.append_bias_op(mul_results[0],
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        pre_bias.shape = mul_results[0].shape
+        helper.append_op(
+            type='sum',
+            inputs={'X': mul_results},
+            outputs={'Out': pre_bias})
+    pre_activation = helper.append_bias_op(pre_bias,
                                            dim_start=num_flatten_dims)
     return helper.append_activation(pre_activation)
 
@@ -182,6 +189,22 @@ def softmax_with_cross_entropy(logits,
         attrs={'soft_label': soft_label,
                'ignore_index': ignore_index})
     return loss
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """-log of ``input``'s probability of ``label`` per row (or the soft
+    labels' cross entropy): [N..., 1]."""
+    helper = LayerHelper('cross_entropy', **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    out.shape = tuple(input.shape[:-1]) + (1, )
+    helper.append_op(
+        type='cross_entropy',
+        inputs={'X': [input],
+                'Label': [label]},
+        outputs={'Y': [out]},
+        attrs={'soft_label': soft_label,
+               'ignore_index': ignore_index})
+    return out
 
 
 def mean(x, name=None):

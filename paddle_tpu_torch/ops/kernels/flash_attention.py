@@ -38,7 +38,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, unwrapped
 
 __all__ = ['flash_attention', 'flash_attention_fwd', 'flash_attention_plain',
            'flash_attention_bwd', 'flash_attention_bwd_plain',
@@ -353,19 +353,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse, seq_lengths, do = (
-            _unwrapped(t) for t in ctx.saved_tensors + (do, ))
+            unwrapped(t) for t in ctx.saved_tensors + (do, ))
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
                                          ctx.causal, ctx.scale, seq_lengths)
         return dq, dk, dv, None, None, None
-
-
-def _unwrapped(t):
-    """The plain tensor under torch.func's wrappers.  Under torch.func.vjp
-    the backward receives its saved tensors wrapped, and a wrapper has no
-    storage, so no data pointer to hand to a kernel."""
-    while t is not None and torch._C._functorch.is_functorch_wrapped_tensor(t):
-        t = torch._C._functorch.get_unwrapped(t)
-    return t
 
 
 def flash_attention(q, k, v, causal=False, scale=None, seq_lengths=None):

@@ -98,3 +98,10 @@ def _assign_value(ctx, op):
     arr = np.asarray(op.attrs['values']).reshape(tuple(op.attrs['shape']))
     ctx.set(op, 'Out', torch.as_tensor(arr).to(
         device=ctx.device, dtype=_torch_dtype(op.attrs.get('dtype'))))
+
+
+@register_lowering('top_k')
+def _top_k(ctx, op):
+    values, indices = torch.topk(ctx.get(op, 'X'), op.attrs['k'], dim=-1)
+    ctx.set(op, 'Out', values)
+    ctx.set(op, 'Indices', indices.to(torch.int64))

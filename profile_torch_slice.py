@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where a Transformer-base request's and training step's time goes in the
-PyTorch/CUDA port.
+"""Where a request's and a training step's time goes in the PyTorch/CUDA
+port: Transformer-base and the stacked-LSTM IMDB model.
 
     python3 profile_torch_slice.py [--out build/profile]
 
@@ -19,6 +19,12 @@ seed), warms up, then on one CUDA card:
   kernels' share, the idle share, and the device time of the generic grads'
   forward replays (each ``torch.func.vjp`` call, which replays its op's
   forward, is wrapped in a ``grad/recompute`` range for this run).
+
+Then the stacked-LSTM model without peepholes (chip_smoke.py's kernel form,
+its published widths, one 128-row LoD batch with lengths up to 64): the
+host wall and the profile of a request (prediction fetched) and of a
+training step, with the three LSTM kernels' share and the generic grads'
+forward replay.
 
 Prints the card's name and power limit, tables, and one JSON line; writes
 the Chrome traces under ``--out``.  Needs a CUDA card; imports nothing of
@@ -39,7 +45,9 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from chip_smoke import BATCH, SEED, TRANSFORMER_BASE  # noqa: E402
+from chip_smoke import (BATCH, LSTM_BATCH, LSTM_LR, SEED,  # noqa: E402
+                        STACKED_LSTM, TRANSFORMER_BASE, lstm_request,
+                        stacked_lstm_programs)
 
 REPS = 5  # request walls per median
 
@@ -104,17 +112,8 @@ def main():
     train()
     train()
     wall_train = _wall(train, REPS)
-    real_vjp = torch.func.vjp
-
-    def annotated_vjp(fn, *primals):
-        with torch.profiler.record_function(_RECOMPUTE):
-            return real_vjp(fn, *primals)
-
-    torch.func.vjp = annotated_vjp
-    try:
-        step = _profile(train, os.path.join(args.out, 'slice_train_step.json'))
-    finally:
-        torch.func.vjp = real_vjp
+    step = _profile_step(train, os.path.join(args.out,
+                                             'slice_train_step.json'))
     flash = {kind: sum(ms for name, ms in step['by_name'].items()
                        if kind + '_kernel' in name)
              for kind in ('fwd', 'dq', 'dkv')}
@@ -129,6 +128,7 @@ def main():
               'request above took %.3f ms' %
               (step['recompute_ms'], step['recompute_ms'] / step['busy_ms'],
                flash['fwd'] / 2, request['busy_ms']))
+    lstm = _profile_lstm(fluid, args.out, card)
     print(json.dumps({
         'card': card, 'batch': BATCH, 'seq': seq,
         'wall_full_s': wall_full, 'wall_loss_only_s': wall_loss,
@@ -141,10 +141,75 @@ def main():
         'train_device_busy_ms': step['busy_ms'] or None,
         'train_flash_ms': flash if step['busy_ms'] else None,
         'train_recompute_ms': step['recompute_ms'],
-        'train_top_kernels_ms': dict(step['top'])}))
+        'train_top_kernels_ms': dict(step['top']),
+        'stacked_lstm': lstm}))
 
 
 _RECOMPUTE = 'grad/recompute'
+_LSTM_KERNELS = {'lstm fwd': 'lstm_fwd_kernel', 'lstm walk': 'lstm_bwd_walk',
+                 'lstm dW': 'lstm_dw_'}
+
+
+def _profile_step(fn, trace_path):
+    """``_profile`` of a training step with every generic grad's
+    ``torch.func.vjp`` call inside a ``grad/recompute`` range."""
+    real_vjp = torch.func.vjp
+
+    def annotated_vjp(fn, *primals):
+        with torch.profiler.record_function(_RECOMPUTE):
+            return real_vjp(fn, *primals)
+
+    torch.func.vjp = annotated_vjp
+    try:
+        return _profile(fn, trace_path)
+    finally:
+        torch.func.vjp = real_vjp
+
+
+def _profile_lstm(fluid, out, card):
+    """The stacked-LSTM kernel form: a request and a training step."""
+    with fluid.unique_name.guard():
+        model = stacked_lstm_programs(fluid, use_peepholes=False, lr=LSTM_LR,
+                                      **STACKED_LSTM)
+    model['startup'].random_seed = SEED
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(model['startup'], scope=scope)
+    feed = lstm_request(np.random.RandomState(SEED + 4), LSTM_BATCH)
+    tokens = len(feed['words'].numpy())
+    request = lambda: exe.run(model['test'], feed=feed, scope=scope,
+                              fetch_list=[model['prediction']])
+    train = lambda: exe.run(model['main'], feed=feed, scope=scope,
+                            fetch_list=[model['loss']])
+    result = {'batch': LSTM_BATCH, 'tokens': tokens}
+    for name, fn, profile in (('request', request, _profile),
+                              ('train', train, _profile_step)):
+        fn()
+        fn()
+        wall = _wall(fn, REPS)
+        prof = profile(fn, os.path.join(out, 'stacked_lstm_%s.json' % name))
+        shares = {label: sum(ms for key, ms in prof['by_name'].items()
+                             if pattern in key)
+                  for label, pattern in _LSTM_KERNELS.items()}
+        print('stacked LSTM %s (kernel form, %d rows, %d tokens, T=64) [%s]:'
+              % (name, LSTM_BATCH, tokens, card))
+        print('  wall                            : %.4f s (median of %d)' %
+              (wall, REPS))
+        _report(prof, shares)
+        if name == 'train' and prof['busy_ms']:
+            print('  eager recompute: generic grads replaying their forward '
+                  'ops %.3f ms of device time (%.3f of busy)' %
+                  (prof['recompute_ms'], prof['recompute_ms'] /
+                   prof['busy_ms']))
+        result[name] = {
+            'wall_s': wall, 'wall_profiled_s': prof['wall_s'],
+            'device_busy_ms': prof['busy_ms'] or None,
+            'idle_share': (1 - prof['busy_ms'] / 1e3 / prof['wall_s']
+                           if prof['busy_ms'] else None),
+            'lstm_kernels_ms': shares if prof['busy_ms'] else None,
+            'recompute_ms': prof['recompute_ms'],
+            'top_kernels_ms': dict(prof['top'])}
+    return result
 
 
 def _profile(fn, trace_path):

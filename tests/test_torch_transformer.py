@@ -181,7 +181,15 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             'paddle_tpu_torch.fluid.backward, '
             'paddle_tpu_torch.fluid.optimizer, '
             'paddle_tpu_torch.fluid.clip, paddle_tpu_torch.fluid.regularizer, '
-            'paddle_tpu_torch.ops.kernels.flash_attention, chip_smoke, '
+            'paddle_tpu_torch.ops.kernels.flash_attention, '
+            'paddle_tpu_torch.ops.kernels.lstm, '
+            'paddle_tpu_torch.ops.sequence_ops, '
+            'paddle_tpu_torch.ops.metric_ops, '
+            'paddle_tpu_torch.models.stacked_lstm, '
+            'paddle_tpu_torch.fluid.flags, paddle_tpu_torch.fluid.lod_tensor, '
+            'paddle_tpu_torch.fluid.shape_policy, '
+            'paddle_tpu_torch.fluid.layers.sequence, '
+            'paddle_tpu_torch.fluid.layers.metric_op, chip_smoke, '
             'profile_torch_slice; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "paddle_tpu.")) or m == "paddle_tpu"); '
