@@ -11,7 +11,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them) and turns TF32 off for matmuls and cuDNN, so f32 means f32;
 2. build: compiles the port's four CUDA libraries from
-   ``paddle_tpu_torch/csrc`` (one ``nvcc`` each, all started together);
+   ``paddle_tpu_torch/csrc`` (one ``nvcc`` each, all started together),
+   prints ptxas's register and spill lines, counts the HMMA (tensor-core)
+   instructions in the flash-attention forward library's SASS
+   (``cuobjdump -sass``) and fails if there are none or if an f32
+   instantiation of that kernel spills;
 3. kernel vs plain: the flash-attention forward kernel, then its dQ and
    dK/dV kernels, against their plain PyTorch versions on the card, over
    causal/non-causal, with/without lengths (0, partial, full), self and cross
@@ -42,9 +46,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    one 128-row batch with exact launch counts and a falling loss; one step
    of each form from the same state on the card and on the CPU;
 8. times: each kernel, its plain version and the one PyTorch call computing
-   the same function, at each slice's shape (CUDA events, median), and the
-   ``lstm`` op's scan and kernel paths, printed as one ``{"kernels": [...]}``
-   JSON line;
+   the same function, at each slice's shape (CUDA events, median), the
+   kernel and the library call also by their device time alone under
+   ``torch.profiler`` (``device_ms``, ``library_device_ms``; the names of
+   the kernels SDPA ran are printed), each kernel's bound (operations at
+   the 3xTF32 tensor-core rate, bytes at the HBM rate; the same with the
+   f32 FMA rate is printed beside it), and the ``lstm`` op's scan and kernel
+   paths, printed as one ``{"kernels": [...]}`` JSON line;
 9. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before each serving and each training
@@ -69,9 +77,24 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 
-# H100 SXM data-sheet peaks (dense): f32 outside the tensor cores, HBM3
+# H100 SXM data-sheet peaks (dense): f32 outside the tensor cores, HBM3;
+# f32-accurate products on the tensor cores take three TF32 products each
+# (3xTF32), so their least time is at a third of the 495 TFLOP/s TF32 rate
 PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
+BOUND_RATE = ('operations at 165 TFLOP/s (3xTF32 on the tensor cores), '
+              'bytes at 3.35 TB/s')
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by, bound_simt_ms) of f32 work: the larger of its
+    operations at the 3xTF32 rate and its bytes at the HBM rate; and the
+    same with the operations at the f32 rate outside the tensor cores."""
+    t_ops, t_bytes = flops / PEAK_3XTF32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes',
+            1e3 * max(flops / PEAK_F32_FLOPS, t_bytes))
 
 TRANSFORMER_BASE = dict(src_vocab=30000, trg_vocab=30000, max_len=256,
                         n_layer=6, n_head=8, d_model=512, d_ff=2048)
@@ -176,9 +199,49 @@ def phase_build():
                 print('  ptxas: ' + line.strip())
         print('build: %s %.1f s%s' % (name, seconds, '' if log is not None
                                       else ' (previous build reused)'))
+        if name == 'flash_attention_fwd':
+            check_fwd_build(path, log)
     print('build: %d libraries %.1f s' % (len(LIBRARIES),
                                           time.perf_counter() - t0),
           flush=True)
+
+
+def check_fwd_build(path, log):
+    """The forward library runs on the tensor cores (HMMA instructions in its
+    SASS, counted with cuobjdump) and its f32 instantiations spill nothing
+    (ptxas; checked when this run compiled the library)."""
+    from paddle_tpu_torch.ops.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), 'cuobjdump')
+    sass = subprocess.run([cuobjdump, '-sass', str(path)], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, 'cuobjdump -sass failed: %s' % sass.stderr)
+    hmma = [ln.split()[1] for ln in sass.stdout.splitlines()
+            if 'HMMA' in ln and len(ln.split()) > 1]
+    kinds = sorted(set(h for h in hmma if h.startswith('HMMA')))
+    print('build: flash_attention_fwd SASS holds %d HMMA instructions (%s)' %
+          (len(hmma), ', '.join(kinds)), flush=True)
+    check(hmma, 'flash_attention_fwd: no HMMA instruction in its SASS: the '
+          'forward kernel does not run on the tensor cores')
+    if log is None:
+        print('build: flash_attention_fwd spills: not checked (previous '
+              'build reused)')
+        return
+    spills, fn = {}, None
+    for line in log.splitlines():
+        if 'Function properties for' in line:
+            fn = line.split('Function properties for')[1].strip()
+        elif 'bytes spill stores' in line and fn:
+            nums = [int(w) for w in line.replace(',', ' ').split()
+                    if w.isdigit()]
+            spills[fn] = nums[1] + nums[2]  # stack frame, stores, loads
+    f32 = {f: n for f, n in spills.items() if 'fwd_kernelIf' in f}
+    print('build: flash_attention_fwd f32 instantiations, spill bytes '
+          '(stores + loads): %s' % ', '.join(
+              '%s %d' % (f[f.index('fwd_kernelIf'):][:17], n)
+              for f, n in sorted(f32.items())), flush=True)
+    check(len(f32) == 4 and not any(f32.values()),
+          'flash_attention_fwd: f32 instantiations spill or are missing: %s'
+          % f32)
 
 
 def _qkv(b, lq, lk, h, d, dtype, seed):
@@ -872,6 +935,55 @@ def _time_ms(fn, launches_per_sample=10, samples=20, warmup=5):
     return statistics.median(times)
 
 
+def _activity_name(name):
+    """A device activity's name without its argument list."""
+    return name.replace('(anonymous namespace)::', '').split('(')[0].strip()
+
+
+def _device_ms(fn, calls=20, warmup=3):
+    """(device time of one call in ms, names of the device activities it
+    ran) under torch.profiler, over ``calls`` back-to-back calls: for each
+    activity, its median duration times its count per call (rounded, so
+    that an event the profiler drops moves nothing), summed.  The wrapper's
+    host work does not count.  A count that is not a multiple of ``calls``
+    is printed; (None, names) when the profiler saw no device events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    durations = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            durations.setdefault(e.name, []).append(
+                e.time_range.elapsed_us())
+    names = sorted(set(_activity_name(n)[:100] for n in durations))
+    for name, d in sorted(durations.items()):
+        if len(d) % calls:
+            print('times: %d device events of %s in %d calls' %
+                  (len(d), _activity_name(name)[:100], calls), flush=True)
+    if not durations:
+        print('times: no device event in %d calls' % calls, flush=True)
+        return None, names
+    return sum(max(1, round(len(d) / calls)) * statistics.median(d)
+               for d in durations.values()) / 1e3, names
+
+
+def _kernel_device_ms(fn, name):
+    """The device time of one call of a kernel's wrapper; fails without it."""
+    ms = _device_ms(fn)[0]
+    check(ms is not None, '%s: torch.profiler gave no device time' % name)
+    return ms
+
+
+def _fmt_ms(ms):
+    return 'not measured' if ms is None else '%.4f ms' % ms
+
+
 def phase_times(card, launches, fwd_err, bwd_err):
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     b, h, seq = BATCH, TRANSFORMER_BASE['n_head'], TRANSFORMER_BASE['max_len']
@@ -901,31 +1013,42 @@ def phase_times(card, launches, fwd_err, bwd_err):
     delta = fa.bwd_delta(o, do)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = {
-        'fwd': _time_ms(lambda: fa.flash_attention_fwd(q, k, v)),
-        'dq': _time_ms(lambda: fa._launch_dq(q, k, v, do, lse, delta, None,
-                                             False, scale)),
-        'dkv': _time_ms(lambda: fa._launch_dkv(q, k, v, do, lse, delta, None,
-                                               False, scale)),
+    calls = {
+        'fwd': lambda: fa.flash_attention_fwd(q, k, v),
+        'dq': lambda: fa._launch_dq(q, k, v, do, lse, delta, None, False,
+                                    scale),
+        'dkv': lambda: fa._launch_dkv(q, k, v, do, lse, delta, None, False,
+                                      scale),
     }
+    ms = {key: _time_ms(fn) for key, fn in calls.items()}
+    # the same calls' device time alone, without the wrappers' host work
+    device_ms = {key: _kernel_device_ms(fn, key)
+                 for key, fn in calls.items()}
     delta_ms = _time_ms(lambda: fa.bwd_delta(o, do))
     plain_ms = {'fwd': _time_ms(lambda: fa.flash_attention_plain(q, k, v))}
     # the plain backward computes dQ, dK and dV in one call: both backward
     # rows carry its time
     plain_ms['dq'] = plain_ms['dkv'] = _time_ms(
         lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do))
-    library_ms = {'fwd': _time_ms(lambda: sdpa(qt, kt, vt))}
+    sdpa_fwd = lambda: sdpa(qt, kt, vt)
+    library_ms = {'fwd': _time_ms(sdpa_fwd)}
+    library_device_ms = {}
+    library_device_ms['fwd'], fwd_names = _device_ms(sdpa_fwd)
     # SDPA's backward alone: one call gives dQ, dK and dV, so both backward
     # rows carry this combined time
     qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
     out = sdpa(qg, kg, vg)
     dout = do.transpose(1, 2).contiguous()
-    library_ms['dq'] = library_ms['dkv'] = _time_ms(
-        lambda: torch.autograd.grad(out, (qg, kg, vg), dout,
-                                    retain_graph=True))
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), dout,
+                                           retain_graph=True)
+    library_ms['dq'] = library_ms['dkv'] = _time_ms(sdpa_bwd)
+    bwd_dev, bwd_names = _device_ms(sdpa_bwd)
+    library_device_ms['dq'] = library_device_ms['dkv'] = bwd_dev
+    print('times: SDPA f32 ran, forward: %s; backward: %s [%s]' %
+          (', '.join(fwd_names), ', '.join(bwd_names), card), flush=True)
     # least time of each call: its products (2 FLOP per multiply-add, every
-    # (row, column) pair unmasked here) at the f32 peak, against its inputs
-    # read once and its outputs written once at the HBM rate
+    # (row, column) pair unmasked here) at the 3xTF32 rate, against its
+    # inputs read once and its outputs written once at the HBM rate
     elems = b * seq * h * d  # one [B, L, H, D] tensor
     rows = b * seq * h       # one [B, L, H] f32 tensor (LSE, delta)
     pairs = b * h * seq * seq * d
@@ -942,14 +1065,17 @@ def phase_times(card, launches, fwd_err, bwd_err):
     kernels = []
     for key in ('fwd', 'dq', 'dkv'):
         flops, nbytes = work[key]
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-        bound_ms = 1e3 * max(t_ops, t_bytes)
+        bound_ms, bound_by, bound_simt_ms = bound(flops, nbytes)
         name, src, line = sources[key]
         print('times: %s f32 B=%d Lq=Lk=%d H=%d D=%d non-causal: kernel %.4f '
-              'ms, plain %.4f ms, library %.4f ms, bound %.4f ms (%.3g GFLOP '
-              'at 67 TFLOP/s f32, %.3g MB at 3.35 TB/s) [%s]' %
-              (name, b, seq, h, d, ms[key], plain_ms[key], library_ms[key],
-               bound_ms, flops / 1e9, nbytes / 1e6, card), flush=True)
+              'ms (device %s), plain %.4f ms, library %.4f ms (device %s), '
+              'bound %.4f ms by %s (%.3g GFLOP, %.3g MB; %s), %.4f ms at 67 '
+              'TFLOP/s f32 [%s]' %
+              (name, b, seq, h, d, ms[key], _fmt_ms(device_ms[key]),
+               plain_ms[key], library_ms[key],
+               _fmt_ms(library_device_ms[key]), bound_ms, bound_by,
+               flops / 1e9, nbytes / 1e6, BOUND_RATE, bound_simt_ms, card),
+              flush=True)
         kernels.append({
             'name': name,
             'route': 'cuda',
@@ -959,16 +1085,34 @@ def phase_times(card, launches, fwd_err, bwd_err):
             'launches_by_path': {p: launches[p][key] for p in launches},
             'max_abs_err': err[key],
             'ms': ms[key],
+            'device_ms': device_ms[key],
             'plain_ms': plain_ms[key],
             'bound_ms': bound_ms,
-            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
+            'bound_by': bound_by,
+            'bound_rate': BOUND_RATE,
             'library_ms': library_ms[key],
+            'library_device_ms': library_device_ms[key],
         })
+    # the forward in bf16 at the same shape, beside SDPA's bf16 call
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    qtb, ktb, vtb = (x.transpose(1, 2).contiguous() for x in (qb, kb, vb))
+    kernel_bf16 = lambda: fa.flash_attention_fwd(qb, kb, vb)
+    sdpa_bf16 = lambda: sdpa(qtb, ktb, vtb)
+    bf16 = [(_time_ms(kernel_bf16),
+             _kernel_device_ms(kernel_bf16, 'fwd bf16')),
+            (_time_ms(sdpa_bf16), _device_ms(sdpa_bf16)[0])]
+    print('times: flash_attention_fwd bf16 at the same shape: kernel %.4f ms '
+          '(device %s), SDPA bf16 %.4f ms (device %s) [%s]' %
+          (bf16[0][0], _fmt_ms(bf16[0][1]), bf16[1][0], _fmt_ms(bf16[1][1]),
+           card), flush=True)
     print('times: backward at the slice shape: dQ %.4f + dK/dV %.4f + delta '
           '%.4f = %.4f ms against SDPA backward (dQ, dK, dV in one call) '
-          '%.4f ms; plain backward %.4f ms [%s]' %
+          '%.4f ms; device time dQ %s + dK/dV %s against SDPA backward %s; '
+          'plain backward %.4f ms [%s]' %
           (ms['dq'], ms['dkv'], delta_ms, ms['dq'] + ms['dkv'] + delta_ms,
-           library_ms['dq'], plain_ms['dq'], card), flush=True)
+           library_ms['dq'], _fmt_ms(device_ms['dq']),
+           _fmt_ms(device_ms['dkv']), _fmt_ms(library_device_ms['dq']),
+           plain_ms['dq'], card), flush=True)
     return kernels
 
 
@@ -997,13 +1141,16 @@ def phase_lstm_times(card, launches, err):
         torch.float32, b, t, d, False, SEED + 6)
     hs, cs, acts = lk.lstm_fwd(xs, w, bias, h0, c0, mask)
     dx, _, _, db_part = lk._launch_walk(w, mask, acts, cs, h0, c0, dhs, dcs)
-    ms = {
-        'lstm_fwd': _time_ms(lambda: lk.lstm_fwd(xs, w, bias, h0, c0, mask,
-                                                 save_acts=False)),
-        'lstm_bwd': _time_ms(lambda: lk._launch_walk(w, mask, acts, cs, h0,
-                                                     c0, dhs, dcs)),
-        'lstm_dw': _time_ms(lambda: lk._launch_dw(hs, h0, dx, db_part)),
+    calls = {
+        'lstm_fwd': lambda: lk.lstm_fwd(xs, w, bias, h0, c0, mask,
+                                        save_acts=False),
+        'lstm_bwd': lambda: lk._launch_walk(w, mask, acts, cs, h0, c0, dhs,
+                                            dcs),
+        'lstm_dw': lambda: lk._launch_dw(hs, h0, dx, db_part),
     }
+    ms = {key: _time_ms(fn) for key, fn in calls.items()}
+    device_ms = {key: _kernel_device_ms(fn, key)
+                 for key, fn in calls.items()}
     fwd_acts_ms = _time_ms(lambda: lk.lstm_fwd(xs, w, bias, h0, c0, mask))
     plain_ms = {'lstm_fwd': _time_ms(
         lambda: lk.lstm_fwd_plain(xs, w, bias, h0, c0, mask,
@@ -1017,16 +1164,22 @@ def phase_lstm_times(card, launches, err):
     # input (x . W_ih, which the port's lstm op receives done)
     cudnn = torch.nn.LSTM(d, d).cuda()
     x_in = torch.randn(t, b, d, device='cuda')
-    with torch.no_grad():
-        library_ms = {'lstm_fwd': _time_ms(lambda: cudnn(x_in))}
+    def cudnn_fwd():
+        with torch.no_grad():
+            return cudnn(x_in)
+
+    library_ms = {'lstm_fwd': _time_ms(cudnn_fwd)}
+    library_device_ms = {'lstm_fwd': _device_ms(cudnn_fwd)[0]}
     x_req = x_in.detach().requires_grad_()
     out, _ = cudnn(x_req)
     wrt = [x_req] + list(cudnn.parameters())
     dout = torch.randn_like(out)
     # cuDNN's backward gives dx and the weight gradients in one call: both
     # backward rows carry its time
-    library_ms['lstm_bwd'] = library_ms['lstm_dw'] = _time_ms(
-        lambda: torch.autograd.grad(out, wrt, dout, retain_graph=True))
+    cudnn_bwd = lambda: torch.autograd.grad(out, wrt, dout, retain_graph=True)
+    library_ms['lstm_bwd'] = library_ms['lstm_dw'] = _time_ms(cudnn_bwd)
+    library_device_ms['lstm_bwd'] = library_device_ms['lstm_dw'] = \
+        _device_ms(cudnn_bwd)[0]
 
     # the lstm op on the card, scan path ('never') and kernel ('auto'):
     # CUDA events around back-to-back runs of the lowering, so the host's
@@ -1050,8 +1203,8 @@ def phase_lstm_times(card, launches, err):
           (b, t, d, ', '.join('%.4f' % v for v in op_ms['never']),
            ', '.join('%.4f' % v for v in op_ms['auto']), card), flush=True)
 
-    # least time: the products (2 FLOP per multiply-add) at the f32 peak,
-    # against the inputs read once and the outputs written once
+    # least time: the products (2 FLOP per multiply-add) at the 3xTF32
+    # rate, against the inputs read once and the outputs written once
     gate_elems, h_elems = t * b * 4 * d, t * b * d
     flops = 2.0 * t * b * d * 4 * d
     work = {
@@ -1075,14 +1228,16 @@ def phase_lstm_times(card, launches, err):
     kernels = []
     for key in ('lstm_fwd', 'lstm_bwd', 'lstm_dw'):
         flops_k, nbytes = work[key]
-        t_ops, t_bytes = flops_k / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-        bound_ms = 1e3 * max(t_ops, t_bytes)
+        bound_ms, bound_by, bound_simt_ms = bound(flops_k, nbytes)
         name, src, line = sources[key]
-        print('times: %s f32 B=%d T=%d D=%d: kernel %.4f ms (%.2f us a step), '
-              'plain %.4f ms, cuDNN LSTM %.4f ms, bound %.4f ms (%.3g GFLOP '
-              'at 67 TFLOP/s f32, %.3g MB at 3.35 TB/s) [%s]' %
-              (name, b, t, d, ms[key], 1e3 * ms[key] / t, plain_ms[key],
-               library_ms[key], bound_ms, flops_k / 1e9, nbytes / 1e6, card),
+        print('times: %s f32 B=%d T=%d D=%d: kernel %.4f ms (%.2f us a step; '
+              'device %s), plain %.4f ms, cuDNN LSTM %.4f ms (device %s), '
+              'bound %.4f ms by %s (%.3g GFLOP, %.3g MB; %s), %.4f ms at 67 '
+              'TFLOP/s f32 [%s]' %
+              (name, b, t, d, ms[key], 1e3 * ms[key] / t,
+               _fmt_ms(device_ms[key]), plain_ms[key], library_ms[key],
+               _fmt_ms(library_device_ms[key]), bound_ms, bound_by,
+               flops_k / 1e9, nbytes / 1e6, BOUND_RATE, bound_simt_ms, card),
               flush=True)
         entry = {
             'name': name,
@@ -1093,10 +1248,13 @@ def phase_lstm_times(card, launches, err):
             'launches_by_path': {p: launches[p][key] for p in launches},
             'max_abs_err': err[key],
             'ms': ms[key],
+            'device_ms': device_ms[key],
             'plain_ms': plain_ms[key],
             'bound_ms': bound_ms,
-            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
+            'bound_by': bound_by,
+            'bound_rate': BOUND_RATE,
             'library_ms': library_ms[key],
+            'library_device_ms': library_device_ms[key],
         }
         if key == 'lstm_fwd':
             entry['ms_with_acts'] = fwd_acts_ms

@@ -6,7 +6,8 @@ replace the three Pallas kernels:
 
 - ``csrc/flash_attention_fwd.cu`` (``_fwd_kernel``): a blocked online
   softmax that never writes the [Lq, Lk] scores to device memory and
-  returns O and the per-row f32 log-sum-exp;
+  returns O and the per-row f32 log-sum-exp; both products run on the
+  tensor cores (``mma.sync`` in 3xTF32, close to f32 accuracy);
 - ``csrc/flash_attention_bwd.cu`` ``flash_attention_dq`` (``_dq_kernel``):
   one CTA per Q tile recomputes P = exp(S - LSE) over the K columns and
   writes dQ;
@@ -99,8 +100,7 @@ def check_kernel_args(q, k, v):
     """Raise ValueError for inputs the kernel does not take: shapes, head
     dims outside SUPPORTED_HEAD_DIMS or differing between Q and V, dtypes
     other than float32/bfloat16 or mixed, non-contiguous layouts, data not
-    aligned for the kernel's 4-element vector loads, and tensors not on one
-    CUDA device."""
+    16-byte aligned, and tensors not on one CUDA device."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError('flash_attention: q, k, v must be [B, L, H, D], got '
                          '%s %s %s' % (tuple(q.shape), tuple(k.shape),
@@ -122,11 +122,12 @@ def check_kernel_args(q, k, v):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError('flash_attention kernel: q, k, v must be contiguous '
                          '[B, L, H*D] rows')
-    align = 4 * q.element_size()  # float4 (f32) / uint2 (bf16) accesses
-    if any(t.data_ptr() % align for t in (q, k, v)):
+    # the forward copies q, k, v rows to shared memory in 16-byte cp.async
+    # chunks, whatever the dtype
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError('flash_attention kernel: q, k, v data must be '
-                         '%d-byte aligned (a view at an odd storage offset '
-                         'is not)' % align)
+                         '16-byte aligned for the kernels\' 16-byte copies (a '
+                         'view at an odd storage offset is not)')
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError('flash_attention kernel: q, k, v must lie on one '
                          'CUDA device, got %s %s %s' % (q.device, k.device,

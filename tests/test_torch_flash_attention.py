@@ -2,7 +2,11 @@
 held against the JAX package's Pallas kernel, run in interpret mode on the
 CPU as tests/test_pallas_flash.py runs it, and LSE against a float64 numpy
 log-sum-exp.  The CUDA kernel itself runs only on the card (chip_smoke.py);
-here its argument validation is checked to raise rather than fall back.
+here its argument validation is checked to raise rather than fall back, and
+its 3xTF32 arithmetic (each f32 operand split into two TF32 parts, three
+products per matrix product, each MMA's sum rounded toward zero, P V summed
+in partials of 4 k-steps) is emulated in plain PyTorch and held to the plain
+version, beside the 1xTF32 and the unpartitioned-chain counterfactuals.
 
 Tolerance 1e-5 in f32: both sides compute the same masked softmax in f32,
 differing only in summation order.
@@ -114,7 +118,7 @@ def test_cpu_wrapper_takes_plain_version():
 
 
 @pytest.mark.parametrize('case', ['head_dim', 'dtype', 'layout', 'device',
-                                  'dv', 'alignment'])
+                                  'dv', 'alignment', 'alignment_bf16'])
 def test_kernel_path_raises_instead_of_falling_back(case, monkeypatch):
     def no_build():
         raise AssertionError('validation must reject before any build')
@@ -131,6 +135,12 @@ def test_kernel_path_raises_instead_of_falling_back(case, monkeypatch):
     elif case == 'alignment':  # contiguous, but 4 bytes past a float4
         q = torch.cat([torch.zeros(1), q.reshape(-1)])[1:].view(q.shape)
         assert q.is_contiguous() and q.data_ptr() % 16 == 4
+    elif case == 'alignment_bf16':  # 8 bytes past a 16-byte cp.async chunk
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        flat = torch.cat([torch.zeros(4, dtype=torch.bfloat16),
+                          q.reshape(-1)])
+        q = flat[4:].view(q.shape)
+        assert q.is_contiguous() and q.data_ptr() % 16 == 8
     with pytest.raises(ValueError):
         fa._launch(q, k, v, False, 1.0, None)
 
@@ -199,3 +209,182 @@ def test_lowering_unsupported_head_dim_raises_on_kernel_path(monkeypatch):
         fluid.Executor(fluid.CPUPlace()).run(prog, feed=feed,
                                              fetch_list=[out],
                                              scope=fluid.Scope())
+
+
+# --- the forward kernel's 3xTF32 arithmetic, emulated on the CPU ----------
+
+EMU_B, EMU_H, EMU_L, EMU_D = 2, 2, 128, 64
+EMU_BLOCK_K = 64      # the kernel's K/V tile at D=64
+PV_CHAIN = 4          # the kernel's k-steps of P V per f32 partial
+CHIP_TOL = 1e-4       # chip_smoke.py's f32 kernel-vs-plain tolerance
+_TF32_LOW = 0x1fff    # the 13 mantissa bits TF32 drops
+
+
+def _tf32(x):
+    """x (f32) rounded to TF32 by bit operations on its mantissa: to nearest
+    (ties away from zero, as cvt.rna), the 13 low bits cleared."""
+    bits = x.contiguous().view(torch.int32) + 0x1000
+    return (bits & ~_TF32_LOW).view(torch.float32)
+
+
+def _mma(c, a, b):
+    """One m16n8k8 MMA step, c + a @ b over one 8-wide k-step: the products
+    of TF32 operands summed exactly (in f64) with c, the sum rounded to f32
+    toward zero, as the tensor cores round it."""
+    exact = c.double() + a.double() @ b.double()
+    near = exact.float()
+    return torch.where(near.double().abs() > exact.abs(),
+                       torch.nextafter(near, torch.zeros_like(near)), near)
+
+
+def _mma3(c, a, b, terms):
+    """c + a @ b over one k-step as the kernel issues it: x = big + small,
+    big = x rounded to TF32 and small = x - big rounded to TF32; terms=3 is
+    small*big, big*small, then big*big (3xTF32), terms=1 big*big alone
+    (1xTF32); each an MMA of its own."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if terms == 3:
+        c = _mma(c, _tf32(a - a_big), b_big)
+        c = _mma(c, a_big, _tf32(b - b_big))
+    return _mma(c, a_big, b_big)
+
+
+def _product(a, b, terms, chain=None, c=None):
+    """a @ b in k-steps of 8.  chain=None runs every k-step's MMAs into c
+    (zeros when absent); chain=n sums each n k-steps in a fresh partial
+    from 0 and adds it to c in f32 with round-to-nearest."""
+    c = torch.zeros(a.shape[:-1] + b.shape[-1:]) if c is None else c
+    steps = range(0, a.shape[-1], 8)
+    for s0 in range(0, a.shape[-1], 8 * (chain or len(steps))):
+        part = torch.zeros_like(c) if chain else c
+        for k0 in range(s0, min(s0 + 8 * (chain or len(steps)),
+                                a.shape[-1]), 8):
+            part = _mma3(part, a[..., k0:k0 + 8], b[..., k0:k0 + 8, :],
+                         terms)
+        c = c + part if chain else part
+    return c
+
+
+def _emulate_fwd(q, k, v, causal, lens, terms, chain=PV_CHAIN):
+    """The kernel's forward on [B, L, H, D] f32: S = Q K^T in one chain of
+    MMAs, the scale (times log2 e) on the scores, online softmax in exp2
+    units over EMU_BLOCK_K-column tiles, and O += P V in partials of
+    ``chain`` k-steps (None: one chain into O over the whole K loop);
+    ``terms``-product TF32 throughout.  (O, LSE) as the kernel returns
+    them."""
+    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))  # [B, H, L, D]
+    b, h, lq, d = qh.shape
+    lk = kh.shape[2]
+    scale_log2 = d**-0.5 * 1.4426950408889634
+    limit = torch.full((b, ), lk) if lens is None else torch.as_tensor(lens)
+    rows = torch.arange(lq)[:, None]
+    m = torch.full((b, h, lq, 1), -1e30)
+    l = torch.zeros(b, h, lq, 1)
+    acc = torch.zeros(b, h, lq, d)
+    for k0 in range(0, lk, EMU_BLOCK_K):
+        cols = torch.arange(k0, min(k0 + EMU_BLOCK_K, lk))[None, :]
+        s = _product(qh, kh[:, :, cols[0]].transpose(-1, -2), terms)
+        s = s * scale_log2
+        mask = cols[None, None] >= limit[:, None, None, None]
+        if causal:
+            mask = mask | (cols > rows)[None, None]
+        s = s.masked_fill(mask, float('-inf'))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = _product(p, vh[:, :, cols[0]], terms, chain, acc * alpha)
+        m = m_new
+    live = l > 0
+    o = torch.where(live, acc / l.clamp_min(1e-30), 0.0)
+    lse = torch.where(live, m * 0.6931471805599453 +
+                      torch.log(l.clamp_min(1e-30)), -1e30)
+    return o.permute(0, 2, 1, 3), lse[..., 0].transpose(1, 2)
+
+
+def _emu_inputs(with_lens=False, length=EMU_L):
+    rng = np.random.RandomState(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (EMU_B, length, EMU_H, EMU_D)).astype('float32')) for _ in range(3))
+    return q, k, v, (np.array([0, 77], np.int32) if with_lens else None)
+
+
+def _emulation_errors(causal, with_lens, terms):
+    """max |emulation - flash_attention_plain| over O and LSE, each over
+    CHIP_TOL * max(1, max|plain|)."""
+    q, k, v, lens = _emu_inputs(with_lens)
+    po, plse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        seq_lengths=lens)
+    eo, el = _emulate_fwd(q, k, v, causal, lens, terms)
+    rel = []
+    for got, want in ((eo, po), (el, plse)):
+        tol = CHIP_TOL * max(1.0, want.abs().max().item())
+        rel.append((got - want).abs().max().item() / tol)
+    return max(rel)
+
+
+@pytest.mark.parametrize('with_lens', [False, True])
+@pytest.mark.parametrize('causal', [False, True])
+def test_3xtf32_emulation_matches_plain(causal, with_lens):
+    """The kernel's split arithmetic (three TF32 products per matrix
+    product) agrees with the f32 plain version within chip_smoke.py's f32
+    tolerance."""
+    assert _emulation_errors(causal, with_lens, terms=3) <= 1.0
+
+
+@pytest.mark.parametrize('with_lens', [False, True])
+@pytest.mark.parametrize('causal', [False, True])
+def test_1xtf32_errs_tenfold_more_than_3xtf32(causal, with_lens):
+    """The counterfactual: one TF32 product per matrix product (no small
+    parts) errs at least 10 times more on the same inputs."""
+    three = _emulation_errors(causal, with_lens, terms=3)
+    one = _emulation_errors(causal, with_lens, terms=1)
+    assert one >= 10 * three, (one, three)
+
+
+def _pull_toward_zero(o, q, k, v):
+    """The mean of O's error toward zero against a float64 softmax of the
+    same inputs (non-causal, no lengths), over the mean |O|."""
+    qh, kh, vh = (x.double().permute(0, 2, 1, 3) for x in (q, k, v))
+    want = torch.softmax(qh @ kh.transpose(-1, -2) * EMU_D**-0.5,
+                         -1) @ vh
+    want = want.permute(0, 2, 1, 3)
+    return ((want - o.double()) * want.sign()).mean().item() / \
+        want.abs().mean().item()
+
+
+def test_pv_partials_keep_o_from_drifting_toward_zero():
+    """The counterfactual of the P V partials, at the Transformer slice's
+    length 256: one chain of MMAs into O over the whole K loop lets the
+    round-toward-zero sums pull O toward zero at least twice as far as
+    partials of PV_CHAIN k-steps added to O in f32 (3.6x here; the f32
+    plain version's pull is ~1e-8 of |O|, either sign)."""
+    q, k, v, _ = _emu_inputs(length=256)
+    parts = _pull_toward_zero(
+        _emulate_fwd(q, k, v, False, None, 3)[0], q, k, v)
+    chained = _pull_toward_zero(
+        _emulate_fwd(q, k, v, False, None, 3, chain=None)[0], q, k, v)
+    assert chained > 0 and chained >= 2 * abs(parts), (chained, parts)
+
+
+def test_mma_sum_rounds_toward_zero():
+    """_mma's sum is the f32 next to the exact one on the side of zero."""
+    one_ulp = 2.0**-23
+    a = torch.tensor([[1.0, 0.75 * one_ulp] + [0.0] * 6])
+    b = torch.zeros(8, 1)
+    b[:2] = 1.0
+    assert _mma(torch.zeros(1, 1), a, b).item() == 1.0
+    assert _mma(torch.zeros(1, 1), -a, b).item() == -1.0
+    assert _mma(torch.full((1, 1), 2.0), a, b).item() == 3.0
+
+
+def test_tf32_rounding_by_bits():
+    """_tf32 rounds to nearest (ties away from zero) and clears 13 bits."""
+    one_ulp = 2.0**-10  # TF32's ulp at 1.0
+    x = torch.tensor([1.0 + 0.49 * one_ulp, 1.0 + 0.5 * one_ulp,
+                      -(1.0 + 0.5 * one_ulp), 1.0 + 0.51 * one_ulp,
+                      3.0], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + one_ulp, -(1.0 + one_ulp),
+                         1.0 + one_ulp, 3.0])
+    assert torch.equal(_tf32(x), want)
+    assert not (_tf32(torch.randn(1000)).view(torch.int32) & _TF32_LOW).any()
