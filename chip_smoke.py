@@ -13,17 +13,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build: compiles the port's four CUDA libraries from
    ``paddle_tpu_torch/csrc`` (one ``nvcc`` each, all started together),
    prints ptxas's register and spill lines, counts the HMMA (tensor-core)
-   instructions in the flash-attention forward library's SASS
-   (``cuobjdump -sass``) and fails if there are none or if an f32
-   instantiation of that kernel spills;
+   instructions in the SASS (``cuobjdump -sass``) of the flash-attention
+   forward library and of the LSTM backward library (its dW kernel) and
+   fails if either has none, if an f32 instantiation of the flash forward
+   spills, or if an f32 instantiation of the LSTM walk spills (every walk
+   and dW instantiation's registers and spills printed);
 3. kernel vs plain: the flash-attention forward kernel, then its dQ and
    dK/dV kernels, against their plain PyTorch versions on the card, over
    causal/non-causal, with/without lengths (0, partial, full), self and cross
    attention, a ragged Lq, every supported head_dim, f32 and bf16; then the
    LSTM forward kernel (with and without the saved activations), its
-   backward walk and its dW kernel against theirs, over f32/bf16, D 128, 256,
-   512, B 128 and 13, T 64 and 1, full and ragged lengths (0 and T among
-   them), nonzero h0/c0;
+   backward walk and its dW kernel against theirs, over f32/bf16, D 32, 64,
+   128, 256, 512, B 128 and 13, T 64 and 1, full and ragged lengths (0 and
+   T among them), nonzero h0/c0, each case with the walk's cluster size;
+   then the walk at every cluster size against the plain version and,
+   bitwise, against the size the library picks;
 4. Transformer serving: Transformer-base at full width (6+6 layers, 8 heads,
    d_model 512, d_ff 2048, vocab 30000, seq 256; random weights from a seed)
    serves four requests of 16 x 256 tokens through ``Executor.run`` on
@@ -51,8 +55,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``torch.profiler`` (``device_ms``, ``library_device_ms``; the names of
    the kernels SDPA ran are printed), each kernel's bound (operations at
    the 3xTF32 tensor-core rate, bytes at the HBM rate; the same with the
-   f32 FMA rate is printed beside it), and the ``lstm`` op's scan and kernel
-   paths, printed as one ``{"kernels": [...]}`` JSON line;
+   f32 FMA rate is printed beside it), the LSTM walk's device time at each
+   cluster size and at bf16, and the ``lstm`` op's scan and kernel paths,
+   printed as one ``{"kernels": [...]}`` JSON line;
 9. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before each serving and each training
@@ -139,6 +144,7 @@ LSTM_CPU_TRAIN_ROWS = 16  # rows of the training step compared with the CPU
 # value (2^-8 relative) and that difference travels through the remaining
 # steps; dW sums bf16 dgates and h in f32.
 LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+LSTM_WIDTHS = (32, 64, 128, 256, 512)  # the kernel-vs-plain sweep's D
 # stacked-LSTM prediction, card vs CPU: 3 layers x 64 dependent steps of f32
 # in another summation order on each side (the card's LSTM kernel against
 # the CPU's scan path), then a 2-class softmax
@@ -201,15 +207,16 @@ def phase_build():
                                       else ' (previous build reused)'))
         if name == 'flash_attention_fwd':
             check_fwd_build(path, log)
+        elif name == 'lstm_bwd':
+            check_bwd_build(path, log)
     print('build: %d libraries %.1f s' % (len(LIBRARIES),
                                           time.perf_counter() - t0),
           flush=True)
 
 
-def check_fwd_build(path, log):
-    """The forward library runs on the tensor cores (HMMA instructions in its
-    SASS, counted with cuobjdump) and its f32 instantiations spill nothing
-    (ptxas; checked when this run compiled the library)."""
+def _check_hmma(name, path, what):
+    """Count the HMMA (tensor-core) instructions in library ``name``'s SASS
+    (cuobjdump next to nvcc); fail if there are none."""
     from paddle_tpu_torch.ops.kernels import _build
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), 'cuobjdump')
     sass = subprocess.run([cuobjdump, '-sass', str(path)], capture_output=True,
@@ -218,22 +225,70 @@ def check_fwd_build(path, log):
     hmma = [ln.split()[1] for ln in sass.stdout.splitlines()
             if 'HMMA' in ln and len(ln.split()) > 1]
     kinds = sorted(set(h for h in hmma if h.startswith('HMMA')))
-    print('build: flash_attention_fwd SASS holds %d HMMA instructions (%s)' %
-          (len(hmma), ', '.join(kinds)), flush=True)
-    check(hmma, 'flash_attention_fwd: no HMMA instruction in its SASS: the '
-          'forward kernel does not run on the tensor cores')
+    print('build: %s SASS holds %d HMMA instructions (%s)' %
+          (name, len(hmma), ', '.join(kinds)), flush=True)
+    check(hmma, '%s: no HMMA instruction in its SASS: %s does not run on '
+          'the tensor cores' % (name, what))
+
+
+def _ptxas_table(log):
+    """{mangled kernel name: (registers, spill bytes stored + loaded)} from
+    ptxas -v output."""
+    table, fn = {}, None
+    for line in log.splitlines():
+        if 'Function properties for' in line:
+            fn = line.split('Function properties for')[1].strip()
+            table[fn] = [0, 0]
+        elif 'bytes spill stores' in line and fn:
+            nums = [int(w) for w in line.replace(',', ' ').split()
+                    if w.isdigit()]
+            table[fn][1] = nums[1] + nums[2]  # stack frame, stores, loads
+        elif 'Used' in line and 'registers' in line and fn:
+            words = line.split()
+            table[fn][0] = int(words[words.index('Used') + 1])
+    return {f: tuple(v) for f, v in table.items()}
+
+
+def check_bwd_build(path, log):
+    """The LSTM backward library: its dW kernel runs on the tensor cores
+    (HMMA in the SASS), and no f32 instantiation of the walk spills; prints
+    every walk and dW instantiation's registers and spills."""
+    import re
+    _check_hmma('lstm_bwd', path, 'the dW kernel')
+    if log is None:
+        print('build: lstm_bwd spills: not checked (previous build reused)')
+        return
+    names = {'f': 'f32', '13__nv_bfloat16': 'bf16'}
+    walk_f32 = []
+    for fn, (regs, spill) in sorted(_ptxas_table(log).items()):
+        walk = re.search(r'lstm_bwd_walk_kernelI(f|13__nv_bfloat16)Li(\d)E',
+                         fn)
+        dw = re.search(r'lstm_dw_partial_kernelI(f|13__nv_bfloat16)E', fn)
+        if walk:
+            what = 'walk %s UW=%s' % (names[walk.group(1)], walk.group(2))
+            if walk.group(1) == 'f':
+                walk_f32.append(spill)
+        elif dw:
+            what = 'dW %s' % names[dw.group(1)]
+        else:
+            continue
+        print('build: lstm_bwd %-16s %3d registers, %d spill bytes' %
+              (what, regs, spill), flush=True)
+    check(len(walk_f32) == 3 and not any(walk_f32),
+          'lstm_bwd: an f32 walk instantiation spills or is missing: %s' %
+          walk_f32)
+
+
+def check_fwd_build(path, log):
+    """The forward library runs on the tensor cores (HMMA instructions in its
+    SASS, counted with cuobjdump) and its f32 instantiations spill nothing
+    (ptxas; checked when this run compiled the library)."""
+    _check_hmma('flash_attention_fwd', path, 'the forward kernel')
     if log is None:
         print('build: flash_attention_fwd spills: not checked (previous '
               'build reused)')
         return
-    spills, fn = {}, None
-    for line in log.splitlines():
-        if 'Function properties for' in line:
-            fn = line.split('Function properties for')[1].strip()
-        elif 'bytes spill stores' in line and fn:
-            nums = [int(w) for w in line.replace(',', ' ').split()
-                    if w.isdigit()]
-            spills[fn] = nums[1] + nums[2]  # stack frame, stores, loads
+    spills = {f: n for f, (_, n) in _ptxas_table(log).items()}
     f32 = {f: n for f, n in spills.items() if 'fwd_kernelIf' in f}
     print('build: flash_attention_fwd f32 instantiations, spill bytes '
           '(stores + loads): %s' % ', '.join(
@@ -380,7 +435,7 @@ def phase_lstm_vs_plain():
              for k in ('lstm_fwd', 'lstm_bwd', 'lstm_dw')}
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (128, 256, 512):
+        for d in LSTM_WIDTHS:
             for b in (LSTM_BATCH, 13):
                 for t in (LSTM_MAX_LEN, 1):
                     for ragged in (False, True):
@@ -396,9 +451,10 @@ def phase_lstm_vs_plain():
                         want_b = lk.lstm_bwd_plain(w, mask, pacts, pcs, phs,
                                                    h0, c0, dhs, dcs)
                         torch.cuda.synchronize()
-                        case = '%s D=%d B=%d T=%d %s' % (
+                        case = '%s D=%d B=%d T=%d %s N=%d' % (
                             str(dtype)[6:], d, b, t,
-                            'ragged' if ragged else 'full')
+                            'ragged' if ragged else 'full',
+                            lk.walk_cluster(b, d, dtype))
                         pairs = [('lstm_fwd', 'hs', bare[0], phs),
                                  ('lstm_fwd', 'cs', bare[1], pcs),
                                  ('lstm_fwd', 'hs+acts', full[0], phs),
@@ -421,7 +477,7 @@ def phase_lstm_vs_plain():
                                                        err)
                             errs.append('%s %.2g' % (name, err))
                         n += 1
-                        print('lstm vs plain: %-28s %s' % (case,
+                        print('lstm vs plain: %-32s %s' % (case,
                                                            ', '.join(errs)))
     for dtype in LSTM_TOL:
         print('lstm vs plain: %s worst max|d| forward %.3g, walk %.3g, dW/db '
@@ -430,9 +486,54 @@ def phase_lstm_vs_plain():
                tuple(worst[dtype, k] for k in ('lstm_fwd', 'lstm_bwd',
                                                'lstm_dw')) +
                (LSTM_TOL[dtype], )))
-    print('lstm vs plain: %d cases agree' % n, flush=True)
+    print('lstm vs plain: %d cases agree (N: the walk\'s CTAs a cluster)'
+          % n, flush=True)
+    check_walk_clusters()
     return {k: worst[torch.float32, k]
             for k in ('lstm_fwd', 'lstm_bwd', 'lstm_dw')}
+
+
+def check_walk_clusters():
+    """The walk at every cluster size that divides D into at most 128 units
+    a CTA, against the plain version (dx, dh0, dc0, and db as the sum of the
+    clusters' rows) within LSTM_TOL, and bitwise against the size the library
+    picks: each (row, unit) sum runs in the same order whichever CTA owns
+    the unit."""
+    from paddle_tpu_torch.ops.kernels import lstm as lk
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, b in ((128, LSTM_BATCH), (128, 13), (32, LSTM_BATCH),
+                     (512, LSTM_BATCH)):
+            xs, w, bias, h0, c0, mask, dhs, dcs = _lstm_inputs(
+                dtype, b, LSTM_MAX_LEN, d, True, SEED + 3000 + d + b)
+            hs, cs, acts = lk.lstm_fwd_plain(xs, w, bias, h0, c0, mask)
+            args = (w, mask, acts, cs, h0, c0, dhs, dcs)
+            want = lk.lstm_bwd_plain(w, mask, acts, cs, hs, h0, c0, dhs, dcs)
+            want = (want[0], want[3], want[4], want[2][0])
+            picked = lk._launch_walk(*args)
+            same = []
+            for n in [n for n in (1, 2, 4, 8)
+                      if d // n <= 128 and d // n * dtype.itemsize % 16 == 0]:
+                got = lk._launch_walk(*args, cluster=n)
+                torch.cuda.synchronize()
+                got = got[:3] + (got[3].sum(0), )
+                for name, g, w_ in zip(('dx', 'dh0', 'dc0', 'db'), got, want):
+                    scale = max(1.0, w_.float().abs().max().item())
+                    err = (g.float() - w_.float()).abs().max().item()
+                    check(err <= LSTM_TOL[dtype] * scale,
+                          'lstm walk: %s D=%d B=%d with clusters of %d CTAs: '
+                          'max|d%s| %g > %g * %g' % (str(dtype)[6:], d, b, n,
+                                                     name, err,
+                                                     LSTM_TOL[dtype], scale))
+                check(all(torch.equal(g, p_)
+                          for g, p_ in zip(got[:3], picked[:3])),
+                      'lstm walk: %s D=%d B=%d with clusters of %d CTAs is '
+                      'not bitwise the picked size\'s' % (str(dtype)[6:], d,
+                                                           b, n))
+                same.append(str(n))
+            print('lstm walk: %s D=%d B=%d T=%d ragged: clusters of %s CTAs '
+                  'agree with plain and bitwise with the picked size, %d' %
+                  (str(dtype)[6:], d, b, LSTM_MAX_LEN, ', '.join(same),
+                   lk.walk_cluster(b, d, dtype)), flush=True)
 
 
 def build_model():
@@ -889,6 +990,11 @@ def phase_lstm_train(card, forms):
               (step + 1, walls[-1], losses[-1],
                {k: v for k, v in grew.items() if v}, card), flush=True)
     launches = _counts()
+    from paddle_tpu_torch.ops.kernels import lstm as lk
+    print('lstm train: each walk launch runs clusters of %d CTAs (B=%d, D=%d,'
+          ' f32)' % (lk.walk_cluster(LSTM_BATCH, STACKED_LSTM['hid_dim'],
+                                     torch.float32), LSTM_BATCH,
+                     STACKED_LSTM['hid_dim']), flush=True)
     check(all(b < a for a, b in zip(losses, losses[1:])),
           'lstm train: the loss did not fall at every step: %s' % losses)
     print('lstm train: %d Adam steps (lr %g) on one %d-row batch (T=%d), '
@@ -1152,6 +1258,29 @@ def phase_lstm_times(card, launches, err):
     device_ms = {key: _kernel_device_ms(fn, key)
                  for key, fn in calls.items()}
     fwd_acts_ms = _time_ms(lambda: lk.lstm_fwd(xs, w, bias, h0, c0, mask))
+    # the walk's device time at each cluster size (f32), and at bf16 beside
+    # f32: bf16 halves the bytes of W, so where W streams from L2 (one CTA
+    # a cluster) the gap between the two prices that streaming
+    cluster = lk.walk_cluster(b, d, torch.float32)
+    by_cluster = {n: _kernel_device_ms(
+        lambda: lk._launch_walk(w, mask, acts, cs, h0, c0, dhs, dcs,
+                                cluster=n), 'lstm_bwd N=%d' % n)
+        for n in (1, 2, 4, 8)}
+    xb, wb, hb, dhb = (x.to(torch.bfloat16) for x in (xs, w, h0, dhs))
+    _, csb, actsb = lk.lstm_fwd(xb, wb, bias, hb, c0, mask)
+    walk_bf16 = lambda n=0: lk._launch_walk(wb, mask, actsb, csb, hb, c0, dhb,
+                                            dcs, cluster=n)
+    bf16_ms = _time_ms(walk_bf16)
+    bf16_device = {n: _kernel_device_ms(lambda: walk_bf16(n),
+                                        'lstm_bwd bf16 N=%d' % n)
+                   for n in (0, 1)}
+    print('times: lstm_bwd walk device time by cluster size (f32 B=%d T=%d '
+          'D=%d; the library picks %d): %s; bf16 %.4f ms (device %s, %s at '
+          'N=1; the library picks %d) [%s]' %
+          (b, t, d, cluster, ', '.join('N=%d %s' % (n, _fmt_ms(v))
+                                       for n, v in by_cluster.items()),
+           bf16_ms, _fmt_ms(bf16_device[0]), _fmt_ms(bf16_device[1]),
+           lk.walk_cluster(b, d, torch.bfloat16), card), flush=True)
     plain_ms = {'lstm_fwd': _time_ms(
         lambda: lk.lstm_fwd_plain(xs, w, bias, h0, c0, mask,
                                   save_acts=False), 2, 10)}
@@ -1258,6 +1387,11 @@ def phase_lstm_times(card, launches, err):
         }
         if key == 'lstm_fwd':
             entry['ms_with_acts'] = fwd_acts_ms
+        if key == 'lstm_bwd':
+            entry['cluster'] = cluster
+            entry['device_ms_by_cluster'] = by_cluster
+            entry['bf16_ms'] = bf16_ms
+            entry['bf16_device_ms'] = bf16_device[0]
         kernels.append(entry)
     print('times: lstm_fwd with the activations saved %.4f ms; backward walk '
           '+ dW %.4f ms against cuDNN backward %.4f ms (includes its input '

@@ -7,10 +7,13 @@ Counterpart of ``paddle_tpu/ops/pallas/lstm.py``.  Kernels:
   in one launch, a block per 4 batch rows walking T in a loop; returns hs,
   cs and, when asked, the gate activations the backward needs;
 - ``csrc/lstm_bwd.cu`` ``lstm_bwd`` (``_bwd_kernel``'s reverse-time walk):
-  dx, dh0, dc0 and per-block f32 partial sums of db;
+  dx, dh0, dc0 and per-cluster f32 partial sums of db; a cluster of CTAs
+  per 4 batch rows holds W in its shared memory (``walk_cluster`` gives its
+  size);
 - ``csrc/lstm_bwd.cu`` ``lstm_bwd_dw`` (``_bwd_kernel``'s dW and db
-  accumulators): dW = sum over (t, b) of h_prev^T . dg16 as split-K partial
-  products summed in a fixed order, and db from the walk's partials.
+  accumulators): dW = sum over (t, b) of h_prev^T . dg16 on the tensor
+  cores (3xTF32) as split-K partial products summed in a fixed order, and
+  db from the walk's partials.
 
 Layout is time-major, as the JAX package's: xs [T, B, 4D] pre-projected
 gates (order candidate, input, forget, output), w [D, 4D], bias [1, 4D] f32,
@@ -38,7 +41,8 @@ from . import _build, unwrapped
 
 __all__ = ['lstm_fused_tm', 'lstm_fwd', 'lstm_bwd', 'lstm_fwd_plain',
            'lstm_bwd_plain', 'LSTMCore', 'kernel_takes', 'check_fwd_args',
-           'check_bwd_args', 'LAUNCHES_FWD', 'LAUNCHES_BWD', 'LAUNCHES_DW']
+           'check_bwd_args', 'walk_cluster', 'LAUNCHES_FWD', 'LAUNCHES_BWD',
+           'LAUNCHES_DW']
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -65,22 +69,40 @@ def _kernel_fwd():
 
 
 def _kernels_bwd():
-    """(walk, dw, rows per walk block) of the backward library."""
+    """(walk, dw, rows per walk cluster, cluster size, dW tile depth) of the
+    backward library: the walk with a chosen cluster size (0: the library's
+    choice), the dW entry point, and the library's constants and choice."""
     global _bwd_fns
     if _bwd_fns is None:
         lib = _build.load('lstm_bwd')
-        walk = lib.lstm_bwd
-        walk.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + \
+        walk = lib.lstm_bwd_with_cluster
+        walk.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
         walk.restype = ctypes.c_int
         dw = lib.lstm_bwd_dw
         dw.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
         dw.restype = ctypes.c_int
-        lib.lstm_bwd_rows_per_block.argtypes = []
-        lib.lstm_bwd_rows_per_block.restype = ctypes.c_int
-        _bwd_fns = (walk, dw, int(lib.lstm_bwd_rows_per_block()))
+        cluster = lib.lstm_bwd_cluster
+        cluster.argtypes = [ctypes.c_int] * 3
+        cluster.restype = ctypes.c_int
+        for fn in (lib.lstm_bwd_rows_per_block, lib.lstm_bwd_dw_tile):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+        _bwd_fns = (walk, dw, int(lib.lstm_bwd_rows_per_block()), cluster,
+                    int(lib.lstm_bwd_dw_tile()))
     return _bwd_fns
+
+
+def walk_cluster(batch, d, dtype):
+    """The number of CTAs in each cluster of the walk kernel for a batch, a
+    hidden width and a dtype, as the current CUDA device launches it."""
+    with torch.cuda.device(torch.cuda.current_device()):
+        n = _kernels_bwd()[3](batch, d, _DTYPE_CODES[dtype])
+    if n < 1:
+        raise RuntimeError('lstm_bwd_cluster failed for B=%d, D=%d, %s' %
+                           (batch, d, dtype))
+    return n
 
 
 def kernel_takes(d, batch, dtype):
@@ -168,21 +190,31 @@ def _launch_fwd(xs, w, bias, h0, c0, mask, save_acts):
     return hs, cs, acts
 
 
-def _dw_splits(steps, batch, d, device):
-    """K slices of the dW product: enough 64 x 64 tiles to give every SM of
-    the card two blocks, none thinner than one 16-deep step."""
+def _dw_splits(steps, batch, d, device, tile_k):
+    """K slices of the dW product: four 64 x 64 output tiles of 4 warps for
+    each SM of the card (33 slices of 256 rows at B=128, T=64, D=128, where
+    the H100 ran 8 slices in 0.042 ms and 32 in 0.030), none thinner than
+    one ``tile_k``-deep step."""
     tiles = math.ceil(d / 64) * math.ceil(4 * d / 64)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(math.ceil(2 * sms / tiles), math.ceil(steps * batch /
-                                                            16)))
+    return max(1, min(4 * sms // tiles, math.ceil(steps * batch / tile_k)))
 
 
-def _launch_walk(w, mask, acts, cs, h0, c0, dhs, dcs):
-    """The reverse-time walk: (dx, dh0, dc0, db_part).  Arguments checked
-    by the caller (check_bwd_args)."""
+def _aligned(t):
+    """``t``, or a copy of it where its data is not 16-byte aligned (the
+    kernels copy rows to shared memory in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_walk(w, mask, acts, cs, h0, c0, dhs, dcs, cluster=0):
+    """The reverse-time walk: (dx, dh0, dc0, db_part), with clusters of
+    ``cluster`` CTAs (0: ``walk_cluster``'s choice).  Arguments checked by
+    the caller (check_bwd_args)."""
     global LAUNCHES_BWD
     t, b, d4 = acts.shape
-    walk, _, rows = _kernels_bwd()
+    walk, _, rows, _, _ = _kernels_bwd()
+    w, mask, acts, cs, c0, dhs, dcs = (
+        _aligned(x) for x in (w, mask, acts, cs, c0, dhs, dcs))
     dx = torch.empty_like(acts)
     dh0 = torch.empty_like(h0)
     dc0 = torch.empty_like(c0)
@@ -193,7 +225,7 @@ def _launch_walk(w, mask, acts, cs, h0, c0, dhs, dcs):
                   cs.data_ptr(), c0.data_ptr(), dhs.data_ptr(),
                   dcs.data_ptr(), dx.data_ptr(), dh0.data_ptr(),
                   dc0.data_ptr(), db_part.data_ptr(), t, b, d4 // 4,
-                  _DTYPE_CODES[acts.dtype],
+                  _DTYPE_CODES[acts.dtype], cluster,
                   torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError('lstm_bwd kernel launch failed: CUDA error %d' % rc)
@@ -207,12 +239,14 @@ def _launch_dw(hs, h0, dx, db_part):
     t, b, d4 = dx.shape
     d = d4 // 4
     dev = dx.device
-    splits = _dw_splits(t, b, d, dev)
+    _, launch, _, _, tile_k = _kernels_bwd()
+    hs, h0 = _aligned(hs), _aligned(h0)
+    splits = _dw_splits(t, b, d, dev, tile_k)
     part = torch.empty((splits, d, d4), dtype=torch.float32, device=dev)
     dw = torch.empty((d, d4), dtype=torch.float32, device=dev)
     db = torch.empty((1, d4), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = _kernels_bwd()[1](
+        rc = launch(
             hs.data_ptr(), h0.data_ptr(), dx.data_ptr(), db_part.data_ptr(),
             part.data_ptr(), dw.data_ptr(), db.data_ptr(), t, b, d, splits,
             _DTYPE_CODES[dx.dtype], torch.cuda.current_stream().cuda_stream)

@@ -229,3 +229,204 @@ def test_fused_lstm_flag_rejects_a_typo():
     with pytest.raises(ValueError):
         flags.FLAGS.fused_lstm = 'off'
     assert flags.FLAGS.fused_lstm == 'auto'
+
+
+def test_misaligned_inputs_are_copied_for_the_kernels():
+    """The kernels copy rows in 16-byte pieces: the wrapper hands them an
+    aligned copy of a tensor whose data is not 16-byte aligned."""
+    t = torch.arange(9, dtype=torch.float32)[1:]
+    assert t.data_ptr() % 16 and lk._aligned(t).data_ptr() % 16 == 0
+    assert torch.equal(lk._aligned(t), t)
+    u = torch.zeros(8)
+    assert lk._aligned(u) is u
+
+
+# --- the backward kernels' arithmetic, emulated on the CPU -----------------
+
+CHIP_TOL = 1e-4   # chip_smoke.py's f32 kernel-vs-plain tolerance (LSTM_TOL)
+DW_TILE_K = 32    # the dW kernel's K tile: one fresh partial a tile
+ROWS = 4          # batch rows of one walk cluster
+_TF32_LOW = 0x1fff
+
+
+def _tf32(x):
+    """x (f32) rounded to TF32 by bit operations on its mantissa: to nearest
+    (ties away from zero, as cvt.rna), the 13 low bits cleared."""
+    bits = x.contiguous().view(torch.int32) + 0x1000
+    return (bits & ~_TF32_LOW).view(torch.float32)
+
+
+def _mma(c, a, b):
+    """One m16n8k8 MMA step, c + a @ b over one 8-wide k-step: the products
+    of TF32 operands summed exactly (in f64) with c, the sum rounded to f32
+    toward zero, as the tensor cores round it."""
+    exact = c.double() + a.double() @ b.double()
+    near = exact.float()
+    return torch.where(near.double().abs() > exact.abs(),
+                       torch.nextafter(near, torch.zeros_like(near)), near)
+
+
+def _mma3(c, a, b, terms):
+    """c + a @ b over one k-step as the kernel issues it: terms=3 is
+    small*big, big*small, then big*big (3xTF32), terms=1 big*big alone (bf16
+    operands, exact in TF32)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if terms == 3:
+        c = _mma(c, _tf32(a - a_big), b_big)
+        c = _mma(c, a_big, _tf32(b - b_big))
+    return _mma(c, a_big, b_big)
+
+
+def _emulate_dw(h_prev, dg16, splits, terms, chain=True):
+    """lstm_bwd_dw's dW = h_prev^T . dg16 ([K, D] and [K, 4D] f32): K in
+    ``splits`` slices of whole DW_TILE_K tiles; in a slice each tile's
+    k-steps run into a fresh partial added to the slice's f32 sum
+    (chain=False: every k-step of the slice into one accumulator); the
+    slices summed in order."""
+    k_total = h_prev.shape[0]
+    k_per = -(-k_total // splits)
+    k_per = -(-k_per // DW_TILE_K) * DW_TILE_K
+    a = h_prev.t().contiguous()
+    dw = torch.zeros(h_prev.shape[1], dg16.shape[1])
+    for s0 in range(0, k_per * splits, k_per):
+        acc = torch.zeros_like(dw)
+        for t0 in range(s0, min(s0 + k_per, k_total), DW_TILE_K):
+            part = torch.zeros_like(dw) if chain else acc
+            for k0 in range(t0, min(t0 + DW_TILE_K, k_total), 8):
+                part = _mma3(part, a[:, k0:k0 + 8], dg16[k0:k0 + 8], terms)
+            acc = acc + part if chain else part
+        dw = dw + acc
+    return dw
+
+
+def _dw_case(dtype, t=16, b=32, d=32):
+    """(h_prev [T*B, D], dg16 [T*B, 4D], plain dW) from the plain forward
+    and backward on seeded inputs, in f32."""
+    (_, _, _, _, _, _, _, _), targs = _cast(_inputs(b, t, d, seed=7), dtype)
+    xs, w, bias, h0, c0, mask, dhs, dcs = targs
+    hs, cs, acts = lk.lstm_fwd_plain(xs, w, bias, h0, c0, mask)
+    dx, dw, _, _, _ = lk.lstm_bwd_plain(w, mask, acts, cs, hs, h0, c0, dhs,
+                                        dcs)
+    h_prev = torch.cat([h0[None], hs[:-1]]).reshape(t * b, d).float()
+    return h_prev, dx.reshape(t * b, 4 * d).float(), dw
+
+
+@pytest.mark.parametrize('dtype,splits', [('float32', 1), ('float32', 4),
+                                          ('bfloat16', 4)])
+def test_dw_tensor_core_emulation_matches_plain(dtype, splits):
+    """The dW kernel's arithmetic (3xTF32 for f32, one TF32 MMA for bf16,
+    each MMA's sum rounded toward zero, a fresh partial a K tile, split-K
+    slices summed in order) agrees with lstm_bwd_plain's dW within
+    chip_smoke.py's f32 tolerance, scaled by max(1, max|plain|)."""
+    h_prev, dg16, want = _dw_case(dtype)
+    got = _emulate_dw(h_prev, dg16, splits, 3 if dtype == 'float32' else 1)
+    tol = CHIP_TOL * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+def test_dw_partials_keep_dw_from_drifting_toward_zero():
+    """The counterfactual of the fresh partials: one chain of MMAs over a
+    whole K slice (512 rows, 64 k-steps) lets the round-toward-zero sums
+    pull dW toward zero at least twice as far as a fresh partial a K tile
+    added with round-to-nearest."""
+    h_prev, dg16, _ = _dw_case('float32')
+    want = h_prev.double().t() @ dg16.double()
+
+    def pull(got):
+        return ((want - got.double()) * want.sign()).mean().item() / \
+            want.abs().mean().item()
+
+    parts = pull(_emulate_dw(h_prev, dg16, 1, 3))
+    chained = pull(_emulate_dw(h_prev, dg16, 1, 3, chain=False))
+    assert chained > 0 and chained >= 2 * abs(parts), (chained, parts)
+
+
+def _fma_chain(s, a, b):
+    """s + a * b with one rounding to f32, as fmaf (the product of two f32
+    values is exact in f64)."""
+    return (s.double() + a.double() * b.double()).float()
+
+
+def _emulate_walk(w, mask, acts, cs, h0, c0, dhs, dcs, n_ctas):
+    """lstm_bwd's walk as the kernel splits it: batch rows in clusters of
+    ROWS, each cluster's D units split over ``n_ctas`` ranks.  A rank computes
+    the dgates of its units, the dg16 of all ranks is gathered, and a rank
+    sums dg16 . W^T for its units as the kernel's lanes do: lane l walks n
+    = l, l + 32, ... with fmaf, then a butterfly sums the 32 lanes.  Returns (dx, db, dh0, dc0), db summed over each cluster's rows in order
+    and then over the clusters in order."""
+    t_steps, b, d4 = acts.shape
+    d = d4 // 4
+    units = d // n_ctas
+    wf = w.float()
+    keep = torch.zeros(b, d)
+    prod = torch.zeros(b, d)
+    dc = torch.zeros(b, d)
+    db_acc = torch.zeros(b, d4)
+    dx = torch.zeros(t_steps, b, d4, dtype=w.dtype)
+    lane = torch.arange(32)
+    for t in reversed(range(t_steps)):
+        dg16 = torch.zeros(b, d4)
+        for rank in range(n_ctas):
+            j = torch.arange(rank * units, (rank + 1) * units)
+            cols = torch.cat([g * d + j for g in range(4)])
+            a = acts[t][:, cols].float().reshape(b, 4, units)
+            cand, ig, fg, og = a.unbind(1)
+            c_prev = (c0 if t == 0 else cs[t - 1])[:, j].float()
+            c_new = fg * c_prev + ig * cand
+            tc = torch.tanh(c_new)
+            m = mask[t][:, None]
+            dh_tot = dhs[t][:, j].float() + (keep[:, j] + prod[:, j])
+            dc_tot = dcs[t][:, j] + dc[:, j]
+            dh_new = m * dh_tot
+            dc_new = m * dc_tot + dh_new * og * (1 - tc * tc)
+            dg = torch.cat([(dc_new * ig) * (1 - cand * cand),
+                            (dc_new * cand) * ig * (1 - ig),
+                            (dc_new * c_prev) * fg * (1 - fg),
+                            dh_new * tc * og * (1 - og)], dim=1)
+            dx[t][:, cols] = dg.to(w.dtype)
+            db_acc[:, cols] += dg
+            dg16[:, cols] = dg.to(w.dtype).float()
+            keep[:, j] = (1 - m) * dh_tot
+            dc[:, j] = (1 - m) * dc_tot + dc_new * fg
+        # every rank now holds all of dg16: its units' sums, lane by lane
+        for rank in range(n_ctas):
+            j = torch.arange(rank * units, (rank + 1) * units)
+            s = torch.zeros(32, b, units)
+            for n0 in range(0, d4, 32):
+                s = _fma_chain(s, dg16[:, n0 + lane].t()[:, :, None],
+                               wf[j][:, n0 + lane].t()[:, None, :])
+            for off in (16, 8, 4, 2, 1):
+                s = s + s[lane ^ off]
+            prod[:, j] = s[0]
+    pad = -b % ROWS
+    rows = torch.cat([db_acc, torch.zeros(pad, d4)]).reshape(-1, ROWS, d4)
+    db = torch.zeros(1, d4)
+    for cluster in rows:
+        part = cluster[0]
+        for r in range(1, ROWS):
+            part = part + cluster[r]
+        db = db + part
+    return dx, db, (keep + prod).to(h0.dtype), dc
+
+
+@pytest.mark.parametrize('n_ctas', [1, 2, 4])
+def test_walk_cluster_emulation_matches_plain(n_ctas):
+    """The walk as a cluster of ``n_ctas`` CTAs computes it agrees with
+    lstm_bwd_plain (ragged rows: a length-0 row, a full row, a batch of 10
+    that leaves the last cluster half empty) within chip_smoke.py's f32
+    tolerance, and is bitwise the same at every cluster size: each (row,
+    unit) sum runs in the same order whichever rank owns the unit."""
+    b, t, d = 10, 12, 32
+    xs, w, bias, h0, c0, mask, dhs, dcs = _torch(*_inputs(b, t, d, seed=8))
+    hs, cs, acts = lk.lstm_fwd_plain(xs, w, bias, h0, c0, mask)
+    args = (w, mask, acts, cs, h0, c0, dhs, dcs)
+    got = _emulate_walk(*args, n_ctas)
+    want = lk.lstm_bwd_plain(w, mask, acts, cs, hs, h0, c0, dhs, dcs)
+    for name, g, wnt in zip(('dx', 'db', 'dh0', 'dc0'), got,
+                            (want[0], want[2], want[3], want[4])):
+        tol = CHIP_TOL * max(1.0, wnt.abs().max().item())
+        assert (g - wnt).abs().max().item() <= tol, name
+    assert torch.all(got[0][:, 0] == 0)  # the length-0 row
+    if n_ctas > 1:
+        for g, one in zip(got, _emulate_walk(*args, 1)):
+            assert torch.equal(g, one)
