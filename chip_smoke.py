@@ -14,12 +14,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``paddle_tpu_torch/csrc`` (one ``nvcc`` each, all started together),
    prints ptxas's register and spill lines, counts the HMMA (tensor-core)
    instructions in the SASS (``cuobjdump -sass``) of the flash-attention
-   forward library and of the LSTM backward library (its dW kernel) and
-   fails if either has none, if an f32 instantiation of the flash forward
-   spills, or if an f32 instantiation of the LSTM walk spills (every walk
-   and dW instantiation's registers and spills printed);
+   forward and backward libraries and of the LSTM backward library (its dW
+   kernel) and fails if one has none, if an f32 instantiation of the flash
+   forward, of the flash dQ or dK/dV kernel, or of the LSTM walk spills
+   (every flash backward, walk and dW instantiation's registers and spills
+   printed);
 3. kernel vs plain: the flash-attention forward kernel, then its dQ and
-   dK/dV kernels, against their plain PyTorch versions on the card, over
+   dK/dV kernels (and the delta the dQ kernel writes, against
+   ``bwd_delta``), against their plain PyTorch versions on the card, over
    causal/non-causal, with/without lengths (0, partial, full), self and cross
    attention, a ragged Lq, every supported head_dim, f32 and bf16; then the
    LSTM forward kernel (with and without the saved activations), its
@@ -207,6 +209,8 @@ def phase_build():
                                       else ' (previous build reused)'))
         if name == 'flash_attention_fwd':
             check_fwd_build(path, log)
+        elif name == 'flash_attention_bwd':
+            check_flash_bwd_build(path, log)
         elif name == 'lstm_bwd':
             check_bwd_build(path, log)
     print('build: %d libraries %.1f s' % (len(LIBRARIES),
@@ -299,6 +303,32 @@ def check_fwd_build(path, log):
           % f32)
 
 
+def check_flash_bwd_build(path, log):
+    """The flash backward library runs on the tensor cores (HMMA in its
+    SASS), and none of the 8 f32 instantiations of its dQ and dK/dV kernels
+    spills; prints every instantiation's registers and spills."""
+    import re
+    _check_hmma('flash_attention_bwd', path, 'the dQ and dK/dV kernels')
+    if log is None:
+        print('build: flash_attention_bwd spills: not checked (previous '
+              'build reused)')
+        return
+    f32 = []
+    for fn, (regs, spill) in sorted(_ptxas_table(log).items()):
+        m = re.search(r'(dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E', fn)
+        if not m:
+            continue
+        dtype = 'f32' if m.group(2) == 'f' else 'bf16'
+        if dtype == 'f32':
+            f32.append(spill)
+        print('build: flash_attention_bwd %-3s %-4s D=%-3s %3d registers, %d '
+              'spill bytes' % (m.group(1), dtype, m.group(3), regs, spill),
+              flush=True)
+    check(len(f32) == 8 and not any(f32),
+          'flash_attention_bwd: an f32 instantiation spills or is missing: '
+          '%s' % f32)
+
+
 def _qkv(b, lq, lk, h, d, dtype, seed):
     g = torch.Generator(device='cuda')
     g.manual_seed(seed)
@@ -353,7 +383,8 @@ def phase_bwd_vs_plain():
     same (q, k, v, O, LSE, dO), over the forward's grid of cases."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     b, h = 4, 8
-    worst = {(dt, name): 0.0 for dt in TOL for name in ('dq', 'dk', 'dv')}
+    worst = {(dt, name): 0.0 for dt in TOL
+             for name in ('dq', 'dk', 'dv', 'delta')}
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for d in fa.SUPPORTED_HEAD_DIMS:
@@ -373,12 +404,19 @@ def phase_bwd_vs_plain():
                         want = fa.flash_attention_bwd_plain(
                             q, k, v, o, lse, do, causal=causal,
                             seq_lengths=lens)
+                        # the delta that the dQ kernel writes for dK/dV
+                        delta = fa._launch_dq(
+                            q, k, v, o, do, lse, fa._lengths(lens, b, q.device),
+                            causal, d**-0.5)[1]
+                        got += (delta, )
+                        want += (fa.bwd_delta(o, do), )
                         torch.cuda.synchronize()
                         case = ('%s D=%d Lq=%d Lk=%d causal=%s lens=%s' %
                                 (str(dtype)[6:], d, lq, lk, causal,
                                  with_lens))
                         errs = []
-                        for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+                        for name, g, w in zip(('dq', 'dk', 'dv', 'delta'),
+                                              got, want):
                             scale = max(1.0, w.float().abs().max().item())
                             err = (g.float() - w.float()).abs().max().item()
                             check(err <= TOL[dtype] * scale,
@@ -389,12 +427,13 @@ def phase_bwd_vs_plain():
                             errs.append(err)
                         n += 1
                         print('bwd vs plain: %-52s max|ddQ|=%.3g max|ddK|=%.3g'
-                              ' max|ddV|=%.3g' % ((case, ) + tuple(errs)))
+                              ' max|ddV|=%.3g max|ddelta|=%.3g' %
+                              ((case, ) + tuple(errs)))
     for dtype in TOL:
         print('bwd vs plain: %s worst max|ddQ| %.3g, max|ddK| %.3g, max|ddV| '
-              '%.3g (tol %g * max(1, max|plain|))' %
+              '%.3g, max|ddelta| %.3g (tol %g * max(1, max|plain|))' %
               ((str(dtype)[6:], ) +
-               tuple(worst[dtype, g] for g in ('dq', 'dk', 'dv')) +
+               tuple(worst[dtype, g] for g in ('dq', 'dk', 'dv', 'delta')) +
                (TOL[dtype], )))
     print('bwd vs plain: %d cases agree' % n, flush=True)
     return {'dq': worst[torch.float32, 'dq'],
@@ -1116,13 +1155,12 @@ def phase_times(card, launches, fwd_err, bwd_err):
         err['dkv'] = max(err['dkv'], (dk - pdk).abs().max().item(),
                          (dv - pdv).abs().max().item())
     o, lse = fa.flash_attention_fwd(q, k, v)
-    delta = fa.bwd_delta(o, do)
+    delta = fa._launch_dq(q, k, v, o, do, lse, None, False, scale)[1]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     calls = {
         'fwd': lambda: fa.flash_attention_fwd(q, k, v),
-        'dq': lambda: fa._launch_dq(q, k, v, do, lse, delta, None, False,
-                                    scale),
+        'dq': lambda: fa._launch_dq(q, k, v, o, do, lse, None, False, scale),
         'dkv': lambda: fa._launch_dkv(q, k, v, do, lse, delta, None, False,
                                       scale),
     }
@@ -1130,7 +1168,6 @@ def phase_times(card, launches, fwd_err, bwd_err):
     # the same calls' device time alone, without the wrappers' host work
     device_ms = {key: _kernel_device_ms(fn, key)
                  for key, fn in calls.items()}
-    delta_ms = _time_ms(lambda: fa.bwd_delta(o, do))
     plain_ms = {'fwd': _time_ms(lambda: fa.flash_attention_plain(q, k, v))}
     # the plain backward computes dQ, dK and dV in one call: both backward
     # rows carry its time
@@ -1159,9 +1196,10 @@ def phase_times(card, launches, fwd_err, bwd_err):
     rows = b * seq * h       # one [B, L, H] f32 tensor (LSE, delta)
     pairs = b * h * seq * seq * d
     work = {
-        'fwd': (4.0 * pairs, 4 * (4 * elems + rows)),        # q k v -> O LSE
-        'dq': (6.0 * pairs, 4 * (5 * elems + 2 * rows)),     # +dO LSE delta
-        'dkv': (8.0 * pairs, 4 * (6 * elems + 2 * rows)),    # -> dK dV
+        'fwd': (4.0 * pairs, 4 * (4 * elems + rows)),  # q k v -> O LSE
+        # q k v O dO LSE -> dQ delta (delta's products, 2 FLOP an element)
+        'dq': (6.0 * pairs + 2.0 * elems, 4 * (6 * elems + 2 * rows)),
+        'dkv': (8.0 * pairs, 4 * (6 * elems + 2 * rows)),  # -> dK dV
     }
     sources = {
         'fwd': ('flash_attention_fwd', 'flash_attention_fwd.cu', 37),
@@ -1211,13 +1249,16 @@ def phase_times(card, launches, fwd_err, bwd_err):
           '(device %s), SDPA bf16 %.4f ms (device %s) [%s]' %
           (bf16[0][0], _fmt_ms(bf16[0][1]), bf16[1][0], _fmt_ms(bf16[1][1]),
            card), flush=True)
-    print('times: backward at the slice shape: dQ %.4f + dK/dV %.4f + delta '
-          '%.4f = %.4f ms against SDPA backward (dQ, dK, dV in one call) '
-          '%.4f ms; device time dQ %s + dK/dV %s against SDPA backward %s; '
-          'plain backward %.4f ms [%s]' %
-          (ms['dq'], ms['dkv'], delta_ms, ms['dq'] + ms['dkv'] + delta_ms,
-           library_ms['dq'], _fmt_ms(device_ms['dq']),
-           _fmt_ms(device_ms['dkv']), _fmt_ms(library_device_ms['dq']),
+    bwd_device = device_ms['dq'] + device_ms['dkv']
+    print('times: backward at the slice shape, device time: dQ with delta %s '
+          '+ dK/dV %s = %s against SDPA backward (dQ, dK, dV in one call) %s, '
+          '%s; events: dQ %.4f + dK/dV %.4f = %.4f ms against SDPA backward '
+          '%.4f ms; plain backward %.4f ms [%s]' %
+          (_fmt_ms(device_ms['dq']), _fmt_ms(device_ms['dkv']),
+           _fmt_ms(bwd_device), _fmt_ms(library_device_ms['dq']),
+           'not measured' if library_device_ms['dq'] is None else
+           '%.2fx' % (bwd_device / library_device_ms['dq']),
+           ms['dq'], ms['dkv'], ms['dq'] + ms['dkv'], library_ms['dq'],
            plain_ms['dq'], card), flush=True)
     return kernels
 

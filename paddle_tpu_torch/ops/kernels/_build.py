@@ -3,8 +3,9 @@
 Library ``name`` is one ``nvcc`` call over ``paddle_tpu_torch/csrc/<name>.cu``
 (a plain C interface, no PyTorch headers), compiled for ``sm_90a`` into
 ``build/paddle_tpu_torch/`` beside the package, at first use.  The file name
-carries a hash of the source and flags, so an edited source builds anew and
-an unchanged one is loaded from the previous build.  Libraries are bound with
+carries a hash of the source, the headers beside it (``csrc/*.cuh``) and the
+flags, so an edited source or header builds anew and an unchanged one is
+loaded from the previous build.  Libraries are bound with
 ``ctypes``.  Nothing here runs at import time.
 """
 
@@ -53,6 +54,8 @@ def build(name):
     src = CSRC / (name + '.cu')
     digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     digest.update(src.read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        digest.update(header.read_bytes())
     out = BUILD_DIR / ('lib%s-%s.so' % (name, digest.hexdigest()[:16]))
     if out.exists():
         return out, None

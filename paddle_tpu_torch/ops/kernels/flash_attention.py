@@ -9,14 +9,15 @@ replace the three Pallas kernels:
   returns O and the per-row f32 log-sum-exp; both products run on the
   tensor cores (``mma.sync`` in 3xTF32, close to f32 accuracy);
 - ``csrc/flash_attention_bwd.cu`` ``flash_attention_dq`` (``_dq_kernel``):
-  one CTA per Q tile recomputes P = exp(S - LSE) over the K columns and
-  writes dQ;
+  one CTA per Q tile computes delta = rowsum(dO * O) for its rows, writes
+  it out, recomputes P = exp(S - LSE) over the K columns and writes dQ;
 - ``csrc/flash_attention_bwd.cu`` ``flash_attention_dkv`` (``_dkv_kernel``):
-  one CTA per K tile walks the Q rows that can see it and writes dK, dV.
+  one CTA per K tile walks the Q rows that can see it, with the delta the
+  dQ kernel wrote, and writes dK, dV.
 
-delta = rowsum(dO * O), which both backward kernels read, is computed with
-torch ops before they launch, as the JAX package computes it with jnp ops
-outside its kernels.
+All their products run on the tensor cores in 3xTF32, as the forward's.
+The JAX package computes delta with jnp ops outside its kernels;
+``bwd_delta`` does so for the plain version.
 
 ``flash_attention`` goes through ``FlashAttention`` (an autograd.Function in
 the ``setup_context`` form, so that ``torch.func.vjp`` -- the generic grad of
@@ -80,7 +81,7 @@ def _bwd_kernels():
     global _bwd_fns
     if _bwd_fns is None:
         lib = _build.load('flash_attention_bwd')
-        _bwd_fns = (_bind(lib.flash_attention_dq, 8),
+        _bwd_fns = (_bind(lib.flash_attention_dq, 9),
                     _bind(lib.flash_attention_dkv, 9))
     return _bwd_fns
 
@@ -148,10 +149,10 @@ def check_bwd_args(q, k, v, o, lse, do):
         if not t.is_contiguous():
             raise ValueError('flash_attention backward kernels: %s must be '
                              'contiguous [B, L, H*D] rows' % name)
-        if t.data_ptr() % (4 * t.element_size()):
+        if t.data_ptr() % 16:
             raise ValueError('flash_attention backward kernels: %s data must '
-                             'be %d-byte aligned' % (name,
-                                                     4 * t.element_size()))
+                             'be 16-byte aligned for the kernels\' 16-byte '
+                             'copies' % name)
         if t.device != q.device:
             raise ValueError('flash_attention backward kernels: %s is on %s, '
                              'q on %s' % (name, t.device, q.device))
@@ -186,27 +187,32 @@ def _launch(q, k, v, causal, scale, lens):
     return o, lse
 
 
-def _launch_dq(q, k, v, do, lse, delta, lens, causal, scale):
-    """dQ kernel: q, k, v, do checked by the caller (check_bwd_args)."""
+def _launch_dq(q, k, v, o, do, lse, lens, causal, scale):
+    """dQ kernel: (dQ, delta), delta = rowsum(dO * O) f32 [B, Lq, H] as the
+    kernel computed it for the dK/dV kernel.  Inputs checked by the caller
+    (check_bwd_args)."""
     global LAUNCHES_DQ
     b, lq, h, d = q.shape
     dq = torch.empty_like(q)
+    delta = torch.empty((b, lq, h), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _bwd_kernels()[0](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
-            None if lens is None else lens.data_ptr(), dq.data_ptr(), b, lq,
-            k.shape[1], h, d, scale, int(causal), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(),
+            None if lens is None else lens.data_ptr(), dq.data_ptr(),
+            delta.data_ptr(), b, lq, k.shape[1], h, d, scale, int(causal),
+            _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError('flash_attention_dq kernel launch failed: CUDA '
                            'error %d' % rc)
     LAUNCHES_DQ += 1
-    return dq
+    return dq, delta
 
 
 def _launch_dkv(q, k, v, do, lse, delta, lens, causal, scale):
-    """dK/dV kernel: inputs checked by the caller (check_bwd_args)."""
+    """dK/dV kernel, with the delta that ``_launch_dq`` returned (launched
+    after it on the same stream); inputs checked by the caller
+    (check_bwd_args)."""
     global LAUNCHES_DKV
     b, lq, h, d = q.shape
     dk = torch.empty_like(k)
@@ -226,7 +232,8 @@ def _launch_dkv(q, k, v, do, lse, delta, lens, causal, scale):
 
 
 def bwd_delta(o, do):
-    """delta[b, i, h] = rowsum(dO * O) per head, f32 [B, Lq, H]."""
+    """delta[b, i, h] = rowsum(dO * O) per head, f32 [B, Lq, H]: the plain
+    version's (the dQ kernel computes its own)."""
     return (do.float() * o.float()).sum(-1).contiguous()
 
 
@@ -234,8 +241,7 @@ def _launch_bwd(q, k, v, o, lse, do, causal, scale, lens):
     check_bwd_args(q, k, v, o, lse, do)
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    delta = bwd_delta(o, do)
-    dq = _launch_dq(q, k, v, do, lse, delta, lens, causal, scale)
+    dq, delta = _launch_dq(q, k, v, o, do, lse, lens, causal, scale)
     dk, dv = _launch_dkv(q, k, v, do, lse, delta, lens, causal, scale)
     return dq, dk, dv
 
