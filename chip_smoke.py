@@ -16,9 +16,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    instructions in the SASS (``cuobjdump -sass``) of the flash-attention
    forward and backward libraries and of the LSTM backward library (its dW
    kernel) and fails if one has none, if an f32 instantiation of the flash
-   forward, of the flash dQ or dK/dV kernel, or of the LSTM walk spills
-   (every flash backward, walk and dW instantiation's registers and spills
-   printed);
+   forward, of the flash dQ or dK/dV kernel, or of the LSTM walk spills,
+   or if any instantiation of the LSTM forward spills (every flash
+   backward, LSTM forward, walk and dW instantiation's registers and
+   spills printed);
 3. kernel vs plain: the flash-attention forward kernel, then its dQ and
    dK/dV kernels (and the delta the dQ kernel writes, against
    ``bwd_delta``), against their plain PyTorch versions on the card, over
@@ -27,9 +28,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    LSTM forward kernel (with and without the saved activations), its
    backward walk and its dW kernel against theirs, over f32/bf16, D 32, 64,
    128, 256, 512, B 128 and 13, T 64 and 1, full and ragged lengths (0 and
-   T among them), nonzero h0/c0, each case with the walk's cluster size;
-   then the walk at every cluster size against the plain version and,
-   bitwise, against the size the library picks;
+   T among them), nonzero h0/c0, each case with the forward's and the
+   walk's cluster sizes; then the forward and the walk at every cluster
+   size their plans take against the plain versions and, bitwise, against
+   the size the library picks;
 4. Transformer serving: Transformer-base at full width (6+6 layers, 8 heads,
    d_model 512, d_ff 2048, vocab 30000, seq 256; random weights from a seed)
    serves four requests of 16 x 256 tokens through ``Executor.run`` on
@@ -57,8 +59,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``torch.profiler`` (``device_ms``, ``library_device_ms``; the names of
    the kernels SDPA ran are printed), each kernel's bound (operations at
    the 3xTF32 tensor-core rate, bytes at the HBM rate; the same with the
-   f32 FMA rate is printed beside it), the LSTM walk's device time at each
-   cluster size and at bf16, and the ``lstm`` op's scan and kernel paths,
+   f32 FMA rate is printed beside it), the LSTM forward's and walk's device
+   time at each cluster size, the walk's at bf16, and the ``lstm`` op's scan
+   and kernel paths,
    printed as one ``{"kernels": [...]}`` JSON line;
 9. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -146,7 +149,9 @@ LSTM_CPU_TRAIN_ROWS = 16  # rows of the training step compared with the CPU
 # value (2^-8 relative) and that difference travels through the remaining
 # steps; dW sums bf16 dgates and h in f32.
 LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-LSTM_WIDTHS = (32, 64, 128, 256, 512)  # the kernel-vs-plain sweep's D
+# the kernel-vs-plain sweep's D: powers of two, and two widths at which no
+# cluster holds all of W and 8 CTAs are refused
+LSTM_WIDTHS = (32, 64, 128, 256, 288, 480, 512)
 # stacked-LSTM prediction, card vs CPU: 3 layers x 64 dependent steps of f32
 # in another summation order on each side (the card's LSTM kernel against
 # the CPU's scan path), then a 2-class softmax
@@ -211,6 +216,8 @@ def phase_build():
             check_fwd_build(path, log)
         elif name == 'flash_attention_bwd':
             check_flash_bwd_build(path, log)
+        elif name == 'lstm_fwd':
+            check_lstm_fwd_build(log)
         elif name == 'lstm_bwd':
             check_bwd_build(path, log)
     print('build: %d libraries %.1f s' % (len(LIBRARIES),
@@ -281,6 +288,25 @@ def check_bwd_build(path, log):
     check(len(walk_f32) == 3 and not any(walk_f32),
           'lstm_bwd: an f32 walk instantiation spills or is missing: %s' %
           walk_f32)
+
+
+def check_lstm_fwd_build(log):
+    """The LSTM forward library: no instantiation of its kernel (f32, bf16)
+    spills; prints each one's registers and spills."""
+    import re
+    if log is None:
+        print('build: lstm_fwd spills: not checked (previous build reused)')
+        return
+    found = {}
+    for fn, (regs, spill) in sorted(_ptxas_table(log).items()):
+        m = re.search(r'lstm_fwd_kernelI(f|13__nv_bfloat16)E', fn)
+        if m:
+            dtype = 'f32' if m.group(1) == 'f' else 'bf16'
+            found[dtype] = spill
+            print('build: lstm_fwd %-4s %3d registers, %d spill bytes' %
+                  (dtype, regs, spill), flush=True)
+    check(sorted(found) == ['bf16', 'f32'] and not any(found.values()),
+          'lstm_fwd: an instantiation spills or is missing: %s' % found)
 
 
 def check_fwd_build(path, log):
@@ -490,9 +516,10 @@ def phase_lstm_vs_plain():
                         want_b = lk.lstm_bwd_plain(w, mask, pacts, pcs, phs,
                                                    h0, c0, dhs, dcs)
                         torch.cuda.synchronize()
-                        case = '%s D=%d B=%d T=%d %s N=%d' % (
+                        case = '%s D=%d B=%d T=%d %s N=%d/%d' % (
                             str(dtype)[6:], d, b, t,
                             'ragged' if ragged else 'full',
+                            lk.fwd_cluster(b, d, dtype),
                             lk.walk_cluster(b, d, dtype))
                         pairs = [('lstm_fwd', 'hs', bare[0], phs),
                                  ('lstm_fwd', 'cs', bare[1], pcs),
@@ -525,23 +552,85 @@ def phase_lstm_vs_plain():
                tuple(worst[dtype, k] for k in ('lstm_fwd', 'lstm_bwd',
                                                'lstm_dw')) +
                (LSTM_TOL[dtype], )))
-    print('lstm vs plain: %d cases agree (N: the walk\'s CTAs a cluster)'
-          % n, flush=True)
+    print('lstm vs plain: %d cases agree (N: the forward\'s / the walk\'s CTAs '
+          'a cluster)' % n, flush=True)
+    check_cluster_choices()
+    check_fwd_clusters()
     check_walk_clusters()
     return {k: worst[torch.float32, k]
             for k in ('lstm_fwd', 'lstm_bwd', 'lstm_dw')}
 
 
-def check_walk_clusters():
-    """The walk at every cluster size that divides D into at most 128 units
-    a CTA, against the plain version (dx, dh0, dc0, and db as the sum of the
-    clusters' rows) within LSTM_TOL, and bitwise against the size the library
-    picks: each (row, unit) sum runs in the same order whichever CTA owns
+def check_cluster_choices():
+    """At every width the kernels take, f32 and bf16, B 128 and 13: the
+    cluster size each LSTM library picks is one its plan takes."""
+    from paddle_tpu_torch.ops.kernels import lstm as lk
+    for dtype in (torch.float32, torch.bfloat16):
+        picks = []
+        for d in range(32, 513, 32):
+            fwd_sizes = lk.fwd_cluster_sizes(d, dtype)
+            walk_sizes = lk.walk_cluster_sizes(d, dtype)
+            for b in (LSTM_BATCH, 13):
+                nf = lk.fwd_cluster(b, d, dtype)
+                nw = lk.walk_cluster(b, d, dtype)
+                check(nf in fwd_sizes and nw in walk_sizes,
+                      'lstm: %s D=%d B=%d: the libraries pick clusters of '
+                      '%d (forward; its plan takes %s) and %d (walk; %s)' %
+                      (str(dtype)[6:], d, b, nf, fwd_sizes, nw, walk_sizes))
+                picks.append('%d/%d' % (nf, nw))
+            picks[-2:] = ['%d:%s,%s' % (d, picks[-2], picks[-1])]
+        print('lstm clusters: %s, D:forward/walk N at B=%d,13: %s; each a '
+              'size its plan takes' % (str(dtype)[6:], LSTM_BATCH,
+                                       ' '.join(picks)), flush=True)
+
+
+def check_fwd_clusters():
+    """The forward at every cluster size its plan takes, against the plain
+    version (hs, cs, acts) within LSTM_TOL, and bitwise against the size the
+    library picks: each sum over k runs in the same order whichever CTA owns
     the unit."""
     from paddle_tpu_torch.ops.kernels import lstm as lk
     for dtype in (torch.float32, torch.bfloat16):
+        for d in (32, 128, 288, 480, 512):
+            for b in (LSTM_BATCH, 13):
+                xs, w, bias, h0, c0, mask, _, _ = _lstm_inputs(
+                    dtype, b, LSTM_MAX_LEN, d, True, SEED + 4000 + d + b)
+                args = (xs, w, bias, h0, c0, mask, True)
+                want = lk.lstm_fwd_plain(*args)
+                picked = lk._launch_fwd(*args)
+                same = []
+                for n in lk.fwd_cluster_sizes(d, dtype):
+                    got = lk._launch_fwd(*args, cluster=n)
+                    torch.cuda.synchronize()
+                    for name, g, w_ in zip(('hs', 'cs', 'acts'), got, want):
+                        scale = max(1.0, w_.float().abs().max().item())
+                        err = (g.float() - w_.float()).abs().max().item()
+                        check(err <= LSTM_TOL[dtype] * scale,
+                              'lstm forward: %s D=%d B=%d with clusters of %d '
+                              'CTAs: max|d%s| %g > %g * %g' %
+                              (str(dtype)[6:], d, b, n, name, err,
+                               LSTM_TOL[dtype], scale))
+                    check(all(torch.equal(g, p_) for g, p_ in zip(got, picked)),
+                          'lstm forward: %s D=%d B=%d with clusters of %d CTAs '
+                          'is not bitwise the picked size\'s' %
+                          (str(dtype)[6:], d, b, n))
+                    same.append(str(n))
+                print('lstm forward: %s D=%d B=%d T=%d ragged: clusters of %s '
+                      'CTAs agree with plain and bitwise with the picked size, '
+                      '%d' % (str(dtype)[6:], d, b, LSTM_MAX_LEN,
+                              ', '.join(same), lk.fwd_cluster(b, d, dtype)),
+                      flush=True)
+
+
+def check_walk_clusters():
+    """The walk at every cluster size its plan takes, against the plain
+    version (dx, dh0, dc0, and db as the sum of the clusters' rows) within
+    LSTM_TOL, and bitwise against the size the library picks: each (row,
+    unit) sum runs in the same order whichever CTA owns the unit."""
+    from paddle_tpu_torch.ops.kernels import lstm as lk
+    for dtype in (torch.float32, torch.bfloat16):
         for d, b in ((128, LSTM_BATCH), (128, 13), (32, LSTM_BATCH),
-                     (512, LSTM_BATCH)):
+                     (480, LSTM_BATCH), (512, LSTM_BATCH)):
             xs, w, bias, h0, c0, mask, dhs, dcs = _lstm_inputs(
                 dtype, b, LSTM_MAX_LEN, d, True, SEED + 3000 + d + b)
             hs, cs, acts = lk.lstm_fwd_plain(xs, w, bias, h0, c0, mask)
@@ -550,8 +639,7 @@ def check_walk_clusters():
             want = (want[0], want[3], want[4], want[2][0])
             picked = lk._launch_walk(*args)
             same = []
-            for n in [n for n in (1, 2, 4, 8)
-                      if d // n <= 128 and d // n * dtype.itemsize % 16 == 0]:
+            for n in lk.walk_cluster_sizes(d, dtype):
                 got = lk._launch_walk(*args, cluster=n)
                 torch.cuda.synchronize()
                 got = got[:3] + (got[3].sum(0), )
@@ -1322,6 +1410,17 @@ def phase_lstm_times(card, launches, err):
                                        for n, v in by_cluster.items()),
            bf16_ms, _fmt_ms(bf16_device[0]), _fmt_ms(bf16_device[1]),
            lk.walk_cluster(b, d, torch.bfloat16), card), flush=True)
+    # the forward's device time at each cluster size its plan takes
+    fwd_n = lk.fwd_cluster(b, d, torch.float32)
+    fwd_by_cluster = {n: _kernel_device_ms(
+        lambda: lk._launch_fwd(xs, w, bias, h0, c0, mask, False, cluster=n),
+        'lstm_fwd N=%d' % n)
+        for n in lk.fwd_cluster_sizes(d, torch.float32)}
+    print('times: lstm_fwd device time by cluster size (f32 B=%d T=%d D=%d, '
+          'no activations saved; the library picks %d): %s [%s]' %
+          (b, t, d, fwd_n, ', '.join('N=%d %s' % (n, _fmt_ms(v))
+                                     for n, v in fwd_by_cluster.items()),
+           card), flush=True)
     plain_ms = {'lstm_fwd': _time_ms(
         lambda: lk.lstm_fwd_plain(xs, w, bias, h0, c0, mask,
                                   save_acts=False), 2, 10)}
@@ -1428,16 +1527,21 @@ def phase_lstm_times(card, launches, err):
         }
         if key == 'lstm_fwd':
             entry['ms_with_acts'] = fwd_acts_ms
+            entry['cluster'] = fwd_n
+            entry['device_ms_by_cluster'] = fwd_by_cluster
         if key == 'lstm_bwd':
             entry['cluster'] = cluster
             entry['device_ms_by_cluster'] = by_cluster
             entry['bf16_ms'] = bf16_ms
             entry['bf16_device_ms'] = bf16_device[0]
         kernels.append(entry)
-    print('times: lstm_fwd with the activations saved %.4f ms; backward walk '
-          '+ dW %.4f ms against cuDNN backward %.4f ms (includes its input '
-          'projection\'s gradient); op scan path / kernel path %.1fx [%s]' %
-          (fwd_acts_ms, ms['lstm_bwd'] + ms['lstm_dw'],
+    print('times: lstm_fwd with the activations saved %.4f ms; forward '
+          'device time / cuDNN forward\'s %.2fx; backward walk + dW %.4f ms '
+          'against cuDNN backward %.4f ms (includes its input projection\'s '
+          'gradient); op scan path / kernel path %.1fx [%s]' %
+          (fwd_acts_ms, device_ms['lstm_fwd'] /
+           library_device_ms['lstm_fwd'] if library_device_ms['lstm_fwd']
+           else float('nan'), ms['lstm_bwd'] + ms['lstm_dw'],
            library_ms['lstm_bwd'],
            statistics.median(op_ms['never']) /
            statistics.median(op_ms['auto']), card), flush=True)

@@ -104,9 +104,10 @@
 // (16-byte copies of a CTA's units).  Pointers 16-byte aligned.
 //
 // Plain C interface, bound with ctypes.  Launches on the caller's stream and
-// returns cudaGetLastError().  The conversion helpers repeat lstm_fwd.cu's,
-// and the TF32 split and MMA helpers flash_attention_fwd.cu's: each source
-// builds into its own library, keyed by its own hash.
+// returns cudaGetLastError().  The copy, cluster-address, st.async and
+// mbarrier helpers are csrc/cluster_sync.cuh's, shared with lstm_fwd.cu; the
+// conversion helpers repeat lstm_fwd.cu's, and the TF32 split and MMA
+// helpers tf32_mma.cuh's: each source builds into its own library.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -117,6 +118,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "cluster_sync.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -124,8 +127,6 @@ namespace {
 constexpr int kRows = 4;  // batch rows one cluster owns (as lstm_fwd.cu)
 constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kMaxSmem = 232448;
-constexpr int kMaxCluster = 8;  // the portable cluster size
 
 // dW tiles: BM x BN outputs, BK deep, 4 warps of 32 x 32
 constexpr int BM = 64, BN = 64, BK = 32;
@@ -154,87 +155,6 @@ struct Cvt<__nv_bfloat16> {
     return __bfloat162float(__float2bfloat16(v));
   }
 };
-
-// global to shared (address d) copies; a copy that is not valid fills its
-// bytes with zeros and reads nothing
-__device__ __forceinline__ void cp_async4(uint32_t d, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t d, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  cp_async16(static_cast<uint32_t>(__cvta_generic_to_shared(dst)), src, valid);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// the shared::cluster address of this CTA's shared address a in CTA rank
-__device__ __forceinline__ uint32_t map_rank(uint32_t a, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out)
-               : "r"(a), "r"(rank));
-  return out;
-}
-
-// 16 bytes into a cluster CTA's shared memory; their arrival completes 16
-// bytes of the transaction count of that CTA's mbarrier at bar
-__device__ __forceinline__ void st_async16(uint32_t dst, float4 v,
-                                           uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
-      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival on bar that also expects `bytes` more of transactions
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// until the phase of bar with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], "
-      "%1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
 
 // f32 words of one step's staged inputs for a CTA of `units` units: acts
 // [kRows][4][units] and dhs [kRows][units] in T, c_prev and dcs
@@ -780,6 +700,14 @@ bool plan_walk(int d, int n, WalkPlan* plan) {
   return true;
 }
 
+// The plan's verdict on clusters of n CTAs (cluster_sync.cuh)
+template <typename T>
+int fit_walk(int d, int n) {
+  WalkPlan plan;
+  if (!plan_walk<T>(d, n, &plan)) return kRefused;
+  return plan.resident < plan.units ? kStreams : kHolds;
+}
+
 template <typename T>
 using WalkKernel = void (*)(const T*, const float*, const T*, const float*,
                             const float*, const T*, const float*, T*, T*,
@@ -795,82 +723,34 @@ WalkKernel<T> walk_kernel(int uw) {
   }
 }
 
-// The launch of the walk with clusters of n CTAs: its kernel and its
-// configuration (grid, block, shared memory, cluster attribute).
 template <typename T>
-struct WalkLaunch {
-  WalkKernel<T> kernel;
-  WalkPlan plan;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg;
-};
+using WalkLaunch = ClusterLaunch<WalkKernel<T>, WalkPlan>;
 
+// The launch of the walk with clusters of n CTAs: its kernel, plan and
+// configuration.
 template <typename T>
 cudaError_t walk_launch(int batch, int d, int n, cudaStream_t stream,
                         WalkLaunch<T>* wl) {
   if (!plan_walk<T>(d, n, &wl->plan)) return cudaErrorInvalidValue;
+  static std::atomic<uint64_t> asked[9];  // one for each instantiation
   wl->kernel = walk_kernel<T>(wl->plan.uw);
-  // above 48 KB a CTA's dynamic shared memory has to be asked for, once
-  // for each device (one bit each) and instantiation
-  static std::atomic<uint64_t> asked[9];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!(asked[wl->plan.uw].load(std::memory_order_relaxed) & bit)) {
-    err = cudaFuncSetAttribute(
-        wl->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
-    asked[wl->plan.uw].fetch_or(bit, std::memory_order_relaxed);
-  }
-  wl->attr.id = cudaLaunchAttributeClusterDimension;
-  wl->attr.val.clusterDim.x = (unsigned)n;
-  wl->attr.val.clusterDim.y = 1;
-  wl->attr.val.clusterDim.z = 1;
-  wl->cfg = cudaLaunchConfig_t{};
-  wl->cfg.gridDim = dim3((unsigned)((batch + kRows - 1) / kRows * n));
-  wl->cfg.blockDim = dim3((unsigned)wl->plan.threads);
-  wl->cfg.dynamicSmemBytes = wl->plan.smem;
-  wl->cfg.stream = stream;
-  wl->cfg.attrs = &wl->attr;
-  wl->cfg.numAttrs = 1;
-  return cudaSuccess;
+  return wl->configure((batch + kRows - 1) / kRows, n, stream,
+                       &asked[wl->plan.uw]);
 }
 
-// clusters of n CTAs the card can hold at once (0: none)
-template <typename T>
-int active_clusters(int batch, int d, int n) {
-  WalkLaunch<T> wl;
-  int m = 0;
-  if (walk_launch<T>(batch, d, n, nullptr, &wl) != cudaSuccess ||
-      cudaOccupancyMaxActiveClusters(&m, wl.kernel, &wl.cfg) != cudaSuccess)
-    return 0;
-  return m;
-}
-
-// The smallest cluster whose CTAs hold all of W (8 if none does), raised
-// while the doubled cluster's grid still runs in one wave: every cluster
-// placed at once, no more CTAs than SMs.  (A card places a cluster within
-// one GPC: with CTAs of 16 warps, fewer than 32 clusters of 4 fit on the
-// H100 at once, and 32 of them ran in two waves.)
+// The walk's cluster size (cluster_sync.cuh's rule).  At bf16 D = 352,
+// 416 and 480 no cluster holds all of W and 8 CTAs would not copy whole
+// 16-byte pieces of a gate's row: 4 CTAs, some rows from L2.
 template <typename T>
 int auto_cluster(int batch, int d) {
-  int sms = 0, dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return -1;
-  WalkPlan plan;
-  int n = 1;
-  while (n < kMaxCluster &&
-         (!plan_walk<T>(d, n, &plan) || plan.resident < plan.units))
-    n *= 2;
-  const int clusters = (batch + kRows - 1) / kRows;
-  while (n < kMaxCluster && plan_walk<T>(d, 2 * n, &plan) &&
-         (long long)clusters * 2 * n <= sms &&
-         active_clusters<T>(batch, d, 2 * n) >= clusters)
-    n *= 2;
-  return n;
+  return choose_cluster(
+      (batch + kRows - 1) / kRows, [d](int n) { return fit_walk<T>(d, n); },
+      [batch, d](int n) {
+        WalkLaunch<T> wl;
+        return walk_launch<T>(batch, d, n, nullptr, &wl) == cudaSuccess
+                   ? wl.placed()
+                   : 0;
+      });
 }
 
 template <typename T>
@@ -880,22 +760,15 @@ int launch_walk(const void* w, const void* mask, const void* acts,
                 void* db_part, int steps, int batch, int d, int n,
                 cudaStream_t stream) {
   WalkLaunch<T> wl;
-  cudaError_t err = walk_launch<T>(batch, d, n, stream, &wl);
+  const cudaError_t err = walk_launch<T>(batch, d, n, stream, &wl);
   if (err != cudaSuccess) return (int)err;
-  // a cluster the card cannot place is an error, never a smaller cluster
-  int max_clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&max_clusters, wl.kernel, &wl.cfg);
-  if (err != cudaSuccess) return (int)err;
-  if (max_clusters < 1) return (int)cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(
-      &wl.cfg, wl.kernel, static_cast<const T*>(w),
-      static_cast<const float*>(mask), static_cast<const T*>(acts),
-      static_cast<const float*>(cs), static_cast<const float*>(c0),
-      static_cast<const T*>(dhs), static_cast<const float*>(dcs),
-      static_cast<T*>(dx), static_cast<T*>(dh0), static_cast<float*>(dc0),
+  return wl.launch(
+      static_cast<const T*>(w), static_cast<const float*>(mask),
+      static_cast<const T*>(acts), static_cast<const float*>(cs),
+      static_cast<const float*>(c0), static_cast<const T*>(dhs),
+      static_cast<const float*>(dcs), static_cast<T*>(dx),
+      static_cast<T*>(dh0), static_cast<float*>(dc0),
       static_cast<float*>(db_part), steps, batch, d, n, wl.plan.resident);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -934,21 +807,19 @@ extern "C" {
 // (device, batch, d, dtype) asked is kept.
 int lstm_bwd_cluster(int batch, int d, int dtype) {
   if (bad_shape(1, batch, d) || (dtype != 0 && dtype != 1)) return -1;
-  static thread_local int last[5] = {-1, 0, 0, 0, 0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (last[0] == dev && last[1] == batch && last[2] == d && last[3] == dtype)
-    return last[4];
-  const int n = dtype == 0 ? auto_cluster<float>(batch, d)
-                           : auto_cluster<__nv_bfloat16>(batch, d);
-  if (n > 0) {
-    last[0] = dev;
-    last[1] = batch;
-    last[2] = d;
-    last[3] = dtype;
-    last[4] = n;
-  }
-  return n;
+  return cached_cluster(batch, d, dtype, [](int batch, int d, int dtype) {
+    return dtype == 0 ? auto_cluster<float>(batch, d)
+                      : auto_cluster<__nv_bfloat16>(batch, d);
+  });
+}
+
+// What the walk's plan makes of clusters of `cluster` CTAs at width d: -1
+// it does not take them, 0 it does with some of W's rows streaming from
+// L2, 1 it does with all of W held in the CTAs' shared memory.
+int lstm_bwd_fit(int d, int dtype, int cluster) {
+  if (bad_shape(1, 1, d) || (dtype != 0 && dtype != 1)) return kRefused;
+  return dtype == 0 ? fit_walk<float>(d, cluster)
+                    : fit_walk<__nv_bfloat16>(d, cluster);
 }
 
 // The reverse-time walk with a cluster of `cluster` CTAs (1, 2, 4 or 8 that

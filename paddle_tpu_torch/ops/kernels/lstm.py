@@ -4,8 +4,11 @@ versions and the ``torch.autograd.Function`` that joins forward and backward.
 Counterpart of ``paddle_tpu/ops/pallas/lstm.py``.  Kernels:
 
 - ``csrc/lstm_fwd.cu`` ``lstm_fwd`` (``_fwd_kernel``): the whole recurrence
-  in one launch, a block per 4 batch rows walking T in a loop; returns hs,
-  cs and, when asked, the gate activations the backward needs;
+  in one launch; a cluster of CTAs per 4 batch rows walks T in a loop, each
+  CTA holding its units' gate columns of W in shared memory and sending its
+  new h to every CTA of the cluster each step (``fwd_cluster`` gives the
+  cluster's size); returns hs, cs and, when asked, the gate activations the
+  backward needs;
 - ``csrc/lstm_bwd.cu`` ``lstm_bwd`` (``_bwd_kernel``'s reverse-time walk):
   dx, dh0, dc0 and per-cluster f32 partial sums of db; a cluster of CTAs
   per 4 batch rows holds W in its shared memory (``walk_cluster`` gives its
@@ -41,8 +44,9 @@ from . import _build, unwrapped
 
 __all__ = ['lstm_fused_tm', 'lstm_fwd', 'lstm_bwd', 'lstm_fwd_plain',
            'lstm_bwd_plain', 'LSTMCore', 'kernel_takes', 'check_fwd_args',
-           'check_bwd_args', 'walk_cluster', 'LAUNCHES_FWD', 'LAUNCHES_BWD',
-           'LAUNCHES_DW']
+           'check_bwd_args', 'fwd_cluster', 'walk_cluster',
+           'fwd_cluster_sizes', 'walk_cluster_sizes', 'LAUNCHES_FWD',
+           'LAUNCHES_BWD', 'LAUNCHES_DW']
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,25 +57,36 @@ LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 LAUNCHES_DW = 0
 
-_fwd_fn = None
+# cluster sizes a caller may ask of the kernels (0: the library's choice)
+CLUSTER_SIZES = (0, 1, 2, 4, 8)
+
+_fwd_fns = None
 _bwd_fns = None
 
 
 def _kernel_fwd():
-    global _fwd_fn
-    if _fwd_fn is None:
-        fn = _build.load('lstm_fwd').lstm_fwd
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + \
+    """(forward, cluster size, plan) of the forward library: the forward with
+    a chosen cluster size (0: the library's choice), the library's choice,
+    and its plan's verdict on a cluster size."""
+    global _fwd_fns
+    if _fwd_fns is None:
+        lib = _build.load('lstm_fwd')
+        fn = lib.lstm_fwd_with_cluster
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fwd_fn = fn
-    return _fwd_fn
+        cluster, fit = lib.lstm_fwd_cluster, lib.lstm_fwd_fit
+        cluster.argtypes, fit.argtypes = [ctypes.c_int] * 3, [ctypes.c_int] * 3
+        cluster.restype = fit.restype = ctypes.c_int
+        _fwd_fns = (fn, cluster, fit)
+    return _fwd_fns
 
 
 def _kernels_bwd():
-    """(walk, dw, rows per walk cluster, cluster size, dW tile depth) of the
-    backward library: the walk with a chosen cluster size (0: the library's
-    choice), the dW entry point, and the library's constants and choice."""
+    """(walk, dw, rows per walk cluster, cluster size, dW tile depth, plan)
+    of the backward library: the walk with a chosen cluster size (0: the
+    library's choice), the dW entry point, the library's constants and
+    choice, and the walk's plan's verdict on a cluster size."""
     global _bwd_fns
     if _bwd_fns is None:
         lib = _build.load('lstm_bwd')
@@ -83,33 +98,57 @@ def _kernels_bwd():
         dw.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
         dw.restype = ctypes.c_int
-        cluster = lib.lstm_bwd_cluster
-        cluster.argtypes = [ctypes.c_int] * 3
-        cluster.restype = ctypes.c_int
+        cluster, fit = lib.lstm_bwd_cluster, lib.lstm_bwd_fit
+        cluster.argtypes, fit.argtypes = [ctypes.c_int] * 3, [ctypes.c_int] * 3
+        cluster.restype = fit.restype = ctypes.c_int
         for fn in (lib.lstm_bwd_rows_per_block, lib.lstm_bwd_dw_tile):
             fn.argtypes = []
             fn.restype = ctypes.c_int
         _bwd_fns = (walk, dw, int(lib.lstm_bwd_rows_per_block()), cluster,
-                    int(lib.lstm_bwd_dw_tile()))
+                    int(lib.lstm_bwd_dw_tile()), fit)
     return _bwd_fns
+
+
+def _cluster(choose, name, batch, d, dtype):
+    with torch.cuda.device(torch.cuda.current_device()):
+        n = choose(batch, d, _DTYPE_CODES[dtype])
+    if n < 1:
+        raise RuntimeError('%s failed for B=%d, D=%d, %s' % (name, batch, d,
+                                                            dtype))
+    return n
+
+
+def fwd_cluster(batch, d, dtype):
+    """The number of CTAs in each cluster of the forward kernel for a batch,
+    a hidden width and a dtype, as the current CUDA device launches it."""
+    return _cluster(_kernel_fwd()[1], 'lstm_fwd_cluster', batch, d, dtype)
 
 
 def walk_cluster(batch, d, dtype):
     """The number of CTAs in each cluster of the walk kernel for a batch, a
     hidden width and a dtype, as the current CUDA device launches it."""
-    with torch.cuda.device(torch.cuda.current_device()):
-        n = _kernels_bwd()[3](batch, d, _DTYPE_CODES[dtype])
-    if n < 1:
-        raise RuntimeError('lstm_bwd_cluster failed for B=%d, D=%d, %s' %
-                           (batch, d, dtype))
-    return n
+    return _cluster(_kernels_bwd()[3], 'lstm_bwd_cluster', batch, d, dtype)
+
+
+def fwd_cluster_sizes(d, dtype):
+    """The cluster sizes the forward kernel's plan takes at hidden width
+    ``d`` and a dtype (``_launch_fwd``'s ``cluster`` may be any of them)."""
+    fit, code = _kernel_fwd()[2], _DTYPE_CODES[dtype]
+    return [n for n in CLUSTER_SIZES[1:] if fit(d, code, n) >= 0]
+
+
+def walk_cluster_sizes(d, dtype):
+    """The cluster sizes the walk kernel's plan takes at hidden width ``d``
+    and a dtype (``_launch_walk``'s ``cluster`` may be any of them)."""
+    fit, code = _kernels_bwd()[5], _DTYPE_CODES[dtype]
+    return [n for n in CLUSTER_SIZES[1:] if fit(d, code, n) >= 0]
 
 
 def kernel_takes(d, batch, dtype):
     """Whether the kernels take a hidden width ``d``, a batch and a dtype:
-    d a multiple of 32 in [32, 512] (the forward block is d * (512 // d)
-    threads, one hidden unit each per k-group), any batch >= 1 (ragged rows
-    are masked in the kernel), float32 or bfloat16."""
+    d a multiple of 32 in [32, 512] (each has a cluster size for every such
+    d), any batch >= 1 (ragged rows are masked in the kernel), float32 or
+    bfloat16."""
     return (d % 32 == 0 and 32 <= d <= 512 and batch >= 1 and
             dtype in _DTYPE_CODES)
 
@@ -170,20 +209,34 @@ def _check_cuda(x):
                          'got %s' % x.device)
 
 
-def _launch_fwd(xs, w, bias, h0, c0, mask, save_acts):
+def _check_cluster(cluster):
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError('lstm kernel: cluster must be one of %s (0: the '
+                         'library\'s choice), got %r' % (CLUSTER_SIZES,
+                                                          cluster))
+
+
+def _launch_fwd(xs, w, bias, h0, c0, mask, save_acts, cluster=0):
+    """(hs, cs, acts or None) from the forward kernel, with clusters of
+    ``cluster`` CTAs (0: ``fwd_cluster``'s choice; a size the kernel does
+    not take for this D, or the card cannot place, raises)."""
     global LAUNCHES_FWD
+    _check_cluster(cluster)
     check_fwd_args(xs, w, bias, h0, c0, mask)
     t, b, d4 = xs.shape
     d = d4 // 4
+    launch = _kernel_fwd()[0]
+    xs, w = _aligned(xs), _aligned(w)  # copied in 16-byte pieces
     hs = torch.empty((t, b, d), dtype=xs.dtype, device=xs.device)
     cs = torch.empty((t, b, d), dtype=torch.float32, device=xs.device)
     acts = torch.empty_like(xs) if save_acts else None
     with torch.cuda.device(xs.device):
-        rc = _kernel_fwd()(
+        rc = launch(
             xs.data_ptr(), w.data_ptr(), bias.data_ptr(), h0.data_ptr(),
             c0.data_ptr(), mask.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             None if acts is None else acts.data_ptr(), t, b, d,
-            _DTYPE_CODES[xs.dtype], torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODES[xs.dtype], cluster,
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError('lstm_fwd kernel launch failed: CUDA error %d' % rc)
     LAUNCHES_FWD += 1
@@ -212,7 +265,7 @@ def _launch_walk(w, mask, acts, cs, h0, c0, dhs, dcs, cluster=0):
     the caller (check_bwd_args)."""
     global LAUNCHES_BWD
     t, b, d4 = acts.shape
-    walk, _, rows, _, _ = _kernels_bwd()
+    walk, _, rows, _, _, _ = _kernels_bwd()
     w, mask, acts, cs, c0, dhs, dcs = (
         _aligned(x) for x in (w, mask, acts, cs, c0, dhs, dcs))
     dx = torch.empty_like(acts)
@@ -239,7 +292,7 @@ def _launch_dw(hs, h0, dx, db_part):
     t, b, d4 = dx.shape
     d = d4 // 4
     dev = dx.device
-    _, launch, _, _, tile_k = _kernels_bwd()
+    _, launch, _, _, tile_k, _ = _kernels_bwd()
     hs, h0 = _aligned(hs), _aligned(h0)
     splits = _dw_splits(t, b, d, dev, tile_k)
     part = torch.empty((splits, d, d4), dtype=torch.float32, device=dev)

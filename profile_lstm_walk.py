@@ -22,23 +22,19 @@ calls) and the cycles a step of each phase: the inputs' wait, phase A
 cluster's dgates, phase B's product, and the butterfly, dx stores and block
 barrier.  Then the dW kernel's time at 4 to 64 split-K slices, f32 and
 bf16.  Prints the card's name, power limit and clocks first.  The marks
-are placed by matching lines of the source: a change there that moves
-them makes this script stop with the line it did not find.
+are placed by matching lines of the source (``profile_variants.py``): a
+change there that moves them makes this script stop with the line it did
+not find.
 """
 
 import ctypes
-import os
-import subprocess
 import sys
 
 import torch
 
-REPO = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, REPO)
-
-import chip_smoke  # noqa: E402  (its input and timing helpers)
-from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
-from paddle_tpu_torch.ops.kernels import lstm as lk  # noqa: E402
+import profile_variants  # (puts the repository on the path first)
+import chip_smoke  # its input and timing helpers
+from paddle_tpu_torch.ops.kernels import lstm as lk
 
 PHASES = ('inputs wait', 'phase A', 'prefetch issue', 'dg wait', 'product',
           'butterfly+dx+barrier')
@@ -90,38 +86,18 @@ VARIANTS = {
 }
 
 
-def patched(src, extra):
-    for old, new in MARKS + extra:
-        if old not in src:
-            sys.exit('profile_lstm_walk: the source no longer has:\n' + old)
-        src = src.replace(old, new, 1)
-    return src + ('\nextern "C" int walk_cycles(long long* out) {\n'
-                  '  return (int)cudaMemcpyFromSymbol(out, g_cycles, '
-                  '6 * sizeof(long long));\n}\n')
+TAIL = ('\nextern "C" int walk_cycles(long long* out) {\n'
+        '  return (int)cudaMemcpyFromSymbol(out, g_cycles, '
+        '6 * sizeof(long long));\n}\n')
 
 
 def build_variants():
     """{name: ctypes library}, the variants compiled in parallel."""
-    src = open(os.path.join(REPO, 'paddle_tpu_torch', 'csrc',
-                            'lstm_bwd.cu')).read()
-    out_dir = os.path.join(REPO, 'build', 'profile_lstm_walk')
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, extra in VARIANTS.items():
-        cu = os.path.join(out_dir, name + '.cu')
-        with open(cu, 'w') as f:
-            f.write(patched(src, extra))
-        procs[name] = subprocess.Popen(
-            [_build._nvcc()] + _build.NVCC_FLAGS +
-            ['-o', os.path.join(out_dir, 'lib%s.so' % name), cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            sys.exit('profile_lstm_walk: nvcc failed for %s:\n%s' % (name,
-                                                                     log))
-        lib = ctypes.CDLL(os.path.join(out_dir, 'lib%s.so' % name))
+    for name, (lib, _) in profile_variants.build_variants(
+            'profile_lstm_walk', 'lstm_bwd.cu',
+            {name: MARKS + extra for name, extra in VARIANTS.items()},
+            TAIL).items():
         lib.lstm_bwd_with_cluster.argtypes = [ctypes.c_void_p] * 11 + \
             [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.walk_cycles.argtypes = [ctypes.c_void_p]
@@ -132,10 +108,7 @@ def build_variants():
 def main():
     if not torch.cuda.is_available():
         sys.exit('profile_lstm_walk: needs a CUDA card')
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit,clocks.sm,clocks.max.sm',
-         '--format=csv,noheader'], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(profile_variants.card_line(), flush=True)
     libs = build_variants()
     b, t, d = chip_smoke.LSTM_BATCH, chip_smoke.LSTM_MAX_LEN, \
         chip_smoke.STACKED_LSTM['hid_dim']
@@ -167,7 +140,7 @@ def main():
             print('%-12s N=%d %.4f ms (%.2f us a step); %s; sum %.0f' %
                   (name, n, ms, 1e3 * ms / t,
                    ', '.join('%.0f' % c for c in per), sum(per)), flush=True)
-    _, dw_fn, _, _, _ = lk._kernels_bwd()
+    _, dw_fn, _, _, _, _ = lk._kernels_bwd()
     for dtype in (torch.float32, torch.bfloat16):
         xs_, w_, h0_, dhs_ = (x.to(dtype) for x in (xs, w, h0, dhs))
         hs_, cs_, acts_ = lk.lstm_fwd(xs_, w_, bias, h0_, c0, mask)

@@ -171,7 +171,7 @@ def test_cpu_path_leaves_launch_counters_unchanged():
 
 @pytest.mark.parametrize('case', ['device', 'width', 'dtype', 'mixed_dtype',
                                   'layout', 'bias_dtype', 'mask_shape',
-                                  'h0_shape'])
+                                  'h0_shape', 'cluster'])
 def test_forward_kernel_path_raises_before_any_build(case, monkeypatch):
     def no_build():
         raise AssertionError('validation must reject before any build')
@@ -191,8 +191,32 @@ def test_forward_kernel_path_raises_before_any_build(case, monkeypatch):
         mask = mask[:2].contiguous()
     elif case == 'h0_shape':
         h0 = h0[:4].contiguous()
+    if case == 'cluster':  # not a cluster size the kernels take
+        with pytest.raises(ValueError, match='cluster'):
+            lk._launch_fwd(xs, w, bias, h0, c0, mask, True, cluster=3)
+        return
     with pytest.raises(ValueError):
         lk._launch_fwd(xs, w, bias, h0, c0, mask, True)
+
+
+@pytest.mark.parametrize('kind', ['fwd', 'walk'])
+def test_cluster_sizes_are_the_plans_verdicts(kind, monkeypatch):
+    # the library's verdicts: -1 refused, 0 taken with W streaming, 1 held
+    asked = []
+
+    def fit(d, dtype, n):
+        asked.append((d, dtype, n))
+        return {1: -1, 2: 1, 4: 0, 8: -1}[n]
+
+    if kind == 'fwd':
+        monkeypatch.setattr(lk, '_kernel_fwd', lambda: (None, None, fit))
+        sizes = lk.fwd_cluster_sizes(288, torch.bfloat16)
+    else:
+        monkeypatch.setattr(lk, '_kernels_bwd',
+                            lambda: (None, None, 4, None, 32, fit))
+        sizes = lk.walk_cluster_sizes(288, torch.bfloat16)
+    assert sizes == [2, 4]
+    assert asked == [(288, 1, n) for n in (1, 2, 4, 8)]
 
 
 @pytest.mark.parametrize('case', ['device', 'acts_dtype', 'cs_dtype',
@@ -429,4 +453,74 @@ def test_walk_cluster_emulation_matches_plain(n_ctas):
     assert torch.all(got[0][:, 0] == 0)  # the length-0 row
     if n_ctas > 1:
         for g, one in zip(got, _emulate_walk(*args, 1)):
+            assert torch.equal(g, one)
+
+
+def _emulate_fwd_cluster(xs, w, bias, h0, c0, mask, n_ctas):
+    """lstm_fwd's kernel as it splits the recurrence: batch rows in clusters
+    of ROWS (rows past B zero and masked), each cluster's D units split over
+    ``n_ctas`` ranks, h gathered from every rank after each step.  A rank
+    sums (row, gate, unit) over k as its lanes do: k-group g chains k = g,
+    g + 4, ... with fmaf, and the butterfly adds (p0 + p2) + (p1 + p3); the
+    gates are (x + sum) + bias.  The gate math runs on all units at once
+    (torch's vectorised tanh and sigmoid can differ in the last bit with an
+    element's place in a tensor; the kernel's are the same for every unit).
+    Returns (hs, cs, acts)."""
+    t_steps, b, d4 = xs.shape
+    d = d4 // 4
+    pad = -b % ROWS
+    xf = torch.cat([xs.float(), torch.zeros(t_steps, pad, d4)], 1)
+    mask = torch.cat([mask, torch.zeros(t_steps, pad)], 1)
+    h = torch.cat([h0.float(), torch.zeros(pad, d)])
+    c = torch.cat([c0, torch.zeros(pad, d)])
+    wf, bf = w.float(), bias.float().reshape(d4)
+    units = d // n_ctas
+    hs, cs, acts = [], [], []
+    for t in range(t_steps):
+        gates = torch.empty(b + pad, d4)
+        for rank in range(n_ctas):
+            j = torch.arange(rank * units, (rank + 1) * units)
+            cols = torch.cat([q * d + j for q in range(4)])
+            p = []
+            for g in range(4):
+                s = torch.zeros(b + pad, cols.numel())
+                for k in range(g, d, 4):
+                    s = _fma_chain(s, h[:, k:k + 1], wf[k, cols][None, :])
+                p.append(s)
+            gates[:, cols] = (xf[t][:, cols] +
+                              ((p[0] + p[2]) + (p[1] + p[3]))) + bf[cols]
+        gc, gi, gf, go = gates.split(d, dim=1)
+        ig, fg, og = torch.sigmoid(gi), torch.sigmoid(gf), torch.sigmoid(go)
+        cand = torch.tanh(gc)
+        c_new = fg * c + ig * cand
+        h_new = og * torch.tanh(c_new)
+        m = mask[t][:, None]
+        h = (m * h_new + (1 - m) * h).to(h0.dtype).float()
+        c = m * c_new + (1 - m) * c
+        hs.append(h[:b].to(h0.dtype))
+        cs.append(c[:b])
+        acts.append(torch.cat([cand, ig, fg, og], dim=1)[:b].to(w.dtype))
+    return torch.stack(hs), torch.stack(cs), torch.stack(acts)
+
+
+@pytest.mark.parametrize('n_ctas', [1, 2, 4])
+def test_fwd_cluster_emulation_matches_plain(n_ctas):
+    """The forward as a cluster of ``n_ctas`` CTAs computes it agrees with
+    lstm_fwd_plain (ragged rows: a length-0 row, a full row, a batch of 10
+    that leaves the last cluster half empty) within chip_smoke.py's f32
+    tolerance for hs, cs and acts, and is bitwise the same at every cluster
+    size: each sum over k runs in the same order whichever rank owns the
+    unit."""
+    b, t, d = 10, 12, 32
+    xs, w, bias, h0, c0, mask, _, _ = _torch(*_inputs(b, t, d, seed=9))
+    args = (xs, w, bias, h0, c0, mask)
+    got = _emulate_fwd_cluster(*args, n_ctas)
+    want = lk.lstm_fwd_plain(*args)
+    for name, g, wnt in zip(('hs', 'cs', 'acts'), got, want):
+        assert g.shape == wnt.shape and g.dtype == wnt.dtype, name
+        tol = CHIP_TOL * max(1.0, wnt.abs().max().item())
+        assert (g - wnt).abs().max().item() <= tol, name
+    assert torch.equal(got[0][:, 0], h0[0].expand(t, d))  # the length-0 row
+    if n_ctas > 1:
+        for g, one in zip(got, _emulate_fwd_cluster(*args, 1)):
             assert torch.equal(g, one)
