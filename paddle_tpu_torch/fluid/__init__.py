@@ -1,7 +1,8 @@
 """paddle_tpu_torch.fluid — the Fluid-compatible frontend on PyTorch.
 
 The same program-building API as ``paddle_tpu.fluid``, training included
-(``append_backward``, ``optimizer.Adam``), LoD feeds (``create_lod_tensor``)
+(``append_backward``; ``optimizer.SGD``, ``Momentum`` and ``Adam``),
+the image blocks of ``nets``, LoD feeds (``create_lod_tensor``)
 and flags (``FLAGS``, bootstrapped from ``FLAGS_<name>`` environment
 variables); ``Executor.run`` interprets the program op by op on a torch
 device, by default the CUDA card (``CUDAPlace(0)``).
@@ -30,6 +31,7 @@ from .backward import append_backward
 from . import clip
 from . import regularizer
 from . import optimizer
+from . import nets
 from . import lod_tensor
 from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
 
@@ -37,6 +39,6 @@ __all__ = framework.__all__ + executor.__all__ + [
     'io', 'initializer', 'layers', 'LoDTensor', 'CPUPlace', 'CUDAPlace',
     'Scope', 'ParamAttr', 'unique_name', 'params_from_numpy',
     'persistables_from_numpy', 'backward', 'append_backward', 'clip',
-    'regularizer', 'optimizer', 'flags', 'FLAGS', 'lod_tensor',
+    'regularizer', 'optimizer', 'nets', 'flags', 'FLAGS', 'lod_tensor',
     'create_lod_tensor', 'create_random_int_lodtensor',
 ]

@@ -1,6 +1,6 @@
 """Layer functions of the PyTorch port (the subset of
-``paddle_tpu.fluid.layers`` that the Transformer and stacked-LSTM slices
-build with)."""
+``paddle_tpu.fluid.layers`` that the Transformer, stacked-LSTM and dense CV
+slices build with)."""
 
 from . import nn
 from .nn import *

@@ -1,17 +1,19 @@
 """Neural-network layers (counterpart of ``paddle_tpu/fluid/layers/nn.py``,
-the layers the Transformer and stacked-LSTM slices build with).
+the layers the Transformer, stacked-LSTM and dense CV slices build with).
 
 Each layer appends OpDescs to the current program block; shapes are inferred
 eagerly so later layers can read ``input.shape``.
 """
 
 from ..layer_helper import LayerHelper
-from ..initializer import Constant
+from ..initializer import Constant, Normal
+from ..param_attr import ParamAttr
 
 __all__ = [
     'fc', 'embedding', 'layer_norm', 'dropout', 'softmax',
     'softmax_with_cross_entropy', 'cross_entropy', 'mean', 'reshape',
     'unsqueeze', 'flash_attention', 'reduce_sum', 'clip', 'clip_by_norm',
+    'conv2d', 'pool2d', 'batch_norm',
 ]
 
 
@@ -337,3 +339,205 @@ def clip_by_norm(x, max_norm, name=None):
         outputs={'Out': [out]},
         attrs={'max_norm': max_norm})
     return out
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def _conv_out_size(i, k, p, s, d=1):
+    return (i + 2 * p - (d * (k - 1) + 1)) // s + 1
+
+
+def conv2d(input,
+           num_filters,
+           filter_size,
+           stride=1,
+           padding=0,
+           dilation=1,
+           groups=None,
+           param_attr=None,
+           bias_attr=None,
+           use_cudnn=True,
+           act=None,
+           name=None):
+    """2-D convolution over NCHW with an OIHW filter, Normal(0, sqrt(2 /
+    (k^2 C))) by default.  groups == C == num_filters > 1 builds a
+    ``depthwise_conv2d`` op.  ``use_cudnn`` is accepted and not read: the
+    op carries ``use_cudnn: False`` as the JAX package's does, and the
+    lowering is cuDNN's on the card all the same."""
+    helper = LayerHelper('conv2d', **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+    filter_size = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    std = (2.0 / (filter_size[0]**2 * num_channels))**0.5
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=filter_shape,
+        dtype=dtype,
+        default_initializer=Normal(0.0, std, 0))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    n, c, h, w_ = input.shape
+    pre_bias.shape = (n, num_filters,
+                      _conv_out_size(h, filter_size[0], padding[0], stride[0],
+                                     dilation[0]),
+                      _conv_out_size(w_, filter_size[1], padding[1], stride[1],
+                                     dilation[1]))
+    op_type = 'depthwise_conv2d' if (groups == num_channels and
+                                     num_channels == num_filters and
+                                     groups > 1) else 'conv2d'
+    helper.append_op(
+        type=op_type,
+        inputs={'Input': [input],
+                'Filter': [w]},
+        outputs={'Output': [pre_bias]},
+        attrs={
+            'strides': stride,
+            'paddings': padding,
+            'dilations': dilation,
+            'groups': groups,
+            'use_cudnn': False,
+        })
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input,
+           pool_size=-1,
+           pool_type='max',
+           pool_stride=1,
+           pool_padding=0,
+           global_pooling=False,
+           use_cudnn=True,
+           ceil_mode=False,
+           name=None,
+           exclusive=True):
+    """2-D max or average pooling over NCHW."""
+    helper = LayerHelper('pool2d', **locals())
+    dtype = helper.input_dtype()
+    pool_size = _pair(pool_size)
+    pool_stride = _pair(pool_stride)
+    pool_padding = _pair(pool_padding)
+    out = helper.create_variable_for_type_inference(dtype)
+    n, c, h, w = input.shape
+    if global_pooling:
+        out.shape = (n, c, 1, 1)
+    else:
+        out.shape = (n, c,
+                     _conv_out_size(h, pool_size[0], pool_padding[0],
+                                    pool_stride[0]),
+                     _conv_out_size(w, pool_size[1], pool_padding[1],
+                                    pool_stride[1]))
+    helper.append_op(
+        type='pool2d',
+        inputs={'X': [input]},
+        outputs={'Out': [out]},
+        attrs={
+            'pooling_type': pool_type,
+            'ksize': pool_size,
+            'global_pooling': global_pooling,
+            'strides': pool_stride,
+            'paddings': pool_padding,
+            'ceil_mode': ceil_mode,
+            'exclusive': exclusive,
+        })
+    return out
+
+
+def batch_norm(input,
+               act=None,
+               is_test=False,
+               momentum=0.9,
+               epsilon=1e-05,
+               param_attr=None,
+               bias_attr=None,
+               data_layout='NCHW',
+               in_place=False,
+               name=None,
+               moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               fuse_with_relu=False,
+               use_global_stats=None):
+    """Batch normalization.  The moving mean and variance are non-trainable
+    parameters that the op writes back (MeanOut, VarianceOut name the same
+    vars).  ``use_global_stats``: None follows ``is_test`` (and
+    clone(for_test)); an explicit True or False picks the moving or the
+    batch statistics in both modes, and the attr is omitted for None."""
+    helper = LayerHelper('batch_norm', **locals())
+    dtype = helper.input_dtype()
+    input_shape = input.shape
+    if data_layout == 'NCHW':
+        channel_num = input_shape[1]
+    else:
+        channel_num = input_shape[-1]
+    param_shape = [channel_num]
+
+    scale = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=param_shape,
+        dtype=dtype,
+        default_initializer=Constant(1.0))
+    bias = helper.create_parameter(
+        attr=helper.bias_attr, shape=param_shape, dtype=dtype, is_bias=True)
+
+    mean = helper.create_parameter(
+        attr=ParamAttr(
+            name=moving_mean_name,
+            initializer=Constant(0.0),
+            trainable=False,
+            do_model_average=do_model_average_for_mean_and_var),
+        shape=param_shape,
+        dtype=dtype)
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        attr=ParamAttr(
+            name=moving_variance_name,
+            initializer=Constant(1.0),
+            trainable=False,
+            do_model_average=do_model_average_for_mean_and_var),
+        shape=param_shape,
+        dtype=dtype)
+    variance.stop_gradient = True
+
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype=dtype, stop_gradient=True)
+    saved_variance = helper.create_variable_for_type_inference(
+        dtype=dtype, stop_gradient=True)
+    batch_norm_out = input if in_place else \
+        helper.create_variable_for_type_inference(dtype)
+    batch_norm_out.shape = input.shape
+
+    helper.append_op(
+        type='batch_norm',
+        inputs={
+            'X': [input],
+            'Scale': [scale],
+            'Bias': [bias],
+            'Mean': [mean],
+            'Variance': [variance]
+        },
+        outputs={
+            'Y': [batch_norm_out],
+            'MeanOut': [mean],
+            'VarianceOut': [variance],
+            'SavedMean': [saved_mean],
+            'SavedVariance': [saved_variance]
+        },
+        attrs={
+            'momentum': momentum,
+            'epsilon': epsilon,
+            # is_test gates the running-statistics update only; which
+            # statistics normalize is the lowering's reading of
+            # use_global_stats and is_test
+            'is_test': bool(is_test),
+            'data_layout': data_layout,
+            **({} if use_global_stats is None
+               else {'use_global_stats': bool(use_global_stats)}),
+        })
+    return helper.append_activation(batch_norm_out)

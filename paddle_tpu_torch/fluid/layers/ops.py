@@ -1,11 +1,19 @@
 """Op wrapper layers (counterpart of ``paddle_tpu/fluid/layers/ops.py``:
-``scale``, the ``elementwise_*`` builders, and the unary ``square`` and
-``sqrt`` that gradient clipping builds with)."""
+the unary activation layers of ``__activations__``, ``scale`` and the
+``elementwise_*`` layers)."""
 
 from ..layer_helper import LayerHelper
 
-__all__ = [
-    'square', 'sqrt', 'elementwise_add', 'elementwise_sub', 'elementwise_mul',
+__activations__ = [
+    'sigmoid', 'logsigmoid', 'exp', 'tanh', 'tanh_shrink', 'softshrink',
+    'sqrt', 'abs', 'ceil', 'floor', 'cos', 'sin', 'round', 'reciprocal',
+    'log', 'square', 'softplus', 'softsign', 'brelu', 'leaky_relu',
+    'soft_relu', 'elu', 'relu6', 'pow', 'stanh', 'hard_sigmoid', 'swish',
+    'relu', 'thresholded_relu', 'hard_shrink',
+]
+
+__all__ = __activations__ + [
+    'elementwise_add', 'elementwise_sub', 'elementwise_mul',
     'elementwise_div', 'elementwise_max', 'elementwise_min',
     'elementwise_pow', 'scale',
 ]
@@ -27,8 +35,8 @@ def _unary_layer(op_type):
     return func
 
 
-square = _unary_layer('square')
-sqrt = _unary_layer('sqrt')
+for _act in __activations__:
+    globals()[_act] = _unary_layer(_act)
 
 
 def _elementwise_layer(op_type):

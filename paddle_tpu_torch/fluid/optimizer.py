@@ -1,11 +1,12 @@
 """Optimizers (counterpart of ``paddle_tpu/fluid/optimizer.py``): the
-``Optimizer`` base and Adam.
+``Optimizer`` base, SGD, Momentum and Adam.
 
 ``minimize`` appends the backward pass, gradient clipping, regularization and
 one update op per parameter to the main program, with the accumulators and
-the learning-rate var named as in the JAX package (``<param>_moment1_0``,
-``beta1_pow_acc_0``, ``learning_rate_0``) and initialized in the startup
-program.  The other optimizers of the JAX package are not ported yet.
+the learning-rate var named as in the JAX package (``<param>_velocity_0``,
+``<param>_moment1_0``, ``beta1_pow_acc_0``, ``learning_rate_0``) and
+initialized in the startup program.  The other optimizers of the JAX package
+are not ported yet.
 """
 
 from collections import defaultdict
@@ -19,7 +20,8 @@ from .initializer import Constant
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
-__all__ = ['Optimizer', 'Adam', 'AdamOptimizer']
+__all__ = ['Optimizer', 'SGD', 'SGDOptimizer', 'Momentum',
+           'MomentumOptimizer', 'Adam', 'AdamOptimizer']
 
 
 class Optimizer(object):
@@ -153,6 +155,56 @@ class Optimizer(object):
         return optimize_ops, params_grads
 
 
+class SGDOptimizer(Optimizer):
+    def __init__(self, learning_rate, **kwargs):
+        super(SGDOptimizer, self).__init__(
+            learning_rate=learning_rate, **kwargs)
+        self.type = 'sgd'
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return block.append_op(
+            type=self.type,
+            inputs={
+                'Param': [param_and_grad[0]],
+                'Grad': [param_and_grad[1]],
+                'LearningRate': [self._create_param_lr(param_and_grad)]
+            },
+            outputs={'ParamOut': [param_and_grad[0]]})
+
+
+class MomentumOptimizer(Optimizer):
+    _velocity_acc_str = 'velocity'
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kwargs):
+        super(MomentumOptimizer, self).__init__(
+            learning_rate=learning_rate, **kwargs)
+        self.type = 'momentum'
+        self._momentum = momentum
+        self._use_nesterov = bool(use_nesterov)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity_acc = self._get_accumulator(self._velocity_acc_str,
+                                             param_and_grad[0])
+        return block.append_op(
+            type=self.type,
+            inputs={
+                'Param': [param_and_grad[0]],
+                'Grad': [param_and_grad[1]],
+                'Velocity': [velocity_acc],
+                'LearningRate': [self._create_param_lr(param_and_grad)]
+            },
+            outputs={
+                'ParamOut': [param_and_grad[0]],
+                'VelocityOut': [velocity_acc]
+            },
+            attrs={'mu': self._momentum,
+                   'use_nesterov': self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = 'moment1'
     _moment2_acc_str = 'moment2'
@@ -228,4 +280,6 @@ class AdamOptimizer(Optimizer):
                 attrs={'scale': beta})
 
 
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

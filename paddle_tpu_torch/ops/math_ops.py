@@ -1,5 +1,6 @@
 """Math op lowerings (counterpart of ``paddle_tpu/ops/math_ops.py``): ``mul``,
-the ``elementwise_*`` broadcast family, ``sum``, ``scale`` and ``mean``.
+the ``elementwise_*`` broadcast family, ``sum``, ``scale``, ``mean`` and the
+unary ``pow`` (``x ** factor``, which the ``pow`` activation layer builds).
 
 ``mul``'s product is ``torch.matmul``, as the JAX package leaves its
 product to XLA.
@@ -114,3 +115,8 @@ def _scale(ctx, op):
 def _mean(ctx, op):
     # fluid MeanOp fixes the output dim to {1}
     ctx.set(op, 'Out', torch.reshape(torch.mean(ctx.get(op, 'X')), (1, )))
+
+
+@register_lowering('pow')
+def _pow(ctx, op):
+    ctx.set(op, 'Out', torch.pow(ctx.get(op, 'X'), op.attrs.get('factor', 1.0)))

@@ -1,13 +1,159 @@
 """NN op lowerings (counterpart of ``paddle_tpu/ops/nn_ops.py``):
-``layer_norm``, ``lookup_table`` and ``dropout``, with the explicit grads of
-``dropout`` (it reuses the forward Mask: a generic vjp would draw anew) and
-of ``lookup_table`` (the dense scatter-add of ``paddle_tpu/ops/sparse.py``).
+``conv2d`` and ``depthwise_conv2d`` (``torch.nn.functional.conv2d``, cuDNN
+on the card; OIHW filters), ``pool2d``, ``batch_norm``, ``layer_norm``,
+``lookup_table`` and ``dropout``, with the explicit grads of ``dropout``
+(it reuses the forward Mask: a generic vjp would draw anew) and of
+``lookup_table`` (the dense scatter-add of ``paddle_tpu/ops/sparse.py``).
 """
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from .registry import (register_lowering, register_grad_lowering,
                        amp_upcast_f32, fwd_structure, GRAD_SUFFIX)
+
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v, v]
+
+
+def _conv(ctx, op, groups):
+    out = F.conv2d(ctx.get(op, 'Input'), ctx.get(op, 'Filter'),
+                   stride=_pair(op.attrs.get('strides', [1, 1])),
+                   padding=_pair(op.attrs.get('paddings', [0, 0])),
+                   dilation=_pair(op.attrs.get('dilations', [1, 1])),
+                   groups=groups)
+    ctx.set(op, 'Output', out)
+
+
+@register_lowering('conv2d')
+def _conv2d(ctx, op):
+    _conv(ctx, op, op.attrs.get('groups', 1) or 1)
+
+
+@register_lowering('depthwise_conv2d')
+def _depthwise_conv2d(ctx, op):
+    _conv(ctx, op, ctx.get(op, 'Input').shape[1])
+
+
+def _pool2d_pads(op, x):
+    """(ksize, strides, [(low, high)] pads, ceil padding added) as the
+    reference's ``_pool`` reads the attrs: ``global_pooling`` takes the
+    whole plane; ``ceil_mode`` pads the high side so that the last partial
+    window is kept, where torch's ceil_mode drops a window that would start
+    in the padding."""
+    ksize = list(op.attrs.get('ksize'))
+    strides = list(op.attrs.get('strides', [1, 1]))
+    paddings = list(op.attrs.get('paddings', [0, 0]))
+    ceil_mode = op.attrs.get('ceil_mode', False)
+    if op.attrs.get('global_pooling', False):
+        ksize = list(x.shape[2:])
+        paddings = [0, 0]
+        strides = [1, 1]
+        ceil_mode = False
+    pads, padded_extra = [], False
+    for i, p in enumerate(paddings):
+        extra = 0
+        if ceil_mode:
+            size = x.shape[2 + i]
+            out_ceil = -(-(size + 2 * p - ksize[i]) // strides[i]) + 1
+            extra = max((out_ceil - 1) * strides[i] + ksize[i] -
+                        (size + 2 * p), 0)
+            padded_extra = padded_extra or extra > 0
+        pads.append((p, p + extra))
+    return ksize, strides, pads, padded_extra
+
+
+@register_lowering('pool2d')
+def _pool2d(ctx, op):
+    x = ctx.get(op, 'X')
+    ksize, strides, pads, padded_extra = _pool2d_pads(op, x)
+    is_max = op.attrs.get('pooling_type', 'max') == 'max'
+    # avg: exclusive=True divides by the in-bounds count only where the
+    # window can reach padding (reference nn_ops.py _pool)
+    exclusive = (op.attrs.get('exclusive', True) and
+                 any(lo > 0 for lo, _ in pads)) or padded_extra
+    if all(lo == hi and lo <= k // 2 for (lo, hi), k in zip(pads, ksize)):
+        # torch's own symmetric padding: -inf for max, and for avg the
+        # in-bounds count (count_include_pad=False) or the window's size
+        pad = [lo for lo, _ in pads]
+        if is_max:
+            out = F.max_pool2d(x, ksize, strides, pad)
+        else:
+            out = F.avg_pool2d(x, ksize, strides, pad,
+                               count_include_pad=not exclusive)
+        ctx.set(op, 'Out', out)
+        return
+    # wider or one-sided padding: pad explicitly, then pool unpadded
+    flat = [pads[1][0], pads[1][1], pads[0][0], pads[0][1]]
+    if is_max:
+        out = F.max_pool2d(F.pad(x, flat, value=-math.inf), ksize, strides)
+    else:
+        summed = F.avg_pool2d(F.pad(x, flat), ksize, strides,
+                              divisor_override=1)
+        if exclusive:
+            ones = F.pad(torch.ones_like(x[:1, :1]), flat)
+            counts = F.avg_pool2d(ones, ksize, strides, divisor_override=1)
+            out = summed / torch.clamp(counts, min=1.0)
+        else:
+            out = summed / math.prod(ksize)
+    ctx.set(op, 'Out', out)
+
+
+@register_lowering('batch_norm')
+def _batch_norm(ctx, op):
+    """The reference's arithmetic: batch statistics mean = E[x] and the
+    biased var = E[x^2] - E[x]^2; running stats updated as m * running +
+    (1 - m) * batch (m = ``momentum``, 0.9), on the biased variance and
+    from detached batch statistics, into new tensors.  (F.batch_norm's
+    running update takes the unbiased variance, its momentum is 1 - m, and
+    it writes the buffers in place, which a lowering replayed under
+    torch.func.vjp must not.)
+
+    An explicit ``use_global_stats`` picks the statistics in both
+    directions; absent, ``is_test`` does.  The running stats move only in
+    training (not ``is_test``) on batch statistics."""
+    x = ctx.get(op, 'X')
+    scale = ctx.get(op, 'Scale')
+    bias = ctx.get(op, 'Bias')
+    mean_in = ctx.get(op, 'Mean')
+    var_in = ctx.get(op, 'Variance')
+    eps = op.attrs.get('epsilon', 1e-5)
+    momentum = op.attrs.get('momentum', 0.9)
+    is_test = op.attrs.get('is_test', False)
+    ugs = op.attrs.get('use_global_stats', None)
+    use_running = bool(ugs) if ugs is not None else bool(is_test)
+    update_running = (not use_running) and (not is_test)
+    channel = 1 if op.attrs.get('data_layout', 'NCHW') == 'NCHW' \
+        else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != channel)
+    bshape = [1] * x.dim()
+    bshape[channel] = -1
+
+    xs = amp_upcast_f32(x)
+    if use_running:
+        mean, var = mean_in, var_in
+        mean_out, var_out = mean_in, var_in
+    else:
+        mean = torch.mean(xs, dim=axes)
+        var = torch.mean(torch.square(xs), dim=axes) - torch.square(mean)
+        if update_running:
+            mean_out = momentum * mean_in + (1 - momentum) * mean.detach()
+            var_out = momentum * var_in + (1 - momentum) * var.detach()
+        else:
+            mean_out, var_out = mean_in, var_in
+    inv_std = torch.rsqrt(torch.reshape(var, bshape) + eps)
+    y = (xs - torch.reshape(mean, bshape)) * inv_std * torch.reshape(
+        scale, bshape) + torch.reshape(bias, bshape)
+    ctx.set(op, 'Y', y.to(x.dtype))
+    ctx.set(op, 'MeanOut', mean_out)
+    ctx.set(op, 'VarianceOut', var_out)
+    ctx.set(op, 'SavedMean', mean)
+    ctx.set(op, 'SavedVariance', var)
 
 
 @register_lowering('layer_norm')

@@ -1,8 +1,8 @@
 """Optimizer op lowerings (counterpart of ``paddle_tpu/ops/optimizer_ops.py``:
-``adam``).
+``sgd``, ``momentum`` and ``adam``).
 
-Each op returns its updated slots (ParamOut, Moment1Out, Moment2Out) as new
-tensors; the executor writes persistable outputs back into the scope.
+Each op returns its updated slots (ParamOut, VelocityOut, Moment1Out, ...)
+as new tensors; the executor writes persistable outputs back into the scope.
 """
 
 import torch
@@ -12,6 +12,31 @@ from .registry import register_lowering
 
 def _scalar(ctx, op, slot):
     return torch.reshape(ctx.get(op, slot), ())
+
+
+@register_lowering('sgd')
+def _sgd(ctx, op):
+    p = ctx.get(op, 'Param')
+    g = ctx.get(op, 'Grad')
+    ctx.set(op, 'ParamOut', p - _scalar(ctx, op, 'LearningRate') * g)
+
+
+@register_lowering('momentum')
+def _momentum(ctx, op):
+    """v = mu * v + g; p -= lr * v, or p -= lr * (g + mu * v) with Nesterov
+    (the reference's form: torch.optim.SGD's momentum dampens g)."""
+    p = ctx.get(op, 'Param')
+    g = ctx.get(op, 'Grad')
+    v = ctx.get(op, 'Velocity')
+    lr = _scalar(ctx, op, 'LearningRate')
+    mu = op.attrs['mu']
+    v_out = mu * v + g
+    if op.attrs.get('use_nesterov', False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    ctx.set(op, 'ParamOut', p_out)
+    ctx.set(op, 'VelocityOut', v_out)
 
 
 @register_lowering('adam')

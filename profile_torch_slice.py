@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Where a request's and a training step's time goes in the PyTorch/CUDA
-port: Transformer-base and the stacked-LSTM IMDB model.
+port: Transformer-base, the stacked-LSTM IMDB model and ResNet-50.
 
     python3 profile_torch_slice.py [--out build/profile]
 
@@ -26,6 +26,11 @@ host wall and the profile of a request (prediction fetched) and of a
 training step, with the three LSTM kernels' share and the generic grads'
 forward replay.
 
+Then ResNet-50 at chip_smoke.py's shape (64 images of 3 x 224 x 224, 1000
+classes, Momentum): the host wall and the profile of a request (softmax
+fetched) and of a training step, with the convolution kernels' share and
+the generic grads' forward replay.
+
 Prints the card's name and power limit, tables, and one JSON line; writes
 the Chrome traces under ``--out``.  Needs a CUDA card; imports nothing of
 JAX.
@@ -45,9 +50,10 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from chip_smoke import (BATCH, LSTM_BATCH, LSTM_LR, SEED,  # noqa: E402
-                        STACKED_LSTM, TRANSFORMER_BASE, lstm_request,
-                        stacked_lstm_programs)
+from chip_smoke import (BATCH, CV_BATCH, CV_LR, LSTM_BATCH,  # noqa: E402
+                        LSTM_LR, RESNET50, SEED, STACKED_LSTM,
+                        TRANSFORMER_BASE, conv_ms, image_batch, lstm_request,
+                        profile_run, stacked_lstm_programs)
 
 REPS = 5  # request walls per median
 
@@ -99,7 +105,8 @@ def main():
     wall_full = _wall(full, REPS)
     wall_loss = _wall(loss_only, REPS)
 
-    request = _profile(loss_only, os.path.join(args.out, 'slice_request.json'))
+    request = profile_run(loss_only, os.path.join(args.out,
+                                                  'slice_request.json'))
     flash_ms = sum(ms for name, ms in request['by_name'].items()
                    if 'fwd_kernel' in name)
     print('request (batch %d x seq %d) [%s]:' % (BATCH, seq, card))
@@ -112,8 +119,8 @@ def main():
     train()
     train()
     wall_train = _wall(train, REPS)
-    step = _profile_step(train, os.path.join(args.out,
-                                             'slice_train_step.json'))
+    step = profile_run(train, os.path.join(args.out, 'slice_train_step.json'),
+                       recompute=True)
     flash = {kind: sum(ms for name, ms in step['by_name'].items()
                        if kind + '_kernel' in name)
              for kind in ('fwd', 'dq', 'dkv')}
@@ -129,6 +136,7 @@ def main():
               (step['recompute_ms'], step['recompute_ms'] / step['busy_ms'],
                flash['fwd'] / 2, request['busy_ms']))
     lstm = _profile_lstm(fluid, args.out, card)
+    resnet = _profile_resnet(fluid, args.out, card)
     print(json.dumps({
         'card': card, 'batch': BATCH, 'seq': seq,
         'wall_full_s': wall_full, 'wall_loss_only_s': wall_loss,
@@ -142,28 +150,11 @@ def main():
         'train_flash_ms': flash if step['busy_ms'] else None,
         'train_recompute_ms': step['recompute_ms'],
         'train_top_kernels_ms': dict(step['top']),
-        'stacked_lstm': lstm}))
+        'stacked_lstm': lstm, 'resnet50': resnet}))
 
 
-_RECOMPUTE = 'grad/recompute'
 _LSTM_KERNELS = {'lstm fwd': 'lstm_fwd_kernel', 'lstm walk': 'lstm_bwd_walk',
                  'lstm dW': 'lstm_dw_'}
-
-
-def _profile_step(fn, trace_path):
-    """``_profile`` of a training step with every generic grad's
-    ``torch.func.vjp`` call inside a ``grad/recompute`` range."""
-    real_vjp = torch.func.vjp
-
-    def annotated_vjp(fn, *primals):
-        with torch.profiler.record_function(_RECOMPUTE):
-            return real_vjp(fn, *primals)
-
-    torch.func.vjp = annotated_vjp
-    try:
-        return _profile(fn, trace_path)
-    finally:
-        torch.func.vjp = real_vjp
 
 
 def _profile_lstm(fluid, out, card):
@@ -182,12 +173,12 @@ def _profile_lstm(fluid, out, card):
     train = lambda: exe.run(model['main'], feed=feed, scope=scope,
                             fetch_list=[model['loss']])
     result = {'batch': LSTM_BATCH, 'tokens': tokens}
-    for name, fn, profile in (('request', request, _profile),
-                              ('train', train, _profile_step)):
+    for name, fn in (('request', request), ('train', train)):
         fn()
         fn()
         wall = _wall(fn, REPS)
-        prof = profile(fn, os.path.join(out, 'stacked_lstm_%s.json' % name))
+        prof = profile_run(fn, os.path.join(out, 'stacked_lstm_%s.json' %
+                                            name), recompute=name == 'train')
         shares = {label: sum(ms for key, ms in prof['by_name'].items()
                              if pattern in key)
                   for label, pattern in _LSTM_KERNELS.items()}
@@ -212,39 +203,50 @@ def _profile_lstm(fluid, out, card):
     return result
 
 
-def _profile(fn, trace_path):
-    """Run fn once under torch.profiler: device time by kernel name and of
-    the kernels launched inside ``_RECOMPUTE`` ranges, and the host wall of
-    the run."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+def _profile_resnet(fluid, out, card):
+    """ResNet-50 at chip_smoke.py's shape (64 x 3 x 224 x 224, 1000
+    classes, Momentum): a request (softmax fetched) and a training step,
+    with the convolution kernels' share and the generic grads' forward
+    replay."""
+    from paddle_tpu_torch.models import resnet
+    with fluid.unique_name.guard():
+        model = resnet.build(lr=CV_LR, **RESNET50)
+    model['startup'].random_seed = SEED
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(model['startup'], scope=scope)
+    feed = image_batch(np.random.RandomState(SEED + 7), CV_BATCH,
+                       RESNET50['image_shape'], RESNET50['class_dim'])
+    request = lambda: exe.run(model['test'], feed=feed, scope=scope,
+                              fetch_list=[model['prediction']])
+    train = lambda: exe.run(model['main'], feed=feed, scope=scope,
+                            fetch_list=[model['loss']])
+    result = {'batch': CV_BATCH}
+    for name, fn in (('request', request), ('train', train)):
         fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
-    prof.export_chrome_trace(trace_path)
-    by_name = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, 'self_device_time_total', None)
-        if dev_us is None:
-            dev_us = getattr(evt, 'self_cuda_time_total', 0)
-        # a range's device-side span (idle gaps included) is no kernel
-        if evt.key == _RECOMPUTE:
-            continue
-        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.key] = by_name.get(evt.key, 0.0) + dev_us / 1e3
-    # a host range's device time: the kernels its ops launched (the
-    # backward runs on autograd's own thread, outside any range)
-    recompute = sum(evt.device_time_total / 1e3 for evt in prof.events()
-                    if evt.name == _RECOMPUTE and
-                    evt.device_type == torch.autograd.DeviceType.CPU)
-    busy = sum(by_name.values())
-    return {'wall_s': wall, 'busy_ms': busy, 'by_name': by_name,
-            'recompute_ms': recompute,
-            'top': sorted(by_name.items(), key=lambda kv: -kv[1])[:12]}
+        fn()
+        wall = _wall(fn, REPS)
+        prof = profile_run(fn, os.path.join(out, 'resnet50_%s.json' % name),
+                           recompute=name == 'train')
+        print('ResNet-50 %s (%d x 3 x 224 x 224) [%s]:' % (name, CV_BATCH,
+                                                          card))
+        print('  wall                            : %.4f s (median of %d)' %
+              (wall, REPS))
+        _report(prof, {'convolution': conv_ms(prof)})
+        if name == 'train' and prof['busy_ms']:
+            print('  eager recompute: generic grads replaying their forward '
+                  'ops %.3f ms of device time (%.3f of busy)' %
+                  (prof['recompute_ms'], prof['recompute_ms'] /
+                   prof['busy_ms']))
+        result[name] = {
+            'wall_s': wall, 'wall_profiled_s': prof['wall_s'],
+            'device_busy_ms': prof['busy_ms'] or None,
+            'idle_share': (1 - prof['busy_ms'] / 1e3 / prof['wall_s']
+                           if prof['busy_ms'] else None),
+            'conv_ms': conv_ms(prof) if prof['busy_ms'] else None,
+            'recompute_ms': prof['recompute_ms'],
+            'top_kernels_ms': dict(prof['top'])}
+    return result
 
 
 def _report(prof, shares):

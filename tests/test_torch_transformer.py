@@ -189,7 +189,12 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             'paddle_tpu_torch.fluid.flags, paddle_tpu_torch.fluid.lod_tensor, '
             'paddle_tpu_torch.fluid.shape_policy, '
             'paddle_tpu_torch.fluid.layers.sequence, '
-            'paddle_tpu_torch.fluid.layers.metric_op, chip_smoke, '
+            'paddle_tpu_torch.fluid.layers.metric_op, '
+            'paddle_tpu_torch.fluid.nets, paddle_tpu_torch.models.mnist, '
+            'paddle_tpu_torch.models.resnet, paddle_tpu_torch.models.vgg, '
+            'paddle_tpu_torch.ops.activation_ops, '
+            'paddle_tpu_torch.ops.nn_ops, '
+            'paddle_tpu_torch.ops.optimizer_ops, chip_smoke, '
             'profile_torch_slice; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "paddle_tpu.")) or m == "paddle_tpu"); '
