@@ -53,28 +53,47 @@ Phases, in order; any failure exits non-zero and prints no result line:
 7. stacked-LSTM training: five Adam steps (lr 0.002) of the kernel form on
    one 128-row batch with exact launch counts and a falling loss; one step
    of each form from the same state on the card and on the CPU;
-8. ResNet-50 serving: ResNet-50 at full width as bench.py builds it
+8. NMT serving: the seq2seq NMT model at bench.py's bench_nmt widths
+   (dictionaries 30000, embedding, encoder and decoder 512; random weights
+   from a seed) in two forms, as built (the encoder LSTM with peepholes:
+   the scan path) and the same net without peepholes (``nmt_programs``:
+   the LSTM kernels at D = 512); its test program serves four LoD requests
+   of 128 sentence pairs as built (lengths in [8, 32], T = 32, the
+   [128, 32, 30000] prediction fetched; one request under
+   ``torch.profiler``) with no kernel launch, and two of the kernel form
+   with one ``lstm_fwd`` launch each;
+9. NMT training: five Adam steps (lr 1e-3) as built on one 128-pair batch
+   with a falling loss, a sixth under ``torch.profiler`` (busy, idle
+   share, the grads' replay); three of the kernel form with exactly 2
+   ``lstm_fwd``, 1 ``lstm_bwd`` and 1 ``lstm_bwd_dw`` launches a step;
+   one 2-pair step of each form from the same state on the card and on the
+   CPU (``NMT_TRAIN_TOL``);
+10. NMT beam decode: ``build_decode`` (beam 4, 16 steps) serves four
+   requests of 64 source sentences (one under ``torch.profiler``), then a
+   2-sentence request on the card and on the CPU, compared tie-aware
+   (``compare_beams``, ``NMT_BEAM_TOL``);
+11. ResNet-50 serving: ResNet-50 at full width as bench.py builds it
    (1000 classes, 224 x 224, bottleneck blocks [3, 4, 6, 3]; random
    weights from a seed) serves four requests of 64 images through its test
    program (batch norm on the running statistics), the softmax fetched:
    request wall, images/s, peak device memory and one request's device busy
    time under ``torch.profiler``; then a 2-image request on the card and on
    ``CPUPlace()`` with the same state, softmax and logits compared;
-9. ResNet-50 training: five Momentum steps (lr 0.01, mu 0.9) on one fixed
+12. ResNet-50 training: five Momentum steps (lr 0.01, mu 0.9) on one fixed
    64-image batch, every loss finite and the fifth below the first; step
    wall, peak memory, one step's device busy time, idle share, the
    convolutions' and the grads' forward replay's shares; then one 2-image
    step from the card's state on each device: loss, every trainable
    gradient, the updated parameters, velocities and batch-norm running
    statistics;
-10. MNIST MLP at its published width (784-200-200-10, tanh, Adam): five
+13. MNIST MLP at its published width (784-200-200-10, tanh, Adam): five
    steps of 64 images with a falling loss, one 8-image step against the
    CPU;
-11. VGG-16 (1000 classes, 224 x 224): a 2-image request of the test program
+14. VGG-16 (1000 classes, 224 x 224): a 2-image request of the test program
    and a 2-image training step (dropout_prob 0 on every dropout op) each
-   against the CPU; no hand-written kernel may launch in phases 8-11, and
-   the CPU runs of phases 8-11 flush denormals to zero;
-12. times: each kernel, its plain version and the one PyTorch call computing
+   against the CPU; no hand-written kernel may launch in phases 11-14, and
+   the CPU runs of phases 11-14 flush denormals to zero;
+15. times: each kernel, its plain version and the one PyTorch call computing
    the same function, at each slice's shape (CUDA events, median), the
    kernel and the library call also by their device time alone under
    ``torch.profiler`` (``device_ms``, ``library_device_ms``; the names of
@@ -82,9 +101,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the 3xTF32 tensor-core rate, bytes at the HBM rate; the same with the
    f32 FMA rate is printed beside it), the LSTM forward's and walk's device
    time at each cluster size, the walk's at bf16, and the ``lstm`` op's scan
-   and kernel paths,
+   and kernel paths; the three LSTM kernels again at NMT's shape (B=128,
+   T=32, D=512, entries ``*_d512``, beside cuDNN's LSTM there), all
    printed as one ``{"kernels": [...]}`` JSON line;
-13. the last line: ``{"ok": true, "device": {...}}``.
+16. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before each serving and each training
 path, and read just after it.
@@ -181,6 +201,37 @@ LSTM_WIDTHS = (32, 64, 128, 256, 288, 480, 512)
 # in another summation order on each side (the card's LSTM kernel against
 # the CPU's scan path), then a 2-class softmax
 LSTM_PRED_RTOL, LSTM_PRED_ATOL = 1e-4, 1e-6
+
+# the seq2seq NMT model at bench.py's bench_nmt widths (dictionaries of
+# 30000, embedding, encoder and decoder 512), Adam at the build's lr 1e-3;
+# LoD batches of 128 sentence pairs with lengths in [8, 32] (one row at 32,
+# so T = 32); beam decode at the build's beam 4 and max_length 16
+NMT = dict(src_dict_dim=30000, trg_dict_dim=30000, embedding_dim=512,
+           encoder_size=512, decoder_size=512)
+NMT_LR = 1e-3
+NMT_BATCH = 128
+NMT_MIN_LEN, NMT_MAX_LEN = 8, 32
+NMT_BEAM, NMT_OUT_LEN = 4, 16
+NMT_DECODE_BATCH = 64
+NMT_CPU_PAIRS = 2
+# one NMT training step on 2 pairs, card vs CPU (compare_train_step's keys).
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W, seeds 20261016 and
+# 20261116, both forms: the losses within 1e-7; the worst max|dg| / max|g|
+# 8.1e-4 to 6.9e-3 in the kernel form (the attention's state projection
+# fc_3.w_0, whose gradient cancels over the source steps; at most 1.6e-5
+# as built), |dg| / |g| over all 3.1e-7; updated parameters max|dp| 3e-6,
+# none beyond 1e-5.  Adam can move a parameter
+# whose gradient is rounding noise by up to lr either way, hence param_max.
+# Adam's moments, each |d| / |v|, follow the gradients: measured 2.5e-6 to
+# 4e-5 as built and 1.4e-3 to 1.7e-2 in the kernel form, varying from run
+# to run on the card (three runs at each of the two seeds); where the check
+# named the worst, it was fc_3.w_0's first moment.
+NMT_TRAIN_TOL = dict(loss=1e-5, grad_rtol=1e-2, grad_atol=1e-6,
+                     grad_norm=1e-5, param_max=NMT_LR, param_atol=1e-5,
+                     param_frac=1e-4, moments=0.1)
+# the decode's accumulated beam scores (about -165 after 16 steps), card vs
+# CPU (compare_beams): measured 1.5e-5 at the default seed
+NMT_BEAM_TOL = 1e-4
 
 # the dense CV slice: ResNet-50 as bench.py's bench_resnet builds it
 # (resnet.build(depth=50, class_dim=1000, image_shape=(3, 224, 224)):
@@ -929,7 +980,8 @@ def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
     to the CPU (``tol``: TRAIN_TOL, the updated parameters within lr, unless
     given): the loss, every trainable parameter's ``@GRAD``, the updated
     parameters, and the updated momentum velocities and batch-norm running
-    statistics where the program has them."""
+    statistics where the program has them, and Adam's moments where
+    ``tol`` has a ``moments`` entry."""
     import paddle_tpu_torch.fluid as fluid
     tol = tol or dict(TRAIN_TOL, param_max=lr)
     state = [v.name for v in main.list_vars() if v.persistable]
@@ -985,6 +1037,10 @@ def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
                                 for n in op.input('Velocity')),
              'stats': sorted(n for op in ops if op.type == 'batch_norm'
                              for n in op.input('Mean') + op.input('Variance'))}
+    if 'moments' in tol:
+        extra['moments'] = sorted(n for op in ops if op.type == 'adam'
+                                  for n in op.input('Moment1') +
+                                  op.input('Moment2'))
     state_err = {}
     for key, names in extra.items():
         for name in names:
@@ -996,8 +1052,9 @@ def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
             state_err[key] = max(state_err.get(key, 0.0), err)
     states = ''.join(
         '; %d %s: worst |d| / |v| %.3g (tol %g)' %
-        (len(extra[key]), 'velocities' if key == 'velocity' else
-         'running statistics', err, tol[key])
+        (len(extra[key]), {'velocity': 'velocities', 'stats':
+                           'running statistics', 'moments': 'Adam moments'}[key],
+         err, tol[key])
         for key, err in sorted(state_err.items()))
     print('%s: card vs CPU, one step on %s from the same state: loss %.6f vs '
           '%.6f (rel %.2g, tol %g); %d gradients: the worst max|dg| is %.3g '
@@ -1257,6 +1314,436 @@ def phase_lstm_train_card_vs_cpu(card, forms):
                            exe, LSTM_LR)
 
 
+def nmt_programs(use_peepholes=True, **widths):
+    """``seq2seq.build()``'s programs (the widths of ``NMT`` unless given),
+    built with the port's public layers with the encoder LSTM's
+    ``use_peepholes`` chosen: True gives the model as built, False the same
+    net at the same widths, whose LSTM the kernels take."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import seq2seq
+    w = dict(NMT, **widths)
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = layers.data(name='src_word_id', shape=[1], dtype='int64',
+                          lod_level=1)
+        trg = layers.data(name='target_language_word', shape=[1],
+                          dtype='int64', lod_level=1)
+        label = layers.data(name='target_language_next_word', shape=[1],
+                            dtype='int64', lod_level=1)
+        emb = layers.embedding(input=src, size=[w['src_dict_dim'],
+                                                w['embedding_dim']])
+        fc1 = layers.fc(input=emb, size=w['encoder_size'] * 4, act='tanh')
+        encoder_out, _ = layers.dynamic_lstm(
+            input=fc1, size=w['encoder_size'] * 4,
+            use_peepholes=use_peepholes)
+        encoder_proj = layers.fc(input=encoder_out, size=w['decoder_size'],
+                                 bias_attr=False)
+        encoder_last = layers.sequence_last_step(input=encoder_out)
+        decoder_boot = layers.fc(input=encoder_last, size=w['decoder_size'],
+                                 act='tanh')
+        logits, valid_mask = seq2seq.train_decoder(
+            decoder_boot, encoder_out, encoder_proj, trg, w['trg_dict_dim'],
+            w['embedding_dim'], w['decoder_size'])
+        prediction = layers.elementwise_mul(layers.softmax(logits),
+                                            valid_mask)
+        cost = layers.softmax_with_cross_entropy(logits, label)
+        loss = layers.mean(layers.sequence_pool(input=cost, pool_type='sum'))
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=NMT_LR).minimize(loss)
+    return dict(main=main, startup=startup, test=test,
+                feeds=['src_word_id', 'target_language_word',
+                       'target_language_next_word'],
+                prediction=prediction, loss=loss)
+
+
+def decode_fetch(model):
+    """The fetch list of a ``build_decode`` request: the stacked per-step
+    ids, scores and parent rows of its beams, then the sentences and their
+    scores."""
+    dec = [op for op in model['main'].global_block().ops
+           if op.type == 'beam_search_decode'][0]
+    return [dec.input('Ids')[0], dec.input('Scores')[0],
+            dec.input('ParentIdx')[0], model['sentence_ids'].name,
+            model['sentence_scores'].name]
+
+
+def _beam_hypotheses(ids, scores, parents, beam):
+    """For each step, for each sentence, {token prefix: accumulated score}
+    of its beams, from the stacked outputs of beam_search."""
+    t_len, bk = ids.shape[0], ids.shape[1]
+    ids = np.asarray(ids).reshape(t_len, bk)
+    scores = np.asarray(scores).reshape(t_len, bk)
+    parents = np.asarray(parents).reshape(t_len, bk).astype(np.int64)
+    prefixes = [()] * bk
+    out = []
+    for t in range(t_len):
+        prefixes = [prefixes[parents[t, r]] + (int(ids[t, r]), )
+                    for r in range(bk)]
+        out.append([{prefixes[r]: float(scores[t, r])
+                     for r in range(s * beam, (s + 1) * beam)}
+                    for s in range(bk // beam)])
+    return out, prefixes
+
+
+def compare_beams(got, want, beam, tol):
+    """Tie-aware comparison of two runs of a ``build_decode`` request,
+    each the fetches of ``decode_fetch`` (``want`` the reference).
+
+    Exact ids cannot be required everywhere: where two candidates' scores
+    lie within rounding of each other, either side may keep either, and
+    from there that sentence's beams follow other histories.  So, step by
+    step for each sentence: where both sides hold the same beams (token
+    prefixes), every beam's score agrees within ``tol``; where they differ,
+    every beam held by one side only must be at the edge of that side's top
+    K, within ``tol`` of its lowest score (not clear of the candidate that
+    replaced it), and the sentence is compared no further.  A sentence that
+    agrees to the last step has the same sentences and scores within
+    ``tol``.  Each side's sentences must also be its own last beams
+    backtracked, and its scores their last scores.
+
+    Returns (problems, stats): a list of disagreements (empty when the runs
+    agree) and {'max_score_err', 'compared_to_end', 'diverged': {sentence:
+    step}}."""
+    problems = []
+    hyps = []
+    for tag, run in (('got', got), ('want', want)):
+        ids, scores, parents, sent, sent_scores = (np.asarray(a) for a in run)
+        steps, last = _beam_hypotheses(ids, scores, parents, beam)
+        hyps.append(steps)
+        t_len, bk = ids.shape[0], ids.shape[1]
+        backtracked = np.asarray(last).reshape(bk // beam, beam, t_len)
+        if not np.array_equal(sent, backtracked):
+            problems.append('%s: the sentences are not the last beams '
+                            'backtracked' % tag)
+        if not np.array_equal(sent_scores,
+                              scores.reshape(t_len, bk)[-1].reshape(
+                                  bk // beam, beam)):
+            problems.append('%s: the sentence scores are not the last '
+                            'step\'s' % tag)
+    worst, diverged, to_end = 0.0, {}, 0
+    for s in range(len(hyps[1][0])):
+        for t in range(len(hyps[1])):
+            g, w = hyps[0][t][s], hyps[1][t][s]
+            if set(g) == set(w):
+                err = max(abs(g[p] - w[p]) for p in w)
+                worst = max(worst, err)
+                if err > tol:
+                    problems.append('sentence %d step %d: beam scores differ '
+                                    'by %g (tol %g)' % (s, t, err, tol))
+                    break
+                continue
+            edge_g, edge_w = min(g.values()), min(w.values())
+            only = [(v, edge_g) for p, v in g.items() if p not in w] + \
+                [(v, edge_w) for p, v in w.items() if p not in g]
+            if abs(edge_g - edge_w) <= tol and all(v - edge <= tol
+                                                   for v, edge in only):
+                diverged[s] = t
+            else:
+                problems.append('sentence %d step %d: the beams differ away '
+                                'from a near-tie: %s vs %s' %
+                                (s, t, sorted(g.items(), key=lambda e: -e[1]),
+                                 sorted(w.items(), key=lambda e: -e[1])))
+            break
+        else:
+            to_end += 1
+    return problems, {'max_score_err': worst, 'compared_to_end': to_end,
+                      'diverged': diverged}
+
+
+def nmt_batch(rng, pairs, target=True):
+    """A LoD batch of ``pairs`` sentence pairs (of source sentences only
+    without ``target``): lengths in [NMT_MIN_LEN, NMT_MAX_LEN] with one row
+    at NMT_MAX_LEN on each side, word ids from 2 up, drawn from ``rng``;
+    the labels are the target ids shifted by one, end id 1 last."""
+    import paddle_tpu_torch.fluid as fluid
+
+    def sentences(vocab):
+        n = rng.randint(NMT_MIN_LEN, NMT_MAX_LEN + 1, size=pairs)
+        n[rng.randint(pairs)] = NMT_MAX_LEN
+        return n, rng.randint(2, vocab, size=(int(n.sum()), 1)).astype(
+            'int64')
+
+    src_len, src = sentences(NMT['src_dict_dim'])
+    feed = {'src_word_id': fluid.create_lod_tensor(src, [src_len.tolist()])}
+    if target:
+        trg_len, trg = sentences(NMT['trg_dict_dim'])
+        nxt = np.concatenate([np.append(r[1:], 1) for r in np.split(
+            trg[:, 0], np.cumsum(trg_len)[:-1])])[:, None]
+        feed['target_language_word'] = fluid.create_lod_tensor(
+            trg, [trg_len.tolist()])
+        feed['target_language_next_word'] = fluid.create_lod_tensor(
+            nxt, [trg_len.tolist()])
+    return feed
+
+
+def _target_lengths(feed):
+    return np.diff(feed['target_language_word'].lod()[-1])
+
+
+def build_nmt_models():
+    """The NMT model at full width, each with its startup run on the card
+    from SEED: {'as built': seq2seq.build(), 'kernel': the same net without
+    peepholes (nmt_programs), 'decode': seq2seq.build_decode()}, each
+    (model, scope, executor)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import seq2seq
+    models = {}
+    t0 = time.perf_counter()
+    for form in ('as built', 'kernel', 'decode'):
+        with fluid.unique_name.guard():
+            if form == 'as built':
+                model = seq2seq.build(lr=NMT_LR, **NMT)
+            elif form == 'kernel':
+                model = nmt_programs(use_peepholes=False)
+            else:
+                model = seq2seq.build_decode(beam_size=NMT_BEAM,
+                                             max_length=NMT_OUT_LEN, **NMT)
+        model['startup'].random_seed = SEED
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(model['startup'], scope=scope)
+        models[form] = (model, scope, exe)
+    torch.cuda.synchronize()
+    n_params = sum(math.prod(p.shape) for p in
+                   models['as built'][0]['main'].all_parameters())
+    print('model: seq2seq NMT %s, %d parameters as built (encoder LSTM with '
+          'peepholes), Adam lr %g; build_decode beam %d, max_length %d; '
+          'startups %.2f s' % (NMT, n_params, NMT_LR, NMT_BEAM, NMT_OUT_LEN,
+                               time.perf_counter() - t0), flush=True)
+    return models
+
+
+def phase_nmt_serve(card, models):
+    """The test program (teacher-forced, the prediction fetched): four
+    128-pair requests as built, no kernel launch and one scan-path LSTM
+    each, one of them under torch.profiler; two of the kernel form, one
+    lstm_fwd launch each."""
+    rng = np.random.RandomState(SEED + 10)
+    requests = [nmt_batch(rng, NMT_BATCH) for _ in range(REQUESTS)]
+    from paddle_tpu_torch.fluid.shape_policy import bucketed_len
+    shape = (NMT_BATCH, bucketed_len(NMT_MAX_LEN), NMT['trg_dict_dim'])
+    launches = None
+    for form, n_req in (('as built', REQUESTS), ('kernel', 2)):
+        model, scope, exe = models[form]
+        kernel = form == 'kernel'
+        per_request = _expect(lstm_fwd=1) if kernel else _expect()
+        fetch = [model['prediction']]
+        walls = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()  # every launch counter to 0 just before this path
+        for i, feed in enumerate(requests[:n_req]):
+            before = _counts()
+            with _ScanCount() as scans:
+                t0 = time.perf_counter()
+                pred, = exe.run(model['test'], feed=feed, fetch_list=fetch,
+                                scope=scope)
+                walls.append(time.perf_counter() - t0)
+            grew = _grew(before)
+            check(grew == per_request and scans.calls == (0 if kernel else 1),
+                  'nmt serve (%s): request %d launched %s and ran the scan '
+                  'path %d times, expected %s and %d' %
+                  (form, i, grew, scans.calls, per_request,
+                   0 if kernel else 1))
+            valid = np.arange(shape[1])[None, :] < \
+                _target_lengths(feed)[:, None]
+            row_err = float(np.abs(pred[valid].sum(-1, dtype=np.float64) -
+                                   1).max()) if pred.shape == shape else 1.0
+            check(pred.shape == shape and np.isfinite(pred).all() and
+                  row_err < 1e-4 and not pred[~valid].any(),
+                  'nmt serve (%s): request %d prediction %s (expected %s), '
+                  'valid steps sum to 1 +- %g, padded steps nonzero: %s' %
+                  (form, i, pred.shape, shape, row_err,
+                   bool(pred[~valid].any())))
+            print('nmt serve (%s): request %d wall %.4f s, max|row sum - 1| '
+                  '%.2g, launches %s, scan path %d times [%s]' %
+                  (form, i + 1, walls[-1], row_err,
+                   {k: v for k, v in grew.items() if v}, scans.calls, card),
+                  flush=True)
+        if kernel:
+            launches = _counts()
+            print('nmt serve (kernel): %d requests, launches %s (%s per '
+                  'request) [%s]' % (n_req, {k: v for k, v in launches.items()
+                                             if v},
+                                     {k: v for k, v in per_request.items()
+                                      if v}, card), flush=True)
+            continue
+        peak = torch.cuda.max_memory_allocated()
+        steady = statistics.median(walls[1:])
+        tokens = statistics.mean(_target_lengths(r).sum()
+                                 for r in requests[1:])
+        prof = profile_run(lambda: exe.run(model['test'], feed=requests[0],
+                                           fetch_list=fetch, scope=scope))
+        print('nmt serve (as built): %d requests of %d pairs (T=%d, '
+              'vocabulary %d); steady request wall %.4f s (median of requests '
+              '2-%d), %.1f pairs/s, %.0f target tokens/s (the [%d, %d, %d] '
+              'prediction fetched to the host); peak device memory %.1f MiB; '
+              'one request under torch.profiler: %s; most device time: %s '
+              '[%s]' %
+              (REQUESTS, NMT_BATCH, shape[1], shape[2], steady, REQUESTS,
+               NMT_BATCH / steady, tokens / steady, shape[0], shape[1],
+               shape[2], peak / 2**20, _busy_line(prof),
+               _top_line(prof), card), flush=True)
+    return launches
+
+
+def phase_nmt_train(card, models):
+    """Adam steps on one 128-pair batch: five as built (no kernel launch,
+    two scan-path LSTM runs a step: the forward and its grad's replay), a
+    sixth under torch.profiler; three of the kernel form with exact launch
+    counts; the loss falling at every step of each; then one 2-pair step of
+    each form on the card and on the CPU from the same state."""
+    feed = nmt_batch(np.random.RandomState(SEED + 11), NMT_BATCH)
+    tokens = int(_target_lengths(feed).sum())
+    launches = None
+    for form, steps in (('as built', TRAIN_STEPS), ('kernel', 3)):
+        model, scope, exe = models[form]
+        kernel = form == 'kernel'
+        # the lstm op: the forward launch without the activations, and its
+        # generic grad's replay (saving them), the walk and dW once each
+        per_step = (_expect(lstm_fwd=2, lstm_bwd=1, lstm_dw=1) if kernel
+                    else _expect())
+        scans_per_step = 0 if kernel else 2
+        step = lambda: exe.run(model['main'], feed=feed,
+                               fetch_list=[model['loss']], scope=scope)
+        losses, walls = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()  # every launch counter to 0 just before this path
+        for i in range(steps):
+            before = _counts()
+            with _ScanCount() as scans:
+                t0 = time.perf_counter()
+                loss, = step()
+                walls.append(time.perf_counter() - t0)
+            grew = _grew(before)
+            check(grew == per_step and scans.calls == scans_per_step,
+                  'nmt train (%s): step %d launched %s and ran the scan path '
+                  '%d times, expected %s and %d' %
+                  (form, i + 1, grew, scans.calls, per_step, scans_per_step))
+            check(loss.shape == (1, ) and np.isfinite(loss).all(),
+                  'nmt train (%s): step %d loss %s is not finite' %
+                  (form, i + 1, loss))
+            losses.append(float(loss[0]))
+            print('nmt train (%s): step %d wall %.4f s, loss %.6f, launches '
+                  '%s [%s]' % (form, i + 1, walls[-1], losses[-1],
+                               {k: v for k, v in grew.items() if v}, card),
+                  flush=True)
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(all(b < a for a, b in zip(losses, losses[1:])),
+              'nmt train (%s): the loss did not fall at every step: %s' %
+              (form, losses))
+        steady = statistics.median(walls[1:])
+        if kernel:
+            launches = counts
+            from paddle_tpu_torch.ops.kernels import lstm as lk
+            busy = 'walk clusters of %d CTAs, forward clusters of %d' % (
+                lk.walk_cluster(NMT_BATCH, NMT['encoder_size'],
+                                torch.float32),
+                lk.fwd_cluster(NMT_BATCH, NMT['encoder_size'],
+                               torch.float32))
+        else:
+            prof = profile_run(step, recompute=True)
+            busy = 'one step under torch.profiler: %s; most device time: %s' % (
+                _busy_line(prof), _top_line(prof))
+        print('nmt train (%s): %d Adam steps (lr %g) on one %d-pair batch '
+              '(T=%d, %d target tokens), loss %.6f -> %.6f, falling at every '
+              'step; launches %s (%s per step); steady step wall %.4f s '
+              '(median of steps 2-%d), %.0f target tokens/s; peak device '
+              'memory %.1f MiB; %s [%s]' %
+              (form, steps, NMT_LR, NMT_BATCH, NMT_MAX_LEN, tokens,
+               losses[0], losses[-1], {k: v for k, v in counts.items() if v},
+               {k: v for k, v in per_step.items() if v}, steady, steps,
+               tokens / steady, peak / 2**20, busy, card), flush=True)
+        compare_train_step(card, 'nmt train (%s)' % form,
+                           '%d pairs' % NMT_CPU_PAIRS, model['main'],
+                           model['loss'].name,
+                           nmt_batch(np.random.RandomState(SEED + 12),
+                                     NMT_CPU_PAIRS), scope, exe, NMT_LR,
+                           NMT_TRAIN_TOL)
+    return launches
+
+
+def phase_nmt_decode(card, models):
+    """build_decode at full width: four requests of 64 source sentences
+    (beam 4, 16 steps), one under torch.profiler; then a 2-sentence request
+    on the card and on the CPU from the same state, compared tie-aware."""
+    import paddle_tpu_torch.fluid as fluid
+    model, scope, exe = models['decode']
+    rng = np.random.RandomState(SEED + 13)
+    requests = [nmt_batch(rng, NMT_DECODE_BATCH, target=False)
+                for _ in range(REQUESTS)]
+    fetch = [model['sentence_ids'], model['sentence_scores']]
+    shape = (NMT_DECODE_BATCH, NMT_BEAM, NMT_OUT_LEN)
+    walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()  # every launch counter to 0 just before the decode path
+    for i, feed in enumerate(requests):
+        before = _counts()
+        with _ScanCount() as scans:
+            t0 = time.perf_counter()
+            ids, scores = exe.run(model['main'], feed=feed, fetch_list=fetch,
+                                  scope=scope)
+            walls.append(time.perf_counter() - t0)
+        grew = _grew(before)
+        check(grew == _expect() and scans.calls == 1, 'nmt decode: request '
+              '%d launched %s and ran the scan path %d times, expected no '
+              'launch and 1' % (i, grew, scans.calls))
+        ended = ids == 1
+        check(ids.shape == shape and scores.shape == shape[:2] and
+              np.isfinite(scores).all() and
+              (np.diff(scores, axis=1) <= 0).all() and
+              (np.maximum.accumulate(ended, axis=2) == ended).all(),
+              'nmt decode: request %d sentences %s, scores %s: expected %s, '
+              'finite scores best first, a sentence ended stays ended' %
+              (i, ids.shape, scores.shape, shape))
+        print('nmt decode: request %d wall %.4f s, best scores %.4f .. %.4f, '
+              '%d beams ended [%s]' % (i + 1, walls[-1], scores[:, 0].max(),
+                                       scores[:, 0].min(),
+                                       int(ended[..., -1].sum()), card),
+              flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(walls[1:])
+    prof = profile_run(lambda: exe.run(model['main'], feed=requests[0],
+                                       fetch_list=fetch, scope=scope))
+    print('nmt decode: %d requests of %d source sentences (lengths %d-%d), '
+          'beam %d, %d steps; steady request wall %.4f s (median of requests '
+          '2-%d), %.1f sentences/s, %.0f generated tokens/s (%d a sentence, '
+          'its best beam), %.0f beam-row tokens/s; peak device memory %.1f '
+          'MiB; one request under torch.profiler: %s; most device time: %s '
+          '[%s]' %
+          (REQUESTS, NMT_DECODE_BATCH, NMT_MIN_LEN, NMT_MAX_LEN, NMT_BEAM,
+           NMT_OUT_LEN, steady, REQUESTS, NMT_DECODE_BATCH / steady,
+           NMT_DECODE_BATCH * NMT_OUT_LEN / steady, NMT_OUT_LEN,
+           NMT_DECODE_BATCH * NMT_BEAM * NMT_OUT_LEN / steady, peak / 2**20,
+           _busy_line(prof), _top_line(prof), card), flush=True)
+
+    small = nmt_batch(rng, NMT_CPU_PAIRS, target=False)
+    dfetch = decode_fetch(model)
+    got = exe.run(model['main'], feed=small, fetch_list=dfetch, scope=scope)
+    cpu_scope = fluid.Scope()
+    fluid.persistables_from_numpy(
+        model['main'], {v.name: scope.find_var(v.name).value().cpu().numpy()
+                        for v in model['main'].list_vars() if v.persistable},
+        scope=cpu_scope, place=fluid.CPUPlace())
+    t0 = time.perf_counter()
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        model['main'], feed=small, fetch_list=dfetch, scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    problems, stats = compare_beams(got, want, NMT_BEAM, NMT_BEAM_TOL)
+    check(not problems, 'nmt decode, card vs CPU: %s' % '; '.join(problems))
+    print('nmt decode: card vs CPU on %d sentences, tie-aware: beam scores '
+          'max|d| %.3g (tol %g); %d sentences agree to the last step, %s '
+          'part at a near-tie (sentence: step); best scores %s vs %s; CPU '
+          'run %.2f s [%s]' %
+          (NMT_CPU_PAIRS, stats['max_score_err'], NMT_BEAM_TOL,
+           stats['compared_to_end'], stats['diverged'] or 'none',
+           got[4][:, 0], want[4][:, 0], cpu_s, card), flush=True)
+
+
 @contextlib.contextmanager
 def cpu_ftz():
     """Denormal f32 values flushed to zero on the CPU while active: the
@@ -1331,13 +1818,20 @@ def conv_ms(prof):
                if any(k in name.lower() for k in CONV_KERNELS))
 
 
+def _top_line(prof, n=4):
+    """The ``n`` kernels with the most device time in a ``profile_run``."""
+    return ', '.join('%s %.3f ms' % (_activity_name(name)[:60], ms)
+                     for name, ms in prof['top'][:n])
+
+
 def _busy_line(prof):
     check(prof['busy_ms'] > 0, 'torch.profiler saw no device kernel')
     busy = prof['busy_ms']
-    return ('device busy %.3f ms of %.4f s profiled wall (idle share %.3f); '
-            'convolution kernels %.3f ms (%.3f of busy)%s' %
+    return ('device busy %.3f ms of %.4f s profiled wall (idle share %.3f)'
+            '%s%s' %
             (busy, prof['wall_s'], 1 - busy / 1e3 / prof['wall_s'],
-             conv_ms(prof), conv_ms(prof) / busy,
+             '; convolution kernels %.3f ms (%.3f of busy)' %
+             (conv_ms(prof), conv_ms(prof) / busy) if conv_ms(prof) else '',
              '; the grads\' forward replay %.3f ms (%.3f of busy)' %
              (prof['recompute_ms'], prof['recompute_ms'] / busy)
              if prof['recompute_ms'] else ''))
@@ -1580,21 +2074,36 @@ def _device_ms(fn, calls=20, warmup=3):
     activity, its median duration times its count per call (rounded, so
     that an event the profiler drops moves nothing), summed.  The wrapper's
     host work does not count.  A count that is not a multiple of ``calls``
-    is printed; (None, names) when the profiler saw no device events."""
+    is printed; (None, names) when the profiler saw no device events.
+
+    The profiler sometimes records no device activity in a session, or
+    drops most of one activity's events (seen in late phases of long runs
+    on the card; every activity here runs at least once a call): such a
+    session is printed and taken again, five sessions at most, and the last
+    one is used."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    durations = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            durations.setdefault(e.name, []).append(
-                e.time_range.elapsed_us())
+    for session in range(5):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        durations = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                durations.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        short = [n for n, d in durations.items() if 2 * len(d) < calls]
+        if durations and not short:
+            break
+        print('times: profiler session %d of 5 recorded %s' %
+              (session + 1, 'no device activity' if not durations else
+               'under half the events of %s' %
+               ', '.join(_activity_name(n)[:60] for n in short)),
+              flush=True)
     names = sorted(set(_activity_name(n)[:100] for n in durations))
     for name, d in sorted(durations.items()):
         if len(d) % calls:
@@ -1765,16 +2274,48 @@ def _lstm_op(fluid, d):
     return block, [op for op in block.ops if op.type == 'lstm'][0]
 
 
-def phase_lstm_times(card, launches, err):
-    """The LSTM kernels, their plain versions and cuDNN's LSTM at the
-    slice's shape (f32, B=128, T=64, D=128, every row full length), and the
-    lstm op's two paths on the card."""
+def _lstm_errors_at(lk, xs, w, bias, h0, c0, mask, dhs, dcs, what):
+    """The LSTM kernels against their plain versions on these inputs (as
+    phase_lstm_vs_plain): the worst max|d| of the forward, the walk and
+    dW/db."""
+    phs, pcs, pacts = lk.lstm_fwd_plain(xs, w, bias, h0, c0, mask)
+    bare = lk.lstm_fwd(xs, w, bias, h0, c0, mask, save_acts=False)
+    got_b = lk.lstm_bwd(w, mask, pacts, pcs, phs, h0, c0, dhs, dcs)
+    want_b = lk.lstm_bwd_plain(w, mask, pacts, pcs, phs, h0, c0, dhs, dcs)
+    torch.cuda.synchronize()
+    pairs = [('lstm_fwd', 'hs', bare[0], phs), ('lstm_fwd', 'cs', bare[1],
+                                                  pcs)]
+    pairs += list(zip(('lstm_bwd', 'lstm_dw', 'lstm_dw', 'lstm_bwd',
+                       'lstm_bwd'), ('dx', 'dW', 'db', 'dh0', 'dc0'), got_b,
+                      want_b))
+    worst = dict.fromkeys(('lstm_fwd', 'lstm_bwd', 'lstm_dw'), 0.0)
+    for kernel, name, got, want in pairs:
+        scale = max(1.0, want.abs().max().item())
+        e = (got - want).abs().max().item()
+        check(got.shape == want.shape and e <= LSTM_TOL[torch.float32] *
+              scale, 'LSTM kernel disagrees with plain at %s: max|d%s| %g > '
+              '%g * %g' % (what, name, e, LSTM_TOL[torch.float32], scale))
+        worst[kernel] = max(worst[kernel], e)
+    return worst
+
+
+def phase_lstm_times(card, launches, err, b=LSTM_BATCH, t=LSTM_MAX_LEN,
+                     d=STACKED_LSTM['hid_dim'], path='lstm_train',
+                     suffix='', extras=True):
+    """The LSTM kernels, their plain versions and cuDNN's LSTM at f32 B, T,
+    D, every row full length (the stacked-LSTM slice's shape by default);
+    ``launches`` of the main path ``path``; ``err`` the kernels' worst
+    errors against plain, measured at this shape when None.  ``extras``:
+    also the forward's and the walk's device time at each cluster size, the
+    walk at bf16, and the lstm op's two paths on the card."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.ops import registry
     from paddle_tpu_torch.ops.kernels import lstm as lk
-    b, t, d = LSTM_BATCH, LSTM_MAX_LEN, STACKED_LSTM['hid_dim']
+    shape = 'f32 B=%d T=%d D=%d' % (b, t, d)
     xs, w, bias, h0, c0, mask, dhs, dcs = _lstm_inputs(
         torch.float32, b, t, d, False, SEED + 6)
+    if err is None:
+        err = _lstm_errors_at(lk, xs, w, bias, h0, c0, mask, dhs, dcs, shape)
     hs, cs, acts = lk.lstm_fwd(xs, w, bias, h0, c0, mask)
     dx, _, _, db_part = lk._launch_walk(w, mask, acts, cs, h0, c0, dhs, dcs)
     calls = {
@@ -1788,6 +2329,51 @@ def phase_lstm_times(card, launches, err):
     device_ms = {key: _kernel_device_ms(fn, key)
                  for key, fn in calls.items()}
     fwd_acts_ms = _time_ms(lambda: lk.lstm_fwd(xs, w, bias, h0, c0, mask))
+    if extras:
+        extra = _lstm_cluster_times(card, lk, b, t, d, xs, w, bias, h0, c0,
+                                    mask, acts, cs, dhs, dcs)
+    else:
+        extra = {}
+    plain_ms = {'lstm_fwd': _time_ms(
+        lambda: lk.lstm_fwd_plain(xs, w, bias, h0, c0, mask,
+                                  save_acts=False), 2, 10)}
+    # the plain backward computes dx, dW and db in one call: both backward
+    # rows carry its time
+    plain_ms['lstm_bwd'] = plain_ms['lstm_dw'] = _time_ms(
+        lambda: lk.lstm_bwd_plain(w, mask, acts, cs, hs, h0, c0, dhs, dcs),
+        2, 10)
+    # cuDNN's LSTM at the same B, T and D; it also projects its D-wide
+    # input (x . W_ih, which the port's lstm op receives done)
+    cudnn = torch.nn.LSTM(d, d).cuda()
+    x_in = torch.randn(t, b, d, device='cuda')
+    def cudnn_fwd():
+        with torch.no_grad():
+            return cudnn(x_in)
+
+    library_ms = {'lstm_fwd': _time_ms(cudnn_fwd)}
+    library_device_ms = {'lstm_fwd': _device_ms(cudnn_fwd)[0]}
+    x_req = x_in.detach().requires_grad_()
+    out, _ = cudnn(x_req)
+    wrt = [x_req] + list(cudnn.parameters())
+    dout = torch.randn_like(out)
+    # cuDNN's backward gives dx and the weight gradients in one call: both
+    # backward rows carry its time
+    cudnn_bwd = lambda: torch.autograd.grad(out, wrt, dout, retain_graph=True)
+    library_ms['lstm_bwd'] = library_ms['lstm_dw'] = _time_ms(cudnn_bwd)
+    library_device_ms['lstm_bwd'] = library_device_ms['lstm_dw'] = \
+        _device_ms(cudnn_bwd)[0]
+    if extras:
+        extra['op_ms'] = _lstm_op_times(card, fluid, registry, b, t, d, xs, w,
+                                        bias)
+    return _lstm_rows(card, b, t, d, launches, path, suffix, err, shape, ms,
+                      device_ms, plain_ms, library_ms, library_device_ms,
+                      fwd_acts_ms, extra)
+
+
+def _lstm_cluster_times(card, lk, b, t, d, xs, w, bias, h0, c0, mask, acts,
+                        cs, dhs, dcs):
+    """The walk's device time at each cluster size (f32) and at bf16, and
+    the forward's at each cluster size its plan takes."""
     # the walk's device time at each cluster size (f32), and at bf16 beside
     # f32: bf16 halves the bytes of W, so where W streams from L2 (one CTA
     # a cluster) the gap between the two prices that streaming
@@ -1822,38 +2408,15 @@ def phase_lstm_times(card, launches, err):
           (b, t, d, fwd_n, ', '.join('N=%d %s' % (n, _fmt_ms(v))
                                      for n, v in fwd_by_cluster.items()),
            card), flush=True)
-    plain_ms = {'lstm_fwd': _time_ms(
-        lambda: lk.lstm_fwd_plain(xs, w, bias, h0, c0, mask,
-                                  save_acts=False), 2, 10)}
-    # the plain backward computes dx, dW and db in one call: both backward
-    # rows carry its time
-    plain_ms['lstm_bwd'] = plain_ms['lstm_dw'] = _time_ms(
-        lambda: lk.lstm_bwd_plain(w, mask, acts, cs, hs, h0, c0, dhs, dcs),
-        2, 10)
-    # cuDNN's LSTM at the same B, T and D; it also projects its 128-wide
-    # input (x . W_ih, which the port's lstm op receives done)
-    cudnn = torch.nn.LSTM(d, d).cuda()
-    x_in = torch.randn(t, b, d, device='cuda')
-    def cudnn_fwd():
-        with torch.no_grad():
-            return cudnn(x_in)
+    return {'fwd_n': fwd_n, 'fwd_by_cluster': fwd_by_cluster,
+            'cluster': cluster, 'by_cluster': by_cluster,
+            'bf16_ms': bf16_ms, 'bf16_device': bf16_device}
 
-    library_ms = {'lstm_fwd': _time_ms(cudnn_fwd)}
-    library_device_ms = {'lstm_fwd': _device_ms(cudnn_fwd)[0]}
-    x_req = x_in.detach().requires_grad_()
-    out, _ = cudnn(x_req)
-    wrt = [x_req] + list(cudnn.parameters())
-    dout = torch.randn_like(out)
-    # cuDNN's backward gives dx and the weight gradients in one call: both
-    # backward rows carry its time
-    cudnn_bwd = lambda: torch.autograd.grad(out, wrt, dout, retain_graph=True)
-    library_ms['lstm_bwd'] = library_ms['lstm_dw'] = _time_ms(cudnn_bwd)
-    library_device_ms['lstm_bwd'] = library_device_ms['lstm_dw'] = \
-        _device_ms(cudnn_bwd)[0]
 
-    # the lstm op on the card, scan path ('never') and kernel ('auto'):
-    # CUDA events around back-to-back runs of the lowering, so the host's
-    # launch gaps count
+def _lstm_op_times(card, fluid, registry, b, t, d, xs, w, bias):
+    """The lstm op on the card, scan path ('never') and kernel ('auto'):
+    CUDA events around back-to-back runs of the lowering, so the host's
+    launch gaps count."""
     block, op = _lstm_op(fluid, d)
     env = {op.input('Input')[0]: xs.transpose(0, 1).contiguous(),
            op.input('Input')[0] + registry.SEQLEN_SUFFIX:
@@ -1872,7 +2435,13 @@ def phase_lstm_times(card, launches, err):
           'ms (two turns each, never/auto/never/auto) [%s]' %
           (b, t, d, ', '.join('%.4f' % v for v in op_ms['never']),
            ', '.join('%.4f' % v for v in op_ms['auto']), card), flush=True)
+    return op_ms
 
+
+def _lstm_rows(card, b, t, d, launches, path, suffix, err, shape, ms,
+               device_ms, plain_ms, library_ms, library_device_ms,
+               fwd_acts_ms, extra):
+    """The kernels line's LSTM entries at one shape, each printed."""
     # least time: the products (2 FLOP per multiply-add) at the 3xTF32
     # rate, against the inputs read once and the outputs written once
     gate_elems, h_elems = t * b * 4 * d, t * b * d
@@ -1900,6 +2469,7 @@ def phase_lstm_times(card, launches, err):
         flops_k, nbytes = work[key]
         bound_ms, bound_by, bound_simt_ms = bound(flops_k, nbytes)
         name, src, line = sources[key]
+        name += suffix
         print('times: %s f32 B=%d T=%d D=%d: kernel %.4f ms (%.2f us a step; '
               'device %s), plain %.4f ms, cuDNN LSTM %.4f ms (device %s), '
               'bound %.4f ms by %s (%.3g GFLOP, %.3g MB; %s), %.4f ms at 67 '
@@ -1914,7 +2484,8 @@ def phase_lstm_times(card, launches, err):
             'route': 'cuda',
             'source': 'paddle_tpu_torch/csrc/' + src,
             'replaces': 'paddle_tpu/ops/pallas/lstm.py:%d' % line,
-            'launches': launches['lstm_train'][key],
+            'shape': shape,
+            'launches': launches[path][key],
             'launches_by_path': {p: launches[p][key] for p in launches},
             'max_abs_err': err[key],
             'ms': ms[key],
@@ -1928,24 +2499,27 @@ def phase_lstm_times(card, launches, err):
         }
         if key == 'lstm_fwd':
             entry['ms_with_acts'] = fwd_acts_ms
-            entry['cluster'] = fwd_n
-            entry['device_ms_by_cluster'] = fwd_by_cluster
-        if key == 'lstm_bwd':
-            entry['cluster'] = cluster
-            entry['device_ms_by_cluster'] = by_cluster
-            entry['bf16_ms'] = bf16_ms
-            entry['bf16_device_ms'] = bf16_device[0]
+        if extra and key == 'lstm_fwd':
+            entry['cluster'] = extra['fwd_n']
+            entry['device_ms_by_cluster'] = extra['fwd_by_cluster']
+        if extra and key == 'lstm_bwd':
+            entry['cluster'] = extra['cluster']
+            entry['device_ms_by_cluster'] = extra['by_cluster']
+            entry['bf16_ms'] = extra['bf16_ms']
+            entry['bf16_device_ms'] = extra['bf16_device'][0]
         kernels.append(entry)
-    print('times: lstm_fwd with the activations saved %.4f ms; forward '
-          'device time / cuDNN forward\'s %.2fx; backward walk + dW %.4f ms '
-          'against cuDNN backward %.4f ms (includes its input projection\'s '
-          'gradient); op scan path / kernel path %.1fx [%s]' %
-          (fwd_acts_ms, device_ms['lstm_fwd'] /
+    print('times: at %s: lstm_fwd with the activations saved %.4f ms; '
+          'forward device time / cuDNN forward\'s %.2fx; backward walk + dW '
+          '%.4f ms against cuDNN backward %.4f ms (includes its input '
+          'projection\'s gradient)%s [%s]' %
+          (shape, fwd_acts_ms, device_ms['lstm_fwd'] /
            library_device_ms['lstm_fwd'] if library_device_ms['lstm_fwd']
            else float('nan'), ms['lstm_bwd'] + ms['lstm_dw'],
            library_ms['lstm_bwd'],
-           statistics.median(op_ms['never']) /
-           statistics.median(op_ms['auto']), card), flush=True)
+           '; op scan path / kernel path %.1fx' %
+           (statistics.median(extra['op_ms']['never']) /
+            statistics.median(extra['op_ms']['auto'])) if extra else '',
+           card), flush=True)
     return kernels
 
 
@@ -1969,6 +2543,11 @@ def main():
     launches['lstm_train'] = phase_lstm_train(card, forms)
     phase_lstm_train_card_vs_cpu(card, forms)
     del model, scope, exe, forms
+    nmt = build_nmt_models()
+    launches['nmt_serve'] = phase_nmt_serve(card, nmt)
+    launches['nmt_train'] = phase_nmt_train(card, nmt)
+    phase_nmt_decode(card, nmt)
+    del nmt
     resnet = build_cv_model('resnet', lr=CV_LR, **RESNET50)
     phase_resnet_serve(card, *resnet)
     phase_resnet_train(card, *resnet)
@@ -1977,6 +2556,10 @@ def main():
     phase_vgg(card)
     kernels = phase_times(card, launches, fwd_err, bwd_err)
     kernels += phase_lstm_times(card, launches, lstm_err)
+    kernels += phase_lstm_times(card, launches, None, b=NMT_BATCH,
+                                t=NMT_MAX_LEN, d=NMT['encoder_size'],
+                                path='nmt_train', suffix='_d512',
+                                extras=False)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """Gradient / error clipping (counterpart of ``paddle_tpu/fluid/clip.py``).
 
 The program-building side is complete; the ``clip`` and ``clip_by_norm``
-ops, and ``square``/``sqrt``/``reduce_sum`` for the global norm, have no
-PyTorch lowering yet and raise ``NotImplementedError`` when run."""
+ops have no PyTorch lowering yet and raise ``NotImplementedError`` when
+run."""
 
 import copy
 

@@ -241,6 +241,24 @@ class Program(object):
     def current_block(self):
         return self.blocks[self.current_block_idx]
 
+    @property
+    def num_blocks(self):
+        return len(self.blocks)
+
+    def create_block(self, parent_idx=None):
+        """Append a sub-block whose parent is the current block (or
+        ``parent_idx``) and make it current: the body of a control-flow
+        op.  Its var lookups fall through to the parent blocks."""
+        new_idx = len(self.blocks)
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        self.blocks.append(Block(self, new_idx, parent))
+        self.current_block_idx = new_idx
+        return self.current_block()
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+
     def list_vars(self):
         for blk in self.blocks:
             for v in blk.vars.values():
@@ -250,8 +268,10 @@ class Program(object):
         return self.global_block().all_parameters()
 
     def clone(self, for_test=False):
-        """Deep-copy the program.  With ``for_test=True``, ops behave in
-        inference mode (is_test attr set on the ops that have one)."""
+        """Deep-copy the program, every block of it: a ``sub_block`` attr
+        points at the copy's block, as one deepcopy memo covers both.
+        With ``for_test=True``, ops behave in inference mode (is_test attr
+        set on the ops that have one)."""
         p = copy.deepcopy(self)
         if for_test:
             for blk in p.blocks:

@@ -1,6 +1,6 @@
 """Layer functions of the PyTorch port (the subset of
-``paddle_tpu.fluid.layers`` that the Transformer, stacked-LSTM and dense CV
-slices build with)."""
+``paddle_tpu.fluid.layers`` that the Transformer, stacked-LSTM, dense CV and
+seq2seq NMT slices build with)."""
 
 from . import nn
 from .nn import *
@@ -14,6 +14,8 @@ from . import sequence
 from .sequence import *
 from . import metric_op
 from .metric_op import *
+from . import control_flow
+from .control_flow import *
 
 __all__ = (nn.__all__ + io.__all__ + tensor.__all__ + ops.__all__ +
-           sequence.__all__ + metric_op.__all__)
+           sequence.__all__ + metric_op.__all__ + control_flow.__all__)

@@ -13,7 +13,7 @@ __all__ = [
     'fc', 'embedding', 'layer_norm', 'dropout', 'softmax',
     'softmax_with_cross_entropy', 'cross_entropy', 'mean', 'reshape',
     'unsqueeze', 'flash_attention', 'reduce_sum', 'clip', 'clip_by_norm',
-    'conv2d', 'pool2d', 'batch_norm',
+    'conv2d', 'pool2d', 'batch_norm', 'gather', 'topk',
 ]
 
 
@@ -247,6 +247,36 @@ def unsqueeze(input, axes, name=None):
         outputs={'Out': [out]},
         attrs={'axes': list(axes)})
     return out
+
+
+def gather(input, index):
+    """Rows of ``input`` at ``index``."""
+    helper = LayerHelper('gather', **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type='gather',
+        inputs={'X': [input],
+                'Index': [index]},
+        outputs={'Out': [out]})
+    return out
+
+
+def topk(input, k, name=None):
+    """The k largest values of the last dim and their indices."""
+    helper = LayerHelper('top_k', **locals())
+    values = helper.create_variable_for_type_inference(dtype=input.dtype)
+    indices = helper.create_variable_for_type_inference(dtype='int64')
+    values.shape = tuple(input.shape[:-1]) + (k, )
+    indices.shape = values.shape
+    helper.append_op(
+        type='top_k',
+        inputs={'X': [input]},
+        outputs={'Out': [values],
+                 'Indices': [indices]},
+        attrs={'k': k})
+    values.stop_gradient = True
+    indices.stop_gradient = True
+    return values, indices
 
 
 def flash_attention(q, k, v, num_heads=None, causal=False, scale=None,

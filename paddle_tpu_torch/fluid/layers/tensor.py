@@ -7,7 +7,8 @@ from ..framework import Variable
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
-__all__ = ['assign', 'fill_constant', 'create_global_var', 'sums']
+__all__ = ['assign', 'fill_constant', 'fill_constant_batch_size_like',
+           'create_global_var', 'sums']
 
 
 def create_global_var(shape,
@@ -79,6 +80,32 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
             'dtype': out.dtype,
             'value': float(value),
             'force_cpu': force_cpu
+        })
+    out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(input,
+                                  shape,
+                                  dtype,
+                                  value,
+                                  input_dim_idx=0,
+                                  output_dim_idx=0):
+    """A constant of ``shape`` whose dim ``output_dim_idx`` is taken at run
+    time from ``input``'s dim ``input_dim_idx`` (the batch)."""
+    helper = LayerHelper('fill_constant_batch_size_like', **locals())
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    out.shape = tuple(shape)
+    helper.append_op(
+        type='fill_constant_batch_size_like',
+        inputs={'Input': [input]},
+        outputs={'Out': [out]},
+        attrs={
+            'shape': list(shape),
+            'dtype': out.dtype,
+            'value': float(value),
+            'input_dim_idx': input_dim_idx,
+            'output_dim_idx': output_dim_idx
         })
     out.stop_gradient = True
     return out

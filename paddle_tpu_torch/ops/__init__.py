@@ -14,3 +14,5 @@ from . import attention_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import metric_ops  # noqa: F401
+from . import control_flow_ops  # noqa: F401
+from . import beam_search_ops  # noqa: F401

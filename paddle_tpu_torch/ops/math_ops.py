@@ -1,6 +1,7 @@
 """Math op lowerings (counterpart of ``paddle_tpu/ops/math_ops.py``): ``mul``,
-the ``elementwise_*`` broadcast family, ``sum``, ``scale``, ``mean`` and the
-unary ``pow`` (``x ** factor``, which the ``pow`` activation layer builds).
+the ``elementwise_*`` broadcast family, ``sum``, ``scale``, ``mean``,
+``reduce_sum`` and the unary ``pow`` (``x ** factor``, which the ``pow``
+activation layer builds).
 
 ``mul``'s product is ``torch.matmul``, as the JAX package leaves its
 product to XLA.
@@ -115,6 +116,22 @@ def _scale(ctx, op):
 def _mean(ctx, op):
     # fluid MeanOp fixes the output dim to {1}
     ctx.set(op, 'Out', torch.reshape(torch.mean(ctx.get(op, 'X')), (1, )))
+
+
+@register_lowering('reduce_sum')
+def _reduce_sum(ctx, op):
+    """Sum over ``dim`` (every dim with ``reduce_all``); a full reduction
+    without ``keep_dim`` gives the rank-1 [1] that fluid keeps."""
+    x = ctx.get(op, 'X')
+    keep = op.attrs.get('keep_dim', False)
+    if op.attrs.get('reduce_all', False):
+        out = torch.sum(x, dim=tuple(range(x.dim())), keepdim=keep)
+        ctx.set(op, 'Out', out if keep else torch.reshape(out, (1, )))
+        return
+    dim = op.attrs.get('dim', [0])
+    dim = [dim] if isinstance(dim, int) else dim
+    ctx.set(op, 'Out', torch.sum(x, dim=tuple(d % x.dim() for d in dim),
+                                 keepdim=keep))
 
 
 @register_lowering('pow')

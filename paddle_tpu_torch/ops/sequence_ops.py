@@ -1,5 +1,6 @@
 """Sequence op lowerings (counterpart of ``paddle_tpu/ops/sequence_ops.py``:
-``sequence_pool`` with its first/last-step aliases, and ``lstm``).
+``sequence_pool`` with its first/last-step aliases, ``sequence_softmax``,
+``sequence_expand``, ``lstm`` and ``gru_unit``).
 
 A LoD feed runs as a padded ``[B, T, ...]`` tensor with its int32 lengths
 carried beside it under ``<name>@SEQLEN`` (``registry.run_op`` propagates
@@ -106,6 +107,45 @@ def _sequence_pool(ctx, op):
                                             device=out.device))
 
 
+@register_lowering('sequence_softmax')
+def _sequence_softmax(ctx, op):
+    """Softmax over T within each row's length, zeros past it."""
+    x = ctx.get(op, 'X')  # [B, T] or [B, T, 1]
+    lengths = _seqlen(ctx, op)
+    squeeze = x.dim() == 3 and x.shape[-1] == 1
+    v = x[..., 0] if squeeze else x
+    if lengths is None:
+        out = torch.softmax(v, dim=1)
+    else:
+        m = _mask(v, lengths)
+        out = torch.softmax(torch.where(m, v, -1e30), dim=1)
+        out = torch.where(m, out, 0.0)
+    ctx.set(op, 'Out', out[..., None] if squeeze else out)
+
+
+@register_lowering('sequence_expand')
+def _sequence_expand(ctx, op):
+    """Broadcast each batch row of X across its ref sequence Y's steps (the
+    level-1 expansion on the padded form); the output carries Y's
+    lengths."""
+    if op.attrs.get('expand_from_sequence'):
+        raise NotImplementedError(
+            'sequence_expand(expand_from_sequence=True) expands to a nested '
+            '(2-level LoD) ref, which the PyTorch port does not run yet '
+            '(ROADMAP.md, Queue 1: the nested-LoD sequence ops)')
+    x = ctx.get(op, 'X')  # [B, D]
+    y = ctx.get(op, 'Y')  # [B, T, ...]: the target lengths
+    if x.dim() == y.dim():  # already per step
+        ctx.set(op, 'Out', x)
+        return
+    out = torch.repeat_interleave(x[:, None], y.shape[1], dim=1)
+    ctx.set(op, 'Out', out)
+    ynames = op.input('Y')
+    if ynames and (ynames[0] + SEQLEN_SUFFIX) in ctx.env:
+        for n in op.output('Out'):
+            ctx.env[n + SEQLEN_SUFFIX] = ctx.env[ynames[0] + SEQLEN_SUFFIX]
+
+
 @register_lowering('sequence_last_step')
 def _sequence_last_step(ctx, op):
     op.attrs['pooltype'] = 'LAST'
@@ -189,6 +229,33 @@ def _lstm(ctx, op):
     ctx.set(op, 'Cell', torch.transpose(cs, 0, 1).to(cd))
     ctx.set(op, 'BatchGate', x)
     ctx.set(op, 'BatchCellPreAct', torch.transpose(cs, 0, 1).to(cd))
+
+
+# gru_unit's activation attrs: the reference's enum
+_GRU_ACTS = {0: 'identity', 1: 'sigmoid', 2: 'tanh', 3: 'relu'}
+
+
+@register_lowering('gru_unit')
+def _gru_unit(ctx, op):
+    """One GRU step.  Gate columns [update u, reset r, candidate c]:
+    u, r = act_g(x_ur + h_prev W_ur), c = act(x_c + (r h_prev) W_c),
+    h = (1 - u) h_prev + u c."""
+    x = ctx.get(op, 'Input')  # [B, 3D]
+    h_prev = ctx.get(op, 'HiddenPrev')
+    w = ctx.get(op, 'Weight')  # [D, 3D]
+    bias = ctx.get(op, 'Bias')
+    gate_act = _act(_GRU_ACTS[op.attrs.get('gate_activation', 1)])
+    cand_act = _act(_GRU_ACTS[op.attrs.get('activation', 2)])
+    d = h_prev.shape[1]
+    if bias is not None:
+        x = x + bias
+    g = gate_act(x[:, :2 * d] + h_prev @ w[:, :2 * d])
+    u, r = torch.split(g, d, dim=1)
+    c = cand_act(x[:, 2 * d:] + (r * h_prev) @ w[:, 2 * d:])
+    h = (1 - u) * h_prev + u * c
+    ctx.set(op, 'Gate', torch.cat([g, c], dim=1))
+    ctx.set(op, 'ResetHiddenPrev', r * h_prev)
+    ctx.set(op, 'Hidden', h)
 
 
 def _lstm_scan(xs, w_r, gate_bias, bias, h, c, step_mask, d, use_peepholes,

@@ -38,6 +38,19 @@ def _fill_constant(ctx, op):
                                   device=ctx.device))
 
 
+@register_lowering('fill_constant_batch_size_like')
+def _fill_constant_batch_size_like(ctx, op):
+    """A constant whose dim ``output_dim_idx`` is Input's dim
+    ``input_dim_idx``."""
+    ref = ctx.get(op, 'Input')
+    shape = list(op.attrs.get('shape'))
+    shape[op.attrs.get('output_dim_idx', 0)] = \
+        ref.shape[op.attrs.get('input_dim_idx', 0)]
+    ctx.set(op, 'Out', torch.full(tuple(shape), op.attrs.get('value', 0.0),
+                                  dtype=_torch_dtype(op.attrs.get('dtype')),
+                                  device=ctx.device))
+
+
 @register_lowering('uniform_random')
 def _uniform_random(ctx, op):
     out = torch.empty(tuple(op.attrs.get('shape')), dtype=torch.float32,
@@ -98,6 +111,13 @@ def _assign_value(ctx, op):
     arr = np.asarray(op.attrs['values']).reshape(tuple(op.attrs['shape']))
     ctx.set(op, 'Out', torch.as_tensor(arr).to(
         device=ctx.device, dtype=_torch_dtype(op.attrs.get('dtype'))))
+
+
+@register_lowering('gather')
+def _gather(ctx, op):
+    """Rows of X at Index (flattened)."""
+    index = torch.reshape(ctx.get(op, 'Index'), (-1, ))
+    ctx.set(op, 'Out', torch.index_select(ctx.get(op, 'X'), 0, index))
 
 
 @register_lowering('top_k')

@@ -417,16 +417,26 @@ def test_optimizer_op_matches_jax(name):
 # ---- model parity, shared by test_torch_mnist, test_torch_resnet and
 # test_torch_vgg ----
 
+def _attr_desc(value):
+    """An attr comparable across the packages: a block (``sub_block``) by
+    its index, anything else by its repr."""
+    if hasattr(value, 'ops') and hasattr(value, 'parent_idx'):
+        return 'block %d' % value.idx
+    return repr(value)
+
+
 def program_desc(program):
-    """A program's ops (type, slots, attrs) and vars (name, shape, dtype,
-    lod level, persistable), comparable across the two packages."""
-    ops = [(op.type, {k: list(v) for k, v in op.inputs.items()},
-            {k: list(v) for k, v in op.outputs.items()},
-            sorted((k, repr(v)) for k, v in op.attrs.items()))
-           for op in program.global_block().ops]
-    var_list = sorted((v.name, tuple(v.shape), v.dtype, v.lod_level,
-                       v.persistable) for v in program.list_vars())
-    return ops, var_list
+    """A program's blocks, each with its index, its parent, its ops (type,
+    slots, attrs) and its vars (name, shape, dtype, lod level,
+    persistable), comparable across the two packages."""
+    return [(blk.idx, blk.parent_idx,
+             [(op.type, {k: list(v) for k, v in op.inputs.items()},
+               {k: list(v) for k, v in op.outputs.items()},
+               sorted((k, _attr_desc(v)) for k, v in op.attrs.items()))
+              for op in blk.ops],
+             sorted((v.name, tuple(v.shape), v.dtype, v.lod_level,
+                     v.persistable) for v in blk.vars.values()))
+            for blk in program.blocks]
 
 
 def build_both(jmodule, tmodule, **kwargs):
@@ -537,12 +547,22 @@ class ModelParity(object):
              for n in self.state}, scope=self.tscope,
             place=tfluid.CPUPlace())
 
+    @staticmethod
+    def _feeds(feed):
+        """(JAX feed, port feed): ``feed`` itself for both, or, when it is a
+        function of the fluid package (LoD feeds are each package's own
+        LoDTensor), its value for each."""
+        if callable(feed):
+            return feed(jfluid), feed(tfluid)
+        return feed, feed
+
     def serve(self, feed, fetch, tol):
         """Run the test programs on ``feed`` and compare ``fetch``."""
         self._sync()
-        want = self.jexe.run(self.jm['test'], feed=feed, fetch_list=fetch,
+        jfeed, tfeed = self._feeds(feed)
+        want = self.jexe.run(self.jm['test'], feed=jfeed, fetch_list=fetch,
                              scope=self.jscope)
-        got = self.texe.run(self.tm['test'], feed=feed, fetch_list=fetch,
+        got = self.texe.run(self.tm['test'], feed=tfeed, fetch_list=fetch,
                             scope=self.tscope)
         for name, w, g in zip(fetch, want, got):
             w = np.asarray(w)
@@ -556,9 +576,10 @@ class ModelParity(object):
         statistics and parameters.  Returns the loss."""
         self._sync()
         fetch = [self.tm['loss'].name] + [p + '@GRAD' for p in self.params]
-        want = self.jexe.run(self.jm['main'], feed=feed, fetch_list=fetch,
+        jfeed, tfeed = self._feeds(feed)
+        want = self.jexe.run(self.jm['main'], feed=jfeed, fetch_list=fetch,
                              scope=self.jscope)
-        got = self.texe.run(self.tm['main'], feed=feed, fetch_list=fetch,
+        got = self.texe.run(self.tm['main'], feed=tfeed, fetch_list=fetch,
                             scope=self.tscope)
         loss_w, loss_g = float(np.asarray(want[0])[0]), float(got[0][0])
         assert np.isfinite(loss_g)

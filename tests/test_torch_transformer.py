@@ -194,7 +194,13 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             'paddle_tpu_torch.models.resnet, paddle_tpu_torch.models.vgg, '
             'paddle_tpu_torch.ops.activation_ops, '
             'paddle_tpu_torch.ops.nn_ops, '
-            'paddle_tpu_torch.ops.optimizer_ops, chip_smoke, '
+            'paddle_tpu_torch.ops.optimizer_ops, '
+            'paddle_tpu_torch.models.seq2seq, '
+            'paddle_tpu_torch.fluid.layers.control_flow, '
+            'paddle_tpu_torch.ops.control_flow_ops, '
+            'paddle_tpu_torch.ops.beam_search_ops, '
+            'paddle_tpu_torch.ops.tensor_ops, paddle_tpu_torch.ops.math_ops, '
+            'chip_smoke, '
             'profile_torch_slice; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "paddle_tpu.")) or m == "paddle_tpu"); '
