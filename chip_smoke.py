@@ -106,8 +106,38 @@ Phases, in order; any failure exits non-zero and prints no result line:
    printed as one ``{"kernels": [...]}`` JSON line;
 16. the last line: ``{"ok": true, "device": {...}}``.
 
+Each ``Executor`` on the card runs the first call of a block eagerly,
+captures the block as a CUDA graph at the second and replays it from then
+on, so phases 4-14 drive the captured path.  Beside them, the captured path
+against the eager one (``eager_run``), from the same state:
+Transformer-base's request and Adam step (after phase 5), the stacked
+LSTM's kernel form's request and step (after phase 7), NMT's kernel form's
+Adam step (after phase 10) and ResNet-50's request and Momentum step (after
+phase 12).  Each asserts ``mode == 'graph'``, one capture of one block,
+the hand-written kernels the capture launched, the captured call against
+the eager call (fetches and every state var written, ``CAPTURE_TOL``, or
+twice the eager path's own spread from the same state, which is printed),
+a replay from the state again against the capture's call, and the kernels
+a replay launches, counted by name in the profiler's device activity; then
+times ``CAPTURE_CALLS`` calls of each path: median wall, device busy and
+idle share of one call under ``torch.profiler``, peak memory.  After the
+stacked LSTM: ``run_multi`` (8 Adam steps on 8 batches) against 8 ``run``
+calls (the last loss and every persistable var) and ``run_eval_multi`` (8
+requests) against 8 ``run`` calls (every fetch); dropout at p = 0.1 in a
+graph (each replay's mask keeps 0.9 +- ``DROPOUT_KEPT_TOL`` and differs
+from the last); and staleness (an op appended after the capture compiles
+the block again, a parameter handed over between two replays is read by
+the second, the stacked LSTM's train and test graphs share their
+parameter buffers, and state that one graph writes before it reads it
+survives the replays of another graph captured before it).
+
 Every launch counter is set to 0 just before each serving and each training
-path, and read just after it.
+path, and read just after it (``launches`` in the kernels line).  A replay
+calls no kernel wrapper, so every call of a main path runs under
+``torch.profiler`` and its hand-written kernels are counted by name in the
+device activity, replays included, and asserted call by call
+(``device_launches``); the wrappers' counts are asserted too: the call's
+kernels in a call that ran the lowerings, none in a replay.
 
 It imports nothing of JAX or of the JAX package ``paddle_tpu``.
 """
@@ -811,12 +841,21 @@ def build_model():
     return model, scope, exe
 
 
-def _counts():
-    from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    from paddle_tpu_torch.ops.kernels import lstm as lk
-    return {'fwd': fa.LAUNCHES, 'dq': fa.LAUNCHES_DQ, 'dkv': fa.LAUNCHES_DKV,
-            'lstm_fwd': lk.LAUNCHES_FWD, 'lstm_bwd': lk.LAUNCHES_BWD,
-            'lstm_dw': lk.LAUNCHES_DW}
+KERNEL_KEYS = ('fwd', 'dq', 'dkv', 'lstm_fwd', 'lstm_bwd', 'lstm_dw')
+# the device kernel counted for each launch key (a dW call launches its
+# split-K products and one reduction: the reduction is counted)
+DEVICE_KERNELS = {'fwd': 'fwd_kernel', 'dq': 'dq_kernel',
+                  'dkv': 'dkv_kernel', 'lstm_fwd': 'lstm_fwd_kernel',
+                  'lstm_bwd': 'lstm_bwd_walk_kernel',
+                  'lstm_dw': 'lstm_dw_reduce_kernel'}
+
+
+def _wrapper_counts():
+    """Each kernel wrapper's launch count, by key.  A replay of a captured
+    graph calls no wrapper: it counts nothing here."""
+    from paddle_tpu_torch.ops import registry
+    counts = registry.counts()
+    return {k: counts[k] for k in KERNEL_KEYS}
 
 
 def _zero_counts():
@@ -826,16 +865,119 @@ def _zero_counts():
     lk.LAUNCHES_FWD = lk.LAUNCHES_BWD = lk.LAUNCHES_DW = 0
 
 
-def _grew(before):
-    after = _counts()
-    return {k: after[k] - before[k] for k in after}
-
-
 def _expect(**nonzero):
     """A full launch-count dict: the named counters, every other one 0."""
-    out = dict.fromkeys(_counts(), 0)
+    out = dict.fromkeys(KERNEL_KEYS, 0)
     out.update(nonzero)
     return out
+
+
+def _kernel_base(name):
+    """A device activity's function name without namespace or template."""
+    return _activity_name(name).split('<')[0].split()[-1].split('::')[-1]
+
+
+def _device_kernels(prof):
+    """(the hand-written kernels a profiler session saw run on the card, by
+    launch key; the session's device activities)."""
+    by_name = {v: k for k, v in DEVICE_KERNELS.items()}
+    seen = dict.fromkeys(KERNEL_KEYS, 0)
+    device = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device += 1
+            key = by_name.get(_kernel_base(e.name))
+            if key is not None:
+                seen[key] += 1
+    return seen, device
+
+
+class _Path(object):
+    """A main path's launches over its run.  ``begin()`` sets every
+    counter to 0 just before the path; ``call`` makes one call of it under
+    torch.profiler and checks it; ``end()`` reads the counters just after.
+
+    Each call's kernels are counted by name in the profiler's device
+    activity, replays of captured graphs included, and must be ``want``.
+    The wrappers' counters must have grown by ``want`` in a call that ran
+    the lowerings (the eager first call, a capture) and by nothing in a
+    replay, which calls no wrapper; so must the lstm op's scan-path runs
+    (``scans``).  The profiler sometimes drops events (``_device_ms``): a
+    call whose session counted fewer kernels than ``want``, and none more,
+    is printed and made again, five times at most over the path (it ran
+    all the same: a training step's loss is kept)."""
+
+    RETAKES = 5
+
+    def __init__(self, tag, exe):
+        self.tag, self.exe = tag, exe
+        self.device = dict.fromkeys(KERNEL_KEYS, 0)
+        self.ran = []
+        self.retakes = 0
+
+    def begin(self):
+        _zero_counts()  # every launch counter to 0 just before the path
+        return self
+
+    def call(self, fn, want, scans=0):
+        """``fn()``'s result and wall (host clock, the profiler on, up to
+        the card's end of the call), once its session counted ``want``:
+        (result, wall, kernels, ran) for each call made, the last one
+        counted."""
+        made = []
+        while True:
+            before, scans0 = _wrapper_counts(), _scan_runs()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                result = fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            after = _wrapper_counts()
+            wrapped = {k: after[k] - before[k] for k in KERNEL_KEYS}
+            ran_scans = _scan_runs() - scans0
+            ran = self.exe.cached_blocks()[-1].last_ran
+            seen, device = _device_kernels(prof)
+            made.append((result, wall, seen, ran))
+            for k in KERNEL_KEYS:
+                self.device[k] += seen[k]
+            self.ran.append(ran)
+            lowered = ran != 'replay'
+            check(wrapped == (want if lowered else _expect()) and
+                  ran_scans == (scans if lowered else 0),
+                  '%s: a call (%s) grew the wrappers\' counters by %s and '
+                  'ran the scan path %d times, expected %s and %d' %
+                  (self.tag, ran, wrapped, ran_scans,
+                   want if lowered else _expect(), scans if lowered else 0))
+            if seen == want:
+                return made
+            short = all(seen[k] <= want[k] for k in KERNEL_KEYS)
+            check(short and self.retakes < self.RETAKES,
+                  '%s: the profiler counted %s run on the card in a call '
+                  '(%s, %d device activities), expected %s' %
+                  (self.tag, seen, ran, device, want))
+            self.retakes += 1
+            print('%s: profiler session counted %s of %s (%d device '
+                  'activities, a %s call): the call is made again (%d of %d)'
+                  % (self.tag, seen, want, device, ran, self.retakes,
+                     self.RETAKES), flush=True)
+
+    def end(self):
+        """The path's counts: ``wrapper``, each wrapper's counter read just
+        after the path, and ``device``, the kernels counted on the card."""
+        self.wrapper = _wrapper_counts()
+        return self
+
+    def summary(self):
+        ran = {r: self.ran.count(r) for r in ('eager', 'capture', 'replay')}
+        return ('wrappers %s, on the card %s (profiler, by kernel name); '
+                'calls %s%s' %
+                ({k: v for k, v in self.wrapper.items() if v} or 'none',
+                 {k: v for k, v in self.device.items() if v} or 'none',
+                 ', '.join('%d %s' % (n, r) for r, n in ran.items() if n),
+                 ', %d retaken' % self.retakes if self.retakes else ''))
 
 
 def phase_slice(card, model, scope, exe):
@@ -850,18 +992,13 @@ def phase_slice(card, model, scope, exe):
     per_request = 3 * cfg['n_layer']
     walls = []
     torch.cuda.reset_peak_memory_stats()
-    _zero_counts()  # every launch counter to 0 just before the serving path
+    path = _Path('slice', exe).begin()
     for i, feed in enumerate(requests):
-        before = _counts()
-        t0 = time.perf_counter()
-        loss, pred = exe.run(model['test'], feed=feed, fetch_list=fetch,
-                             scope=scope)
-        walls.append(time.perf_counter() - t0)
-        grew = _grew(before)
-        check(grew == _expect(fwd=per_request), 'request %d launched %s, '
-              'expected %d flash forward launches and nothing else' %
-              (i, grew, per_request))
-        grew = grew['fwd']
+        (loss, pred), wall, seen, ran = path.call(
+            lambda: exe.run(model['test'], feed=feed, fetch_list=fetch,
+                            scope=scope), _expect(fwd=per_request))[-1]
+        walls.append(wall)
+        grew = seen['fwd']
         check(loss.shape == (1, ) and np.isfinite(loss).all(),
               'request %d: loss %s is not finite' % (i, loss))
         check(pred.shape == (BATCH, seq, vocab) and np.isfinite(pred).all(),
@@ -870,20 +1007,20 @@ def phase_slice(card, model, scope, exe):
         row_err = float(np.abs(pred.sum(-1, dtype=np.float64) - 1.0).max())
         check(row_err < 1e-4, 'request %d: prediction rows sum to 1 +- %g' %
               (i, row_err))
-        print('slice: request %d wall %.4f s, loss %.6f, %d flash launches, '
-              'max|row sum - 1| %.2g [%s]' % (i + 1, walls[-1], loss[0], grew,
-                                             row_err, card), flush=True)
-    launches = _counts()
+        print('slice: request %d (%s) wall %.4f s, loss %.6f, %d flash '
+              'forwards on the card, max|row sum - 1| %.2g [%s]' %
+              (i + 1, ran, wall, loss[0], grew, row_err, card), flush=True)
+    launches = path.end()
     peak = torch.cuda.max_memory_allocated()
     steady = statistics.median(walls[1:])
     tokens = BATCH * seq
-    print('slice: %d requests, %d flash launches (%d per request); steady '
-          'request wall %.4f s (median of requests 2-%d; request 1 includes '
-          'first-call set-up), %.0f target tokens/s (batch %d x seq %d, '
-          'loss and full prediction fetched to the host); peak device memory '
-          '%.1f MiB [%s]' % (REQUESTS, launches['fwd'], per_request, steady,
-                             REQUESTS, tokens / steady, BATCH, seq,
-                             peak / 2**20, card), flush=True)
+    print('slice: %d requests, launches %s (%d flash forwards per request); '
+          'steady request wall %.4f s (median of requests 2-%d under '
+          'torch.profiler; request 1 includes first-call set-up), %.0f '
+          'target tokens/s (batch %d x seq %d, loss and full prediction '
+          'fetched to the host); peak device memory %.1f MiB [%s]' %
+          (REQUESTS, launches.summary(), per_request, steady, REQUESTS,
+           tokens / steady, BATCH, seq, peak / 2**20, card), flush=True)
 
     # the same weights and one 2 x 256 batch on the card and on the CPU
     small = {name: ids(2) for name in model['feeds']}
@@ -931,33 +1068,35 @@ def phase_train(card, model, scope, exe):
     losses, walls = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_counts()  # every launch counter to 0 just before the training path
+    path = _Path('train', exe).begin()
     for step in range(TRAIN_STEPS):
-        before = _counts()
-        t0 = time.perf_counter()
-        loss, = exe.run(model['main'], feed=feed, fetch_list=[model['loss']],
-                        scope=scope)
-        walls.append(time.perf_counter() - t0)
-        grew = _grew(before)
-        check(grew == per_step, 'training step %d launched %s, expected %s' %
-              (step + 1, grew, per_step))
-        check(loss.shape == (1, ) and np.isfinite(loss).all(),
-              'training step %d: loss %s is not finite' % (step + 1, loss))
-        losses.append(float(loss[0]))
-        print('train: step %d wall %.4f s, loss %.6f, launches %s [%s]' %
-              (step + 1, walls[-1], losses[-1], grew, card), flush=True)
-    launches = _counts()
+        made = path.call(lambda: exe.run(model['main'], feed=feed,
+                                         fetch_list=[model['loss']],
+                                         scope=scope), per_step)
+        for (loss, ), wall, seen, ran in made:
+            check(loss.shape == (1, ) and np.isfinite(loss).all(),
+                  'training step %d: loss %s is not finite' % (step + 1,
+                                                                loss))
+            losses.append(float(loss[0]))
+            walls.append(wall)
+        print('train: step %d (%s) wall %.4f s, loss %.6f, on the card %s '
+              '[%s]' % (step + 1, ran, wall, losses[-1],
+                        {k: v for k, v in seen.items() if v}, card),
+              flush=True)
+    launches = path.end()
     peak = torch.cuda.max_memory_allocated()
     check(all(b < a for a, b in zip(losses, losses[1:])),
           'training loss did not fall at every step: %s' % losses)
     steady = statistics.median(walls[1:])
     print('train: %d Adam steps (lr %g) on one %d x %d batch, loss %.6f -> '
           '%.6f, falling at every step; launches %s (%s per step); steady '
-          'step wall %.4f s (median of steps 2-%d; step 1 includes first-call '
-          'set-up), %.0f target tokens/s; peak device memory %.1f MiB [%s]' %
-          (TRAIN_STEPS, LR, BATCH, seq, losses[0], losses[-1], launches,
-           per_step, steady, TRAIN_STEPS, BATCH * seq / steady, peak / 2**20,
-           card), flush=True)
+          'step wall %.4f s (median of steps 2-%d under torch.profiler; step '
+          '1 includes first-call set-up), %.0f target tokens/s; peak device '
+          'memory %.1f MiB [%s]' %
+          (len(losses), LR, BATCH, seq, losses[0], losses[-1],
+           launches.summary(), {k: v for k, v in per_step.items() if v},
+           steady, len(walls), BATCH * seq / steady, peak / 2**20, card),
+          flush=True)
     return launches
 
 
@@ -1152,24 +1291,25 @@ def build_lstm_models():
     return forms
 
 
-class _ScanCount(object):
-    """Counts calls of the lstm op's scan path while active."""
+_SCAN = {'runs': None}
 
-    def __enter__(self):
-        from paddle_tpu_torch.ops import sequence_ops
-        self.calls = 0
-        self._real = sequence_ops._lstm_scan
+
+def _scan_runs():
+    """Runs of the lstm op's scan path through its lowering so far: the scan
+    path's Python function counts its calls (a capture records the scan's
+    kernels; its replays call no Python)."""
+    from paddle_tpu_torch.ops import registry, sequence_ops
+    if _SCAN['runs'] is None:
+        _SCAN['runs'] = 0
+        real = sequence_ops._lstm_scan
 
         def counted(*args):
-            self.calls += 1
-            return self._real(*args)
+            _SCAN['runs'] += 1
+            return real(*args)
 
         sequence_ops._lstm_scan = counted
-        return self
-
-    def __exit__(self, *exc):
-        from paddle_tpu_torch.ops import sequence_ops
-        sequence_ops._lstm_scan = self._real
+        registry.register_counter(lambda: {'lstm_scan': _SCAN['runs']})
+    return _SCAN['runs']
 
 
 def phase_lstm_serve(card, forms):
@@ -1188,42 +1328,36 @@ def phase_lstm_serve(card, forms):
         walls = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _zero_counts()  # every launch counter to 0 just before this path
+        path = _Path('lstm serve (%s)' % form, exe).begin()
         for i, feed in enumerate(requests):
-            before = _counts()
-            with _ScanCount() as scans:
-                t0 = time.perf_counter()
-                pred, acc = exe.run(model['test'], feed=feed,
-                                    fetch_list=fetch, scope=scope)
-                walls.append(time.perf_counter() - t0)
-            grew = _grew(before)
-            check(grew == per_request and
-                  scans.calls == (0 if kernel else n_layers),
-                  'lstm serve (%s): request %d launched %s and ran the scan '
-                  'path %d times, expected %s and %d' %
-                  (form, i, grew, scans.calls, per_request,
-                   0 if kernel else n_layers))
+            (pred, acc), wall, grew, ran = path.call(
+                lambda: exe.run(model['test'], feed=feed, fetch_list=fetch,
+                                scope=scope), per_request,
+                scans=0 if kernel else n_layers)[-1]
+            walls.append(wall)
             row_err = float(np.abs(pred.sum(-1, dtype=np.float64) - 1).max())
             check(pred.shape == (LSTM_BATCH, STACKED_LSTM['class_dim']) and
                   np.isfinite(pred).all() and row_err < 1e-5 and
                   0 <= acc[0] <= 1,
                   'lstm serve (%s): request %d prediction %s, rows sum to 1 '
                   '+- %g, accuracy %s' % (form, i, pred.shape, row_err, acc))
-            print('lstm serve (%s): request %d wall %.4f s, accuracy %.4f, '
-                  'launches %s, scan path %d times [%s]' %
-                  (form, i + 1, walls[-1], acc[0],
-                   {k: v for k, v in grew.items() if v}, scans.calls, card),
+            print('lstm serve (%s): request %d (%s) wall %.4f s, accuracy '
+                  '%.4f, on the card %s [%s]' %
+                  (form, i + 1, ran, wall, acc[0],
+                   {k: v for k, v in grew.items() if v} or 'none', card),
                   flush=True)
+        path.end()
         if kernel:
-            launches = _counts()
+            launches = path
         steady = statistics.median(walls[1:])
         tokens = sum(len(r['words'].numpy()) for r in requests[1:]) / (
             REQUESTS - 1)
-        print('lstm serve (%s): %d requests of %d rows (T=%d); steady request '
-              'wall %.4f s (median of requests 2-%d), %.0f rows/s, %.0f '
-              'tokens/s; peak device memory %.1f MiB [%s]' %
-              (form, REQUESTS, LSTM_BATCH, LSTM_MAX_LEN, steady, REQUESTS,
-               LSTM_BATCH / steady, tokens / steady,
+        print('lstm serve (%s): %d requests of %d rows (T=%d); launches %s; '
+              'steady request wall %.4f s (median of requests 2-%d under '
+              'torch.profiler), %.0f rows/s, %.0f tokens/s; peak device '
+              'memory %.1f MiB [%s]' %
+              (form, REQUESTS, LSTM_BATCH, LSTM_MAX_LEN, path.summary(),
+               steady, REQUESTS, LSTM_BATCH / steady, tokens / steady,
                torch.cuda.max_memory_allocated() / 2**20, card), flush=True)
 
         gpred, gacc = exe.run(model['test'], feed=small, fetch_list=fetch,
@@ -1265,23 +1399,22 @@ def phase_lstm_train(card, forms):
     losses, walls = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_counts()  # every launch counter to 0 just before the training path
+    path = _Path('lstm train', exe).begin()
     for step in range(TRAIN_STEPS):
-        before = _counts()
-        t0 = time.perf_counter()
-        loss, = exe.run(model['main'], feed=feed, fetch_list=[model['loss']],
-                        scope=scope)
-        walls.append(time.perf_counter() - t0)
-        grew = _grew(before)
-        check(grew == per_step, 'lstm train: step %d launched %s, expected %s'
-              % (step + 1, grew, per_step))
-        check(loss.shape == (1, ) and np.isfinite(loss).all(),
-              'lstm train: step %d loss %s is not finite' % (step + 1, loss))
-        losses.append(float(loss[0]))
-        print('lstm train: step %d wall %.4f s, loss %.6f, launches %s [%s]' %
-              (step + 1, walls[-1], losses[-1],
-               {k: v for k, v in grew.items() if v}, card), flush=True)
-    launches = _counts()
+        made = path.call(lambda: exe.run(model['main'], feed=feed,
+                                         fetch_list=[model['loss']],
+                                         scope=scope), per_step)
+        for (loss, ), wall, grew, ran in made:
+            check(loss.shape == (1, ) and np.isfinite(loss).all(),
+                  'lstm train: step %d loss %s is not finite' % (step + 1,
+                                                                 loss))
+            losses.append(float(loss[0]))
+            walls.append(wall)
+        print('lstm train: step %d (%s) wall %.4f s, loss %.6f, on the card '
+              '%s [%s]' % (step + 1, ran, wall, losses[-1],
+                           {k: v for k, v in grew.items() if v}, card),
+              flush=True)
+    launches = path.end()
     from paddle_tpu_torch.ops.kernels import lstm as lk
     print('lstm train: each walk launch runs clusters of %d CTAs (B=%d, D=%d,'
           ' f32)' % (lk.walk_cluster(LSTM_BATCH, STACKED_LSTM['hid_dim'],
@@ -1291,12 +1424,12 @@ def phase_lstm_train(card, forms):
           'lstm train: the loss did not fall at every step: %s' % losses)
     print('lstm train: %d Adam steps (lr %g) on one %d-row batch (T=%d), '
           'loss %.6f -> %.6f, falling at every step; launches %s (%s per '
-          'step); steady step wall %.4f s (median of steps 2-%d); peak device '
-          'memory %.1f MiB [%s]' %
-          (TRAIN_STEPS, LSTM_LR, LSTM_BATCH, LSTM_MAX_LEN, losses[0],
-           losses[-1], {k: v for k, v in launches.items() if v},
+          'step); steady step wall %.4f s (median of steps 2-%d under '
+          'torch.profiler); peak device memory %.1f MiB [%s]' %
+          (len(losses), LSTM_LR, LSTM_BATCH, LSTM_MAX_LEN, losses[0],
+           losses[-1], launches.summary(),
            {k: v for k, v in per_step.items() if v},
-           statistics.median(walls[1:]), TRAIN_STEPS,
+           statistics.median(walls[1:]), len(walls),
            torch.cuda.max_memory_allocated() / 2**20, card), flush=True)
     return launches
 
@@ -1532,20 +1665,13 @@ def phase_nmt_serve(card, models):
         walls = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _zero_counts()  # every launch counter to 0 just before this path
+        path = _Path('nmt serve (%s)' % form, exe).begin()
         for i, feed in enumerate(requests[:n_req]):
-            before = _counts()
-            with _ScanCount() as scans:
-                t0 = time.perf_counter()
-                pred, = exe.run(model['test'], feed=feed, fetch_list=fetch,
-                                scope=scope)
-                walls.append(time.perf_counter() - t0)
-            grew = _grew(before)
-            check(grew == per_request and scans.calls == (0 if kernel else 1),
-                  'nmt serve (%s): request %d launched %s and ran the scan '
-                  'path %d times, expected %s and %d' %
-                  (form, i, grew, scans.calls, per_request,
-                   0 if kernel else 1))
+            (pred, ), wall, grew, ran = path.call(
+                lambda: exe.run(model['test'], feed=feed, fetch_list=fetch,
+                                scope=scope), per_request,
+                scans=0 if kernel else 1)[-1]
+            walls.append(wall)
             valid = np.arange(shape[1])[None, :] < \
                 _target_lengths(feed)[:, None]
             row_err = float(np.abs(pred[valid].sum(-1, dtype=np.float64) -
@@ -1556,16 +1682,16 @@ def phase_nmt_serve(card, models):
                   'valid steps sum to 1 +- %g, padded steps nonzero: %s' %
                   (form, i, pred.shape, shape, row_err,
                    bool(pred[~valid].any())))
-            print('nmt serve (%s): request %d wall %.4f s, max|row sum - 1| '
-                  '%.2g, launches %s, scan path %d times [%s]' %
-                  (form, i + 1, walls[-1], row_err,
-                   {k: v for k, v in grew.items() if v}, scans.calls, card),
+            print('nmt serve (%s): request %d (%s) wall %.4f s, max|row sum '
+                  '- 1| %.2g, on the card %s [%s]' %
+                  (form, i + 1, ran, wall, row_err,
+                   {k: v for k, v in grew.items() if v} or 'none', card),
                   flush=True)
+        path.end()
         if kernel:
-            launches = _counts()
+            launches = path
             print('nmt serve (kernel): %d requests, launches %s (%s per '
-                  'request) [%s]' % (n_req, {k: v for k, v in launches.items()
-                                             if v},
+                  'request) [%s]' % (n_req, path.summary(),
                                      {k: v for k, v in per_request.items()
                                       if v}, card), flush=True)
             continue
@@ -1576,13 +1702,13 @@ def phase_nmt_serve(card, models):
         prof = profile_run(lambda: exe.run(model['test'], feed=requests[0],
                                            fetch_list=fetch, scope=scope))
         print('nmt serve (as built): %d requests of %d pairs (T=%d, '
-              'vocabulary %d); steady request wall %.4f s (median of requests '
-              '2-%d), %.1f pairs/s, %.0f target tokens/s (the [%d, %d, %d] '
+              'vocabulary %d); launches %s; steady request wall %.4f s '
+              '(median of requests 2-%d under torch.profiler), %.1f pairs/s, %.0f target tokens/s (the [%d, %d, %d] '
               'prediction fetched to the host); peak device memory %.1f MiB; '
               'one request under torch.profiler: %s; most device time: %s '
               '[%s]' %
-              (REQUESTS, NMT_BATCH, shape[1], shape[2], steady, REQUESTS,
-               NMT_BATCH / steady, tokens / steady, shape[0], shape[1],
+              (REQUESTS, NMT_BATCH, shape[1], shape[2], path.summary(),
+               steady, REQUESTS, NMT_BATCH / steady, tokens / steady, shape[0], shape[1],
                shape[2], peak / 2**20, _busy_line(prof),
                _top_line(prof), card), flush=True)
     return launches
@@ -1610,27 +1736,21 @@ def phase_nmt_train(card, models):
         losses, walls = [], []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _zero_counts()  # every launch counter to 0 just before this path
+        path = _Path('nmt train (%s)' % form, exe).begin()
         for i in range(steps):
-            before = _counts()
-            with _ScanCount() as scans:
-                t0 = time.perf_counter()
-                loss, = step()
-                walls.append(time.perf_counter() - t0)
-            grew = _grew(before)
-            check(grew == per_step and scans.calls == scans_per_step,
-                  'nmt train (%s): step %d launched %s and ran the scan path '
-                  '%d times, expected %s and %d' %
-                  (form, i + 1, grew, scans.calls, per_step, scans_per_step))
-            check(loss.shape == (1, ) and np.isfinite(loss).all(),
-                  'nmt train (%s): step %d loss %s is not finite' %
-                  (form, i + 1, loss))
-            losses.append(float(loss[0]))
-            print('nmt train (%s): step %d wall %.4f s, loss %.6f, launches '
-                  '%s [%s]' % (form, i + 1, walls[-1], losses[-1],
-                               {k: v for k, v in grew.items() if v}, card),
+            for (loss, ), wall, grew, ran in path.call(
+                    step, per_step, scans=scans_per_step):
+                check(loss.shape == (1, ) and np.isfinite(loss).all(),
+                      'nmt train (%s): step %d loss %s is not finite' %
+                      (form, i + 1, loss))
+                losses.append(float(loss[0]))
+                walls.append(wall)
+            print('nmt train (%s): step %d (%s) wall %.4f s, loss %.6f, on '
+                  'the card %s [%s]' %
+                  (form, i + 1, ran, wall, losses[-1],
+                   {k: v for k, v in grew.items() if v} or 'none', card),
                   flush=True)
-        counts = _counts()
+        counts = path.end()
         peak = torch.cuda.max_memory_allocated()
         check(all(b < a for a, b in zip(losses, losses[1:])),
               'nmt train (%s): the loss did not fall at every step: %s' %
@@ -1651,11 +1771,11 @@ def phase_nmt_train(card, models):
         print('nmt train (%s): %d Adam steps (lr %g) on one %d-pair batch '
               '(T=%d, %d target tokens), loss %.6f -> %.6f, falling at every '
               'step; launches %s (%s per step); steady step wall %.4f s '
-              '(median of steps 2-%d), %.0f target tokens/s; peak device '
-              'memory %.1f MiB; %s [%s]' %
-              (form, steps, NMT_LR, NMT_BATCH, NMT_MAX_LEN, tokens,
-               losses[0], losses[-1], {k: v for k, v in counts.items() if v},
-               {k: v for k, v in per_step.items() if v}, steady, steps,
+              '(median of steps 2-%d under torch.profiler), %.0f target '
+              'tokens/s; peak device memory %.1f MiB; %s [%s]' %
+              (form, len(losses), NMT_LR, NMT_BATCH, NMT_MAX_LEN, tokens,
+               losses[0], losses[-1], counts.summary(),
+               {k: v for k, v in per_step.items() if v}, steady, len(walls),
                tokens / steady, peak / 2**20, busy, card), flush=True)
         compare_train_step(card, 'nmt train (%s)' % form,
                            '%d pairs' % NMT_CPU_PAIRS, model['main'],
@@ -1680,18 +1800,12 @@ def phase_nmt_decode(card, models):
     walls = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_counts()  # every launch counter to 0 just before the decode path
+    path = _Path('nmt decode', exe).begin()
     for i, feed in enumerate(requests):
-        before = _counts()
-        with _ScanCount() as scans:
-            t0 = time.perf_counter()
-            ids, scores = exe.run(model['main'], feed=feed, fetch_list=fetch,
-                                  scope=scope)
-            walls.append(time.perf_counter() - t0)
-        grew = _grew(before)
-        check(grew == _expect() and scans.calls == 1, 'nmt decode: request '
-              '%d launched %s and ran the scan path %d times, expected no '
-              'launch and 1' % (i, grew, scans.calls))
+        (ids, scores), wall, _, ran = path.call(
+            lambda: exe.run(model['main'], feed=feed, fetch_list=fetch,
+                            scope=scope), _expect(), scans=1)[-1]
+        walls.append(wall)
         ended = ids == 1
         check(ids.shape == shape and scores.shape == shape[:2] and
               np.isfinite(scores).all() and
@@ -1700,23 +1814,23 @@ def phase_nmt_decode(card, models):
               'nmt decode: request %d sentences %s, scores %s: expected %s, '
               'finite scores best first, a sentence ended stays ended' %
               (i, ids.shape, scores.shape, shape))
-        print('nmt decode: request %d wall %.4f s, best scores %.4f .. %.4f, '
-              '%d beams ended [%s]' % (i + 1, walls[-1], scores[:, 0].max(),
-                                       scores[:, 0].min(),
-                                       int(ended[..., -1].sum()), card),
-              flush=True)
+        print('nmt decode: request %d (%s) wall %.4f s, best scores %.4f .. '
+              '%.4f, %d beams ended [%s]' %
+              (i + 1, ran, wall, scores[:, 0].max(), scores[:, 0].min(),
+               int(ended[..., -1].sum()), card), flush=True)
+    path.end()
     peak = torch.cuda.max_memory_allocated()
     steady = statistics.median(walls[1:])
     prof = profile_run(lambda: exe.run(model['main'], feed=requests[0],
                                        fetch_list=fetch, scope=scope))
     print('nmt decode: %d requests of %d source sentences (lengths %d-%d), '
-          'beam %d, %d steps; steady request wall %.4f s (median of requests '
-          '2-%d), %.1f sentences/s, %.0f generated tokens/s (%d a sentence, '
+          'beam %d, %d steps; launches %s; steady request wall %.4f s '
+          '(median of requests 2-%d under torch.profiler), %.1f sentences/s, %.0f generated tokens/s (%d a sentence, '
           'its best beam), %.0f beam-row tokens/s; peak device memory %.1f '
           'MiB; one request under torch.profiler: %s; most device time: %s '
           '[%s]' %
           (REQUESTS, NMT_DECODE_BATCH, NMT_MIN_LEN, NMT_MAX_LEN, NMT_BEAM,
-           NMT_OUT_LEN, steady, REQUESTS, NMT_DECODE_BATCH / steady,
+           NMT_OUT_LEN, path.summary(), steady, REQUESTS, NMT_DECODE_BATCH / steady,
            NMT_DECODE_BATCH * NMT_OUT_LEN / steady, NMT_OUT_LEN,
            NMT_DECODE_BATCH * NMT_BEAM * NMT_OUT_LEN / steady, peak / 2**20,
            _busy_line(prof), _top_line(prof), card), flush=True)
@@ -1904,8 +2018,10 @@ def compare_serve(card, tag, model, feed, scope, exe):
 
 
 def _no_launches(tag):
-    check(_counts() == _expect(), '%s launched %s; no hand-written kernel '
-          'lies on the CV path' % (tag, _counts()))
+    """No wrapper launched (a capture records only what the wrappers
+    launched, so its replays launch none either)."""
+    check(_wrapper_counts() == _expect(), '%s launched %s; no hand-written '
+          'kernel lies on the CV path' % (tag, _wrapper_counts()))
 
 
 def phase_resnet_serve(card, model, scope, exe):
@@ -2042,6 +2158,540 @@ def phase_vgg(card):
                            image_batch(rng, CV_CPU_BATCH, shape, classes),
                            scope, exe, CV_LR, CV_TRAIN_TOL['vgg16'])
     _no_launches('vgg')
+
+
+# ----------------------------------------------------------------------------
+# the captured path: each block captured once as a CUDA graph and replayed
+# ----------------------------------------------------------------------------
+CAPTURE_CALLS = 20  # timed calls of each path, eager and captured
+MULTI_K = 8         # steps of the run_multi and run_eval_multi phases
+DROPOUT_P = 0.1
+DROPOUT_ROWS, DROPOUT_WIDTH = 256, 4096
+# the kept share of a p = 0.1 mask over 256 x 4096 elements has a standard
+# deviation of sqrt(0.09 / 1048576) = 2.9e-4: the bound is 17 of them
+DROPOUT_KEPT_TOL = 5e-3
+# max |captured - eager| / max(1, max|eager|) of each fetch and state var:
+# 1e-6, or twice what the eager path differs from itself run twice from the
+# same state where that is more (a training step's embedding gradients and
+# cuDNN's weight gradients sum in no fixed order)
+CAPTURE_TOL = 1e-6
+def _persistables(program, scope):
+    """Copies of the program's persistable vars that the scope holds."""
+    out = {}
+    for v in program.list_vars():
+        var = scope.find_var(v.name) if v.persistable else None
+        if var is not None and var.value() is not None:
+            out[v.name] = var.value().clone()
+    return out
+
+
+def _load(scope, state):
+    for name, value in state.items():
+        scope.var(name).set_value(value.clone())
+
+
+def _max_diff(got, want, names=None):
+    """max |got - want| / max(1, max|want|) over lists of arrays (inf at a
+    shape mismatch), or with ``names`` (worst, name of the worst)."""
+    worst, at = 0.0, None
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.shape != w.shape:
+            worst, at = float('inf'), i
+            break
+        if g.size:
+            w64 = w.astype(np.float64)
+            d = float(np.abs(g.astype(np.float64) - w64).max()) / max(
+                1.0, float(np.abs(w64).max()))
+            if d > worst:
+                worst, at = d, i
+    if names is None:
+        return worst
+    return worst, (names[at] if at is not None else None)
+
+
+def _replay_kernels(run, want):
+    """The kernel launches, by key, of one call of ``run`` that replays a
+    captured graph, counted by name in the profiler's device activity.  The
+    profiler sometimes drops events (``_device_ms``): a session that does
+    not count ``want`` is printed and taken again, five sessions at most."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for session in range(5):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            run()
+            torch.cuda.synchronize()
+        seen, device = _device_kernels(prof)
+        if seen == want:
+            break
+        print('capture: profiler session %d of 5 counted %s of %s (%d device '
+              'activities)' % (session + 1, seen, want, device), flush=True)
+    return seen
+
+
+def eager_run(exe, program, feed, fetch_list, scope):
+    """One call of ``program`` on the eager path of ``exe``'s block for it
+    (``Executor.run(..., eager=True)``), the path a block takes before its
+    capture: every lowering dispatched from the host."""
+    return exe.run(program, feed=feed, fetch_list=fetch_list, scope=scope,
+                   eager=True)
+
+
+def phase_capture(card, tag, program, feed, fetch, state, expect):
+    """One path captured against eager from the same state: the eager call
+    (``eager_run``) and the capture's call compared, a replay
+    from the state again compared with the capture's call, the kernels of a
+    replay counted on the device, and CAPTURE_CALLS calls of each path
+    timed (median wall, device busy and idle share of one call under
+    torch.profiler, peak memory).  ``expect``: the hand-written kernels a
+    call launches, by key."""
+    import paddle_tpu_torch.fluid as fluid
+    place = fluid.CUDAPlace(0)
+    run = lambda exe, scope: exe.run(program, feed=feed, fetch_list=fetch,
+                                     scope=scope)
+    eager = lambda exe, scope: eager_run(exe, program, feed, fetch, scope)
+    timed = {}
+
+    def time_calls(call, exe, scope, path):
+        walls = []
+        for _ in range(CAPTURE_CALLS):
+            t0 = time.perf_counter()
+            call(exe, scope)
+            walls.append(time.perf_counter() - t0)
+        prof = profile_run(lambda: call(exe, scope))
+        check(prof['busy_ms'] > 0, '%s: torch.profiler saw no device kernel '
+              'on the %s path' % (tag, path))
+        timed[path] = dict(
+            wall=statistics.median(walls), wall_min=min(walls),
+            wall_max=max(walls), busy_ms=prof['busy_ms'],
+            idle=1 - prof['busy_ms'] / 1e3 / prof['wall_s'],
+            peak=torch.cuda.max_memory_allocated())
+
+    # eager, from the state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    _load(scope, state)
+    want = eager(exe, scope)
+    block = exe.cached_blocks()[-1]
+    check(block.last_ran == 'eager' and not block.captures,
+          '%s: the eager call ran %s' % (tag, block.last_ran))
+    want_state = [scope.find_var(n).value().cpu().numpy()
+                  for n in block.state_out]
+    # the eager path against itself from the same state
+    _load(scope, state)
+    control = eager(exe, scope)
+    control_state = [scope.find_var(n).value().cpu().numpy()
+                     for n in block.state_out]
+    control_err = max(_max_diff(control, want),
+                      _max_diff(control_state, want_state))
+    torch.cuda.reset_peak_memory_stats()
+    time_calls(eager, exe, scope, 'eager')
+    del exe, scope
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # captured, from the same state
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    _load(scope, state)
+    first = run(exe, scope)  # the first call of a key runs eagerly
+    block = exe.cached_blocks()[-1]
+    check(block.mode == 'graph' and block.last_ran == 'eager',
+          '%s: the block runs %s (%s), not as a graph' %
+          (tag, block.mode, block.why))
+    check(_max_diff(first, want) <= max(CAPTURE_TOL, 2 * control_err),
+          '%s: the first call (eager) differs from eager_run\'s by %g' %
+          (tag, _max_diff(first, want)))
+    _load(scope, state)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    got = run(exe, scope)
+    check(block.last_ran == 'capture' and block.captures == 1 and
+          exe.compile_count == 1, '%s: the second call ran %s, %d captures, '
+          'compile_count %d: expected one capture of one block' %
+          (tag, block.last_ran, block.captures, exe.compile_count))
+    captured = {k: block.captured_launches.get(k, 0) for k in KERNEL_KEYS}
+    check(captured == _expect(**expect), '%s: the capture launched %s, '
+          'expected %s' % (tag, captured, _expect(**expect)))
+    got_state = [scope.find_var(n).value().cpu().numpy()
+                 for n in block.state_out]
+    fetch_err = _max_diff(got, want)
+    state_err, worst = _max_diff(got_state, want_state, block.state_out)
+    err = max(fetch_err, state_err)
+    tol = max(CAPTURE_TOL, 2 * control_err)
+    check(err <= tol, '%s: captured and eager differ by %g (fetches %g, %d '
+          'state vars %g, the most %s; tolerance %g; eager against eager %g)'
+          % (tag, err, fetch_err, len(got_state), state_err, worst, tol,
+             control_err))
+    # a replay from the state again: the capture's call once more
+    _load(scope, state)
+    again = run(exe, scope)
+    replay_err = _max_diff(again, got)
+    check(block.last_ran == 'replay' and block.captures == 1 and
+          replay_err <= tol, '%s: a replay from the same state ran '
+          '%s and differs from the capture\'s call by %g' %
+          (tag, block.last_ran, replay_err))
+    seen = _replay_kernels(lambda: run(exe, scope), captured)
+    check(seen == captured, '%s: a replay launched %s on the card, the '
+          'capture %s' % (tag, seen, captured))
+    time_calls(run, exe, scope, 'captured')
+    check(block.captures == 1 and exe.compile_count == 1,
+          '%s: %d captures, compile_count %d after the timed calls' %
+          (tag, block.captures, exe.compile_count))
+    e, c = timed['eager'], timed['captured']
+    print('capture %s: mode %s, %d ops, %d state vars; captured vs eager '
+          'from the same state: %s (max|d| / max(1, max|v|) %g over %d '
+          'fetches and %d state vars, the most %s; eager against eager %g); '
+          'a replay from the state again against the capture\'s call %g; '
+          'kernels a replay launched %s (profiler, by kernel name); eager wall %.4f s '
+          '(median of %d, %.4f-%.4f), busy %.3f ms, idle share %.3f, peak '
+          '%.1f MiB; captured wall %.4f s (%.4f-%.4f), busy %.3f ms, idle '
+          'share %.3f, peak %.1f MiB (the capture included); eager / '
+          'captured wall %.2fx [%s]' %
+          (tag, block.mode, len(block.ops), len(block.state_in),
+           'bitwise equal' if err == 0 else 'within %g' % tol, err,
+           len(got), len(got_state), worst if err else '-', control_err,
+           replay_err, {k: v for k, v in seen.items() if v} or 'none', e['wall'],
+           CAPTURE_CALLS, e['wall_min'], e['wall_max'], e['busy_ms'],
+           e['idle'], e['peak'] / 2**20, c['wall'], c['wall_min'],
+           c['wall_max'], c['busy_ms'], c['idle'], c['peak'] / 2**20,
+           e['wall'] / c['wall'], card), flush=True)
+    del exe, scope
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return timed
+
+
+def phase_transformer_capture(card, model, scope):
+    cfg = TRANSFORMER_BASE
+    rng = np.random.RandomState(SEED + 30)
+    feed = {name: rng.randint(1, cfg['trg_vocab'], size=(
+        BATCH, cfg['max_len'])).astype('int64') for name in model['feeds']}
+    n = 3 * cfg['n_layer']
+    state = _persistables(model['main'], scope)
+    phase_capture(card, 'transformer serve %d x %d' % (BATCH, cfg['max_len']),
+                  model['test'], feed, [model['loss'], model['prediction']],
+                  state, dict(fwd=n))
+    phase_capture(card, 'transformer train %d x %d' % (BATCH, cfg['max_len']),
+                  model['main'], feed, [model['loss']], state,
+                  dict(fwd=2 * n, dq=n, dkv=n))
+
+
+def phase_lstm_capture(card, forms):
+    model, scope, _ = forms['kernel']
+    n = STACKED_LSTM['stacked_num']
+    feed = lstm_request(np.random.RandomState(SEED + 31), LSTM_BATCH)
+    state = _persistables(model['main'], scope)
+    what = 'B=%d T=%d D=%d' % (LSTM_BATCH, LSTM_MAX_LEN,
+                               STACKED_LSTM['hid_dim'])
+    phase_capture(card, 'lstm serve (kernel) ' + what, model['test'], feed,
+                  [model['prediction'], model['acc']], state,
+                  dict(lstm_fwd=n))
+    phase_capture(card, 'lstm train (kernel) ' + what, model['main'], feed,
+                  [model['loss']], state,
+                  dict(lstm_fwd=2 * n, lstm_bwd=n, lstm_dw=n))
+
+
+def phase_nmt_capture(card, models):
+    model, scope, _ = models['kernel']
+    feed = nmt_batch(np.random.RandomState(SEED + 32), NMT_BATCH)
+    phase_capture(card, 'nmt train (kernel) %d pairs T=%d D=%d' %
+                  (NMT_BATCH, NMT_MAX_LEN, NMT['encoder_size']),
+                  model['main'], feed, [model['loss']],
+                  _persistables(model['main'], scope),
+                  dict(lstm_fwd=2, lstm_bwd=1, lstm_dw=1))
+
+
+def phase_resnet_capture(card, model, scope):
+    shape, classes = RESNET50['image_shape'], RESNET50['class_dim']
+    feed = image_batch(np.random.RandomState(SEED + 33), CV_BATCH, shape,
+                       classes)
+    state = _persistables(model['main'], scope)
+    what = '%d x %s' % (CV_BATCH, 'x'.join(map(str, shape)))
+    phase_capture(card, 'resnet serve ' + what, model['test'], feed,
+                  [model['prediction']], state, {})
+    phase_capture(card, 'resnet train ' + what, model['main'], feed,
+                  [model['loss']], state, {})
+
+
+def phase_multi(card, forms):
+    """run_multi: MULTI_K Adam steps of the stacked LSTM's kernel form on
+    MULTI_K batches against MULTI_K run() calls from the same state (every
+    persistable var and the last loss); run_eval_multi: MULTI_K requests of
+    its test program against MULTI_K run() calls (every fetch)."""
+    import paddle_tpu_torch.fluid as fluid
+    place = fluid.CUDAPlace(0)
+    model, scope0, _ = forms['kernel']
+    n = STACKED_LSTM['stacked_num']
+    state = _persistables(model['main'], scope0)
+    rng = np.random.RandomState(SEED + 34)
+    batches = [lstm_request(rng, LSTM_BATCH) for _ in range(MULTI_K)]
+    fetch = [model['loss']]
+    seq_exe, seq_scope = fluid.Executor(place), fluid.Scope()
+    _load(seq_scope, state)
+    for feed in batches:
+        seq, = seq_exe.run(model['main'], feed=feed, fetch_list=fetch,
+                           scope=seq_scope)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    _load(scope, state)
+    _zero_counts()  # every launch counter to 0 just before this path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    multi, = exe.run_multi(model['main'], feed_list=batches,
+                           fetch_list=fetch, scope=scope)
+    wall = time.perf_counter() - t0
+    block = exe.cached_blocks()[-1]
+    counts = _wrapper_counts()
+    per_step = _expect(lstm_fwd=2 * n, lstm_bwd=n, lstm_dw=n)
+    check(block.mode == 'graph' and block.captures == 1 and
+          block.replays == MULTI_K - 2 and
+          counts == {k: 2 * v for k, v in per_step.items()},
+          'run_multi: mode %s, %d captures, %d replays, wrapper launches %s: '
+          'expected a graph, 1 eager step, 1 capture, %d replays and %s a '
+          'step from the wrappers of the first two' %
+          (block.mode, block.captures, block.replays, counts, MULTI_K - 2,
+           per_step))
+    names = sorted(state)
+    value = lambda s: [s.find_var(v).value().cpu().numpy() for v in names]
+    err = max(_max_diff(multi, seq), _max_diff(value(scope),
+                                               value(seq_scope)))
+    check(err <= CAPTURE_TOL, 'run_multi: %d steps against %d run() calls '
+          'differ by %g (tolerance %g)' % (MULTI_K, MULTI_K, err,
+                                           CAPTURE_TOL))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exe.run_multi(model['main'], feed_list=batches, fetch_list=fetch,
+                  scope=scope)
+    replayed = time.perf_counter() - t0
+    check(block.captures == 1 and block.replays == 2 * MULTI_K - 2,
+          'run_multi again: %d captures, %d replays' %
+          (block.captures, block.replays))
+    # once more under the profiler: MULTI_K replays' kernels on the card
+    want = {k: MULTI_K * v for k, v in per_step.items()}
+    seen = _replay_kernels(lambda: exe.run_multi(
+        model['main'], feed_list=batches, fetch_list=fetch, scope=scope),
+        want)
+    check(seen == want and block.captures == 1, 'run_multi: %d replays ran '
+          '%s on the card, expected %s' % (MULTI_K, seen, want))
+    print('run_multi: %d Adam steps of the stacked LSTM (kernel form, %d '
+          'rows, T=%d) on %d batches against %d run() calls from the same '
+          'state: %s (max|d| %g over the last loss and %d persistable vars); '
+          'wrapper launches %s (the eager step and the capture), %d replays '
+          'ran %s on the card (profiler, by kernel name); wall %.4f s (one '
+          'eager step and one capture among them), again %.4f s (%d '
+          'replays, %.4f s a step) [%s]' %
+          (MULTI_K, LSTM_BATCH, LSTM_MAX_LEN, MULTI_K, MULTI_K,
+           'bitwise equal' if err == 0 else 'within %g' % CAPTURE_TOL, err,
+           len(names), {k: v for k, v in counts.items() if v}, MULTI_K,
+           {k: v for k, v in seen.items() if v}, wall,
+           replayed, MULTI_K, replayed / MULTI_K, card), flush=True)
+
+    lots = [lstm_request(rng, LSTM_BATCH) for _ in range(MULTI_K)]
+    fetch = [model['prediction'], model['acc']]
+    one_exe, one_scope = fluid.Executor(place), fluid.Scope()
+    _load(one_scope, state)
+    singles = [one_exe.run(model['test'], feed=lot, fetch_list=fetch,
+                           scope=one_scope) for lot in lots]
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    _load(scope, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stacked = exe.run_eval_multi(model['test'], feed_list=lots,
+                                 fetch_list=fetch, scope=scope)
+    wall = time.perf_counter() - t0
+    block = exe.cached_blocks()[-1]
+    check([s.shape for s in stacked] ==
+          [(MULTI_K, ) + s.shape for s in singles[0]],
+          'run_eval_multi: fetches %s' % [s.shape for s in stacked])
+    err = max(_max_diff([s[i] for s in stacked], singles[i])
+              for i in range(MULTI_K))
+    check(block.mode == 'graph' and block.replays == MULTI_K - 2 and
+          err <= CAPTURE_TOL, 'run_eval_multi: mode %s, %d replays; %d '
+          'requests against %d run() calls differ by %g (tolerance %g)' %
+          (block.mode, block.replays, MULTI_K, MULTI_K, err, CAPTURE_TOL))
+    print('run_eval_multi: %d requests of the stacked LSTM\'s test program '
+          '(kernel form, %d rows) against %d run() calls: %s (max|d| %g over '
+          'every fetch of every request); wall %.4f s [%s]' %
+          (MULTI_K, LSTM_BATCH, MULTI_K, 'bitwise equal' if err == 0 else
+           'within %g' % CAPTURE_TOL, err, wall, card), flush=True)
+
+
+def phase_dropout(card):
+    """Dropout at p = DROPOUT_P in a captured graph: every replay draws a
+    new mask, each keeping 1 - p of the elements."""
+    import paddle_tpu_torch.fluid as fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data('x', [DROPOUT_WIDTH])
+        out = fluid.layers.dropout(x, dropout_prob=DROPOUT_P)
+    main.random_seed = SEED
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    feed = {'x': np.ones((DROPOUT_ROWS, DROPOUT_WIDTH), 'float32')}
+    masks, ran = [], []
+    for _ in range(4):  # eager, capture, replay, replay
+        got, = exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+        masks.append(got != 0)
+        ran.append(exe.cached_blocks()[-1].last_ran)
+    check(ran == ['eager', 'capture', 'replay', 'replay'],
+          'dropout: the calls ran %s' % ran)
+    kept = [float(m.mean()) for m in masks]
+    check(all(abs(k - (1 - DROPOUT_P)) <= DROPOUT_KEPT_TOL for k in kept),
+          'dropout: kept shares %s, expected %g +- %g' %
+          (kept, 1 - DROPOUT_P, DROPOUT_KEPT_TOL))
+    differ = [float((a != b).mean()) for a, b in zip(masks, masks[1:])]
+    # two independent masks differ in 2 p (1 - p) = 0.18 of the elements
+    check(all(d > 0.1 for d in differ), 'dropout: consecutive masks differ '
+          'in %s of the elements' % differ)
+    print('dropout: p %g over %d x %d, calls eager, capture, replay, replay: '
+          'kept shares %s (expected %g +- %g), consecutive masks differ in '
+          '%s of the elements (independent: %g) [%s]' %
+          (DROPOUT_P, DROPOUT_ROWS, DROPOUT_WIDTH,
+           ', '.join('%.5f' % k for k in kept), 1 - DROPOUT_P,
+           DROPOUT_KEPT_TOL, ', '.join('%.4f' % d for d in differ),
+           2 * DROPOUT_P * (1 - DROPOUT_P), card), flush=True)
+
+
+def phase_staleness(card, forms):
+    """A program built onto after its capture compiles again; a parameter
+    replaced in the scope between two replays is read by the second; a
+    train program and its test program over one scope read the same state
+    buffers; state written before it is read survives another graph's
+    replays (``phase_pool_order``)."""
+    import paddle_tpu_torch.fluid as fluid
+    place = fluid.CUDAPlace(0)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data('x', [256])
+        hidden = fluid.layers.fc(x, 512, act='relu')
+        pred = fluid.layers.fc(hidden, 10, act='softmax')
+    startup.random_seed = SEED
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED + 35)
+    feed = {'x': rng.standard_normal((64, 256)).astype('float32')}
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[pred], scope=scope)
+    count = exe.compile_count
+    check(exe.cached_blocks()[-1].last_ran == 'replay',
+          'staleness: the third call did not replay')
+    with fluid.program_guard(main, startup):
+        fluid.layers.scale(pred, scale=2.0)
+    ran = []
+    for _ in range(3):
+        out, = exe.run(main, feed=feed, fetch_list=[pred], scope=scope)
+        ran.append(exe.cached_blocks()[-1].last_ran)
+    recount = exe.compile_count
+    check(recount == count + 1 and ran == ['eager', 'capture', 'replay'],
+          'staleness: after an op was appended, compile_count %d (was %d), '
+          'calls %s' % (recount, count, ran))
+    params = {p.name: rng.standard_normal(p.shape).astype('float32') * 0.05
+              for p in main.all_parameters()}
+    fluid.params_from_numpy(main, params, scope=scope, place=place)
+    swapped, = exe.run(main, feed=feed, fetch_list=[pred], scope=scope)
+    block = exe.cached_blocks()[-1]
+    check(block.last_ran == 'replay' and block.captures == 1,
+          'staleness: the call after the hand-over ran %s, %d captures' %
+          (block.last_ran, block.captures))
+    ref_scope = fluid.Scope()
+    fluid.params_from_numpy(main, params, scope=ref_scope, place=place)
+    want, = eager_run(fluid.Executor(place), main, feed, [pred], ref_scope)
+    err = _max_diff([swapped], [want])
+    moved = _max_diff([swapped], [out])
+    check(err <= CAPTURE_TOL and moved > 1e-3, 'staleness: the replay after '
+          'the hand-over differs from an eager run on the new parameters by '
+          '%g and from the replay before it by %g' % (err, moved))
+    model, scope, exe = forms['kernel']
+    blocks = {b.program is model['main']: b for b in exe.cached_blocks()
+              if b.mode == 'graph' and b.captures and
+              b.program in (model['main'], model['test'])}
+    check(len(blocks) == 2, 'staleness: no captured train and test blocks '
+          'of the stacked LSTM')
+    shared = [p.name for p in model['test'].all_parameters()
+              if blocks[True]._state_bufs[p.name] is
+              blocks[False]._state_bufs[p.name]]
+    check(len(shared) == len(model['test'].all_parameters()),
+          'staleness: the stacked LSTM\'s train and test graphs share %d of '
+          '%d parameter buffers' % (len(shared),
+                                    len(model['test'].all_parameters())))
+    print('staleness: an op appended after the capture: compile_count %d -> '
+          '%d, calls %s; a hand-over between two replays read by the second '
+          '(max|d| %g from an eager run on the new parameters, %g from the '
+          'replay before); the stacked LSTM\'s train and test graphs read the '
+          'same %d parameter buffers [%s]' %
+          (count, recount, ran, err, moved, len(shared), card), flush=True)
+    phase_pool_order(card)
+
+
+def phase_pool_order(card):
+    """Two graphs of one executor (one memory pool) replayed out of their
+    capture order.  Graph A frees [ROWS, WIDTH] temporaries inside its
+    capture; graph B, captured after it, writes the persistable var S
+    before it reads it.  S must hold what B's last replay wrote through
+    every later replay of A, which reuses its own freed memory as
+    scratch."""
+    import paddle_tpu_torch.fluid as fluid
+    rows, width = DROPOUT_ROWS, DROPOUT_WIDTH
+    prog_a, prog_b, startup = fluid.Program(), fluid.Program(), \
+        fluid.Program()
+    with fluid.unique_name.guard():
+        with fluid.program_guard(prog_a, fluid.Program()):
+            xa = fluid.layers.data('xa', [width])
+            mean_a = fluid.layers.mean(fluid.layers.scale(
+                fluid.layers.scale(xa, scale=3.0), scale=0.5, bias=1.0))
+        with fluid.program_guard(prog_b, startup):
+            xb = fluid.layers.data('xb', [width])
+            state = fluid.layers.create_global_var(
+                [rows, width], 0.0, 'float32', persistable=True,
+                name='written_before_read')
+            fluid.layers.assign(fluid.layers.scale(xb, scale=2.0), state)
+            mean_b = fluid.layers.mean(xb)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED + 36)
+    lot = lambda: rng.standard_normal((rows, width)).astype('float32')
+    run_a = lambda: exe.run(prog_a, feed={'xa': lot()}, fetch_list=[mean_a],
+                            scope=scope)
+    ran, held = [], []
+
+    def run_b():
+        feed = lot()
+        exe.run(prog_b, feed={'xb': feed}, fetch_list=[mean_b], scope=scope)
+        return 2 * feed
+
+    def read():
+        got = scope.find_var(state.name).value().cpu().numpy()
+        held.append(float(np.abs(got - want).max()))
+
+    def last():
+        ran.append(exe.cached_blocks()[-1].last_ran)
+
+    for _ in range(2):  # A: eager, capture
+        run_a()
+        last()
+    for _ in range(2):  # B: eager, capture
+        want = run_b()
+        last()
+    read()
+    for _ in range(2):  # then out of capture order
+        run_a()
+        last()
+        read()
+        want = run_b()
+        last()
+        read()
+        run_a()
+        last()
+        read()
+    check(ran == ['eager', 'capture'] * 2 + ['replay'] * 6 and
+          max(held) == 0, 'pool order: the calls ran %s; |S - what B wrote| '
+          'after each call from B\'s capture on: %s' % (ran, held))
+    print('pool order: graphs A and B of one executor, B captured after A '
+          'and writing S (%d x %d) before it reads it, then replayed A, B, A '
+          'twice: S equals what B last wrote at each of the %d reads [%s]' %
+          (rows, width, len(held), card), flush=True)
 
 
 def _time_ms(fn, launches_per_sample=10, samples=20, warmup=5):
@@ -2223,8 +2873,12 @@ def phase_times(card, launches, fwd_err, bwd_err):
             'route': 'cuda',
             'source': 'paddle_tpu_torch/csrc/' + src,
             'replaces': 'paddle_tpu/ops/pallas/flash_attention.py:%d' % line,
-            'launches': launches['train'][key],
-            'launches_by_path': {p: launches[p][key] for p in launches},
+            'launches': launches['train'].wrapper[key],
+            'launches_by_path': {p: launches[p].wrapper[key]
+                                 for p in launches},
+            'device_launches': launches['train'].device[key],
+            'device_launches_by_path': {p: launches[p].device[key]
+                                        for p in launches},
             'max_abs_err': err[key],
             'ms': ms[key],
             'device_ms': device_ms[key],
@@ -2485,8 +3139,12 @@ def _lstm_rows(card, b, t, d, launches, path, suffix, err, shape, ms,
             'source': 'paddle_tpu_torch/csrc/' + src,
             'replaces': 'paddle_tpu/ops/pallas/lstm.py:%d' % line,
             'shape': shape,
-            'launches': launches[path][key],
-            'launches_by_path': {p: launches[p][key] for p in launches},
+            'launches': launches[path].wrapper[key],
+            'launches_by_path': {p: launches[p].wrapper[key]
+                                 for p in launches},
+            'device_launches': launches[path].device[key],
+            'device_launches_by_path': {p: launches[p].device[key]
+                                        for p in launches},
             'max_abs_err': err[key],
             'ms': ms[key],
             'device_ms': device_ms[key],
@@ -2531,6 +3189,7 @@ def main():
     card = phase_device()
     sys.path.insert(0, REPO)
     phase_build()
+    _scan_runs()  # counts the lstm op's scan path from here on
     fwd_err = phase_kernel_vs_plain()
     bwd_err = phase_bwd_vs_plain()
     lstm_err = phase_lstm_vs_plain()
@@ -2538,20 +3197,32 @@ def main():
     launches = {'serve': phase_slice(card, model, scope, exe),
                 'train': phase_train(card, model, scope, exe)}
     phase_train_card_vs_cpu(card, model, scope, exe)
+    phase_transformer_capture(card, model, scope)
+    del model, scope, exe
+    torch.cuda.empty_cache()
     forms = build_lstm_models()
     launches['lstm_serve'] = phase_lstm_serve(card, forms)
     launches['lstm_train'] = phase_lstm_train(card, forms)
     phase_lstm_train_card_vs_cpu(card, forms)
-    del model, scope, exe, forms
+    phase_lstm_capture(card, forms)
+    phase_multi(card, forms)
+    phase_dropout(card)
+    phase_staleness(card, forms)
+    del forms
+    torch.cuda.empty_cache()
     nmt = build_nmt_models()
     launches['nmt_serve'] = phase_nmt_serve(card, nmt)
     launches['nmt_train'] = phase_nmt_train(card, nmt)
     phase_nmt_decode(card, nmt)
+    phase_nmt_capture(card, nmt)
     del nmt
+    torch.cuda.empty_cache()
     resnet = build_cv_model('resnet', lr=CV_LR, **RESNET50)
     phase_resnet_serve(card, *resnet)
     phase_resnet_train(card, *resnet)
+    phase_resnet_capture(card, resnet[0], resnet[1])
     del resnet
+    torch.cuda.empty_cache()
     phase_mnist(card)
     phase_vgg(card)
     kernels = phase_times(card, launches, fwd_err, bwd_err)

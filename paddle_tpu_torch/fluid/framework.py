@@ -2,7 +2,9 @@
 
 Counterpart of ``paddle_tpu/fluid/framework.py``: the same pure-Python descs
 and the same API, so a model builds the same program under both packages.
-The PyTorch port's executor interprets a block op by op (``executor.py``).
+Every mutation of a program bumps ``Program._version``, which keys the
+executor's compile cache (``executor.py``): a block planned (and, on the
+card, captured) before a mutation is never served after it.
 """
 
 import collections
@@ -139,6 +141,24 @@ class Operator(object):
     def has_attr(self, name):
         return name in self.attrs
 
+    def set_attr(self, name, val):
+        self.attrs[name] = val
+        self.block.program._bump_version()
+
+    _set_attr = set_attr
+
+    def rename_input(self, old_name, new_name):
+        for slot, names in self.inputs.items():
+            self.inputs[slot] = [new_name if n == old_name else n
+                                 for n in names]
+        self.block.program._bump_version()
+
+    def rename_output(self, old_name, new_name):
+        for slot, names in self.outputs.items():
+            self.outputs[slot] = [new_name if n == old_name else n
+                                  for n in names]
+        self.block.program._bump_version()
+
     def to_string(self, throw_on_error=False):
         return '{%s} = %s(%s) attrs=%s' % (self.outputs, self.type,
                                            self.inputs, {
@@ -169,12 +189,14 @@ class Block(object):
     def create_var(self, *args, **kwargs):
         var = Variable(self, *args, **kwargs)
         self.vars[var.name] = var
+        self.program._bump_version()
         return var
 
     def create_parameter(self, *args, **kwargs):
         global_block = self.program.global_block()
         param = Parameter(global_block, *args, **kwargs)
         global_block.vars[param.name] = param
+        self.program._bump_version()
         return param
 
     def var(self, name):
@@ -211,7 +233,27 @@ class Block(object):
                 v = self._find_var_recursive(n)
                 if v is not None and v.op is None:
                     v.op = op
+        self.program._bump_version()
         return op
+
+    def _prepend_op(self, type=None, inputs=None, outputs=None, attrs=None):
+        op = Operator(self, type, inputs=inputs, outputs=outputs, attrs=attrs)
+        self.ops.insert(0, op)
+        self.program._bump_version()
+        return op
+
+    prepend_op = _prepend_op
+
+    def _insert_op(self, index, type=None, inputs=None, outputs=None,
+                   attrs=None):
+        op = Operator(self, type, inputs=inputs, outputs=outputs, attrs=attrs)
+        self.ops.insert(index, op)
+        self.program._bump_version()
+        return op
+
+    def _remove_op(self, index):
+        del self.ops[index]
+        self.program._bump_version()
 
     def to_string(self, throw_on_error=False, with_details=False):
         lines = ['block %d (parent %d):' % (self.idx, self.parent_idx)]
@@ -231,6 +273,12 @@ class Program(object):
         self.blocks = [Block(self, 0)]
         self.current_block_idx = 0
         self.random_seed = 0
+        self._version = 0
+
+    def _bump_version(self):
+        """Invalidate the executor's compile-cache entries of this
+        program: the version is part of their key."""
+        self._version += 1
 
     def global_block(self):
         return self.blocks[0]
@@ -278,6 +326,7 @@ class Program(object):
                 for op in blk.ops:
                     if 'is_test' in _IS_TEST_OPS.get(op.type, ()):
                         op.attrs['is_test'] = True
+        p._bump_version()
         return p
 
     def to_string(self, throw_on_error=False, with_details=False):

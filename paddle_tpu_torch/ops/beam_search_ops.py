@@ -38,8 +38,9 @@ def _beam_init_scores(ctx, op):
     distinct continuations of the one start token."""
     b = ctx.get(op, 'X').shape[0]
     k = int(op.attrs['beam_size'])
-    row = torch.full((k, ), NEG_INF, dtype=torch.float32, device=ctx.device)
-    row[0] = 0.0
+    # made on the device (a CUDA graph capture holds no host copy)
+    row = torch.where(torch.arange(k, device=ctx.device) == 0, 0.0,
+                      NEG_INF).to(torch.float32)
     ctx.set(op, 'Out', row.repeat(b)[:, None])
 
 

@@ -41,6 +41,7 @@ import ctypes
 import torch
 
 from . import _build, unwrapped
+from ..registry import register_counter
 
 __all__ = ['flash_attention', 'flash_attention_fwd', 'flash_attention_plain',
            'flash_attention_bwd', 'flash_attention_bwd_plain',
@@ -56,6 +57,10 @@ _NEG_INF = -1e30
 LAUNCHES = 0
 LAUNCHES_DQ = 0
 LAUNCHES_DKV = 0
+# a capture records how far these grew (the block's captured_launches); its
+# replays launch the kernels without a wrapper call
+register_counter(lambda: {'fwd': LAUNCHES, 'dq': LAUNCHES_DQ,
+                          'dkv': LAUNCHES_DKV})
 
 _fn = None
 _bwd_fns = None

@@ -41,6 +41,7 @@ import math
 import torch
 
 from . import _build, unwrapped
+from ..registry import register_counter
 
 __all__ = ['lstm_fused_tm', 'lstm_fwd', 'lstm_bwd', 'lstm_fwd_plain',
            'lstm_bwd_plain', 'LSTMCore', 'kernel_takes', 'check_fwd_args',
@@ -56,6 +57,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 LAUNCHES_DW = 0
+# a capture records how far these grew (the block's captured_launches); its
+# replays launch the kernels without a wrapper call
+register_counter(lambda: {'lstm_fwd': LAUNCHES_FWD, 'lstm_bwd': LAUNCHES_BWD,
+                          'lstm_dw': LAUNCHES_DW})
 
 # cluster sizes a caller may ask of the kernels (0: the library's choice)
 CLUSTER_SIZES = (0, 1, 2, 4, 8)

@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from .registry import register_lowering, amp_matmul
+from .registry import register_lowering, amp_matmul, SAMPLE_MASK_NAME
 
 
 @register_lowering('mul')
@@ -112,10 +112,31 @@ def _scale(ctx, op):
     ctx.set(op, 'Out', out)
 
 
+def _batch_mask_for(ctx, op, x):
+    """The ragged-batch sample mask, iff X is batch-led (run_op's
+    provenance): a weight-derived tensor whose dim 0 merely coincides with
+    the padded batch never masks."""
+    mask = ctx.env.get(SAMPLE_MASK_NAME)
+    if mask is None or x.dim() < 1 or x.shape[0] != mask.shape[0] or \
+            op.input('X')[0] not in ctx.batch_led:
+        return None
+    return torch.reshape(mask.to(x.dtype),
+                         (mask.shape[0], ) + (1, ) * (x.dim() - 1))
+
+
 @register_lowering('mean')
 def _mean(ctx, op):
     # fluid MeanOp fixes the output dim to {1}
-    ctx.set(op, 'Out', torch.reshape(torch.mean(ctx.get(op, 'X')), (1, )))
+    x = ctx.get(op, 'X')
+    m = _batch_mask_for(ctx, op, x)
+    if m is not None:
+        # a padded lot: the padding rows count neither in the sum nor in
+        # the number of elements
+        per_row = math.prod(x.shape[1:])
+        denom = torch.clamp_min(torch.sum(m), 1) * per_row
+        ctx.set(op, 'Out', torch.reshape(torch.sum(x * m) / denom, (1, )))
+        return
+    ctx.set(op, 'Out', torch.reshape(torch.mean(x), (1, )))
 
 
 @register_lowering('reduce_sum')
@@ -124,12 +145,16 @@ def _reduce_sum(ctx, op):
     without ``keep_dim`` gives the rank-1 [1] that fluid keeps."""
     x = ctx.get(op, 'X')
     keep = op.attrs.get('keep_dim', False)
+    m = _batch_mask_for(ctx, op, x)
+    dim = op.attrs.get('dim', [0])
+    dim = [dim] if isinstance(dim, int) else dim
+    if m is not None and (op.attrs.get('reduce_all', False) or
+                          0 in [d % x.dim() for d in dim]):
+        x = x * m  # a padded lot's padding rows add nothing
     if op.attrs.get('reduce_all', False):
         out = torch.sum(x, dim=tuple(range(x.dim())), keepdim=keep)
         ctx.set(op, 'Out', out if keep else torch.reshape(out, (1, )))
         return
-    dim = op.attrs.get('dim', [0])
-    dim = [dim] if isinstance(dim, int) else dim
     ctx.set(op, 'Out', torch.sum(x, dim=tuple(d % x.dim() for d in dim),
                                  keepdim=keep))
 

@@ -15,8 +15,9 @@ def _accuracy(ctx, op):
         label = label[:, None]
     hit = torch.any(indices == label.to(indices.dtype), dim=1)
     correct = torch.sum(hit.to(torch.int64))
-    total = torch.tensor(indices.shape[0], dtype=torch.int64,
-                         device=indices.device)
+    # a fill on the device, not a copy from the host: a capture holds it
+    total = torch.full((), indices.shape[0], dtype=torch.int64,
+                       device=indices.device)
     ctx.set(op, 'Accuracy',
             torch.reshape(correct.to(torch.float32) / total, (1, )))
     ctx.set(op, 'Correct', torch.reshape(correct, (1, )))

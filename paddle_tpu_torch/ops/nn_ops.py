@@ -238,7 +238,9 @@ def _lookup_table_grad(ctx, op):
     padding_idx = fwd_attrs.get('padding_idx', -1)
     if padding_idx is not None and padding_idx >= 0:
         vals = torch.where((flat == padding_idx)[:, None], 0.0, vals)
-    g = torch.zeros_like(w).index_add_(0, flat, vals)
+    # an accumulating index_put_ sums each row's contributions in a fixed
+    # order on the card (index_add_ sums them by atomics, in any order)
+    g = torch.zeros_like(w).index_put_((flat, ), vals, accumulate=True)
     if ctx.has(gname):
         g = ctx.lookup(gname) + g
     ctx.store(gname, g)

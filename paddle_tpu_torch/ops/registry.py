@@ -10,6 +10,12 @@ The ``@SEQLEN`` side-band (per-row valid lengths riding beside a padded
 tensor) propagates from inputs to outputs exactly as in the JAX package.
 The AMP helpers are identities until mixed precision is ported.
 
+On a CUDA place the executor captures a block once as a CUDA graph and
+replays it.  A lowering that a capture cannot hold (one that reads a device
+value on the host, copies from host memory, or draws from a generator of its
+own) is declared with ``declare_uncapturable``; a block that holds one runs
+eagerly, as the JAX package runs a block with a host op eagerly.
+
 Gradients: ``backward.append_backward`` appends one ``<op>_grad`` OpDesc per
 forward op.  Unless an op registers an explicit grad lowering (random ops
 must: the generic one would redraw their randomness), ``<op>_grad`` runs
@@ -27,12 +33,18 @@ import torch
 
 __all__ = ['register_lowering', 'register_grad_lowering', 'get_lowering',
            'LoweringContext', 'run_op', 'fwd_structure', 'SEQLEN_SUFFIX',
-           'GRAD_SUFFIX']
+           'GRAD_SUFFIX', 'SAMPLE_MASK_NAME', 'declare_uncapturable',
+           'capture_refusal', 'register_counter', 'counts']
 
 _LOWERINGS = {}
 _GRAD_LOWERINGS = {}
+_UNCAPTURABLE = {}  # op type -> (reason, predicate over the op or None)
+_COUNTERS = []  # callables -> {name: count}
 
 SEQLEN_SUFFIX = '@SEQLEN'
+# the ragged-batch sample mask the executor feeds beside padded lots
+# (1.0 = real row, 0.0 = padding), as in the JAX package
+SAMPLE_MASK_NAME = '@SAMPLE_MASK'
 # ops that consume sequence structure and emit dense outputs — sequence
 # lengths must NOT propagate through them
 _SEQ_CONSUMERS = {
@@ -56,6 +68,46 @@ def register_grad_lowering(op_type):
         return fn
 
     return deco
+
+
+def declare_uncapturable(op_type, reason, when=None):
+    """Declare that ``op_type`` (and its generic grad, which replays it)
+    cannot run inside a CUDA graph capture, for ``reason``; ``when(op)``,
+    if given, limits the declaration to the ops it is true for."""
+    _UNCAPTURABLE[op_type] = (reason, when)
+
+
+def capture_refusal(op):
+    """Why a capture cannot hold ``op``, or None.  The ops of the blocks
+    its ``sub_block`` attr names are checked too."""
+    fwd = op.type[:-5] if op.type.endswith('_grad') else op.type
+    entry = _UNCAPTURABLE.get(op.type) or _UNCAPTURABLE.get(fwd)
+    if entry is not None and (entry[1] is None or entry[1](op)):
+        return 'op %r %s' % (op.type, entry[0])
+    sub = op.attrs.get('sub_block')
+    if sub is not None and hasattr(sub, 'ops'):
+        for inner in sub.ops:
+            why = capture_refusal(inner)
+            if why is not None:
+                return why
+    return None
+
+
+def register_counter(fn):
+    """Register a host-side counter source, ``fn() -> {name: count}``, such
+    as a kernel wrapper's launch counts.  A capture records how far each
+    count grew while it ran (``captured_launches``): a replay calls no
+    wrapper, so it counts nothing here."""
+    _COUNTERS.append(fn)
+    return fn
+
+
+def counts():
+    """Every registered counter's current value, by name."""
+    out = {}
+    for fn in _COUNTERS:
+        out.update(fn())
+    return out
 
 
 def get_lowering(op_type):
@@ -87,6 +139,11 @@ class LoweringContext(object):
         self.place = place
         self._generator = generator
         self.is_test = is_test
+        # ragged-batch provenance, as in the JAX package: env names derived
+        # from batch-led feeds that still carry the batch on dim 0.  Seeded
+        # by the executor when a @SAMPLE_MASK rides along, propagated by
+        # run_op; the mean lowerings mask only these.
+        self.batch_led = set()
 
     @property
     def device(self):
@@ -134,6 +191,18 @@ def run_op(ctx, op):
     """Run one op's lowering, then propagate sequence-length metadata from
     its inputs to its outputs."""
     get_lowering(op.type)(ctx, op)
+    mask = ctx.env.get(SAMPLE_MASK_NAME)
+    if mask is not None and not op.type.endswith('_grad'):
+        # an output is batch-led iff an input was and it still carries the
+        # batch on dim 0
+        led = any(n in ctx.batch_led for n in op.input_arg_names)
+        for n in op.output_arg_names:
+            v = ctx.env.get(n)
+            if led and getattr(v, 'ndim', 0) >= 1 and \
+                    v.shape[0] == mask.shape[0]:
+                ctx.batch_led.add(n)
+            else:
+                ctx.batch_led.discard(n)
     if op.type in _SEQ_CONSUMERS or op.type.endswith('_grad'):
         return
     meta = None

@@ -7,12 +7,23 @@ op carries a nonzero ``seed`` attr.  Torch and JAX streams differ, so the
 same seed gives other numbers than the JAX package.
 """
 
+import weakref
+
 import numpy as np
 import torch
 
 from .registry import (register_lowering, register_grad_lowering,
-                       fwd_structure, GRAD_SUFFIX)
+                       fwd_structure, GRAD_SUFFIX, declare_uncapturable)
 from ..fluid import core
+
+# lowerings a CUDA graph capture cannot hold: the block runs eagerly
+for _op_type in ('uniform_random', 'gaussian_random'):
+    declare_uncapturable(
+        _op_type, 'draws from a generator of its own (a nonzero seed attr), '
+        'which a replay would not draw afresh',
+        when=lambda op: bool(op.attrs.get('seed', 0)))
+declare_uncapturable('reshape', 'reads its Shape input on the host',
+                     when=lambda op: bool(op.input('Shape')))
 
 
 def _torch_dtype(attr_dtype):
@@ -106,11 +117,30 @@ def _assign_grad(ctx, op):
         ctx.store(gnames[0], ctx.lookup(gsrc))
 
 
+# assign_value's tensors, by op: (program version, {(device, dtype): tensor})
+_ASSIGNED = weakref.WeakKeyDictionary()
+
+
 @register_lowering('assign_value')
 def _assign_value(ctx, op):
-    arr = np.asarray(op.attrs['values']).reshape(tuple(op.attrs['shape']))
-    ctx.set(op, 'Out', torch.as_tensor(arr).to(
-        device=ctx.device, dtype=_torch_dtype(op.attrs.get('dtype'))))
+    """The attr's values on the place.  The copy from host memory, which a
+    CUDA graph capture cannot hold, is made once for each op, program
+    version, device and dtype (at the eager call the executor makes before
+    it captures a block); every call hands out a copy of it made on the
+    device.  ``set_attr`` bumps the program's version, so new values are
+    copied anew."""
+    dtype = _torch_dtype(op.attrs.get('dtype'))
+    version = op.block.program._version
+    seen = _ASSIGNED.get(op)
+    if seen is None or seen[0] != version:
+        seen = _ASSIGNED[op] = (version, {})
+    made = seen[1]
+    key = (str(ctx.device), dtype)
+    if key not in made:
+        arr = np.asarray(op.attrs['values']).reshape(
+            tuple(op.attrs['shape']))
+        made[key] = torch.as_tensor(arr).to(device=ctx.device, dtype=dtype)
+    ctx.set(op, 'Out', made[key].clone())
 
 
 @register_lowering('gather')

@@ -20,6 +20,13 @@ seed), warms up, then on one CUDA card:
   forward replays (each ``torch.func.vjp`` call, which replays its op's
   forward, is wrapped in a ``grad/recompute`` range for this run).
 
+Each request and training step is profiled twice: on the eager path
+(``chip_smoke.eager_run``, every lowering dispatched from the host) and
+on the captured path (the executor's default on the card: the block's CUDA
+graph, replayed; its host work is the feeds' copy in, the replay launch and
+the fetches' copy out).  The grads' forward replay shows as a range on the
+eager path only: a graph replay runs no Python.
+
 Then the stacked-LSTM model without peepholes (chip_smoke.py's kernel form,
 its published widths, one 128-row LoD batch with lengths up to 64): the
 host wall and the profile of a request (prediction fetched) and of a
@@ -52,8 +59,8 @@ sys.path.insert(0, REPO)
 
 from chip_smoke import (BATCH, CV_BATCH, CV_LR, LSTM_BATCH,  # noqa: E402
                         LSTM_LR, RESNET50, SEED, STACKED_LSTM,
-                        TRANSFORMER_BASE, conv_ms, image_batch, lstm_request,
-                        profile_run, stacked_lstm_programs)
+                        TRANSFORMER_BASE, conv_ms, eager_run, image_batch,
+                        lstm_request, profile_run, stacked_lstm_programs)
 
 REPS = 5  # request walls per median
 
@@ -90,67 +97,84 @@ def main():
         model = transformer.build(**TRANSFORMER_BASE)
     model['startup'].random_seed = SEED
     scope = fluid.Scope()
-    exe = fluid.Executor(fluid.CUDAPlace(0))
-    exe.run(model['startup'], scope=scope)
+    fluid.Executor(fluid.CUDAPlace(0)).run(model['startup'], scope=scope)
     seq, vocab = TRANSFORMER_BASE['max_len'], TRANSFORMER_BASE['trg_vocab']
     rng = np.random.RandomState(SEED)
     feed = {n: rng.randint(1, vocab, size=(BATCH, seq)).astype('int64')
             for n in model['feeds']}
-    full = lambda: exe.run(model['test'], feed=feed, scope=scope,
-                           fetch_list=[model['loss'], model['prediction']])
-    loss_only = lambda: exe.run(model['test'], feed=feed, scope=scope,
-                                fetch_list=[model['loss']])
-    full()
-    loss_only()
-    wall_full = _wall(full, REPS)
-    wall_loss = _wall(loss_only, REPS)
+    flash = lambda prof, kinds: {
+        'flash ' + kind: sum(ms for name, ms in prof['by_name'].items()
+                             if kind + '_kernel' in name) for kind in kinds}
+    result = {'card': card, 'batch': BATCH, 'seq': seq}
+    for path, run in _paths(fluid):
+        full = lambda: run(model['test'], feed,
+                           [model['loss'], model['prediction']], scope)
+        loss_only = lambda: run(model['test'], feed, [model['loss']], scope)
+        for _ in range(3):  # the captured path: eager, capture, replay
+            full()
+            loss_only()
+        wall_full = _wall(full, REPS)
+        wall_loss = _wall(loss_only, REPS)
+        request = profile_run(loss_only, os.path.join(
+            args.out, 'slice_request_%s.json' % path))
+        print('request (batch %d x seq %d), %s path [%s]:' %
+              (BATCH, seq, path, card))
+        print('  wall, loss + prediction fetched : %.4f s' % wall_full)
+        print('  wall, loss fetched              : %.4f s' % wall_loss)
+        _report(request, flash(request, ('fwd', )))
 
-    request = profile_run(loss_only, os.path.join(args.out,
-                                                  'slice_request.json'))
-    flash_ms = sum(ms for name, ms in request['by_name'].items()
-                   if 'fwd_kernel' in name)
-    print('request (batch %d x seq %d) [%s]:' % (BATCH, seq, card))
-    print('  wall, loss + prediction fetched : %.4f s' % wall_full)
-    print('  wall, loss fetched              : %.4f s' % wall_loss)
-    _report(request, {'flash fwd': flash_ms})
+        train = lambda: run(model['main'], feed, [model['loss']], scope)
+        for _ in range(3):
+            train()
+        wall_train = _wall(train, REPS)
+        step = profile_run(train, os.path.join(
+            args.out, 'slice_train_step_%s.json' % path), recompute=True)
+        shares = flash(step, ('fwd', 'dq', 'dkv'))
+        print('training step (batch %d x seq %d, Adam), %s path [%s]:' %
+              (BATCH, seq, path, card))
+        print('  wall, loss fetched              : %.4f s (median of %d)' %
+              (wall_train, REPS))
+        _report(step, shares)
+        if step['recompute_ms']:
+            print('  eager recompute: generic grads replaying their forward '
+                  'ops %.3f ms of device time (%.3f of busy), of which the '
+                  'flash forward kernel %.3f ms (18 of its 36 launches); the '
+                  'forward request above took %.3f ms' %
+                  (step['recompute_ms'], step['recompute_ms'] /
+                   step['busy_ms'], shares['flash fwd'] / 2,
+                   request['busy_ms']))
+        result[path] = {
+            'wall_full_s': wall_full, 'wall_loss_only_s': wall_loss,
+            'wall_profiled_s': request['wall_s'],
+            'device_busy_ms': request['busy_ms'] or None,
+            'idle_share': _idle(request),
+            'top_kernels_ms': dict(request['top']),
+            'train_wall_s': wall_train,
+            'train_wall_profiled_s': step['wall_s'],
+            'train_device_busy_ms': step['busy_ms'] or None,
+            'train_idle_share': _idle(step),
+            'train_flash_ms': shares if step['busy_ms'] else None,
+            'train_recompute_ms': step['recompute_ms'],
+            'train_top_kernels_ms': dict(step['top'])}
+    result['stacked_lstm'] = _profile_lstm(fluid, args.out, card)
+    result['resnet50'] = _profile_resnet(fluid, args.out, card)
+    print(json.dumps(result))
 
-    train = lambda: exe.run(model['main'], feed=feed, scope=scope,
-                            fetch_list=[model['loss']])
-    train()
-    train()
-    wall_train = _wall(train, REPS)
-    step = profile_run(train, os.path.join(args.out, 'slice_train_step.json'),
-                       recompute=True)
-    flash = {kind: sum(ms for name, ms in step['by_name'].items()
-                       if kind + '_kernel' in name)
-             for kind in ('fwd', 'dq', 'dkv')}
-    print('training step (batch %d x seq %d, Adam) [%s]:' % (BATCH, seq, card))
-    print('  wall, loss fetched              : %.4f s (median of %d)' %
-          (wall_train, REPS))
-    _report(step, {'flash ' + k: v for k, v in flash.items()})
-    if step['busy_ms']:
-        print('  eager recompute: generic grads replaying their forward ops '
-              '%.3f ms of device time (%.3f of busy), of which the flash '
-              'forward kernel %.3f ms (18 of its 36 launches); the forward '
-              'request above took %.3f ms' %
-              (step['recompute_ms'], step['recompute_ms'] / step['busy_ms'],
-               flash['fwd'] / 2, request['busy_ms']))
-    lstm = _profile_lstm(fluid, args.out, card)
-    resnet = _profile_resnet(fluid, args.out, card)
-    print(json.dumps({
-        'card': card, 'batch': BATCH, 'seq': seq,
-        'wall_full_s': wall_full, 'wall_loss_only_s': wall_loss,
-        'wall_profiled_s': request['wall_s'],
-        'device_busy_ms': request['busy_ms'] or None,
-        'flash_kernel_ms': flash_ms if request['busy_ms'] else None,
-        'top_kernels_ms': dict(request['top']),
-        'train_wall_s': wall_train,
-        'train_wall_profiled_s': step['wall_s'],
-        'train_device_busy_ms': step['busy_ms'] or None,
-        'train_flash_ms': flash if step['busy_ms'] else None,
-        'train_recompute_ms': step['recompute_ms'],
-        'train_top_kernels_ms': dict(step['top']),
-        'stacked_lstm': lstm, 'resnet50': resnet}))
+
+def _paths(fluid):
+    """('eager', run), ('captured', run): ``run(program, feed, fetch_list,
+    scope)`` on the eager path of one executor's blocks, and on the
+    executor's default path, which replays each block's CUDA graph."""
+    eager, captured = (fluid.Executor(fluid.CUDAPlace(0)) for _ in range(2))
+    return (('eager', lambda *args: eager_run(eager, *args)),
+            ('captured', lambda program, feed, fetch_list, scope:
+             captured.run(program, feed=feed, fetch_list=fetch_list,
+                          scope=scope)))
+
+
+def _idle(prof):
+    return (1 - prof['busy_ms'] / 1e3 / prof['wall_s']
+            if prof['busy_ms'] else None)
 
 
 _LSTM_KERNELS = {'lstm fwd': 'lstm_fwd_kernel', 'lstm walk': 'lstm_bwd_walk',
@@ -164,42 +188,41 @@ def _profile_lstm(fluid, out, card):
                                       **STACKED_LSTM)
     model['startup'].random_seed = SEED
     scope = fluid.Scope()
-    exe = fluid.Executor(fluid.CUDAPlace(0))
-    exe.run(model['startup'], scope=scope)
+    fluid.Executor(fluid.CUDAPlace(0)).run(model['startup'], scope=scope)
     feed = lstm_request(np.random.RandomState(SEED + 4), LSTM_BATCH)
     tokens = len(feed['words'].numpy())
-    request = lambda: exe.run(model['test'], feed=feed, scope=scope,
-                              fetch_list=[model['prediction']])
-    train = lambda: exe.run(model['main'], feed=feed, scope=scope,
-                            fetch_list=[model['loss']])
     result = {'batch': LSTM_BATCH, 'tokens': tokens}
-    for name, fn in (('request', request), ('train', train)):
-        fn()
-        fn()
-        wall = _wall(fn, REPS)
-        prof = profile_run(fn, os.path.join(out, 'stacked_lstm_%s.json' %
-                                            name), recompute=name == 'train')
-        shares = {label: sum(ms for key, ms in prof['by_name'].items()
-                             if pattern in key)
-                  for label, pattern in _LSTM_KERNELS.items()}
-        print('stacked LSTM %s (kernel form, %d rows, %d tokens, T=64) [%s]:'
-              % (name, LSTM_BATCH, tokens, card))
-        print('  wall                            : %.4f s (median of %d)' %
-              (wall, REPS))
-        _report(prof, shares)
-        if name == 'train' and prof['busy_ms']:
-            print('  eager recompute: generic grads replaying their forward '
-                  'ops %.3f ms of device time (%.3f of busy)' %
-                  (prof['recompute_ms'], prof['recompute_ms'] /
-                   prof['busy_ms']))
-        result[name] = {
-            'wall_s': wall, 'wall_profiled_s': prof['wall_s'],
-            'device_busy_ms': prof['busy_ms'] or None,
-            'idle_share': (1 - prof['busy_ms'] / 1e3 / prof['wall_s']
-                           if prof['busy_ms'] else None),
-            'lstm_kernels_ms': shares if prof['busy_ms'] else None,
-            'recompute_ms': prof['recompute_ms'],
-            'top_kernels_ms': dict(prof['top'])}
+    for path, run in _paths(fluid):
+        request = lambda: run(model['test'], feed, [model['prediction']],
+                              scope)
+        train = lambda: run(model['main'], feed, [model['loss']], scope)
+        for name, fn in (('request', request), ('train', train)):
+            for _ in range(3):  # the captured path: eager, capture, replay
+                fn()
+            wall = _wall(fn, REPS)
+            prof = profile_run(fn, os.path.join(
+                out, 'stacked_lstm_%s_%s.json' % (name, path)),
+                recompute=name == 'train')
+            shares = {label: sum(ms for key, ms in prof['by_name'].items()
+                                 if pattern in key)
+                      for label, pattern in _LSTM_KERNELS.items()}
+            print('stacked LSTM %s (kernel form, %d rows, %d tokens, T=64), '
+                  '%s path [%s]:' % (name, LSTM_BATCH, tokens, path, card))
+            print('  wall                            : %.4f s (median of %d)'
+                  % (wall, REPS))
+            _report(prof, shares)
+            if prof['recompute_ms']:
+                print('  eager recompute: generic grads replaying their '
+                      'forward ops %.3f ms of device time (%.3f of busy)' %
+                      (prof['recompute_ms'], prof['recompute_ms'] /
+                       prof['busy_ms']))
+            result['%s_%s' % (name, path)] = {
+                'wall_s': wall, 'wall_profiled_s': prof['wall_s'],
+                'device_busy_ms': prof['busy_ms'] or None,
+                'idle_share': _idle(prof),
+                'lstm_kernels_ms': shares if prof['busy_ms'] else None,
+                'recompute_ms': prof['recompute_ms'],
+                'top_kernels_ms': dict(prof['top'])}
     return result
 
 
@@ -213,39 +236,38 @@ def _profile_resnet(fluid, out, card):
         model = resnet.build(lr=CV_LR, **RESNET50)
     model['startup'].random_seed = SEED
     scope = fluid.Scope()
-    exe = fluid.Executor(fluid.CUDAPlace(0))
-    exe.run(model['startup'], scope=scope)
+    fluid.Executor(fluid.CUDAPlace(0)).run(model['startup'], scope=scope)
     feed = image_batch(np.random.RandomState(SEED + 7), CV_BATCH,
                        RESNET50['image_shape'], RESNET50['class_dim'])
-    request = lambda: exe.run(model['test'], feed=feed, scope=scope,
-                              fetch_list=[model['prediction']])
-    train = lambda: exe.run(model['main'], feed=feed, scope=scope,
-                            fetch_list=[model['loss']])
     result = {'batch': CV_BATCH}
-    for name, fn in (('request', request), ('train', train)):
-        fn()
-        fn()
-        wall = _wall(fn, REPS)
-        prof = profile_run(fn, os.path.join(out, 'resnet50_%s.json' % name),
-                           recompute=name == 'train')
-        print('ResNet-50 %s (%d x 3 x 224 x 224) [%s]:' % (name, CV_BATCH,
-                                                          card))
-        print('  wall                            : %.4f s (median of %d)' %
-              (wall, REPS))
-        _report(prof, {'convolution': conv_ms(prof)})
-        if name == 'train' and prof['busy_ms']:
-            print('  eager recompute: generic grads replaying their forward '
-                  'ops %.3f ms of device time (%.3f of busy)' %
-                  (prof['recompute_ms'], prof['recompute_ms'] /
-                   prof['busy_ms']))
-        result[name] = {
-            'wall_s': wall, 'wall_profiled_s': prof['wall_s'],
-            'device_busy_ms': prof['busy_ms'] or None,
-            'idle_share': (1 - prof['busy_ms'] / 1e3 / prof['wall_s']
-                           if prof['busy_ms'] else None),
-            'conv_ms': conv_ms(prof) if prof['busy_ms'] else None,
-            'recompute_ms': prof['recompute_ms'],
-            'top_kernels_ms': dict(prof['top'])}
+    for path, run in _paths(fluid):
+        request = lambda: run(model['test'], feed, [model['prediction']],
+                              scope)
+        train = lambda: run(model['main'], feed, [model['loss']], scope)
+        for name, fn in (('request', request), ('train', train)):
+            for _ in range(3):  # the captured path: eager, capture, replay
+                fn()
+            wall = _wall(fn, REPS)
+            prof = profile_run(fn, os.path.join(
+                out, 'resnet50_%s_%s.json' % (name, path)),
+                recompute=name == 'train')
+            print('ResNet-50 %s (%d x 3 x 224 x 224), %s path [%s]:' %
+                  (name, CV_BATCH, path, card))
+            print('  wall                            : %.4f s (median of %d)'
+                  % (wall, REPS))
+            _report(prof, {'convolution': conv_ms(prof)})
+            if prof['recompute_ms']:
+                print('  eager recompute: generic grads replaying their '
+                      'forward ops %.3f ms of device time (%.3f of busy)' %
+                      (prof['recompute_ms'], prof['recompute_ms'] /
+                       prof['busy_ms']))
+            result['%s_%s' % (name, path)] = {
+                'wall_s': wall, 'wall_profiled_s': prof['wall_s'],
+                'device_busy_ms': prof['busy_ms'] or None,
+                'idle_share': _idle(prof),
+                'conv_ms': conv_ms(prof) if prof['busy_ms'] else None,
+                'recompute_ms': prof['recompute_ms'],
+                'top_kernels_ms': dict(prof['top'])}
     return result
 
 
