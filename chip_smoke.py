@@ -93,7 +93,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and a 2-image training step (dropout_prob 0 on every dropout op) each
    against the CPU; no hand-written kernel may launch in phases 11-14, and
    the CPU runs of phases 11-14 flush denormals to zero;
-15. times: each kernel, its plain version and the one PyTorch call computing
+15. CTR serving: the CTR wide-and-deep model at bench.py's bench_ctr widths
+   (vocabulary 1,000,000, embedding 64, hidden (256, 128), 26 sparse slots,
+   13 dense features; random weights from a seed; ``is_sparse=True``)
+   serves four requests of 1024 rows (zipf ids), the prediction fetched:
+   wall, rows/s, peak memory, one request's busy time and idle share; one
+   request on the card and on ``CPUPlace()`` from the same state;
+16. CTR training: 20 sparse Adam steps (lr 1e-3) on one fixed batch with a
+   falling loss, one more under ``torch.profiler`` (busy, idle share, the
+   kernels with the most device time); one step from that state on the
+   card and on the CPU: loss, gradients (the table's a SelectedRows with
+   the CPU's rows), parameters, moments, and the untouched rows of the
+   table and its moments bitwise as they were on both (lazy Adam); then
+   the dense form (``is_sparse=False``) against the sparse from the
+   startup state: one Adam step leaves every persistable var bitwise equal
+   in the two, each step's peak memory above what was allocated before it
+   (the sparse step's below one [V, D] table), and five SGD steps of both
+   forms, bitwise equal; one sparse word2vec step (its four lookups'
+   SparseRows summed) on the card and on the CPU; no hand-written kernel
+   may launch in phases 15-17;
+17. CTR captured: the request, the sparse step and the dense step captured
+   against eager (below); ``ctr_embedding@GRAD`` fetched from the eager
+   call, a capture and a replay, a SelectedRows each, bitwise the eager
+   one after a replay on another batch; ``run_multi`` of 8 sparse steps
+   against 8 ``run`` calls;
+18. times: each kernel, its plain version and the one PyTorch call computing
    the same function, at each slice's shape (CUDA events, median), the
    kernel and the library call also by their device time alone under
    ``torch.profiler`` (``device_ms``, ``library_device_ms``; the names of
@@ -104,16 +128,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and kernel paths; the three LSTM kernels again at NMT's shape (B=128,
    T=32, D=512, entries ``*_d512``, beside cuDNN's LSTM there), all
    printed as one ``{"kernels": [...]}`` JSON line;
-16. the last line: ``{"ok": true, "device": {...}}``.
+19. the last line: ``{"ok": true, "device": {...}}``.
 
 Each ``Executor`` on the card runs the first call of a block eagerly,
 captures the block as a CUDA graph at the second and replays it from then
-on, so phases 4-14 drive the captured path.  Beside them, the captured path
+on, so phases 4-16 drive the captured path.  Beside them, the captured path
 against the eager one (``eager_run``), from the same state:
 Transformer-base's request and Adam step (after phase 5), the stacked
 LSTM's kernel form's request and step (after phase 7), NMT's kernel form's
-Adam step (after phase 10) and ResNet-50's request and Momentum step (after
-phase 12).  Each asserts ``mode == 'graph'``, one capture of one block,
+Adam step (after phase 10), ResNet-50's request and Momentum step (after
+phase 12) and CTR's request and sparse and dense Adam steps (phase 17).  Each asserts ``mode == 'graph'``, one capture of one block,
 the hand-written kernels the capture launched, the captured call against
 the eager call (fetches and every state var written, ``CAPTURE_TOL``, or
 twice the eager path's own spread from the same state, which is printed),
@@ -312,6 +336,31 @@ CV_TRAIN_TOL = {
                   param_max=2 * CV_LR, param_atol=CV_LR / 10,
                   param_frac=0.02, stats=1e-4),
 }
+
+# CTR wide-and-deep at bench.py's bench_ctr widths on one card (bench.py:
+# 1027-1030, its on_tpu branch, without the row-sharding over an 'mp' mesh
+# axis): vocabulary 1,000,000, embedding 64, hidden (256, 128), 26 sparse
+# slots and 13 dense features, Adam at lr 1e-3, batch 1024, ids from
+# zipf_batch (zipf 1.2).  The table is 256 MB in f32, 768 MB with Adam's
+# moments; a batch touches at most 26,624 rows.
+CTR = dict(sparse_dim=1000000, embed_size=64, hidden_sizes=(256, 128),
+           lr=1e-3)
+CTR_BATCH = 1024
+CTR_TRAIN_STEPS = 20
+CTR_SGD_STEPS = 5
+# card vs CPU on CTR, f32 with TF32 off: the fc layers (K = 1677 at the
+# first) sum in another order; an MLP like MNIST's, so MNIST's step
+# tolerances; the served prediction as a ratio of 2-norms.  The table's
+# sparse gradient must have the same rows on both, its values held as a
+# gradient.
+CTR_SERVE_RTOL = 1e-5
+CTR_TRAIN_TOL = dict(loss=1e-5, grad_rtol=1e-3, grad_atol=1e-6,
+                     grad_norm=1e-3, param_max=CTR['lr'], param_atol=1e-6,
+                     param_frac=1e-3, moments=1e-3)
+# word2vec (the build's widths: dictionary 200, embedding 32, hidden 256,
+# SGD at lr 1e-3), one sparse step against the CPU
+W2V_BATCH = 128
+W2V_LR = 1e-3
 
 LIBRARIES = ('flash_attention_fwd', 'flash_attention_bwd', 'lstm_fwd',
              'lstm_bwd')
@@ -1120,7 +1169,9 @@ def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
     given): the loss, every trainable parameter's ``@GRAD``, the updated
     parameters, and the updated momentum velocities and batch-norm running
     statistics where the program has them, and Adam's moments where
-    ``tol`` has a ``moments`` entry."""
+    ``tol`` has a ``moments`` entry.  A sparse gradient (a SelectedRows)
+    must have the CPU's rows, and its values are held as a gradient.
+    Returns the CPU scope."""
     import paddle_tpu_torch.fluid as fluid
     tol = tol or dict(TRAIN_TOL, param_max=lr)
     state = [v.name for v in main.list_vars() if v.persistable]
@@ -1136,6 +1187,14 @@ def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
                                                 fetch_list=fetch,
                                                 scope=cpu_scope)
     cpu_s = time.perf_counter() - t0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if isinstance(w, fluid.core.SelectedRows):
+            check(isinstance(g, fluid.core.SelectedRows) and
+                  g.rows() == w.rows() and g.height() == w.height(),
+                  '%s step, card vs CPU: %s is %r on the card, %r on the CPU'
+                  ' (or their rows differ)' % (tag, fetch[i], g, w))
+            got[i], want[i] = np.asarray(g.get_tensor()), \
+                np.asarray(w.get_tensor())
     loss_rel = float(abs(got[0][0] - want[0][0]) / abs(want[0][0]))
     check(loss_rel < tol['loss'], '%s step, card vs CPU: loss %.7f vs %.7f '
           '(rel %g, tol %g)' % (tag, got[0][0], want[0][0], loss_rel,
@@ -1207,6 +1266,7 @@ def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
            own_err[0], own_err[1], norm_err, tol['grad_norm'], worst,
            tol['param_max'], n_far, n_all, tol['param_atol'],
            tol['param_frac'], states, cpu_s, card), flush=True)
+    return cpu_scope
 
 
 def stacked_lstm_programs(fluid, use_peepholes=True, dict_dim=5149,
@@ -2694,6 +2754,392 @@ def phase_pool_order(card):
           (rows, width, len(held), card), flush=True)
 
 
+# ----------------------------------------------------------------------------
+# CTR: wide-and-deep over one sparse embedding (SparseRows gradients, the
+# lazy row-subset optimizers)
+# ----------------------------------------------------------------------------
+def build_ctr(is_sparse=True, sgd=False):
+    """CTR at CTR's widths as bench_ctr builds it (``is_distributed``, an
+    attr only in the port; Adam at lr 1e-3, or SGD with ``sgd``), its
+    startup run on the card from SEED: (model, scope, executor)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import ctr
+    with fluid.unique_name.guard():
+        opt = (fluid.optimizer.SGD if sgd else fluid.optimizer.Adam)(
+            learning_rate=CTR['lr'])
+        model = ctr.build(is_sparse=is_sparse, is_distributed=True,
+                          optimizer=opt, **CTR)
+    model['startup'].random_seed = SEED
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    t0 = time.perf_counter()
+    exe.run(model['startup'], scope=scope)
+    torch.cuda.synchronize()
+    state = [scope.find_var(v.name).value()
+             for v in model['main'].list_vars() if v.persistable]
+    print('model: ctr %s %s form, %s, %d persistable vars of %.1f MiB, '
+          'startup %.2f s' %
+          (CTR, 'sparse' if is_sparse else 'dense', 'SGD' if sgd else 'Adam',
+           len(state), _nbytes(state) / 2**20, time.perf_counter() - t0),
+          flush=True)
+    return model, scope, exe
+
+
+def ctr_batch(rng):
+    """zipf_batch of CTR_BATCH rows at CTR's vocabulary: dense features,
+    26 zipfian ids a row, random labels."""
+    from paddle_tpu_torch.dataset import ctr as ctr_data
+    return ctr_data.zipf_batch(rng, CTR_BATCH, CTR['sparse_dim'])
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _cpu_copy(program, scope):
+    """A CPUPlace() scope holding the card scope's persistable vars of
+    ``program``."""
+    import paddle_tpu_torch.fluid as fluid
+    cpu_scope = fluid.Scope()
+    fluid.persistables_from_numpy(
+        program, {v.name: scope.find_var(v.name).value().cpu().numpy()
+                  for v in program.list_vars() if v.persistable},
+        scope=cpu_scope, place=fluid.CPUPlace())
+    return cpu_scope
+
+
+def _touched(feed):
+    rows = np.zeros(CTR['sparse_dim'], bool)
+    rows[np.unique(feed['sparse_ids'])] = True
+    return rows
+
+
+def phase_ctr_serve(card, model, scope, exe):
+    """REQUESTS requests of CTR_BATCH rows of CTR's test program, the
+    prediction fetched; one under torch.profiler; then the last request's
+    batch on the CPU from the same state."""
+    import paddle_tpu_torch.fluid as fluid
+    rng = np.random.RandomState(SEED + 40)
+    requests = [ctr_batch(rng) for _ in range(REQUESTS)]
+    fetch = [model['prediction']]
+    walls, preds = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()  # every launch counter to 0 just before the serving path
+    for i, feed in enumerate(requests):
+        t0 = time.perf_counter()
+        pred, = exe.run(model['test'], feed=feed, fetch_list=fetch,
+                        scope=scope)
+        walls.append(time.perf_counter() - t0)
+        check(pred.shape == (CTR_BATCH, 1) and np.isfinite(pred).all() and
+              ((pred > 0) & (pred < 1)).all(), 'ctr serve: request %d '
+              'prediction %s, in (0, 1): %s' % (i, pred.shape,
+                                                 ((pred > 0) &
+                                                  (pred < 1)).all()))
+        preds.append(pred)
+    _no_launches('ctr serve')
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(walls[1:])
+    prof = profile_run(lambda: exe.run(model['test'], feed=requests[0],
+                                       fetch_list=fetch, scope=scope))
+    print('ctr serve: %d requests of %d rows; steady request wall %.4f s '
+          '(median of requests 2-%d; request 1 includes first-call set-up), '
+          '%.1f rows/s (prediction fetched to the host); peak device memory '
+          '%.1f MiB; one request under torch.profiler: %s [%s]' %
+          (REQUESTS, CTR_BATCH, steady, REQUESTS, CTR_BATCH / steady,
+           peak / 2**20, _busy_line(prof), card), flush=True)
+    cpu_scope = _cpu_copy(model['test'], scope)
+    t0 = time.perf_counter()
+    want, = fluid.Executor(fluid.CPUPlace()).run(
+        model['test'], feed=requests[-1], fetch_list=fetch, scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    got = preds[-1]
+    err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    check(err <= CTR_SERVE_RTOL, 'ctr serve: card and CPU disagree on the '
+          'prediction: |d| / |v| %g (tol %g)' % (err, CTR_SERVE_RTOL))
+    print('ctr serve: card vs CPU on %d rows: prediction |d| / |v| %.3g (tol '
+          '%g), max|d| %.3g; CPU run %.2f s [%s]' %
+          (CTR_BATCH, err, CTR_SERVE_RTOL, float(np.abs(got - want).max()),
+           cpu_s, card), flush=True)
+
+
+def phase_ctr_train(card, model, scope, exe):
+    """CTR_TRAIN_STEPS sparse Adam steps on one fixed batch with a falling
+    loss (zipf_batch's labels are random: only a fixed batch shows the loss
+    fall), one more under torch.profiler; then one step from that state on
+    the card and on the CPU: the loss, every gradient (the table's a
+    SelectedRows: the same rows, its values), the updated parameters and
+    moments, and the table's and the moments' untouched rows bitwise as
+    they were on both."""
+    rng = np.random.RandomState(SEED + 41)
+    feed = ctr_batch(rng)
+    losses, walls = [], []
+    _zero_counts()  # every launch counter to 0 just before the training path
+    for _ in range(CTR_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, = exe.run(model['main'], feed=feed,
+                        fetch_list=[model['loss']], scope=scope)
+        walls.append(time.perf_counter() - t0)
+        check(np.isfinite(loss).all(), 'ctr train: loss %s' % loss)
+        losses.append(float(loss[0]))
+    _no_launches('ctr train')
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          'ctr train: the loss did not fall at every step: %s' % losses)
+    prof = profile_run(lambda: exe.run(model['main'], feed=feed,
+                                       fetch_list=[model['loss']],
+                                       scope=scope))
+    print('ctr train: %d sparse Adam steps (lr %g) on one batch of %d rows, '
+          'loss %.6f -> %.6f, falling at every step; steady step wall %.4f s '
+          '(median of steps 2-%d); one step under torch.profiler: %s; the '
+          'most device time: %s [%s]' %
+          (CTR_TRAIN_STEPS, CTR['lr'], CTR_BATCH, losses[0], losses[-1],
+           statistics.median(walls[1:]), CTR_TRAIN_STEPS, _busy_line(prof),
+           _top_line(prof, 8), card), flush=True)
+    compare_ctr_step(card, 'ctr train (sparse)', model, ctr_batch(rng), scope,
+                     exe)
+
+
+def compare_ctr_step(card, tag, model, feed, scope, exe):
+    """compare_train_step on one CTR step, then the table's and its moments'
+    rows that ``feed`` does not touch: bitwise as they were, on the card and
+    on the CPU (lazy Adam)."""
+    main = model['main']
+    lazy = ['ctr_embedding'] + sorted(
+        n for op in main.global_block().ops if op.type == 'adam' and
+        op.input('Param') == ['ctr_embedding']
+        for n in op.input('Moment1') + op.input('Moment2'))
+    before = {n: scope.find_var(n).value().cpu().numpy().copy()
+              for n in lazy}
+    cpu_scope = compare_train_step(card, tag, '%d rows' % len(feed['dense']),
+                                   main, model['loss'].name, feed, scope, exe,
+                                   CTR['lr'], CTR_TRAIN_TOL)
+    touched = _touched(feed)
+    for name in lazy:
+        for where, s in (('CPU', cpu_scope), ('card', scope)):
+            after = s.find_var(name).value().cpu().numpy()
+            check(np.array_equal(after[~touched], before[name][~touched]),
+                  '%s: %s moved %s\'s untouched rows' % (tag, where, name))
+        moved = (after != before[name]).any(axis=1)  # the card's
+        check(moved[touched].mean() > 0.99, '%s: only %d of %d touched rows '
+              'of %s moved' % (tag, moved[touched].sum(), touched.sum(),
+                               name))
+    print('%s: %d of %d rows touched; the other rows of %s bitwise as they '
+          'were on the card and on the CPU [%s]' %
+          (tag, touched.sum(), CTR['sparse_dim'], ', '.join(lazy), card),
+          flush=True)
+
+
+def _step_peak(exe, program, feed, fetch, scope):
+    """One step's max_memory_allocated above what was allocated just before
+    it (the state among it), in bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    exe.run(program, feed=feed, fetch_list=fetch, scope=scope)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_ctr_forms(card, sparse, dense, start):
+    """The sparse and the dense form from the startup state ``start`` (zero
+    moments): one Adam step on one batch leaves every persistable var
+    bitwise equal in the two (both merge a repeated id's rows alike, and
+    dense Adam moves no untouched row at step 1, so those rows are the
+    start's); each step's peak memory above what was allocated before it
+    (the sparse step's must stay below one [V, D] table); then
+    CTR_SGD_STEPS SGD steps of both forms on the same batches, bitwise
+    equal too."""
+    import paddle_tpu_torch.fluid as fluid
+    place = fluid.CUDAPlace(0)
+    feed = ctr_batch(np.random.RandomState(SEED + 42))
+    touched = _touched(feed)
+    table_bytes = CTR['sparse_dim'] * CTR['embed_size'] * 4
+    after, peaks = {}, {}
+    for form, model in (('sparse', sparse), ('dense', dense)):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        _load(scope, start)
+        _zero_counts()  # every launch counter to 0 just before this path
+        # the first call of a key runs eagerly: every lowering's own
+        # allocations
+        peaks[form] = _step_peak(exe, model['main'], feed, [model['loss']],
+                                 scope)
+        _no_launches('ctr %s step' % form)
+        after[form] = {n: scope.find_var(n).value().cpu().numpy()
+                       for n in start}
+        del exe, scope
+        torch.cuda.empty_cache()
+    state_bytes = _nbytes(start.values())
+    check(peaks['sparse'] < table_bytes, 'ctr forms: the sparse step held '
+          '%.1f MiB above the state, not below one [V, D] table (%.1f MiB)'
+          % (peaks['sparse'] / 2**20, table_bytes / 2**20))
+    differ = [n for n in sorted(start)
+              if not np.array_equal(after['sparse'][n], after['dense'][n])]
+    lazy = [n for n in start if n.startswith('ctr_embedding')]
+    moved = [n for n in lazy if not np.array_equal(
+        after['sparse'][n][~touched], start[n].cpu().numpy()[~touched])]
+    check(not differ and not moved, 'ctr forms: after one Adam step the '
+          'forms differ in %s; untouched rows moved in %s' % (differ, moved))
+    print('ctr forms: one Adam step from zero moments on %d rows (%d ids '
+          'touched): the sparse and the dense form bitwise equal in all %d '
+          'persistable vars, the untouched rows of %s the start\'s; the '
+          'step\'s peak above what was allocated before it (state %.1f MiB): '
+          'sparse %.1f MiB (limit: one table, %.1f MiB), dense %.1f MiB [%s]'
+          % (CTR_BATCH, touched.sum(), len(start), ', '.join(sorted(lazy)),
+             state_bytes / 2**20, peaks['sparse'] / 2**20,
+             table_bytes / 2**20, peaks['dense'] / 2**20, card), flush=True)
+    # SGD: the two forms stay equal over CTR_SGD_STEPS steps
+    forms = {}
+    for is_sparse in (True, False):
+        forms[is_sparse] = build_ctr(is_sparse, sgd=True)
+    sgd_state = _persistables(forms[True][0]['main'], forms[True][1])
+    _load(forms[False][1], sgd_state)
+    rng = np.random.RandomState(SEED + 43)
+    batches = [ctr_batch(rng) for _ in range(CTR_SGD_STEPS)]
+    _zero_counts()
+    for model, scope, exe in forms.values():
+        for feed in batches:
+            exe.run(model['main'], feed=feed, fetch_list=[model['loss']],
+                    scope=scope)
+    _no_launches('ctr sgd')
+    value = lambda is_sparse, n: forms[is_sparse][1].find_var(n).value()
+    differ = [n for n in sorted(sgd_state)
+              if not torch.equal(value(True, n), value(False, n))]
+    moved = float((value(True, 'ctr_embedding') -
+                   sgd_state['ctr_embedding']).abs().max())
+    check(not differ and moved > 0, 'ctr sgd: after %d steps the forms '
+          'differ in %s; the table moved by %g' %
+          (CTR_SGD_STEPS, differ, moved))
+    print('ctr sgd: %d SGD steps (lr %g) of the sparse and the dense form on '
+          'the same batches: bitwise equal in all %d persistable vars; the '
+          'table moved by up to %.3g [%s]' %
+          (CTR_SGD_STEPS, CTR['lr'], len(sgd_state), moved, card),
+          flush=True)
+
+
+def phase_word2vec(card):
+    """word2vec with is_sparse=True at its build's widths: its four lookups'
+    SparseRows summed by one sum op; one SGD step on the card and on the
+    CPU from the same state."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import word2vec
+    with fluid.unique_name.guard():
+        model = word2vec.build(is_sparse=True)
+    model['startup'].random_seed = SEED
+    scope, exe = fluid.Scope(), fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(model['startup'], scope=scope)
+    rng = np.random.RandomState(SEED + 44)
+    dict_size = model['prediction'].shape[-1]
+    feed = {n: rng.randint(0, dict_size, (W2V_BATCH, 1)).astype('int64')
+            for n in model['feeds']}
+    _zero_counts()
+    compare_train_step(card, 'word2vec train (sparse)', '%d rows' % W2V_BATCH,
+                       model['main'], model['loss'].name, feed, scope, exe,
+                       W2V_LR, dict(CTR_TRAIN_TOL, param_max=W2V_LR))
+    _no_launches('word2vec')
+
+
+def phase_ctr_capture(card, sparse, dense, state):
+    """CTR's request, sparse step and dense step captured against eager
+    (phase_capture); a fetched ``ctr_embedding@GRAD`` from the eager call,
+    the capture and a replay: a SelectedRows each, equal; then run_multi of
+    MULTI_K sparse steps against MULTI_K run() calls."""
+    import paddle_tpu_torch.fluid as fluid
+    place = fluid.CUDAPlace(0)
+    rng = np.random.RandomState(SEED + 45)
+    feed = ctr_batch(rng)
+    what = '%d rows, V=%d D=%d' % (CTR_BATCH, CTR['sparse_dim'],
+                                   CTR['embed_size'])
+    timed = {}
+    timed['serve'] = phase_capture(card, 'ctr serve ' + what, sparse['test'],
+                                   feed, [sparse['prediction']], state, {})
+    timed['sparse'] = phase_capture(card, 'ctr train (sparse) ' + what,
+                                    sparse['main'], feed, [sparse['loss']],
+                                    state, {})
+    timed['dense'] = phase_capture(card, 'ctr train (dense) ' + what,
+                                   dense['main'], feed, [dense['loss']],
+                                   state, {})
+    print('ctr capture: the sparse step against the dense, captured wall '
+          '%.4f / %.4f s, busy %.3f / %.3f ms, peak %.1f / %.1f MiB [%s]' %
+          (timed['sparse']['captured']['wall'],
+           timed['dense']['captured']['wall'],
+           timed['sparse']['captured']['busy_ms'],
+           timed['dense']['captured']['busy_ms'],
+           timed['sparse']['captured']['peak'] / 2**20,
+           timed['dense']['captured']['peak'] / 2**20, card), flush=True)
+
+    # the table's sparse gradient fetched from each path
+    fetch = [sparse['loss'], 'ctr_embedding@GRAD']
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    _load(scope, state)
+    want = eager_run(exe, sparse['main'], feed, fetch, scope)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    got = {}
+    for ran in ('eager', 'capture', 'replay'):
+        _load(scope, state)
+        got[ran] = exe.run(sparse['main'], feed=feed, fetch_list=fetch,
+                           scope=scope)
+        check(exe.cached_blocks()[-1].last_ran == ran, 'ctr fetch: a call '
+              'ran %s, expected %s' % (exe.cached_blocks()[-1].last_ran, ran))
+    # a replay on another batch overwrites the graph's outputs: the fetches
+    # already handed out must not change
+    exe.run(sparse['main'], feed=ctr_batch(rng), fetch_list=fetch,
+            scope=scope)
+    check(exe.cached_blocks()[-1].last_ran == 'replay',
+          'ctr fetch: the last call did not replay')
+    dense_want = want[1].to_dense()
+    for ran, out in got.items():
+        sr = out[1]
+        check(isinstance(sr, fluid.core.SelectedRows) and
+              sr.height() == CTR['sparse_dim'] and
+              sr.rows() == want[1].rows() and
+              np.array_equal(out[0], want[0]) and
+              np.array_equal(sr.to_dense(), dense_want),
+              'ctr fetch: the %s call\'s ctr_embedding@GRAD (%r) differs from '
+              'the eager one\'s' % (ran, sr))
+    print('ctr fetch: ctr_embedding@GRAD from the eager call, the capture '
+          'and a replay: a SelectedRows of %d rows (height %d) each, its '
+          'to_dense() bitwise the eager one\'s after a replay on another '
+          'batch [%s]' %
+          (len(want[1].rows()), CTR['sparse_dim'], card), flush=True)
+    del exe, scope
+
+    # run_multi: MULTI_K sparse steps on MULTI_K batches
+    batches = [ctr_batch(rng) for _ in range(MULTI_K)]
+    fetch = [sparse['loss']]
+    seq_exe, seq_scope = fluid.Executor(place), fluid.Scope()
+    _load(seq_scope, state)
+    for b in batches:
+        seq, = seq_exe.run(sparse['main'], feed=b, fetch_list=fetch,
+                           scope=seq_scope)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    _load(scope, state)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    multi, = exe.run_multi(sparse['main'], feed_list=batches,
+                           fetch_list=fetch, scope=scope)
+    wall = time.perf_counter() - t0
+    _no_launches('ctr run_multi')
+    block = exe.cached_blocks()[-1]
+    names = sorted(state)
+    value = lambda s: [s.find_var(v).value().cpu().numpy() for v in names]
+    err = max(_max_diff(multi, seq), _max_diff(value(scope),
+                                               value(seq_scope)))
+    check(block.mode == 'graph' and block.captures == 1 and
+          block.replays == MULTI_K - 2 and err <= CAPTURE_TOL,
+          'ctr run_multi: mode %s, %d captures, %d replays; %d steps against '
+          '%d run() calls differ by %g (tolerance %g)' %
+          (block.mode, block.captures, block.replays, MULTI_K, MULTI_K, err,
+           CAPTURE_TOL))
+    print('ctr run_multi: %d sparse Adam steps on %d batches against %d '
+          'run() calls from the same state: %s (max|d| %g over the last loss '
+          'and %d persistable vars); wall %.4f s (one eager step and one '
+          'capture among them) [%s]' %
+          (MULTI_K, MULTI_K, MULTI_K, 'bitwise equal' if err == 0 else
+           'within %g' % CAPTURE_TOL, err, len(names), wall, card),
+          flush=True)
+
+
 def _time_ms(fn, launches_per_sample=10, samples=20, warmup=5):
     """Median device time of one call (CUDA events around back-to-back
     launches, so host overhead between launches is hidden)."""
@@ -3225,6 +3671,17 @@ def main():
     torch.cuda.empty_cache()
     phase_mnist(card)
     phase_vgg(card)
+    sparse, scope, exe = build_ctr(is_sparse=True)
+    start = _persistables(sparse['main'], scope)
+    phase_ctr_serve(card, sparse, scope, exe)
+    phase_ctr_train(card, sparse, scope, exe)
+    dense = build_ctr(is_sparse=False)[0]
+    phase_ctr_forms(card, sparse, dense, start)
+    phase_word2vec(card)
+    phase_ctr_capture(card, sparse, dense,
+                      _persistables(sparse['main'], scope))
+    del sparse, dense, scope, exe, start
+    torch.cuda.empty_cache()
     kernels = phase_times(card, launches, fwd_err, bwd_err)
     kernels += phase_lstm_times(card, launches, lstm_err)
     kernels += phase_lstm_times(card, launches, None, b=NMT_BATCH,

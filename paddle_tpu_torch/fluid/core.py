@@ -10,13 +10,15 @@ Counterpart of ``paddle_tpu/fluid/core.py``.  A ``Place`` carries an explicit
 - ``LoDTensor`` wraps one torch tensor and, for a sequence feed, its
   level-of-detail offsets (the reference's recursive sequence lengths); the
   executor lowers a one-level LoD feed to a padded tensor plus lengths.
+- ``SelectedRows`` is a row subset {rows, value, height}: the host-side form
+  of a sparse gradient, as the executor hands a fetched one back.
 """
 
 import numpy as np
 import torch
 
-__all__ = ['CPUPlace', 'CUDAPlace', 'Place', 'VarDesc', 'LoDTensor', 'Scope',
-           'global_scope']
+__all__ = ['CPUPlace', 'CUDAPlace', 'Place', 'VarDesc', 'LoDTensor',
+           'SelectedRows', 'Scope', 'global_scope']
 
 
 class Place(object):
@@ -195,6 +197,45 @@ class LoDTensor(object):
 
     def __repr__(self):
         return 'LoDTensor(shape=%s, lod=%s)' % (self.shape(), self._lod)
+
+
+# ----------------------------------------------------------------------------
+# SelectedRows
+# ----------------------------------------------------------------------------
+class SelectedRows(object):
+    """Row-subset tensor {rows, value, height}, the host-side mirror of a
+    sparse gradient (the reference's rows/set_rows/height/set_height/
+    get_tensor surface).  Rows may repeat: ``to_dense`` sums them."""
+
+    def __init__(self, rows=None, height=0):
+        self._rows = list(rows) if rows is not None else []
+        self._height = int(height)
+        self._tensor = LoDTensor()
+
+    def rows(self):
+        return self._rows
+
+    def set_rows(self, rows):
+        self._rows = list(rows)
+
+    def height(self):
+        return self._height
+
+    def set_height(self, height):
+        self._height = int(height)
+
+    def get_tensor(self):
+        return self._tensor
+
+    def to_dense(self):
+        vals = self._tensor.numpy()
+        out = np.zeros((self._height, ) + vals.shape[1:], vals.dtype)
+        np.add.at(out, np.asarray(self._rows, np.int64), vals)
+        return out
+
+    def __repr__(self):
+        return 'SelectedRows(n=%d, height=%d)' % (len(self._rows),
+                                                  self._height)
 
 
 # ----------------------------------------------------------------------------

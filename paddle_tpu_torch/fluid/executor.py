@@ -28,7 +28,8 @@ graph (``torch.cuda.graph``), the PyTorch counterpart of ``jax.jit``:
      A block with a lowering the registry declares uncapturable runs
      eagerly, and its ``mode`` says why;
   4. fetch to numpy (a copy: the next replay overwrites the graph's
-     outputs).
+     outputs); a sparse gradient (``SparseRows``) is fetched as a
+     ``core.SelectedRows``, as the JAX package fetches it.
 
 ``run_multi`` runs K steps of a block and ``run_eval_multi`` K evaluation
 lots, on the card as K replays with no host sync between them.
@@ -36,7 +37,8 @@ lots, on the card as K replays with no host sync between them.
 Not ported yet: ``run_decode_multi`` and ``run_chunk_prefill`` (serving),
 ``memory_analysis`` and the cost report, ``FLAGS_benchmark`` and the
 profiler's run slices, ``py_reader`` feeds, host ops, nested (two-level)
-LoD feeds.
+LoD feeds, ``SelectedRows`` feeds and scope values (the JAX package hands
+them only to host ops).
 """
 
 import collections
@@ -52,6 +54,7 @@ from .framework import default_main_program, Variable
 from .shape_policy import bucketed_len
 from .. import ops as _ops  # noqa: F401  (registers the lowerings)
 from ..ops import registry
+from ..ops.sparse import SparseRows
 
 __all__ = ['Executor', 'global_scope', 'scope_guard']
 
@@ -696,6 +699,10 @@ class _CompiledBlock(object):
         stacked = []
 
         def collect(i, fetches):
+            if any(isinstance(f, SparseRows) for f in fetches):
+                raise TypeError('run_eval_multi: a sparse gradient '
+                                '(SelectedRows) cannot be stacked; fetch it '
+                                'with run()')
             if not stacked:
                 stacked.extend(
                     torch.empty((steps, ) + tuple(f.shape), dtype=f.dtype,
@@ -939,11 +946,31 @@ class Executor(object):
             self.compile_count += 1
 
     def _convert_fetches(self, fetches, return_numpy, compiled):
-        if return_numpy:
-            return [f.detach().cpu().numpy() for f in fetches]
-        # the graph's outputs are overwritten by its next replay
-        owned = compiled.last_ran in ('capture', 'replay')
-        return [core.LoDTensor(f.clone() if owned else f) for f in fetches]
+        """Fetch tensors -> numpy arrays (or LoDTensors), and a sparse
+        gradient (``SparseRows``) -> a ``core.SelectedRows``.  What the
+        caller gets is its own: a graph's outputs are overwritten by its
+        next replay, and a state var fetched from an eager run may be
+        updated in place by the next step (the sparse optimizers write the
+        rows they touch into the table)."""
+        graph_owned = compiled.last_ran in ('capture', 'replay')
+        state = set(compiled.state_out)
+
+        def own(t, name):
+            return t.clone() if graph_owned or name in state else t
+
+        def convert(f, name):
+            if isinstance(f, SparseRows):
+                sr = core.SelectedRows(rows=f.rows.cpu().tolist(),
+                                       height=f.height)
+                sr.get_tensor().set(f.values.detach().cpu().clone())
+                return sr
+            if return_numpy:
+                a = f.detach().cpu().numpy()
+                return a.copy() if f.device.type == 'cpu' and \
+                    name in state else a
+            return core.LoDTensor(own(f, name))
+
+        return [convert(f, n) for f, n in zip(fetches, compiled.fetch_names)]
 
     def cached_blocks(self):
         """The cached blocks, the least recently used first: each has its

@@ -13,7 +13,8 @@ __all__ = [
     'fc', 'embedding', 'layer_norm', 'dropout', 'softmax',
     'softmax_with_cross_entropy', 'cross_entropy', 'mean', 'reshape',
     'unsqueeze', 'flash_attention', 'reduce_sum', 'clip', 'clip_by_norm',
-    'conv2d', 'pool2d', 'batch_norm', 'gather', 'topk',
+    'conv2d', 'pool2d', 'batch_norm', 'gather', 'topk', 'concat',
+    'sigmoid_cross_entropy_with_logits',
 ]
 
 
@@ -571,3 +572,31 @@ def batch_norm(input,
                else {'use_global_stats': bool(use_global_stats)}),
         })
     return helper.append_activation(batch_norm_out)
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper('concat', **locals())
+    out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    shapes = [list(i.shape) for i in input]
+    if shapes and all(len(s) == len(shapes[0]) for s in shapes):
+        out_shape = list(shapes[0])
+        out_shape[axis] = sum(s[axis] for s in shapes)
+        out.shape = tuple(out_shape)
+    helper.append_op(
+        type='concat',
+        inputs={'X': input},
+        outputs={'Out': [out]},
+        attrs={'axis': axis})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    helper = LayerHelper('sigmoid_cross_entropy_with_logits', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(
+        type='sigmoid_cross_entropy_with_logits',
+        inputs={'X': [x],
+                'Label': [label]},
+        outputs={'Out': [out]})
+    return out

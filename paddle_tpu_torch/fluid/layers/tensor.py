@@ -8,7 +8,7 @@ from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
 __all__ = ['assign', 'fill_constant', 'fill_constant_batch_size_like',
-           'create_global_var', 'sums']
+           'create_global_var', 'sums', 'cast', 'concat']
 
 
 def create_global_var(shape,
@@ -23,6 +23,27 @@ def create_global_var(shape,
     helper.set_variable_initializer(
         var, initializer=Constant(value=float(value)))
     return var
+
+
+def cast(x, dtype):
+    helper = LayerHelper('cast', **locals())
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    out.shape = x.shape
+    helper.append_op(
+        type='cast',
+        inputs={'X': [x]},
+        outputs={'Out': [out]},
+        attrs={'in_dtype': x.dtype,
+               'out_dtype': out.dtype})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    """``layers.nn.concat``; ``fluid.layers.concat`` resolves here, as in
+    the JAX package (``layers/__init__`` star-imports ``tensor`` after
+    ``nn``)."""
+    from . import nn
+    return nn.concat(input, axis, name)
 
 
 def sums(input, out=None):

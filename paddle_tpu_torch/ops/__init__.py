@@ -1,7 +1,8 @@
 """Op lowerings of the PyTorch port.
 
 Importing this package registers every ported lowering (counterpart of
-``paddle_tpu/ops``).
+``paddle_tpu/ops``), then wraps the optimizer lowerings to take a sparse
+(``SparseRows``) gradient.
 """
 
 from .registry import register_lowering, run_op, LoweringContext  # noqa: F401
@@ -16,3 +17,10 @@ from . import sequence_ops  # noqa: F401
 from . import metric_ops  # noqa: F401
 from . import control_flow_ops  # noqa: F401
 from . import beam_search_ops  # noqa: F401
+from . import sparse  # noqa: F401
+
+# the optimizers that take a SparseRows gradient, as the reference has a
+# SelectedRows kernel for each
+for _opt in ('sgd', 'momentum', 'adam'):
+    sparse.sparsify_optimizer(_opt)
+del _opt

@@ -1,6 +1,7 @@
 """Loss op lowerings (counterpart of ``paddle_tpu/ops/loss_ops.py``:
-``cross_entropy`` with hard or soft labels, and ``softmax_with_cross_entropy``
-with hard labels, computed in f32)."""
+``cross_entropy`` with hard or soft labels, ``softmax_with_cross_entropy``
+with hard labels, and ``sigmoid_cross_entropy_with_logits``, computed in
+f32)."""
 
 import torch
 
@@ -48,3 +49,13 @@ def _softmax_with_cross_entropy(ctx, op):
     picked = torch.gather(log_p, -1, torch.where(valid, idx, 0)[..., None])
     ctx.set(op, 'Softmax', torch.exp(log_p))
     ctx.set(op, 'Loss', torch.where(valid[..., None], -picked, 0.0))
+
+
+@register_lowering('sigmoid_cross_entropy_with_logits')
+def _sigmoid_cross_entropy_with_logits(ctx, op):
+    x = amp_upcast_f32(ctx.get(op, 'X'))
+    label = ctx.get(op, 'Label')
+    # max(x, 0) - x z + log(1 + exp(-|x|)): no exp of a large positive value
+    loss = torch.clamp_min(x, 0) - x * label + torch.log1p(
+        torch.exp(-torch.abs(x)))
+    ctx.set(op, 'Out', loss)

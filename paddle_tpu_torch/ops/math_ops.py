@@ -1,5 +1,6 @@
 """Math op lowerings (counterpart of ``paddle_tpu/ops/math_ops.py``): ``mul``,
-the ``elementwise_*`` broadcast family, ``sum``, ``scale``, ``mean``,
+the ``elementwise_*`` broadcast family, ``sum`` and ``scale`` (each also
+over sparse ``SparseRows`` gradients), ``mean``,
 ``reduce_sum`` and the unary ``pow`` (``x ** factor``, which the ``pow``
 activation layer builds).
 
@@ -12,6 +13,7 @@ import math
 import torch
 
 from .registry import register_lowering, amp_matmul, SAMPLE_MASK_NAME
+from .sparse import SparseRows, sparse_add
 
 
 @register_lowering('mul')
@@ -92,17 +94,25 @@ _register_elementwise('pow', torch.pow)
 
 @register_lowering('sum')
 def _sum(ctx, op):
-    # dense accumulation (the backward pass sums renamed gradient parts)
+    """The backward pass sums renamed gradient parts: SparseRows parts
+    concatenate, a dense part and a sparse part give a dense sum."""
     xs = [ctx.env[n] for n in op.input('X')]
     out = xs[0]
     for x in xs[1:]:
-        out = out + x
+        out = sparse_add(out, x)
     ctx.set(op, 'Out', out)
 
 
 @register_lowering('scale')
 def _scale(ctx, op):
     x = ctx.get(op, 'X')
+    if isinstance(x, SparseRows):
+        # a sparse gradient scales its values
+        if op.attrs.get('bias', 0.0) != 0.0:
+            raise NotImplementedError(
+                'scale with bias!=0 on a SelectedRows value')
+        ctx.set(op, 'Out', x.scale(op.attrs.get('scale', 1.0)))
+        return
     scale = op.attrs.get('scale', 1.0)
     bias = op.attrs.get('bias', 0.0)
     if op.attrs.get('bias_after_scale', True):

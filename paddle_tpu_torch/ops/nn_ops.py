@@ -1,9 +1,10 @@
 """NN op lowerings (counterpart of ``paddle_tpu/ops/nn_ops.py``):
 ``conv2d`` and ``depthwise_conv2d`` (``torch.nn.functional.conv2d``, cuDNN
 on the card; OIHW filters), ``pool2d``, ``batch_norm``, ``layer_norm``,
-``lookup_table`` and ``dropout``, with the explicit grads of ``dropout``
-(it reuses the forward Mask: a generic vjp would draw anew) and of
-``lookup_table`` (the dense scatter-add of ``paddle_tpu/ops/sparse.py``).
+``lookup_table`` and ``dropout``, with the explicit grad of ``dropout``
+(it reuses the forward Mask: a generic vjp would draw anew).
+``lookup_table``'s grad, dense or sparse, lives in ``sparse.py``, as in the
+JAX package.
 """
 
 import math
@@ -219,28 +220,3 @@ def _lookup_table(ctx, op):
     lead = tuple(ids.shape[:-1] if ids.dim() and ids.shape[-1] == 1 else
                  ids.shape)
     ctx.set(op, 'Out', torch.reshape(out, lead + (w.shape[-1], )))
-
-
-@register_grad_lowering('lookup_table')
-def _lookup_table_grad(ctx, op):
-    fwd_inputs, fwd_outputs, fwd_attrs = fwd_structure(op)
-    gnames = op.output('W' + GRAD_SUFFIX)
-    if not gnames or not gnames[0]:
-        return
-    if fwd_attrs.get('is_sparse', False):
-        raise NotImplementedError('lookup_table with is_sparse=True needs '
-                                  'SparseRows gradients, not ported yet')
-    gname = gnames[0]
-    w = ctx.lookup(fwd_inputs['W'][0])
-    flat = torch.reshape(ctx.lookup(fwd_inputs['Ids'][0]), (-1, )).long()
-    vals = torch.reshape(ctx.lookup(fwd_outputs['Out'][0] + GRAD_SUFFIX),
-                         (flat.shape[0], w.shape[-1])).to(w.dtype)
-    padding_idx = fwd_attrs.get('padding_idx', -1)
-    if padding_idx is not None and padding_idx >= 0:
-        vals = torch.where((flat == padding_idx)[:, None], 0.0, vals)
-    # an accumulating index_put_ sums each row's contributions in a fixed
-    # order on the card (index_add_ sums them by atomics, in any order)
-    g = torch.zeros_like(w).index_put_((flat, ), vals, accumulate=True)
-    if ctx.has(gname):
-        g = ctx.lookup(gname) + g
-    ctx.store(gname, g)

@@ -143,6 +143,18 @@ def _assign_value(ctx, op):
     ctx.set(op, 'Out', made[key].clone())
 
 
+@register_lowering('cast')
+def _cast(ctx, op):
+    ctx.set(op, 'Out', ctx.get(op, 'X').to(
+        _torch_dtype(op.attrs.get('out_dtype'))))
+
+
+@register_lowering('concat')
+def _concat(ctx, op):
+    ctx.set(op, 'Out', torch.cat([ctx.env[n] for n in op.input('X')],
+                                 dim=op.attrs.get('axis', 0)))
+
+
 @register_lowering('gather')
 def _gather(ctx, op):
     """Rows of X at Index (flattened)."""

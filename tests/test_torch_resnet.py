@@ -23,15 +23,30 @@ its input moves by one ulp).
   0.11 and 0.08); velocities and parameters as the gradients; statistics
   3e-3; served softmax and logits 1e-5 (the test program normalizes with
   the running statistics: no batch of 8 to amplify).
+- ResNet-50 well conditioned: batch 8 at 64 x 64, so that the last stage's
+  batch norm sees 32 values a channel, one Momentum step held to the
+  cifar-20 bounds (``TOL['cifar']``), so that the wide bound above cannot
+  hide a fault.  The same step in f64 (the port's program made f64 on the
+  CPU, ``check_grad_f64.f64_program``) tells which package errs where the
+  two disagree: each gradient's |d| / |v| from f64 in the port is held to
+  the cifar-20 bound (3e-2) and to no more than the JAX package's own.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
+import torch
 
 from paddle_tpu.models import resnet as jax_resnet
 from paddle_tpu_torch.models import resnet as torch_resnet
 
 from test_torch_cv_ops import ModelParity, build_both
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from check_grad_f64 import f64_program  # noqa: E402
 
 CIFAR = dict(depth=20, class_dim=10, image_shape=(3, 32, 32), lr=0.01,
              variant='cifar')
@@ -88,3 +103,63 @@ def test_resnet_trains_and_serves_like_jax(name):
                                tol)
     assert pred.shape == (batch, cfg['class_dim'])
     np.testing.assert_allclose(pred.sum(1), np.ones(batch), rtol=1e-5)
+
+
+def test_resnet50_well_conditioned_step_like_jax():
+    """One Momentum step of ResNet-50 at batch 8 (32 values a channel in
+    the last stage, against 8 at batch 2), at the cifar-20 bounds."""
+    jm, tm = build_both(jax_resnet, torch_resnet, **RESNET50)
+    loss = ModelParity(jm, tm).step(_feed(RESNET50, 8, 30), TOL['cifar'])
+    assert np.isfinite(loss)
+
+
+def test_resnet50_well_conditioned_step_nearer_f64_than_jax():
+    """The batch-8 step's loss and gradients in f64 (the port on the CPU):
+    the port's f32 step is held to it, each gradient within the cifar-20
+    bound and no further from it than the JAX package's."""
+    import paddle_tpu_torch.fluid as tfluid
+    jm, tm = build_both(jax_resnet, torch_resnet, **RESNET50)
+    model = ModelParity(jm, tm)
+    feed = _feed(RESNET50, 8, 30)
+    fetch = [tm['loss'].name] + [p + '@GRAD' for p in model.params]
+    state = {n: np.asarray(model.jscope.find_var(n).value())
+             for n in model.state}
+    model._sync()
+    port = model.texe.run(tm['main'], feed=feed, fetch_list=fetch,
+                          scope=model.tscope)
+    jax_out = model.jexe.run(jm['main'], feed=feed, fetch_list=fetch,
+                             scope=model.jscope)
+    scope64 = tfluid.Scope()
+    for name, arr in state.items():
+        scope64.var(name).set_value(torch.from_numpy(
+            arr.astype(np.float64) if arr.dtype == np.float32 else
+            arr.copy()))
+    f64 = tfluid.Executor(tfluid.CPUPlace()).run(
+        f64_program(tm['main']),
+        feed=dict(feed, img=feed['img'].astype(np.float64)),
+        fetch_list=fetch, scope=scope64)
+
+    def rel(got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+    def overall(got, want):
+        return np.sqrt(sum(np.square(np.float64(g) - w).sum()
+                           for g, w in zip(got, want)) /
+                       sum(np.square(np.float64(w)).sum() for w in want))
+
+    # printed (pytest -s): each pair's loss, worst and overall gradient
+    # |d| / |v|
+    for what, got, want in (('port vs JAX', port, jax_out),
+                            ('port vs f64', port, f64),
+                            ('JAX vs f64', jax_out, f64)):
+        print('resnet50 batch 8: %s: loss %.3g, worst gradient %.4f, all '
+              'gradients %.4f' % (what, rel(got[0], want[0]),
+                                  max(rel(g, w) for g, w in
+                                      zip(got[1:], want[1:])),
+                                  overall(got[1:], want[1:])))
+    assert rel(port[0], f64[0]) <= TOL['cifar']['loss']
+    for name, p, j, r in zip(model.params, port[1:], jax_out[1:], f64[1:]):
+        err, jax_err = rel(p, r), rel(j, r)
+        assert err <= TOL['cifar']['grad'], (name, err)
+        assert err <= jax_err, (name, err, jax_err)

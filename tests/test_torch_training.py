@@ -1,8 +1,8 @@
 """The PyTorch port's training path held against the JAX package on the CPU:
 ``append_backward`` builds the same grad-op graph, each lowering's generic
 grad (``torch.func.vjp``) matches the JAX package's (``jax.vjp``) in one-op
-programs, the explicit grads (``dropout``, ``assign``, ``lookup_table``)
-match, and the small Transformer trains three Adam steps from the same state
+programs, the explicit grads (``dropout``, ``assign``, ``lookup_table``, the
+last dense and sparse) match, and the small Transformer trains three Adam steps from the same state
 to the same losses, gradients and persistable vars.
 
 Tolerances: one-op grads 1e-5 (the same f32 arithmetic up to summation
@@ -200,10 +200,23 @@ def test_dropout_grad_reuses_the_forward_mask():
 
 
 def test_sparse_lookup_table_grad_is_not_ported_yet():
+    """Ported since: with ``is_sparse`` the grad is fetched as a
+    SelectedRows with the JAX package's rows (the padding id's among them,
+    its values zero), height and values."""
     case = _grad_case('lookup_table')
-    case = case[:3] + ({'padding_idx': -1, 'is_sparse': True}, ) + case[4:]
-    with pytest.raises(NotImplementedError, match='is_sparse'):
-        _run_grad(tfluid, case)
+    (want, ), _ = _run_grad(jfluid, case[:3] + (
+        {'padding_idx': 3, 'is_sparse': True}, ) + case[4:])
+    (got, ), _ = _run_grad(tfluid, case[:3] + (
+        {'padding_idx': 3, 'is_sparse': True}, ) + case[4:])
+    assert isinstance(got, tfluid.core.SelectedRows)
+    assert got.height() == want.height() == 10
+    assert list(got.rows()) == [int(r) for r in want.rows()]
+    np.testing.assert_allclose(np.asarray(got.get_tensor()),
+                               np.asarray(want.get_tensor()), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(got.to_dense(), want.to_dense(), rtol=TOL,
+                               atol=TOL)
+    assert not got.to_dense()[3].any()
 
 
 def test_flash_grad_hands_kernels_plain_tensors(monkeypatch):

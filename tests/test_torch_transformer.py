@@ -200,8 +200,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             'paddle_tpu_torch.ops.control_flow_ops, '
             'paddle_tpu_torch.ops.beam_search_ops, '
             'paddle_tpu_torch.ops.tensor_ops, paddle_tpu_torch.ops.math_ops, '
+            'paddle_tpu_torch.ops.sparse, paddle_tpu_torch.ops.loss_ops, '
+            'paddle_tpu_torch.dataset.ctr, paddle_tpu_torch.models.ctr, '
+            'paddle_tpu_torch.models.word2vec, '
             'chip_smoke, '
-            'profile_torch_slice; '
+            'profile_torch_slice, profile_ctr_merge; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "paddle_tpu.")) or m == "paddle_tpu"); '
             'print(bad); sys.exit(1 if bad else 0)')
