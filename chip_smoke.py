@@ -126,8 +126,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    f32 FMA rate is printed beside it), the LSTM forward's and walk's device
    time at each cluster size, the walk's at bf16, and the ``lstm`` op's scan
    and kernel paths; the three LSTM kernels again at NMT's shape (B=128,
-   T=32, D=512, entries ``*_d512``, beside cuDNN's LSTM there), all
-   printed as one ``{"kernels": [...]}`` JSON line;
+   T=32, D=512, entries ``*_d512``, beside cuDNN's LSTM there), and all
+   five kernels' bf16 instantiations at the shapes of paths A and B below
+   (entries ``*_bf16``, bound at the 989 TFLOP/s bf16 tensor-core rate,
+   beside SDPA's and cuDNN's bf16 calls), all printed as one
+   ``{"kernels": [...]}`` JSON line;
 19. the last line: ``{"ok": true, "device": {...}}``.
 
 Each ``Executor`` on the card runs the first call of a block eagerly,
@@ -163,6 +166,34 @@ device activity, replays included, and asserted call by call
 (``device_launches``); the wrappers' counts are asserted too: the call's
 kernels in a call that ran the lowerings, none in a replay.
 
+Mixed precision (``fluid.amp_guard()``: bf16 products and activations, f32
+master weights), each path from the state its f32 phases left:
+
+A. after the Transformer's capture phase: four 16 x 256 requests (the bf16
+   prediction fetched) and a 2 x 256 request against the CPU under AMP
+   (``AMP_SERVE_TOL``); five Adam steps with a falling loss; f32 and AMP
+   training from one state, ``AMP_F32_STEPS`` steps, within
+   ``AMP_F32_LOSS_TOL``; a 2 x 256 step against the CPU under AMP
+   (``AMP_TRAIN_TOL``); the request and the step captured against eager;
+B. after the stacked LSTM's phases, its kernel form: four requests and an
+   8-row request against the CPU, five Adam steps, ``AMP_LSTM_STEPS`` of
+   AMP against f32 within ``AMP_LSTM_LOSS_TOL``, a 16-row step against the
+   CPU, the request and the step captured against eager;
+D. after ResNet-50's phases: five Momentum steps at batch 64 (every
+   parameter and ``@GRAD`` f32), a 2-image step against the CPU under AMP
+   (``AMP_CV_TRAIN_TOL``), the step captured against eager;
+C. then ResNet-50 served as bench.py's bench_resnet_infer_bf16 serves it:
+   ``save_inference_model`` of the test program, loaded three times (as
+   loaded, batch norm folded by ``InferenceTranspiler``, folded and
+   ``Float16Transpiler('bfloat16')``), each served by ``run_eval_multi``
+   of 4 lots of 256 images, captured, and freed before the next: images/s,
+   busy and idle share, peak memory; folded against unfolded
+   (``INFER_FOLD_RTOL``), bf16 against f32 (``INFER_HALF_TOL``).
+
+In A and B every hand-written kernel counted on the card is a bf16
+instantiation (``__nv_bfloat16`` in its name) and none an f32 one; in the
+f32 paths, the reverse.
+
 It imports nothing of JAX or of the JAX package ``paddle_tpu``.
 """
 
@@ -191,13 +222,18 @@ PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
 BOUND_RATE = ('operations at 165 TFLOP/s (3xTF32 on the tensor cores), '
               'bytes at 3.35 TB/s')
+# bf16 products on the tensor cores (dense, f32 accumulation)
+PEAK_BF16_FLOPS = 989e12
+BOUND_RATE_BF16 = ('operations at 989 TFLOP/s (bf16 on the tensor cores), '
+                   'bytes at 3.35 TB/s')
 
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by, bound_simt_ms) of f32 work: the larger of its
-    operations at the 3xTF32 rate and its bytes at the HBM rate; and the
-    same with the operations at the f32 rate outside the tensor cores."""
-    t_ops, t_bytes = flops / PEAK_3XTF32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops, nbytes, rate=PEAK_3XTF32_FLOPS):
+    """(bound_ms, bound_by, bound_simt_ms) of the work: the larger of its
+    operations at ``rate`` (by default the 3xTF32 rate of f32 work) and its
+    bytes at the HBM rate; and the same with the operations at the f32 rate
+    outside the tensor cores."""
+    t_ops, t_bytes = flops / rate, nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             'operations' if t_ops >= t_bytes else 'bytes',
             1e3 * max(flops / PEAK_F32_FLOPS, t_bytes))
@@ -361,6 +397,74 @@ CTR_TRAIN_TOL = dict(loss=1e-5, grad_rtol=1e-3, grad_atol=1e-6,
 # SGD at lr 1e-3), one sparse step against the CPU
 W2V_BATCH = 128
 W2V_LR = 1e-3
+
+# mixed precision (amp_guard): bf16 products and activations, f32 master
+# weights, gradients of f32 parameters and optimizer state.  Card vs CPU,
+# both under AMP: each side rounds its own f32 sums to bf16 (cuBLAS, cuDNN
+# and the flash and LSTM kernels on the card, oneDNN and the plain versions
+# on the CPU), so a bf16 value may land one bf16 step (2^-8) away and carry
+# that through the layers after it.  AMP_SERVE_TOL: the loss, relative; the
+# prediction, max|d| / max(1, max|v|) and the ratio of 2-norms.
+# AMP_TRAIN_TOL and AMP_CV_TRAIN_TOL: compare_train_step's keys.
+# Measured (default seed): Transformer loss 6.6e-6, prediction 5.7e-6 and
+# 0.0020; stacked LSTM 0.0019, 0.0039 (one bf16 step of a probability)
+# and 0.0019.
+AMP_SERVE_TOL = dict(loss=2e-2, pred_max=2e-2, pred_norm=5e-2)
+# Adam moves an element by up to about lr, and by more where m / sqrt(v)
+# exceeds 1, so two sides whose gradients differ in sign may part by up to
+# 2 lr (param_max).  Adam's moments are not held, as TRAIN_TOL does not
+# hold them in f32: after a few steps on one batch some projections'
+# gradients are rounding noise, and so are their moments (measured: the
+# worst moment |d| / |v| 0.40 from the startup state, 1.06 after the f32
+# phases' steps).
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W at the default seed, from
+# the state the f32 phases leave: Transformer loss 1.9e-5, |dg| / |g| over
+# all 0.0030, the worst element 0.067 of its allowance (2.15 of its own
+# max|g|: a projection whose gradient is rounding noise after those
+# steps; with grad_atol 0.01 a run reached 0.98 of the allowance),
+# max|dp| 0.89 lr; stacked LSTM loss 6.1e-4, 0.0087, 0.055, max|dp| 1.11
+# lr.
+AMP_TRAIN_TOL = dict(loss=2e-2, grad_rtol=0.5, grad_atol=3e-2, grad_norm=0.1,
+                     param_max=2 * LR, param_atol=LR / 10, param_frac=0.05)
+AMP_LSTM_TRAIN_TOL = dict(AMP_TRAIN_TOL, param_max=2 * LSTM_LR,
+                          param_atol=LSTM_LR / 10)
+# ResNet-50's gradients at these weights are chaotic under rounding: a
+# batch-norm network's gradients grow through its depth, and bf16 rounding
+# of the activations turns the backbone's gradients into another vector on
+# the card and on the CPU alike (profile_amp_resnet_grads.py on an NVIDIA
+# H100 80GB HBM3 at 700 W, batches 2 and 8, from the startup state and
+# after 5 f32 steps: AMP against f32 on one device |dg| / |g| over all
+# 1.296-1.329 on the card and on the CPU, card against CPU under AMP
+# 1.079-1.167; in f32, card against CPU 0.020-0.026).  So under AMP the
+# step holds the forward (the loss and the batch-norm running statistics)
+# and the head, the fc layer one product from the loss, its gradients,
+# update and velocity; the backbone's gradients are printed over all.
+# Measured at the default seed: the head's worst max|dg| / max|g| 0.117,
+# |dg| / |g| 0.043, velocities 0.030, statistics 0.0074, the loss 0.0046.
+AMP_CV_TRAIN_TOL = dict(loss=2e-2, grad_rtol=0.3, grad_atol=1e-2,
+                        grad_norm=0.1, param_max=CV_LR, param_atol=CV_LR / 10,
+                        param_frac=0.05, velocity=0.1, stats=2e-2)
+# AMP against f32 training from the same state, the JAX package's own
+# bounds: |loss_amp - loss_f32| at each of AMP_F32_STEPS Adam steps of the
+# Transformer (tests/test_amp.py:88-113, 0.15) and of AMP_LSTM_STEPS of
+# the stacked LSTM (tests/test_amp.py:115-154, 0.1)
+AMP_F32_STEPS, AMP_F32_LOSS_TOL = 5, 0.15
+AMP_LSTM_STEPS, AMP_LSTM_LOSS_TOL = 20, 0.1
+# ResNet-50 served in bf16 as bench.py's bench_resnet_infer_bf16 serves it:
+# save_inference_model -> load_inference_model -> InferenceTranspiler ->
+# Float16Transpiler('bfloat16') -> run_eval_multi of INFER_K lots of
+# INFER_BATCH images, captured.  The bf16 softmax against f32 within
+# tests/test_float16_transpiler.py's bound (max|d|), and the logits (the
+# softmax's input, fetched beside it: at random weights the softmax can
+# saturate) as a ratio of 2-norms; the folded f32 logits against the
+# unfolded ones (f32 arithmetic in another order: BN's scale moved into
+# the filter).
+# Measured (default seed): folded 1.9e-6, bf16 logits 0.0042; the softmax
+# is saturated at these weights (mean top probability 1), max|d| 0.
+INFER_BATCH, INFER_K, INFER_CALLS = 256, 4, 5
+INFER_HALF_TOL = 3e-2
+INFER_HALF_LOGITS_RTOL = 5e-2
+INFER_FOLD_RTOL = 1e-4
 
 LIBRARIES = ('flash_attention_fwd', 'flash_attention_bwd', 'lstm_fwd',
              'lstm_bwd')
@@ -899,6 +1003,12 @@ DEVICE_KERNELS = {'fwd': 'fwd_kernel', 'dq': 'dq_kernel',
                   'lstm_dw': 'lstm_dw_reduce_kernel'}
 
 
+# the instantiation counted for each key when kernels are counted by dtype
+# (the dW reduction is f32 whatever the dtype: its split-K products are
+# counted instead)
+DTYPE_KERNELS = dict(DEVICE_KERNELS, lstm_dw='lstm_dw_partial_kernel')
+
+
 def _wrapper_counts():
     """Each kernel wrapper's launch count, by key.  A replay of a captured
     graph calls no wrapper: it counts nothing here."""
@@ -926,19 +1036,46 @@ def _kernel_base(name):
     return _activity_name(name).split('<')[0].split()[-1].split('::')[-1]
 
 
+def _kernel_dtype(name):
+    """'bf16' or 'f32': the element type a hand-written kernel's template
+    was instantiated with."""
+    args = _activity_name(name).partition('<')[2]
+    return 'bf16' if '__nv_bfloat16' in args else 'f32'
+
+
 def _device_kernels(prof):
     """(the hand-written kernels a profiler session saw run on the card, by
-    launch key; the session's device activities)."""
+    launch key; the session's device activities; the same kernels by
+    instantiation, {'bf16': {key: n}, 'f32': {key: n}}, from
+    DTYPE_KERNELS)."""
     by_name = {v: k for k, v in DEVICE_KERNELS.items()}
+    by_dtype_name = {v: k for k, v in DTYPE_KERNELS.items()}
     seen = dict.fromkeys(KERNEL_KEYS, 0)
+    kinds = {t: dict.fromkeys(KERNEL_KEYS, 0) for t in ('bf16', 'f32')}
     device = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             device += 1
-            key = by_name.get(_kernel_base(e.name))
+            base = _kernel_base(e.name)
+            key = by_name.get(base)
             if key is not None:
                 seen[key] += 1
-    return seen, device
+            key = by_dtype_name.get(base)
+            if key is not None:
+                kinds[_kernel_dtype(e.name)][key] += 1
+    return seen, device, kinds
+
+
+def _check_dtype(tag, kinds, dtype, want=None):
+    """No hand-written kernel of another instantiation than ``dtype`` ran,
+    and (``want``) each key's count of ``dtype``'s."""
+    other = 'f32' if dtype == 'bf16' else 'bf16'
+    check(not any(kinds[other].values()),
+          '%s: %s instantiations ran on the card: %s' %
+          (tag, other, {k: v for k, v in kinds[other].items() if v}))
+    if want is not None:
+        check(kinds[dtype] == want, '%s: the %s instantiations ran %s, '
+              'expected %s' % (tag, dtype, kinds[dtype], want))
 
 
 class _Path(object):
@@ -947,7 +1084,8 @@ class _Path(object):
     torch.profiler and checks it; ``end()`` reads the counters just after.
 
     Each call's kernels are counted by name in the profiler's device
-    activity, replays of captured graphs included, and must be ``want``.
+    activity, replays of captured graphs included, and must be ``want``;
+    with ``dtype`` ('bf16' or 'f32') each must be that instantiation.
     The wrappers' counters must have grown by ``want`` in a call that ran
     the lowerings (the eager first call, a capture) and by nothing in a
     replay, which calls no wrapper; so must the lstm op's scan-path runs
@@ -958,9 +1096,11 @@ class _Path(object):
 
     RETAKES = 5
 
-    def __init__(self, tag, exe):
-        self.tag, self.exe = tag, exe
+    def __init__(self, tag, exe, dtype=None):
+        self.tag, self.exe, self.dtype = tag, exe, dtype
         self.device = dict.fromkeys(KERNEL_KEYS, 0)
+        self.by_dtype = {t: dict.fromkeys(KERNEL_KEYS, 0)
+                         for t in ('bf16', 'f32')}
         self.ran = []
         self.retakes = 0
 
@@ -988,10 +1128,12 @@ class _Path(object):
             wrapped = {k: after[k] - before[k] for k in KERNEL_KEYS}
             ran_scans = _scan_runs() - scans0
             ran = self.exe.cached_blocks()[-1].last_ran
-            seen, device = _device_kernels(prof)
+            seen, device, kinds = _device_kernels(prof)
             made.append((result, wall, seen, ran))
             for k in KERNEL_KEYS:
                 self.device[k] += seen[k]
+                for t in kinds:
+                    self.by_dtype[t][k] += kinds[t][k]
             self.ran.append(ran)
             lowered = ran != 'replay'
             check(wrapped == (want if lowered else _expect()) and
@@ -1001,6 +1143,10 @@ class _Path(object):
                   (self.tag, ran, wrapped, ran_scans,
                    want if lowered else _expect(), scans if lowered else 0))
             if seen == want:
+                if self.dtype is not None:
+                    # every hand-written kernel of the call in self.dtype
+                    _check_dtype(self.tag, kinds, self.dtype,
+                                 {k: want[k] for k in KERNEL_KEYS})
                 return made
             short = all(seen[k] <= want[k] for k in KERNEL_KEYS)
             check(short and self.retakes < self.RETAKES,
@@ -1041,7 +1187,7 @@ def phase_slice(card, model, scope, exe):
     per_request = 3 * cfg['n_layer']
     walls = []
     torch.cuda.reset_peak_memory_stats()
-    path = _Path('slice', exe).begin()
+    path = _Path('slice', exe, 'f32').begin()
     for i, feed in enumerate(requests):
         (loss, pred), wall, seen, ran = path.call(
             lambda: exe.run(model['test'], feed=feed, fetch_list=fetch,
@@ -1117,7 +1263,7 @@ def phase_train(card, model, scope, exe):
     losses, walls = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    path = _Path('train', exe).begin()
+    path = _Path('train', exe, 'f32').begin()
     for step in range(TRAIN_STEPS):
         made = path.call(lambda: exe.run(model['main'], feed=feed,
                                          fetch_list=[model['loss']],
@@ -1161,7 +1307,7 @@ def phase_train_card_vs_cpu(card, model, scope, exe):
 
 
 def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
-                       lr, tol=None):
+                       lr, tol=None, held=None):
     """Hand the card's state (every persistable var: parameters, optimizer
     accumulators, batch-norm running statistics, learning rate) to a
     CPUPlace() scope, run one step of ``main`` on each, and hold the card
@@ -1171,6 +1317,8 @@ def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
     statistics where the program has them, and Adam's moments where
     ``tol`` has a ``moments`` entry.  A sparse gradient (a SelectedRows)
     must have the CPU's rows, and its values are held as a gradient.
+    ``held``: the parameters whose gradients, updates and velocities are
+    held (all by default); the others' gradients are printed over all.
     Returns the CPU scope."""
     import paddle_tpu_torch.fluid as fluid
     tol = tol or dict(TRAIN_TOL, param_max=lr)
@@ -1180,6 +1328,7 @@ def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
         main, {n: scope.find_var(n).value().cpu().numpy() for n in state},
         scope=cpu_scope, place=fluid.CPUPlace())
     params = [p.name for p in main.all_parameters() if p.trainable]
+    held = params if held is None else held
     fetch = [loss_name] + [p + '@GRAD' for p in params]
     got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
     t0 = time.perf_counter()
@@ -1195,14 +1344,21 @@ def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
                   ' (or their rows differ)' % (tag, fetch[i], g, w))
             got[i], want[i] = np.asarray(g.get_tensor()), \
                 np.asarray(w.get_tensor())
-    loss_rel = float(abs(got[0][0] - want[0][0]) / abs(want[0][0]))
+    loss_rel = float(abs(got[0][0] - want[0][0]) / max(abs(want[0][0]),
+                                                        1e-30))
     check(loss_rel < tol['loss'], '%s step, card vs CPU: loss %.7f vs %.7f '
           '(rel %g, tol %g)' % (tag, got[0][0], want[0][0], loss_rel,
                                 tol['loss']))
-    top = max(float(np.abs(w).max()) for w in want[1:])
+    top = max(float(np.abs(w).max()) for n, w in zip(params, want[1:])
+              if n in held)
     grad_err, diff_sq, norm_sq = 0.0, 0.0, 0.0
     own_err = (0.0, '')  # the worst max|dg| / max|g| and its parameter
+    rest_sq = [0.0, 0.0]  # |dg|^2 and |g|^2 of the gradients not held
     for name, g, w in zip(params, got[1:], want[1:]):
+        if name not in held:
+            rest_sq[0] += float(np.square(g - w, dtype=np.float64).sum())
+            rest_sq[1] += float(np.square(w, dtype=np.float64).sum())
+            continue
         err = float(np.abs(g - w).max())
         own = float(np.abs(w).max())
         allowed = tol['grad_rtol'] * own + tol['grad_atol'] * top
@@ -1220,7 +1376,7 @@ def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
                                               tol['grad_norm']))
     value = lambda s, n: s.find_var(n).value().cpu().numpy()
     worst, n_far, n_all = 0.0, 0, 0
-    for name in params:
+    for name in held:
         dp = np.abs(value(scope, name) - value(cpu_scope, name))
         worst = max(worst, float(dp.max()))
         n_far += int((dp > tol['param_atol']).sum())
@@ -1231,7 +1387,8 @@ def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
           'them)' % (tag, worst, tol['param_max'], n_far, n_all,
                      tol['param_atol'], tol['param_frac']))
     ops = main.global_block().ops
-    extra = {'velocity': sorted(n for op in ops if op.type == 'momentum'
+    extra = {'velocity': sorted(n for op in ops if op.type == 'momentum' and
+                                op.input('Param')[0] in held
                                 for n in op.input('Velocity')),
              'stats': sorted(n for op in ops if op.type == 'batch_norm'
                              for n in op.input('Mean') + op.input('Variance'))}
@@ -1254,6 +1411,9 @@ def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
                            'running statistics', 'moments': 'Adam moments'}[key],
          err, tol[key])
         for key, err in sorted(state_err.items()))
+    if rest_sq[1]:
+        states += '; the %d gradients not held: |dg| / |g| over all %.3g' % (
+            len(params) - len(held), math.sqrt(rest_sq[0] / rest_sq[1]))
     print('%s: card vs CPU, one step on %s from the same state: loss %.6f vs '
           '%.6f (rel %.2g, tol %g); %d gradients: the worst max|dg| is %.3g '
           'of its allowance (%g of its max|g| + %g of the largest, %.3g; '
@@ -1262,7 +1422,7 @@ def compare_train_step(card, tag, what, main, loss_name, feed, scope, exe,
           'elements differ by more than %g (limit %g of them)%s; CPU step '
           '%.2f s [%s]' %
           (tag, what, got[0][0], want[0][0], loss_rel, tol['loss'],
-           len(params), grad_err, tol['grad_rtol'], tol['grad_atol'], top,
+           len(held), grad_err, tol['grad_rtol'], tol['grad_atol'], top,
            own_err[0], own_err[1], norm_err, tol['grad_norm'], worst,
            tol['param_max'], n_far, n_all, tol['param_atol'],
            tol['param_frac'], states, cpu_s, card), flush=True)
@@ -1388,7 +1548,7 @@ def phase_lstm_serve(card, forms):
         walls = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        path = _Path('lstm serve (%s)' % form, exe).begin()
+        path = _Path('lstm serve (%s)' % form, exe, 'f32').begin()
         for i, feed in enumerate(requests):
             (pred, acc), wall, grew, ran = path.call(
                 lambda: exe.run(model['test'], feed=feed, fetch_list=fetch,
@@ -1459,7 +1619,7 @@ def phase_lstm_train(card, forms):
     losses, walls = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    path = _Path('lstm train', exe).begin()
+    path = _Path('lstm train', exe, 'f32').begin()
     for step in range(TRAIN_STEPS):
         made = path.call(lambda: exe.run(model['main'], feed=feed,
                                          fetch_list=[model['loss']],
@@ -1725,7 +1885,7 @@ def phase_nmt_serve(card, models):
         walls = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        path = _Path('nmt serve (%s)' % form, exe).begin()
+        path = _Path('nmt serve (%s)' % form, exe, 'f32').begin()
         for i, feed in enumerate(requests[:n_req]):
             (pred, ), wall, grew, ran = path.call(
                 lambda: exe.run(model['test'], feed=feed, fetch_list=fetch,
@@ -1796,7 +1956,7 @@ def phase_nmt_train(card, models):
         losses, walls = [], []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        path = _Path('nmt train (%s)' % form, exe).begin()
+        path = _Path('nmt train (%s)' % form, exe, 'f32').begin()
         for i in range(steps):
             for (loss, ), wall, grew, ran in path.call(
                     step, per_step, scans=scans_per_step):
@@ -1860,7 +2020,7 @@ def phase_nmt_decode(card, models):
     walls = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    path = _Path('nmt decode', exe).begin()
+    path = _Path('nmt decode', exe, 'f32').begin()
     for i, feed in enumerate(requests):
         (ids, scores), wall, _, ran = path.call(
             lambda: exe.run(model['main'], feed=feed, fetch_list=fetch,
@@ -2282,12 +2442,12 @@ def _replay_kernels(run, want):
         with torch.profiler.profile(activities=acts) as prof:
             run()
             torch.cuda.synchronize()
-        seen, device = _device_kernels(prof)
+        seen, device, kinds = _device_kernels(prof)
         if seen == want:
             break
         print('capture: profiler session %d of 5 counted %s of %s (%d device '
               'activities)' % (session + 1, seen, want, device), flush=True)
-    return seen
+    return seen, kinds
 
 
 def eager_run(exe, program, feed, fetch_list, scope):
@@ -2298,19 +2458,42 @@ def eager_run(exe, program, feed, fetch_list, scope):
                    eager=True)
 
 
-def phase_capture(card, tag, program, feed, fetch, state, expect):
+def f32_fetches(fetches):
+    """Fetches taken with ``return_numpy=False`` as f32 numpy arrays (a bf16
+    fetch has no numpy form)."""
+    return [f.tensor().float().cpu().numpy() for f in fetches]
+
+
+def amp_call(exe, program, feed, fetch_list, scope, eager=False):
+    """One ``Executor.run`` under ``amp_guard()``, its fetches as f32 numpy
+    arrays."""
+    import paddle_tpu_torch.fluid as fluid
+    with fluid.amp_guard():
+        return f32_fetches(exe.run(program, feed=feed, fetch_list=fetch_list,
+                                   scope=scope, return_numpy=False,
+                                   eager=eager))
+
+
+def phase_capture(card, tag, program, feed, fetch, state, expect, amp=False):
     """One path captured against eager from the same state: the eager call
     (``eager_run``) and the capture's call compared, a replay
     from the state again compared with the capture's call, the kernels of a
     replay counted on the device, and CAPTURE_CALLS calls of each path
     timed (median wall, device busy and idle share of one call under
     torch.profiler, peak memory).  ``expect``: the hand-written kernels a
-    call launches, by key."""
+    call launches, by key.  ``amp``: every call under ``amp_guard()``,
+    the replay's hand-written kernels all bf16 instantiations."""
     import paddle_tpu_torch.fluid as fluid
     place = fluid.CUDAPlace(0)
-    run = lambda exe, scope: exe.run(program, feed=feed, fetch_list=fetch,
-                                     scope=scope)
-    eager = lambda exe, scope: eager_run(exe, program, feed, fetch, scope)
+    if amp:
+        run = lambda exe, scope: amp_call(exe, program, feed, fetch, scope)
+        eager = lambda exe, scope: amp_call(exe, program, feed, fetch, scope,
+                                            eager=True)
+    else:
+        run = lambda exe, scope: exe.run(program, feed=feed,
+                                         fetch_list=fetch, scope=scope)
+        eager = lambda exe, scope: eager_run(exe, program, feed, fetch,
+                                             scope)
     timed = {}
 
     def time_calls(call, exe, scope, path):
@@ -2394,9 +2577,10 @@ def phase_capture(card, tag, program, feed, fetch, state, expect):
           replay_err <= tol, '%s: a replay from the same state ran '
           '%s and differs from the capture\'s call by %g' %
           (tag, block.last_ran, replay_err))
-    seen = _replay_kernels(lambda: run(exe, scope), captured)
+    seen, kinds = _replay_kernels(lambda: run(exe, scope), captured)
     check(seen == captured, '%s: a replay launched %s on the card, the '
           'capture %s' % (tag, seen, captured))
+    _check_dtype(tag + ' replay', kinds, 'bf16' if amp else 'f32', captured)
     time_calls(run, exe, scope, 'captured')
     check(block.captures == 1 and exe.compile_count == 1,
           '%s: %d captures, compile_count %d after the timed calls' %
@@ -2477,6 +2661,413 @@ def phase_resnet_capture(card, model, scope):
                   [model['loss']], state, {})
 
 
+# ---- mixed precision: paths A-D ----
+
+def _amp_steps(exe, program, feed, loss, scope, steps, amp):
+    """``steps`` steps of ``program`` (under amp_guard when ``amp``): the
+    losses."""
+    import paddle_tpu_torch.fluid as fluid
+    out = []
+    with fluid.amp_guard(amp):
+        for _ in range(steps):
+            out.append(float(exe.run(program, feed=feed, fetch_list=[loss],
+                                     scope=scope)[0][0]))
+    return out
+
+
+def _amp_loss_parity(card, tag, exe, model, feed, scope, state, steps, tol):
+    """f32 and AMP training from the same state on one batch: the losses
+    within ``tol`` at every one of ``steps`` steps."""
+    _load(scope, state)
+    f32 = _amp_steps(exe, model['main'], feed, model['loss'], scope, steps,
+                     False)
+    _load(scope, state)
+    amp = _amp_steps(exe, model['main'], feed, model['loss'], scope, steps,
+                     True)
+    gap = max(abs(a - f) for a, f in zip(amp, f32))
+    check(all(np.isfinite(f32 + amp)) and gap < tol,
+          '%s: the AMP and f32 losses of %d steps differ by up to %g (tol %g):'
+          ' %s, %s' % (tag, steps, gap, tol, amp, f32))
+    print('%s: AMP vs f32 training from the same state, %d steps on one '
+          'batch: loss %.6f -> %.6f under AMP, %.6f -> %.6f in f32, max|d| '
+          'over the steps %.4f (tol %g) [%s]' %
+          (tag, steps, amp[0], amp[-1], f32[0], f32[-1], gap, tol, card),
+          flush=True)
+
+
+def _amp_compare_serve(card, tag, program, feed, fetch, scope, exe,
+                       params):
+    """The loss and the bf16 prediction of one request under AMP, card vs
+    CPU with the same parameters (AMP_SERVE_TOL)."""
+    import paddle_tpu_torch.fluid as fluid
+    with fluid.amp_guard():
+        got = exe.run(program, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        dtypes = [str(f.tensor().dtype) for f in got]
+        check(dtypes == ['torch.float32', 'torch.bfloat16'],
+              '%s: the loss and prediction fetched as %s, expected f32 and '
+              'bf16' % (tag, dtypes))
+        cpu_scope = fluid.Scope()
+        fluid.params_from_numpy(
+            program, {n: scope.find_var(n).value().cpu().numpy()
+                      for n in params}, scope=cpu_scope,
+            place=fluid.CPUPlace())
+        t0 = time.perf_counter()
+        want = fluid.Executor(fluid.CPUPlace()).run(
+            program, feed=feed, fetch_list=fetch, scope=cpu_scope,
+            return_numpy=False)
+        cpu_s = time.perf_counter() - t0
+    (gl, gp), (wl, wp) = f32_fetches(got), f32_fetches(want)
+    loss_rel = float(abs(gl[0] - wl[0]) / abs(wl[0]))
+    wp64 = wp.astype(np.float64)
+    pred_max = float(np.abs(gp - wp64).max()) / max(1.0, float(
+        np.abs(wp64).max()))
+    pred_norm = float(np.linalg.norm(gp - wp64) / np.linalg.norm(wp64))
+    check(loss_rel <= AMP_SERVE_TOL['loss'] and
+          pred_max <= AMP_SERVE_TOL['pred_max'] and
+          pred_norm <= AMP_SERVE_TOL['pred_norm'],
+          '%s: card and CPU disagree under AMP: loss rel %g, prediction '
+          'max|d| %g, |d| / |v| %g (tol %s)' % (tag, loss_rel, pred_max,
+                                               pred_norm, AMP_SERVE_TOL))
+    print('%s: card vs CPU under AMP on %s: loss %.6f vs %.6f (rel %.3g), '
+          'bf16 prediction max|d| %.3g, |d| / |v| %.3g (tol %s); CPU run '
+          '%.2f s [%s]' % (tag, 'x'.join(map(str, gp.shape)), gl[0], wl[0],
+                           loss_rel, pred_max, pred_norm, AMP_SERVE_TOL,
+                           cpu_s, card), flush=True)
+
+
+def _amp_train_path(card, tag, exe, model, feed, scope, per_step):
+    """TRAIN_STEPS AMP steps through ``_Path`` (every hand-written kernel a
+    bf16 instantiation): the launches; the loss finite and the last below
+    the first."""
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    path = _Path(tag, exe, 'bf16').begin()
+    for step in range(TRAIN_STEPS):
+        made = path.call(lambda: amp_call(exe, model['main'], feed,
+                                          [model['loss']], scope), per_step)
+        for (loss, ), wall, seen, ran in made:
+            check(loss.shape == (1, ) and np.isfinite(loss).all(),
+                  '%s: step %d loss %s is not finite' % (tag, step + 1, loss))
+            losses.append(float(loss[0]))
+            walls.append(wall)
+        print('%s: step %d (%s) wall %.4f s, loss %.6f, bf16 kernels on the '
+              'card %s [%s]' % (tag, step + 1, ran, wall, losses[-1],
+                                {k: v for k, v in seen.items() if v} or
+                                'none', card), flush=True)
+    launches = path.end()
+    check(losses[-1] < losses[0], '%s: the loss %s: the last is not below '
+          'the first' % (tag, losses))
+    print('%s: %d AMP steps, loss %.6f -> %.6f; launches %s (%s per step, '
+          'all bf16: %s); steady step wall %.4f s (median of steps 2-%d '
+          'under torch.profiler); peak device memory %.1f MiB [%s]' %
+          (tag, len(losses), losses[0], losses[-1], launches.summary(),
+           {k: v for k, v in per_step.items() if v} or 'none',
+           {k: v for k, v in launches.by_dtype['bf16'].items() if v} or
+           'none', statistics.median(walls[1:]), len(walls),
+           torch.cuda.max_memory_allocated() / 2**20, card), flush=True)
+    return launches
+
+
+def phase_amp_transformer(card, model, scope, exe):
+    """Path A: Transformer-base under amp_guard() from the state the f32
+    phases left: requests, then Adam steps eager and captured."""
+    cfg = TRANSFORMER_BASE
+    seq, vocab = cfg['max_len'], cfg['trg_vocab']
+    n = 3 * cfg['n_layer']
+    state = _persistables(model['main'], scope)
+    rng = np.random.RandomState(SEED + 40)
+    ids = lambda b: {name: rng.randint(1, vocab, size=(b, seq)).astype(
+        'int64') for name in model['feeds']}
+    fetch = [model['loss'], model['prediction']]
+    walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    path = _Path('amp serve', exe, 'bf16').begin()
+    for i in range(REQUESTS):
+        feed = ids(BATCH)
+        (loss, pred), wall, seen, ran = path.call(
+            lambda: amp_call(exe, model['test'], feed, fetch, scope),
+            _expect(fwd=n))[-1]
+        walls.append(wall)
+        row_err = float(np.abs(pred.sum(-1, dtype=np.float64) - 1.0).max())
+        check(np.isfinite(loss).all() and pred.shape == (BATCH, seq, vocab)
+              and np.isfinite(pred).all() and row_err < AMP_SERVE_TOL[
+                  'pred_norm'], 'amp serve: request %d: loss %s, prediction '
+              '%s, rows sum to 1 +- %g' % (i + 1, loss, pred.shape, row_err))
+        print('amp serve: request %d (%s) wall %.4f s, loss %.6f, max|row '
+              'sum - 1| %.3g (bf16 prediction) [%s]' %
+              (i + 1, ran, wall, loss[0], row_err, card), flush=True)
+    serve = path.end()
+    print('amp serve: %d requests of %d x %d under amp_guard(); launches %s '
+          '(bf16: %s); steady request wall %.4f s; peak device memory %.1f '
+          'MiB [%s]' % (REQUESTS, BATCH, seq, serve.summary(),
+                        {k: v for k, v in serve.by_dtype['bf16'].items()
+                         if v}, statistics.median(walls[1:]),
+                        torch.cuda.max_memory_allocated() / 2**20, card),
+          flush=True)
+    _amp_compare_serve(card, 'amp serve', model['test'], ids(2), fetch,
+                       scope, exe,
+                       [p.name for p in model['test'].all_parameters()])
+    feed = ids(BATCH)
+    _load(scope, state)
+    train = _amp_train_path(card, 'amp train', exe, model, feed, scope,
+                            _expect(fwd=2 * n, dq=n, dkv=n))
+    _amp_loss_parity(card, 'amp train', exe, model, feed, scope, state,
+                     AMP_F32_STEPS, AMP_F32_LOSS_TOL)
+    import paddle_tpu_torch.fluid as fluid
+    _load(scope, state)  # the step against the CPU from the path's state
+    with fluid.amp_guard():
+        compare_train_step(card, 'amp train', '2 x %d under AMP' % seq,
+                           model['main'], model['loss'].name, ids(2), scope,
+                           exe, LR, AMP_TRAIN_TOL)
+    what = '%d x %d under AMP' % (BATCH, seq)
+    phase_capture(card, 'amp transformer serve ' + what, model['test'],
+                  feed, fetch, state, dict(fwd=n), amp=True)
+    phase_capture(card, 'amp transformer train ' + what, model['main'],
+                  feed, [model['loss']], state, dict(fwd=2 * n, dq=n, dkv=n),
+                  amp=True)
+    _load(scope, state)
+    return {'amp_serve': serve, 'amp_train': train}
+
+
+def phase_amp_lstm(card, forms):
+    """Path B: the stacked LSTM's kernel form under amp_guard(): requests,
+    Adam steps eager and captured, 20 steps against f32 training."""
+    model, scope, exe = forms['kernel']
+    n = STACKED_LSTM['stacked_num']
+    state = _persistables(model['main'], scope)
+    rng = np.random.RandomState(SEED + 41)
+    fetch = [model['loss'], model['prediction']]
+    path = _Path('amp lstm serve', exe, 'bf16').begin()
+    for i in range(REQUESTS):
+        feed = lstm_request(rng, LSTM_BATCH)
+        (loss, pred), wall, seen, ran = path.call(
+            lambda: amp_call(exe, model['test'], feed, fetch, scope),
+            _expect(lstm_fwd=n))[-1]
+        check(np.isfinite(loss).all() and pred.shape == (
+            LSTM_BATCH, STACKED_LSTM['class_dim']) and
+            np.isfinite(pred).all(), 'amp lstm serve: request %d: loss %s, '
+            'prediction %s' % (i + 1, loss, pred.shape))
+        print('amp lstm serve: request %d (%s) wall %.4f s, loss %.6f [%s]'
+              % (i + 1, ran, wall, loss[0], card), flush=True)
+    serve = path.end()
+    print('amp lstm serve: %d requests of %d rows (T=%d) under amp_guard(); '
+          'launches %s (bf16: %s) [%s]' %
+          (REQUESTS, LSTM_BATCH, LSTM_MAX_LEN, serve.summary(),
+           {k: v for k, v in serve.by_dtype['bf16'].items() if v}, card),
+          flush=True)
+    _amp_compare_serve(card, 'amp lstm serve', model['test'],
+                       lstm_request(rng, LSTM_CPU_ROWS), fetch, scope, exe,
+                       [p.name for p in model['test'].all_parameters()])
+    feed = lstm_request(np.random.RandomState(SEED + 4), LSTM_BATCH)
+    _load(scope, state)
+    train = _amp_train_path(card, 'amp lstm train', exe, model, feed, scope,
+                            _expect(lstm_fwd=2 * n, lstm_bwd=n, lstm_dw=n))
+    _amp_loss_parity(card, 'amp lstm train', exe, model, feed, scope, state,
+                     AMP_LSTM_STEPS, AMP_LSTM_LOSS_TOL)
+    import paddle_tpu_torch.fluid as fluid
+    _load(scope, state)  # the step against the CPU from the path's state
+    with fluid.amp_guard():
+        compare_train_step(
+            card, 'amp lstm train', '%d rows (T=%d) under AMP' %
+            (LSTM_CPU_TRAIN_ROWS, LSTM_MAX_LEN), model['main'],
+            model['loss'].name, lstm_request(np.random.RandomState(SEED + 5),
+                                             LSTM_CPU_TRAIN_ROWS), scope,
+            exe, LSTM_LR, AMP_LSTM_TRAIN_TOL)
+    what = '(kernel) B=%d T=%d D=%d under AMP' % (
+        LSTM_BATCH, LSTM_MAX_LEN, STACKED_LSTM['hid_dim'])
+    phase_capture(card, 'amp lstm serve ' + what, model['test'], feed,
+                  [model['prediction'], model['acc']], state,
+                  dict(lstm_fwd=n), amp=True)
+    phase_capture(card, 'amp lstm train ' + what, model['main'], feed,
+                  [model['loss']], state,
+                  dict(lstm_fwd=2 * n, lstm_bwd=n, lstm_dw=n), amp=True)
+    _load(scope, state)
+    return {'amp_lstm_serve': serve, 'amp_lstm_train': train}
+
+
+def phase_amp_resnet_train(card, model, scope, exe):
+    """Path D: ResNet-50 Momentum steps under amp_guard() at batch
+    CV_BATCH: cuDNN's convolutions in bf16, every parameter and gradient
+    f32; card vs CPU under AMP; captured against eager."""
+    import paddle_tpu_torch.fluid as fluid
+    shape, classes = RESNET50['image_shape'], RESNET50['class_dim']
+    state = _persistables(model['main'], scope)
+    rng = np.random.RandomState(SEED + 42)
+    feed = image_batch(rng, CV_BATCH, shape, classes)
+    params = [p.name for p in model['main'].all_parameters() if p.trainable]
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()  # every launch counter to 0 just before the path
+    with fluid.amp_guard():
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, = exe.run(model['main'], feed=feed,
+                            fetch_list=[model['loss']], scope=scope)
+            walls.append(time.perf_counter() - t0)
+            check(np.isfinite(loss).all(), 'amp resnet train: step %d loss '
+                  '%s is not finite' % (i + 1, loss))
+            losses.append(float(loss[0]))
+            print('amp resnet train: step %d wall %.4f s, loss %.6f [%s]' %
+                  (i + 1, walls[-1], losses[-1], card), flush=True)
+        grads = exe.run(model['main'], feed=feed,
+                        fetch_list=[p + '@GRAD' for p in params],
+                        scope=scope, return_numpy=False)
+    _no_launches('amp resnet train')
+    peak = torch.cuda.max_memory_allocated()
+    check(losses[-1] < losses[0], 'amp resnet train: loss %s: the fifth is '
+          'not below the first' % losses)
+    wrong = [n for n, g in zip(params, grads) if g.tensor().dtype !=
+             torch.float32]
+    wrong += [n for n in params if scope.find_var(n).value().dtype !=
+              torch.float32]
+    check(not wrong, 'amp resnet train: not f32 under AMP: %s' % wrong[:5])
+    print('amp resnet train: %d Momentum steps under amp_guard() on one %d x '
+          '%s batch, loss %.6f -> %.6f; steady step wall %.4f s, %.1f '
+          'images/s; %d parameters and their @GRAD all f32; peak device '
+          'memory %.1f MiB [%s]' %
+          (TRAIN_STEPS, CV_BATCH, shape, losses[0], losses[-1],
+           statistics.median(walls[1:]), CV_BATCH / statistics.median(
+               walls[1:]), len(params), peak / 2**20, card), flush=True)
+    small = image_batch(rng, CV_CPU_BATCH, shape, classes)
+    with fluid.amp_guard(), cpu_ftz():
+        compare_train_step(card, 'amp resnet train', '%d x %s under AMP' %
+                           (CV_CPU_BATCH, shape), model['main'],
+                           model['loss'].name, small, scope, exe, CV_LR,
+                           AMP_CV_TRAIN_TOL,
+                           held=[n for n in params if n.startswith('fc_')])
+    phase_capture(card, 'amp resnet train %d x %s' % (
+        CV_BATCH, 'x'.join(map(str, shape))), model['main'], feed,
+        [model['loss']], state, {}, amp=True)
+    _load(scope, state)
+
+
+def phase_resnet_infer_bf16(card, model):
+    """Path C: ResNet-50's test program at its startup weights (random from
+    SEED, as bench_resnet_infer_bf16 serves it: trained on one batch, the
+    softmax saturates and two runners agree trivially) saved with
+    save_inference_model, loaded three times and served with run_eval_multi
+    (INFER_K lots of INFER_BATCH images, captured): as loaded (f32), batch
+    norm folded (InferenceTranspiler, f32), and folded then
+    Float16Transpiler('bfloat16'), one runner at a time, each freed before
+    the next."""
+    import tempfile
+    import paddle_tpu_torch.fluid as fluid
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(model['startup'], scope=scope)
+    shape = RESNET50['image_shape']
+    x = np.random.RandomState(SEED + 43).standard_normal(
+        (INFER_BATCH, ) + tuple(shape)).astype('float32')
+    # bytes, reckoned before the first run: the images 154 MB a lot; the
+    # eager executor keeps every activation of a block until it ends, about
+    # 23 GB for ResNet-50's forward at batch 256 in f32 (half in bf16), and
+    # a captured graph holds its activations in its pool the same way
+    logits = model['test'].global_block().var(_logits_name(model['test']))
+    with tempfile.TemporaryDirectory() as td:
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(td, ['img'], [model['prediction'],
+                                                        logits], exe,
+                                          main_program=model['test'])
+        del exe, scope
+        out = {}
+        for kind in ('f32', 'folded', 'bf16'):
+            out[kind] = _infer_runner(card, kind, td, x)
+    f32, folded, half = out['f32'], out['folded'], out['bf16']
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    fold_err = rel(folded['logits'], f32['logits'])
+    half_err = float(np.abs(half['pred'] - f32['pred']).max())
+    half_logits = rel(half['logits'], f32['logits'])
+    top = float(f32['pred'].max(-1).mean())
+    check(fold_err <= INFER_FOLD_RTOL, 'resnet infer: the folded f32 '
+          'logits differ from the unfolded ones: |d| / |v| %g (tol %g)' %
+          (fold_err, INFER_FOLD_RTOL))
+    check(half_err <= INFER_HALF_TOL and half_logits <=
+          INFER_HALF_LOGITS_RTOL, 'resnet infer: bf16 against f32: softmax '
+          'max|d| %g (tol %g), logits |d| / |v| %g (tol %g)' %
+          (half_err, INFER_HALF_TOL, half_logits, INFER_HALF_LOGITS_RTOL))
+    print('resnet infer: %d x %d images (K=%d lots of %d, one run_eval_multi '
+          'call, captured): f32 %.1f images/s, folded f32 %.1f, bf16 %.1f; '
+          'bf16 : f32 %.2fx; folded vs unfolded f32 logits |d| / |v| %.3g '
+          '(tol %g); bf16 vs f32 softmax max|d| %.3g (tol %g), logits |d| / '
+          '|v| %.3g (tol %g); the f32 softmax\'s mean top probability %.3g '
+          '[%s]' %
+          (INFER_K, INFER_BATCH, INFER_K, INFER_BATCH, f32['ips'],
+           folded['ips'], half['ips'], half['ips'] / f32['ips'], fold_err,
+           INFER_FOLD_RTOL, half_err, INFER_HALF_TOL, half_logits,
+           INFER_HALF_LOGITS_RTOL, top, card), flush=True)
+    return out
+
+
+def _infer_runner(card, kind, dirname, x):
+    """One loaded copy of the saved model (``kind``: 'f32', 'folded' or
+    'bf16') served INFER_CALLS + 1 times by run_eval_multi: {'pred', 'ips',
+    'wall', 'busy_ms', 'idle', 'peak'}, its executor freed."""
+    import paddle_tpu_torch.fluid as fluid
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        prog, feeds, fetches = fluid.io.load_inference_model(dirname, exe)
+        if kind != 'f32':
+            fluid.InferenceTranspiler().transpile(prog, scope=scope)
+        if kind == 'bf16':
+            fluid.Float16Transpiler().transpile(
+                prog, scope=scope, dtype='bfloat16', feeded_var_names=feeds,
+                fetch_var_names=fetches)
+    ops = [op.type for op in prog.global_block().ops]
+    halves = [v.name for v in prog.list_vars() if v.persistable and
+              scope.find_var(v.name).value().dtype == torch.bfloat16]
+    check(('batch_norm' in ops) == (kind == 'f32') and
+          bool(halves) == (kind == 'bf16'), 'resnet infer %s: %d batch_norm '
+          'ops, %d bf16 parameters' % (kind, ops.count('batch_norm'),
+                                       len(halves)))
+    _zero_counts()
+    call = lambda: exe.run_eval_multi(prog, feed={feeds[0]: x},
+                                      fetch_list=fetches, steps=INFER_K,
+                                      scope=scope)
+    pred, logits = call()  # eager, capture, replays
+    walls = []
+    for _ in range(INFER_CALLS):
+        t0 = time.perf_counter()
+        again, _ = call()
+        walls.append(time.perf_counter() - t0)
+    block = exe.cached_blocks()[-1]
+    replay_err = _max_diff([again], [pred])
+    check(block.mode == 'graph' and block.captures == 1 and
+          replay_err <= CAPTURE_TOL, 'resnet infer %s: mode %s, %d '
+          'captures, the replays against the first call %g (tol %g)' %
+          (kind, block.mode, block.captures, replay_err, CAPTURE_TOL))
+    row_err = float(np.abs(pred.sum(-1, dtype=np.float64) - 1).max())
+    check(pred.shape == (INFER_K, INFER_BATCH, RESNET50['class_dim']) and
+          pred.dtype == np.float32 and np.isfinite(pred).all() and
+          row_err < 1e-2, 'resnet infer %s: prediction %s %s, rows sum to 1 '
+          '+- %g' % (kind, pred.shape, pred.dtype, row_err))
+    _no_launches('resnet infer ' + kind)
+    prof = profile_run(call)
+    wall = statistics.median(walls)
+    res = dict(pred=pred[0].astype(np.float64),
+               logits=logits[0].astype(np.float64), wall=wall,
+               ips=INFER_K * INFER_BATCH / wall, busy_ms=prof['busy_ms'],
+               idle=1 - prof['busy_ms'] / 1e3 / prof['wall_s'],
+               peak=torch.cuda.max_memory_allocated())
+    print('resnet infer %s: %d ops (%d batch_norm), %d bf16 parameters; '
+          'run_eval_multi of %d x %d images (%d calls after the first, '
+          'median) %.4f s, %.1f images/s; one call under torch.profiler: %s; '
+          'peak device memory %.1f MiB [%s]' %
+          (kind, len(ops), ops.count('batch_norm'), len(halves), INFER_K,
+           INFER_BATCH, INFER_CALLS, wall, res['ips'], _busy_line(prof),
+           res['peak'] / 2**20, card), flush=True)
+    del exe, scope, prog
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_multi(card, forms):
     """run_multi: MULTI_K Adam steps of the stacked LSTM's kernel form on
     MULTI_K batches against MULTI_K run() calls from the same state (every
@@ -2531,7 +3122,7 @@ def phase_multi(card, forms):
           (block.captures, block.replays))
     # once more under the profiler: MULTI_K replays' kernels on the card
     want = {k: MULTI_K * v for k, v in per_step.items()}
-    seen = _replay_kernels(lambda: exe.run_multi(
+    seen, _ = _replay_kernels(lambda: exe.run_multi(
         model['main'], feed_list=batches, fetch_list=fetch, scope=scope),
         want)
     check(seen == want and block.captures == 1, 'run_multi: %d replays ran '
@@ -3223,14 +3814,28 @@ def _fmt_ms(ms):
     return 'not measured' if ms is None else '%.4f ms' % ms
 
 
-def phase_times(card, launches, fwd_err, bwd_err):
+def phase_times(card, launches, fwd_err, bwd_err, dtype=torch.float32,
+                path='train'):
+    """The flash kernels, their plain versions and SDPA at the Transformer
+    slice's shape in ``dtype``; ``launches`` of the main path ``path``.
+    ``fwd_err``/``bwd_err``: the kernels' worst errors against plain from
+    the sweeps, or None to hold the kernels' errors at this shape only.
+    bf16 rows are named with the suffix ``_bf16`` and bound at the bf16
+    tensor-core rate."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    bf16 = dtype == torch.bfloat16
+    label, suffix = ('bf16', '_bf16') if bf16 else ('f32', '')
+    esize = 2 if bf16 else 4
+    rate, rate_text = ((PEAK_BF16_FLOPS, BOUND_RATE_BF16) if bf16 else
+                       (PEAK_3XTF32_FLOPS, BOUND_RATE))
     b, h, seq = BATCH, TRANSFORMER_BASE['n_head'], TRANSFORMER_BASE['max_len']
     d = TRANSFORMER_BASE['d_model'] // h
     scale = d**-0.5
-    q, k, v = _qkv(b, seq, seq, h, d, torch.float32, SEED)
-    do = _qkv(b, seq, seq, h, d, torch.float32, SEED + 7)[0]
-    err = {'fwd': fwd_err, 'dq': bwd_err['dq'], 'dkv': bwd_err['dkv']}
+    q, k, v = _qkv(b, seq, seq, h, d, dtype, SEED)
+    do = _qkv(b, seq, seq, h, d, dtype, SEED + 7)[0]
+    err = ({'fwd': fwd_err, 'dq': bwd_err['dq'], 'dkv': bwd_err['dkv']}
+           if fwd_err is not None else dict.fromkeys(('fwd', 'dq', 'dkv'),
+                                                      0.0))
     for causal in (False, True):  # the slice's encoder and decoder calls
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
@@ -3240,14 +3845,14 @@ def phase_times(card, launches, fwd_err, bwd_err):
         torch.cuda.synchronize()
         for name, g, w in (('O', o, po), ('LSE', lse, plse), ('dQ', dq, pdq),
                            ('dK', dk, pdk), ('dV', dv, pdv)):
-            tol = 1e-4 * max(1.0, w.abs().max().item())
+            tol = TOL[dtype] * max(1.0, w.abs().max().item())
             check((g - w).abs().max().item() <= tol,
-                  'kernel disagrees with plain at the slice shape (causal=%s):'
-                  ' %s' % (causal, name))
-        err['fwd'] = max(err['fwd'], (o - po).abs().max().item())
-        err['dq'] = max(err['dq'], (dq - pdq).abs().max().item())
-        err['dkv'] = max(err['dkv'], (dk - pdk).abs().max().item(),
-                         (dv - pdv).abs().max().item())
+                  'kernel disagrees with plain at the slice shape (%s, '
+                  'causal=%s): %s' % (label, causal, name))
+        diff = lambda g, w: (g.float() - w.float()).abs().max().item()
+        err['fwd'] = max(err['fwd'], diff(o, po))
+        err['dq'] = max(err['dq'], diff(dq, pdq))
+        err['dkv'] = max(err['dkv'], diff(dk, pdk), diff(dv, pdv))
     o, lse = fa.flash_attention_fwd(q, k, v)
     delta = fa._launch_dq(q, k, v, o, do, lse, None, False, scale)[1]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -3281,19 +3886,20 @@ def phase_times(card, launches, fwd_err, bwd_err):
     library_ms['dq'] = library_ms['dkv'] = _time_ms(sdpa_bwd)
     bwd_dev, bwd_names = _device_ms(sdpa_bwd)
     library_device_ms['dq'] = library_device_ms['dkv'] = bwd_dev
-    print('times: SDPA f32 ran, forward: %s; backward: %s [%s]' %
-          (', '.join(fwd_names), ', '.join(bwd_names), card), flush=True)
+    print('times: SDPA %s ran, forward: %s; backward: %s [%s]' %
+          (label, ', '.join(fwd_names), ', '.join(bwd_names), card),
+          flush=True)
     # least time of each call: its products (2 FLOP per multiply-add, every
     # (row, column) pair unmasked here) at the 3xTF32 rate, against its
     # inputs read once and its outputs written once at the HBM rate
-    elems = b * seq * h * d  # one [B, L, H, D] tensor
-    rows = b * seq * h       # one [B, L, H] f32 tensor (LSE, delta)
+    elems = b * seq * h * d * esize  # bytes of one [B, L, H, D] tensor
+    rows = b * seq * h * 4           # one [B, L, H] f32 tensor (LSE, delta)
     pairs = b * h * seq * seq * d
     work = {
-        'fwd': (4.0 * pairs, 4 * (4 * elems + rows)),  # q k v -> O LSE
+        'fwd': (4.0 * pairs, 4 * elems + rows),  # q k v -> O LSE
         # q k v O dO LSE -> dQ delta (delta's products, 2 FLOP an element)
-        'dq': (6.0 * pairs + 2.0 * elems, 4 * (6 * elems + 2 * rows)),
-        'dkv': (8.0 * pairs, 4 * (6 * elems + 2 * rows)),  # -> dK dV
+        'dq': (6.0 * pairs + 2.0 * elems / esize, 6 * elems + 2 * rows),
+        'dkv': (8.0 * pairs, 6 * elems + 2 * rows),  # -> dK dV
     }
     sources = {
         'fwd': ('flash_attention_fwd', 'flash_attention_fwd.cu', 37),
@@ -3303,26 +3909,28 @@ def phase_times(card, launches, fwd_err, bwd_err):
     kernels = []
     for key in ('fwd', 'dq', 'dkv'):
         flops, nbytes = work[key]
-        bound_ms, bound_by, bound_simt_ms = bound(flops, nbytes)
+        bound_ms, bound_by, bound_simt_ms = bound(flops, nbytes, rate)
         name, src, line = sources[key]
-        print('times: %s f32 B=%d Lq=Lk=%d H=%d D=%d non-causal: kernel %.4f '
+        name += suffix
+        print('times: %s %s B=%d Lq=Lk=%d H=%d D=%d non-causal: kernel %.4f '
               'ms (device %s), plain %.4f ms, library %.4f ms (device %s), '
               'bound %.4f ms by %s (%.3g GFLOP, %.3g MB; %s), %.4f ms at 67 '
               'TFLOP/s f32 [%s]' %
-              (name, b, seq, h, d, ms[key], _fmt_ms(device_ms[key]),
+              (name, label, b, seq, h, d, ms[key], _fmt_ms(device_ms[key]),
                plain_ms[key], library_ms[key],
                _fmt_ms(library_device_ms[key]), bound_ms, bound_by,
-               flops / 1e9, nbytes / 1e6, BOUND_RATE, bound_simt_ms, card),
+               flops / 1e9, nbytes / 1e6, rate_text, bound_simt_ms, card),
               flush=True)
         kernels.append({
             'name': name,
+            'dtype': label,
             'route': 'cuda',
             'source': 'paddle_tpu_torch/csrc/' + src,
             'replaces': 'paddle_tpu/ops/pallas/flash_attention.py:%d' % line,
-            'launches': launches['train'].wrapper[key],
+            'launches': launches[path].wrapper[key],
             'launches_by_path': {p: launches[p].wrapper[key]
                                  for p in launches},
-            'device_launches': launches['train'].device[key],
+            'device_launches': launches[path].by_dtype[label][key],
             'device_launches_by_path': {p: launches[p].device[key]
                                         for p in launches},
             'max_abs_err': err[key],
@@ -3331,10 +3939,12 @@ def phase_times(card, launches, fwd_err, bwd_err):
             'plain_ms': plain_ms[key],
             'bound_ms': bound_ms,
             'bound_by': bound_by,
-            'bound_rate': BOUND_RATE,
+            'bound_rate': rate_text,
             'library_ms': library_ms[key],
             'library_device_ms': library_device_ms[key],
         })
+    if bf16:
+        return kernels
     # the forward in bf16 at the same shape, beside SDPA's bf16 call
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
     qtb, ktb, vtb = (x.transpose(1, 2).contiguous() for x in (qb, kb, vb))
@@ -3389,31 +3999,34 @@ def _lstm_errors_at(lk, xs, w, bias, h0, c0, mask, dhs, dcs, what):
                        'lstm_bwd'), ('dx', 'dW', 'db', 'dh0', 'dc0'), got_b,
                       want_b))
     worst = dict.fromkeys(('lstm_fwd', 'lstm_bwd', 'lstm_dw'), 0.0)
+    tol = LSTM_TOL[xs.dtype]
     for kernel, name, got, want in pairs:
         scale = max(1.0, want.abs().max().item())
-        e = (got - want).abs().max().item()
-        check(got.shape == want.shape and e <= LSTM_TOL[torch.float32] *
-              scale, 'LSTM kernel disagrees with plain at %s: max|d%s| %g > '
-              '%g * %g' % (what, name, e, LSTM_TOL[torch.float32], scale))
+        e = (got.float() - want.float()).abs().max().item()
+        check(got.shape == want.shape and e <= tol * scale,
+              'LSTM kernel disagrees with plain at %s: max|d%s| %g > '
+              '%g * %g' % (what, name, e, tol, scale))
         worst[kernel] = max(worst[kernel], e)
     return worst
 
 
 def phase_lstm_times(card, launches, err, b=LSTM_BATCH, t=LSTM_MAX_LEN,
                      d=STACKED_LSTM['hid_dim'], path='lstm_train',
-                     suffix='', extras=True):
-    """The LSTM kernels, their plain versions and cuDNN's LSTM at f32 B, T,
-    D, every row full length (the stacked-LSTM slice's shape by default);
-    ``launches`` of the main path ``path``; ``err`` the kernels' worst
-    errors against plain, measured at this shape when None.  ``extras``:
-    also the forward's and the walk's device time at each cluster size, the
-    walk at bf16, and the lstm op's two paths on the card."""
+                     suffix='', extras=True, dtype=torch.float32):
+    """The LSTM kernels, their plain versions and cuDNN's LSTM at B, T, D in
+    ``dtype``, every row full length (the stacked-LSTM slice's shape by
+    default); ``launches`` of the main path ``path``; ``err`` the kernels'
+    worst errors against plain, measured at this shape when None.
+    ``extras``: also the forward's and the walk's device time at each
+    cluster size, the walk at bf16, and the lstm op's two paths on the
+    card."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.ops import registry
     from paddle_tpu_torch.ops.kernels import lstm as lk
-    shape = 'f32 B=%d T=%d D=%d' % (b, t, d)
+    shape = '%s B=%d T=%d D=%d' % ('bf16' if dtype == torch.bfloat16 else
+                                   'f32', b, t, d)
     xs, w, bias, h0, c0, mask, dhs, dcs = _lstm_inputs(
-        torch.float32, b, t, d, False, SEED + 6)
+        dtype, b, t, d, False, SEED + 6)
     if err is None:
         err = _lstm_errors_at(lk, xs, w, bias, h0, c0, mask, dhs, dcs, shape)
     hs, cs, acts = lk.lstm_fwd(xs, w, bias, h0, c0, mask)
@@ -3444,8 +4057,8 @@ def phase_lstm_times(card, launches, err, b=LSTM_BATCH, t=LSTM_MAX_LEN,
         2, 10)
     # cuDNN's LSTM at the same B, T and D; it also projects its D-wide
     # input (x . W_ih, which the port's lstm op receives done)
-    cudnn = torch.nn.LSTM(d, d).cuda()
-    x_in = torch.randn(t, b, d, device='cuda')
+    cudnn = torch.nn.LSTM(d, d).cuda().to(dtype)
+    x_in = torch.randn(t, b, d, device='cuda', dtype=dtype)
     def cudnn_fwd():
         with torch.no_grad():
             return cudnn(x_in)
@@ -3467,7 +4080,7 @@ def phase_lstm_times(card, launches, err, b=LSTM_BATCH, t=LSTM_MAX_LEN,
                                         bias)
     return _lstm_rows(card, b, t, d, launches, path, suffix, err, shape, ms,
                       device_ms, plain_ms, library_ms, library_device_ms,
-                      fwd_acts_ms, extra)
+                      fwd_acts_ms, extra, dtype)
 
 
 def _lstm_cluster_times(card, lk, b, t, d, xs, w, bias, h0, c0, mask, acts,
@@ -3540,24 +4153,30 @@ def _lstm_op_times(card, fluid, registry, b, t, d, xs, w, bias):
 
 def _lstm_rows(card, b, t, d, launches, path, suffix, err, shape, ms,
                device_ms, plain_ms, library_ms, library_device_ms,
-               fwd_acts_ms, extra):
+               fwd_acts_ms, extra, dtype=torch.float32):
     """The kernels line's LSTM entries at one shape, each printed."""
-    # least time: the products (2 FLOP per multiply-add) at the 3xTF32
-    # rate, against the inputs read once and the outputs written once
+    # least time: the products (2 FLOP per multiply-add) at the tensor-core
+    # rate of the dtype (3xTF32 for f32), against the inputs read once and
+    # the outputs written once: x, W, h, the activations and dx in the
+    # dtype (e bytes), the cell, mask, bias and the db rows f32
+    bf16 = dtype == torch.bfloat16
+    label, e = ('bf16', 2) if bf16 else ('f32', 4)
+    rate, rate_text = ((PEAK_BF16_FLOPS, BOUND_RATE_BF16) if bf16 else
+                       (PEAK_3XTF32_FLOPS, BOUND_RATE))
     gate_elems, h_elems = t * b * 4 * d, t * b * d
+    db_rows = math.ceil(b / 4) * 4 * d
     flops = 2.0 * t * b * d * 4 * d
     work = {
-        # xs, w, bias, h0, c0, mask -> hs, cs
-        'lstm_fwd': (flops, 4 * (gate_elems + 4 * d * d + 4 * d + 2 * b * d +
-                                 t * b + 2 * h_elems)),
-        # w, mask, acts, cs, c0, dhs, dcs -> dx, dh0, dc0, db rows
-        'lstm_bwd': (flops, 4 * (4 * d * d + t * b + 2 * gate_elems +
-                                 3 * h_elems + 3 * b * d +
-                                 math.ceil(b / 4) * 4 * d)),
-        # hs, h0, dx, db rows -> dW, db
-        'lstm_dw': (flops, 4 * (h_elems + b * d + gate_elems +
-                                math.ceil(b / 4) * 4 * d + 4 * d * d +
-                                4 * d)),
+        # xs, w, h0, hs | bias, c0, mask, cs
+        'lstm_fwd': (flops, e * (gate_elems + 4 * d * d + b * d + h_elems) +
+                     4 * (4 * d + b * d + t * b + h_elems)),
+        # w, acts, dx, dhs, h0 | mask, cs, dcs, c0, dc0, db rows
+        'lstm_bwd': (flops, e * (4 * d * d + 2 * gate_elems + h_elems +
+                                 b * d) +
+                     4 * (t * b + 2 * h_elems + 2 * b * d + db_rows)),
+        # hs, h0, dx | db rows -> dW, db
+        'lstm_dw': (flops, e * (h_elems + b * d + gate_elems) +
+                    4 * (db_rows + 4 * d * d + 4 * d)),
     }
     sources = {
         'lstm_fwd': ('lstm_fwd', 'lstm_fwd.cu', 41),
@@ -3567,20 +4186,21 @@ def _lstm_rows(card, b, t, d, launches, path, suffix, err, shape, ms,
     kernels = []
     for key in ('lstm_fwd', 'lstm_bwd', 'lstm_dw'):
         flops_k, nbytes = work[key]
-        bound_ms, bound_by, bound_simt_ms = bound(flops_k, nbytes)
+        bound_ms, bound_by, bound_simt_ms = bound(flops_k, nbytes, rate)
         name, src, line = sources[key]
         name += suffix
-        print('times: %s f32 B=%d T=%d D=%d: kernel %.4f ms (%.2f us a step; '
+        print('times: %s %s B=%d T=%d D=%d: kernel %.4f ms (%.2f us a step; '
               'device %s), plain %.4f ms, cuDNN LSTM %.4f ms (device %s), '
               'bound %.4f ms by %s (%.3g GFLOP, %.3g MB; %s), %.4f ms at 67 '
               'TFLOP/s f32 [%s]' %
-              (name, b, t, d, ms[key], 1e3 * ms[key] / t,
+              (name, label, b, t, d, ms[key], 1e3 * ms[key] / t,
                _fmt_ms(device_ms[key]), plain_ms[key], library_ms[key],
                _fmt_ms(library_device_ms[key]), bound_ms, bound_by,
-               flops_k / 1e9, nbytes / 1e6, BOUND_RATE, bound_simt_ms, card),
+               flops_k / 1e9, nbytes / 1e6, rate_text, bound_simt_ms, card),
               flush=True)
         entry = {
             'name': name,
+            'dtype': label,
             'route': 'cuda',
             'source': 'paddle_tpu_torch/csrc/' + src,
             'replaces': 'paddle_tpu/ops/pallas/lstm.py:%d' % line,
@@ -3588,7 +4208,7 @@ def _lstm_rows(card, b, t, d, launches, path, suffix, err, shape, ms,
             'launches': launches[path].wrapper[key],
             'launches_by_path': {p: launches[p].wrapper[key]
                                  for p in launches},
-            'device_launches': launches[path].device[key],
+            'device_launches': launches[path].by_dtype[label][key],
             'device_launches_by_path': {p: launches[p].device[key]
                                         for p in launches},
             'max_abs_err': err[key],
@@ -3597,7 +4217,7 @@ def _lstm_rows(card, b, t, d, launches, path, suffix, err, shape, ms,
             'plain_ms': plain_ms[key],
             'bound_ms': bound_ms,
             'bound_by': bound_by,
-            'bound_rate': BOUND_RATE,
+            'bound_rate': rate_text,
             'library_ms': library_ms[key],
             'library_device_ms': library_device_ms[key],
         }
@@ -3644,6 +4264,7 @@ def main():
                 'train': phase_train(card, model, scope, exe)}
     phase_train_card_vs_cpu(card, model, scope, exe)
     phase_transformer_capture(card, model, scope)
+    launches.update(phase_amp_transformer(card, model, scope, exe))
     del model, scope, exe
     torch.cuda.empty_cache()
     forms = build_lstm_models()
@@ -3654,6 +4275,7 @@ def main():
     phase_multi(card, forms)
     phase_dropout(card)
     phase_staleness(card, forms)
+    launches.update(phase_amp_lstm(card, forms))
     del forms
     torch.cuda.empty_cache()
     nmt = build_nmt_models()
@@ -3667,6 +4289,10 @@ def main():
     phase_resnet_serve(card, *resnet)
     phase_resnet_train(card, *resnet)
     phase_resnet_capture(card, resnet[0], resnet[1])
+    phase_amp_resnet_train(card, *resnet)
+    resnet[2].close()  # its graphs' pool, before batch 256
+    torch.cuda.empty_cache()
+    phase_resnet_infer_bf16(card, resnet[0])
     del resnet
     torch.cuda.empty_cache()
     phase_mnist(card)
@@ -3688,6 +4314,12 @@ def main():
                                 t=NMT_MAX_LEN, d=NMT['encoder_size'],
                                 path='nmt_train', suffix='_d512',
                                 extras=False)
+    # the bf16 instantiations, at the shapes of paths A and B
+    kernels += phase_times(card, launches, None, None, dtype=torch.bfloat16,
+                           path='amp_train')
+    kernels += phase_lstm_times(card, launches, None, path='amp_lstm_train',
+                                suffix='_bf16', extras=False,
+                                dtype=torch.bfloat16)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -3,9 +3,12 @@
 The same program-building API as ``paddle_tpu.fluid``, training included
 (``append_backward``; ``optimizer.SGD``, ``Momentum`` and ``Adam``),
 the image blocks of ``nets``, LoD feeds (``create_lod_tensor``)
-and flags (``FLAGS``, bootstrapped from ``FLAGS_<name>`` environment
-variables); ``Executor.run`` interprets the program op by op on a torch
-device, by default the CUDA card (``CUDAPlace(0)``).
+flags (``FLAGS``, bootstrapped from ``FLAGS_<name>`` environment
+variables), mixed precision (``amp_guard``, ``enable_amp``) and the
+inference path (``io.save_inference_model`` / ``load_inference_model``,
+``InferenceTranspiler``, ``Float16Transpiler``); ``Executor.run``
+interprets the program op by op on a torch device, by default the CUDA
+card (``CUDAPlace(0)``).
 """
 
 from . import flags
@@ -34,11 +37,16 @@ from . import optimizer
 from . import nets
 from . import lod_tensor
 from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
+from . import amp
+from .amp import amp_guard, enable_amp
+from . import transpiler
+from .transpiler import InferenceTranspiler, Float16Transpiler
 
 __all__ = framework.__all__ + executor.__all__ + [
     'io', 'initializer', 'layers', 'LoDTensor', 'CPUPlace', 'CUDAPlace',
     'Scope', 'ParamAttr', 'unique_name', 'params_from_numpy',
     'persistables_from_numpy', 'backward', 'append_backward', 'clip',
     'regularizer', 'optimizer', 'nets', 'flags', 'FLAGS', 'lod_tensor',
-    'create_lod_tensor', 'create_random_int_lodtensor',
+    'create_lod_tensor', 'create_random_int_lodtensor', 'amp', 'amp_guard',
+    'enable_amp', 'transpiler', 'InferenceTranspiler', 'Float16Transpiler',
 ]

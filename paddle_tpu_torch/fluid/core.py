@@ -108,10 +108,16 @@ _DTYPE_TO_TORCH = {
 }
 
 
+_TORCH_TO_DTYPE = {v: k for k, v in _DTYPE_TO_TORCH.items()}
+
+
 def convert_np_dtype_to_dtype_(np_dtype):
-    """numpy dtype (or string) -> VarType enum."""
+    """numpy dtype, torch dtype or string -> VarType enum.  bfloat16 comes
+    as ``torch.bfloat16`` or the string ``'bfloat16'``: numpy has none."""
     if isinstance(np_dtype, int):
         return np_dtype
+    if isinstance(np_dtype, torch.dtype):
+        return _TORCH_TO_DTYPE[np_dtype]
     if np_dtype in ('bfloat16', 'bf16'):
         return VarDesc.VarType.BF16
     dtype = np.dtype(np_dtype)
@@ -122,8 +128,11 @@ def convert_np_dtype_to_dtype_(np_dtype):
 
 def convert_dtype_to_np(dtype):
     """VarType enum (or string/np dtype) -> numpy dtype.  numpy has no
-    bfloat16: a BF16 var has no numpy dtype here."""
-    if dtype == VarDesc.VarType.BF16 or dtype in ('bfloat16', 'bf16'):
+    bfloat16: a BF16 var has no numpy dtype here, and code that meets one
+    asks for its torch dtype (``convert_dtype_to_torch``,
+    ``Variable.torch_dtype``) instead."""
+    if dtype == VarDesc.VarType.BF16 or dtype in ('bfloat16', 'bf16') or \
+            dtype == torch.bfloat16:
         raise ValueError('bfloat16 has no numpy dtype in the PyTorch port')
     if isinstance(dtype, int):
         return np.dtype(_DTYPE_TO_NP[dtype])

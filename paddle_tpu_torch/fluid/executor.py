@@ -12,10 +12,11 @@ graph (``torch.cuda.graph``), the PyTorch counterpart of ``jax.jit``:
      ``<name>@SEQLEN`` (the JAX package's lowering of LoD to static shapes);
   2. resolve the block in the compile cache, keyed as the JAX package keys
      it (program id and version, fetch names, feed signature, place, scope
-     id), an LRU of 64 whose entries die with their program or scope; each
-     miss counts in ``compile_count`` and builds a ``_CompiledBlock``: the
-     op list and the persistable vars read before they are written (state
-     in, taken from the scope) and those written (state out);
+     id, AMP mode), an LRU of 64 whose entries die with their program or
+     scope; each miss counts in ``compile_count`` and builds a
+     ``_CompiledBlock``: the op list and the persistable vars read before
+     they are written (state in, taken from the scope) and those written
+     (state out);
   3. run it.  On the CPU every op's lowering runs eagerly through
      ``registry.run_op``.  On the card the first call of a key runs eagerly
      too (it builds the hand-written kernels and sets up the libraries);
@@ -28,8 +29,10 @@ graph (``torch.cuda.graph``), the PyTorch counterpart of ``jax.jit``:
      A block with a lowering the registry declares uncapturable runs
      eagerly, and its ``mode`` says why;
   4. fetch to numpy (a copy: the next replay overwrites the graph's
-     outputs); a sparse gradient (``SparseRows``) is fetched as a
-     ``core.SelectedRows``, as the JAX package fetches it.
+     outputs; numpy has no bfloat16, so a bf16 fetch raises unless
+     ``return_numpy=False`` asks for the tensor); a sparse gradient
+     (``SparseRows``) is fetched as a ``core.SelectedRows``, as the JAX
+     package fetches it.
 
 ``run_multi`` runs K steps of a block and ``run_eval_multi`` K evaluation
 lots, on the card as K replays with no host sync between them.
@@ -316,6 +319,18 @@ def convert_eval_fetches(stacked, reals, target, compiled, steps,
 # ----------------------------------------------------------------------------
 # the compiled block
 # ----------------------------------------------------------------------------
+def to_numpy(tensor, name):
+    """A fetched tensor as a numpy array.  numpy has no bfloat16: a bf16
+    fetch raises rather than hand back its bits as another type."""
+    if tensor.dtype == torch.bfloat16:
+        raise TypeError(
+            'fetch %r: a bfloat16 value has no numpy form; fetch it with '
+            'return_numpy=False (a LoDTensor over the torch tensor), or '
+            'cast it to float32 in the program (Float16Transpiler casts '
+            'its fetch targets back)' % name)
+    return tensor.detach().cpu().numpy()
+
+
 def _feed_value(tensor, var_desc, device):
     if var_desc is not None and tensor.is_floating_point():
         want = var_desc.torch_dtype
@@ -711,7 +726,7 @@ class _CompiledBlock(object):
                 buf[i].copy_(f)
 
         self._steps(scope, feeds, per_step, generator, steps, collect)
-        return [s.cpu().numpy() for s in stacked]
+        return [to_numpy(s, n) for s, n in zip(stacked, self.fetch_names)]
 
     def release(self):
         """Drop the graph and the buffers it holds."""
@@ -805,10 +820,8 @@ class Executor(object):
         feed_arrays = prepare_feed_arrays(dict(feed or {}))
         validate_feed(program, feed_arrays)
         sig = feed_signature(feed_arrays)
-        # the JAX package's key, whose last member, registry.amp_enabled(),
-        # the port leaves out until it has AMP
         key = (id(program), program._version, tuple(fetch_names), sig,
-               self.place, id(scope))
+               self.place, id(scope), registry.amp_enabled())
         self._pin_cache_lifetime(program)
         self._pin_cache_lifetime(scope)
         with self._cache_lock:
@@ -965,7 +978,7 @@ class Executor(object):
                 sr.get_tensor().set(f.values.detach().cpu().clone())
                 return sr
             if return_numpy:
-                a = f.detach().cpu().numpy()
+                a = to_numpy(f, name)
                 return a.copy() if f.device.type == 'cpu' and \
                     name in state else a
             return core.LoDTensor(own(f, name))

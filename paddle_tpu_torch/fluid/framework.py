@@ -329,6 +329,51 @@ class Program(object):
         p._bump_version()
         return p
 
+    def prune(self, targets):
+        """A copy that keeps only the global block's ops needed to compute
+        ``targets`` (and its feed/fetch ops)."""
+        if not isinstance(targets, (list, tuple)):
+            targets = [targets]
+        needed = set(t.name if isinstance(t, Variable) else t
+                     for t in targets)
+        p = copy.deepcopy(self)
+        blk = p.global_block()
+        kept = []
+        for op in reversed(blk.ops):
+            if op.type == 'fetch' or set(op.output_arg_names) & needed:
+                kept.append(op)
+                needed.update(op.input_arg_names)
+        blk.ops = list(reversed(kept))
+        p._bump_version()
+        return p
+
+    def inference_optimize(self, prune_read_op=True):
+        """``clone(for_test=True)``, its ``read`` ops dropped."""
+        p = self.clone(for_test=True)
+        if prune_read_op:
+            blk = p.global_block()
+            blk.ops = [op for op in blk.ops if op.type != 'read']
+            p._bump_version()
+        return p
+
+    def serialize_to_string(self):
+        """framework.proto ProgramDesc bytes (``proto_serde``), the
+        reference's model contract."""
+        from . import proto_serde
+        return proto_serde.serialize_program(self)
+
+    @staticmethod
+    def parse_from_string(data):
+        """A program from ProgramDesc bytes, or from the structural JSON of
+        the JAX package's earlier artifacts (``program_serde``)."""
+        if isinstance(data, str):
+            data = data.encode('utf-8')
+        if data[:1] == b'{':
+            from . import program_serde
+            return program_serde.deserialize_program(data)
+        from . import proto_serde
+        return proto_serde.deserialize_program(data)
+
     def to_string(self, throw_on_error=False, with_details=False):
         return '\n'.join(b.to_string() for b in self.blocks)
 

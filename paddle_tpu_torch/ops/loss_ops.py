@@ -1,7 +1,8 @@
 """Loss op lowerings (counterpart of ``paddle_tpu/ops/loss_ops.py``:
 ``cross_entropy`` with hard or soft labels, ``softmax_with_cross_entropy``
 with hard labels, and ``sigmoid_cross_entropy_with_logits``, computed in
-f32)."""
+f32).  ``softmax_with_cross_entropy`` over bf16 logits (AMP) takes the
+fused path, ``FusedCEBf16``."""
 
 import torch
 
@@ -35,15 +36,56 @@ def _cross_entropy(ctx, op):
     ctx.set(op, 'Y', loss)
 
 
+class FusedCEBf16(torch.autograd.Function):
+    """The AMP hard-label cross-entropy over bf16 logits (the JAX
+    package's ``_fused_ce_bf16``, a ``jax.custom_vjp``): (loss [N..., 1]
+    f32, softmax in the logits' dtype).  The reductions run in f32; the
+    softmax kept for the backward and the logits' gradient, (p - onehot)
+    scaled by the loss's cotangent, stay bf16, so no f32 [N, V] tensor is
+    kept.  Rows whose label is ``ignore`` give 0 and no gradient.  The
+    softmax output takes no gradient.  Written in the ``setup_context``
+    form, which ``torch.func.vjp`` (the generic grad) accepts."""
+
+    @staticmethod
+    def forward(logits, idx, ignore):
+        lf = logits.float()
+        z = torch.logsumexp(lf, dim=-1, keepdim=True)
+        valid = idx != ignore
+        picked = torch.gather(lf, -1, torch.where(valid, idx, 0)[..., None])
+        loss = torch.where(valid[..., None], z - picked, 0.0)
+        return loss, torch.exp(lf - z).to(logits.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, idx, ignore = inputs
+        ctx.save_for_backward(output[1], idx)
+        ctx.ignore = ignore
+
+    @staticmethod
+    def backward(ctx, g_loss, _g_p):
+        p, idx = ctx.saved_tensors
+        valid = idx != ctx.ignore
+        onehot = torch.nn.functional.one_hot(
+            torch.where(valid, idx, 0), p.shape[-1]).float()
+        scale = torch.where(valid[..., None], g_loss.float(), 0.0)
+        return ((p.float() - onehot) * scale).to(p.dtype), None, None
+
+
 @register_lowering('softmax_with_cross_entropy')
 def _softmax_with_cross_entropy(ctx, op):
     if op.attrs.get('soft_label', False):
         raise NotImplementedError('softmax_with_cross_entropy with '
                                   'soft_label=True is not ported yet')
-    logits = amp_upcast_f32(ctx.get(op, 'Logits'))
-    label = ctx.get(op, 'Label')
-    idx = _index_label(label)
+    raw = ctx.get(op, 'Logits')
+    idx = _index_label(ctx.get(op, 'Label'))
     ignore = op.attrs.get('ignore_index', -100)
+    if raw.dtype == torch.bfloat16:
+        # AMP's hard-label path: every [N, V] tensor it keeps is bf16
+        loss, softmax = FusedCEBf16.apply(raw, idx, ignore)
+        ctx.set(op, 'Softmax', softmax)
+        ctx.set(op, 'Loss', loss)
+        return
+    logits = amp_upcast_f32(raw)
     valid = idx != ignore
     log_p = torch.log_softmax(logits, dim=-1)
     picked = torch.gather(log_p, -1, torch.where(valid, idx, 0)[..., None])

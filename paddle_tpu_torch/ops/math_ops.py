@@ -4,15 +4,18 @@ over sparse ``SparseRows`` gradients), ``mean``,
 ``reduce_sum`` and the unary ``pow`` (``x ** factor``, which the ``pow``
 activation layer builds).
 
-``mul``'s product is ``torch.matmul``, as the JAX package leaves its
-product to XLA.
+``mul``'s product is ``registry.amp_matmul``: ``torch.matmul``, in bf16
+under AMP, as the JAX package leaves its product to XLA.  Under AMP the
+``elementwise_*`` ops compute a bf16 activation with an f32 operand in
+bf16 (``amp_harmonize``).
 """
 
 import math
 
 import torch
 
-from .registry import register_lowering, amp_matmul, SAMPLE_MASK_NAME
+from .registry import (register_lowering, amp_matmul, amp_harmonize,
+                       SAMPLE_MASK_NAME)
 from .sparse import SparseRows, sparse_add
 
 
@@ -80,7 +83,11 @@ def _register_elementwise(name, fn):
         xd = ctx.var_desc(op.input('X')[0])
         if xd is not None and xd.shape and len(xd.shape) != x.dim():
             axis = -1
-        ctx.set(op, 'Out', fn(x, _bcast_y(x, y, axis)))
+        y = _bcast_y(x, y, axis)
+        # a bf16 activation and an f32 parameter (a bias, a scale) compute
+        # in bf16 under AMP: promotion would widen the activation again
+        x, y = amp_harmonize(x, y)
+        ctx.set(op, 'Out', fn(x, y))
 
 
 _register_elementwise('add', torch.add)

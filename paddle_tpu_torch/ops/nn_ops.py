@@ -4,7 +4,9 @@ on the card; OIHW filters), ``pool2d``, ``batch_norm``, ``layer_norm``,
 ``lookup_table`` and ``dropout``, with the explicit grad of ``dropout``
 (it reuses the forward Mask: a generic vjp would draw anew).
 ``lookup_table``'s grad, dense or sparse, lives in ``sparse.py``, as in the
-JAX package.
+JAX package.  Under AMP the convolutions run in bf16 and land bf16;
+``batch_norm`` and ``layer_norm`` take their statistics in f32 and give
+their output in X's dtype.
 """
 
 import math
@@ -13,7 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from .registry import (register_lowering, register_grad_lowering,
-                       amp_upcast_f32, fwd_structure, GRAD_SUFFIX)
+                       amp_cast_in, amp_cast_out, amp_upcast_f32,
+                       fwd_structure, GRAD_SUFFIX)
 
 
 def _pair(v):
@@ -23,12 +26,16 @@ def _pair(v):
 
 
 def _conv(ctx, op, groups):
-    out = F.conv2d(ctx.get(op, 'Input'), ctx.get(op, 'Filter'),
+    # under AMP both operands go to bf16 (cuDNN's bf16 convolution
+    # accumulates in f32) and the output lands in bf16; batch norm takes
+    # its statistics in f32
+    x, w = amp_cast_in(ctx.get(op, 'Input'), ctx.get(op, 'Filter'))
+    out = F.conv2d(x, w,
                    stride=_pair(op.attrs.get('strides', [1, 1])),
                    padding=_pair(op.attrs.get('paddings', [0, 0])),
                    dilation=_pair(op.attrs.get('dilations', [1, 1])),
                    groups=groups)
-    ctx.set(op, 'Output', out)
+    ctx.set(op, 'Output', amp_cast_out(out))
 
 
 @register_lowering('conv2d')

@@ -8,7 +8,9 @@ time, eagerly, on the place's device.
 
 The ``@SEQLEN`` side-band (per-row valid lengths riding beside a padded
 tensor) propagates from inputs to outputs exactly as in the JAX package.
-The AMP helpers are identities until mixed precision is ported.
+Mixed precision (``set_amp``, the ``amp_*`` helpers) is host state that
+the lowerings read as they run; the executor keys its compiled blocks on
+it, so a block captured under one mode never replays under the other.
 
 On a CUDA place the executor captures a block once as a CUDA graph and
 replays it.  A lowering that a capture cannot hold (one that reads a device
@@ -34,7 +36,9 @@ import torch
 __all__ = ['register_lowering', 'register_grad_lowering', 'get_lowering',
            'LoweringContext', 'run_op', 'fwd_structure', 'SEQLEN_SUFFIX',
            'GRAD_SUFFIX', 'SAMPLE_MASK_NAME', 'declare_uncapturable',
-           'capture_refusal', 'register_counter', 'counts']
+           'capture_refusal', 'register_counter', 'counts', 'set_amp',
+           'amp_enabled', 'amp_cast_in', 'amp_cast_out', 'amp_upcast_f32',
+           'amp_harmonize', 'amp_matmul']
 
 _LOWERINGS = {}
 _GRAD_LOWERINGS = {}
@@ -305,13 +309,38 @@ def _make_generic_grad(fwd_type):
     return grad_lowering
 
 
-# ---- mixed precision: identities until AMP is ported ----
+# ---- mixed precision (bf16 compute / f32 master weights) ----
+# As in the JAX package: under AMP the tensor-core operands (matmul and
+# convolution inputs) go to bf16, their results land in bf16 (the tensor
+# cores accumulate in f32), and parameters, optimizer state, normalization
+# statistics and loss reductions stay f32.
+_AMP = {'enabled': False}
+
+
+def set_amp(enabled):
+    _AMP['enabled'] = bool(enabled)
+
+
+def amp_enabled():
+    return _AMP['enabled']
+
+
 def amp_cast_in(*xs):
-    return xs
+    """Under AMP, f32 operands of a tensor-core op go to bf16; everything
+    else is left as it is."""
+    if not _AMP['enabled']:
+        return xs
+    return tuple(x.to(torch.bfloat16)
+                 if x is not None and x.dtype == torch.float32 else x
+                 for x in xs)
 
 
-def amp_matmul(x, y):
-    return torch.matmul(x, y)
+def amp_cast_out(out):
+    """Under AMP a convolution's output lands in bf16: a result that came
+    back f32 is cast down."""
+    if _AMP['enabled'] and out.dtype == torch.float32:
+        return out.to(torch.bfloat16)
+    return out
 
 
 def amp_upcast_f32(x):
@@ -320,3 +349,27 @@ def amp_upcast_f32(x):
     if x is not None and x.dtype == torch.bfloat16:
         return x.float()
     return x
+
+
+def amp_harmonize(x, y):
+    """Under AMP a bf16 activation and an f32 operand (a bias, a scale)
+    compute in bf16, where promotion would widen the activation back to
+    f32.  Without AMP, ordinary promotion applies."""
+    if not _AMP['enabled']:
+        return x, y
+    if x.dtype == torch.bfloat16 and y.dtype == torch.float32:
+        y = y.to(torch.bfloat16)
+    elif y.dtype == torch.bfloat16 and x.dtype == torch.float32:
+        x = x.to(torch.bfloat16)
+    return x, y
+
+
+def amp_matmul(x, y):
+    """The AMP matmul policy: bf16 operands and a bf16 result, accumulated
+    in f32.  Operands of two dtypes outside AMP promote, as ``jnp.matmul``
+    promotes them."""
+    x, y = amp_cast_in(x, y)
+    if x.dtype != y.dtype:
+        common = torch.promote_types(x.dtype, y.dtype)
+        x, y = x.to(common), y.to(common)
+    return amp_cast_out(torch.matmul(x, y))

@@ -231,6 +231,13 @@ def _lstm(ctx, op):
     ctx.set(op, 'BatchCellPreAct', torch.transpose(cs, 0, 1).to(cd))
 
 
+def _promoted_mm(a, b):
+    """``a @ b`` over operands of two dtypes (a bf16 state under AMP, an
+    f32 weight) in their promoted dtype, as ``jnp`` promotes them."""
+    common = torch.promote_types(a.dtype, b.dtype)
+    return a.to(common) @ b.to(common)
+
+
 # gru_unit's activation attrs: the reference's enum
 _GRU_ACTS = {0: 'identity', 1: 'sigmoid', 2: 'tanh', 3: 'relu'}
 
@@ -249,9 +256,9 @@ def _gru_unit(ctx, op):
     d = h_prev.shape[1]
     if bias is not None:
         x = x + bias
-    g = gate_act(x[:, :2 * d] + h_prev @ w[:, :2 * d])
+    g = gate_act(x[:, :2 * d] + _promoted_mm(h_prev, w[:, :2 * d]))
     u, r = torch.split(g, d, dim=1)
-    c = cand_act(x[:, 2 * d:] + (r * h_prev) @ w[:, 2 * d:])
+    c = cand_act(x[:, 2 * d:] + _promoted_mm(r * h_prev, w[:, 2 * d:]))
     h = (1 - u) * h_prev + u * c
     ctx.set(op, 'Gate', torch.cat([g, c], dim=1))
     ctx.set(op, 'ResetHiddenPrev', r * h_prev)

@@ -203,8 +203,15 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             'paddle_tpu_torch.ops.sparse, paddle_tpu_torch.ops.loss_ops, '
             'paddle_tpu_torch.dataset.ctr, paddle_tpu_torch.models.ctr, '
             'paddle_tpu_torch.models.word2vec, '
+            'paddle_tpu_torch.fluid.amp, paddle_tpu_torch.fluid.io, '
+            'paddle_tpu_torch.fluid.proto_serde, '
+            'paddle_tpu_torch.fluid.program_serde, '
+            'paddle_tpu_torch.fluid.transpiler, '
+            'paddle_tpu_torch.fluid.transpiler.inference_transpiler, '
+            'paddle_tpu_torch.fluid.transpiler.float16_transpiler, '
             'chip_smoke, '
-            'profile_torch_slice, profile_ctr_merge; '
+            'profile_torch_slice, profile_ctr_merge, '
+            'profile_amp_resnet_grads; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "paddle_tpu.")) or m == "paddle_tpu"); '
             'print(bad); sys.exit(1 if bad else 0)')
