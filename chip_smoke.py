@@ -194,6 +194,31 @@ In A and B every hand-written kernel counted on the card is a bf16
 instantiation (``__nv_bfloat16`` in its name) and none an f32 one; in the
 f32 paths, the reverse.
 
+The memory plan: every block frees each var after its last op (its release
+plan; see ``fluid/executor.py``).  Each capture phase prints the block's
+``memory_analysis`` (temp, argument and output bytes) beside the capture's
+measured peak above what was allocated before it; after the Transformer's
+and ResNet-50's capture phases one training step from one state is
+captured with the plan and run in a refused block (eager, nothing freed),
+bitwise equal (``phase_plan_bitwise``; cuDNN deterministic for both).
+
+E. bench widths, after CTR's phases: bench.py's six configurations as
+   bench.py builds them, at the batches of ``BENCH_WIDTHS`` (bench.py's
+   own unless cut, and then printed beside it as ``cut_from``):
+   bench_resnet (512, AMP, Momentum lr 0.1), bench_transformer (128 x 256,
+   base, AMP: the bf16 flash forward, dQ and dK/dV kernels), bench_nmt
+   (512 pairs, T 32, AMP, LoD feeds, as built: the scan path),
+   bench_stacked_lstm (128 x 64, AMP, as built), bench_resnet_infer_bf16
+   (256 images, the f32 program as loaded and the folded bf16 one,
+   ``run_eval_multi`` of ``BENCH_INFER_K`` lots) and bench_ctr (1,000,000
+   x 64, batch 1024, sparse, Adam).  Each: startup, an eager call, the
+   capture, ``BENCH_REPLAYS`` replays, under ``FLAGS_cost_accounting``; a
+   ``path E: {...}`` line with the peak device memory of the eager call
+   and of the captured calls, ``memory_analysis``'s temp bytes,
+   ``cost_report``'s FLOPs a step beside bench.py's analytic count, ms a
+   step (a lot) and the loss.  ``probe_bench_widths.py`` finds the batches
+   that fit.
+
 It imports nothing of JAX or of the JAX package ``paddle_tpu``.
 """
 
@@ -2549,9 +2574,12 @@ def phase_capture(card, tag, program, feed, fetch, state, expect, amp=False):
           '%s: the first call (eager) differs from eager_run\'s by %g' %
           (tag, _max_diff(first, want)))
     _load(scope, state)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     got = run(exe, scope)
+    capture_above = torch.cuda.max_memory_allocated() - before
     check(block.last_ran == 'capture' and block.captures == 1 and
           exe.compile_count == 1, '%s: the second call ran %s, %d captures, '
           'compile_count %d: expected one capture of one block' %
@@ -2585,6 +2613,23 @@ def phase_capture(card, tag, program, feed, fetch, state, expect, amp=False):
     check(block.captures == 1 and exe.compile_count == 1,
           '%s: %d captures, compile_count %d after the timed calls' %
           (tag, block.captures, exe.compile_count))
+    with (fluid.amp_guard() if amp else contextlib.nullcontext()):
+        stats = exe.memory_analysis(program, feed=feed, fetch_list=fetch,
+                                    scope=scope)
+    check(stats.temp_size_in_bytes > 0, '%s: memory_analysis %s' %
+          (tag, stats))
+    timed['memory'] = dict(temp=stats.temp_size_in_bytes,
+                           argument=stats.argument_size_in_bytes,
+                           capture_above=capture_above)
+    print('memory %s: release plan frees %d names; memory_analysis '
+          'temp_size_in_bytes %.1f MiB, argument %.1f MiB, output %.1f MiB; '
+          'the capture\'s peak above what was allocated before it %.1f MiB '
+          '(%.2fx temp) [%s]' %
+          (tag, sum(len(v) for v in block._release.values()),
+           stats.temp_size_in_bytes / 2**20,
+           stats.argument_size_in_bytes / 2**20,
+           stats.output_size_in_bytes / 2**20, capture_above / 2**20,
+           capture_above / stats.temp_size_in_bytes, card), flush=True)
     e, c = timed['eager'], timed['captured']
     print('capture %s: mode %s, %d ops, %d state vars; captured vs eager '
           'from the same state: %s (max|d| / max(1, max|v|) %g over %d '
@@ -2609,6 +2654,71 @@ def phase_capture(card, tag, program, feed, fetch, state, expect, amp=False):
     return timed
 
 
+@contextlib.contextmanager
+def _refused(program):
+    """``program``'s blocks refused by the capture rules, as a block holding
+    an uncapturable op is: its first op's type is declared uncapturable
+    for the duration (a refused block runs eagerly and, without
+    ``memory_optimize``, frees nothing)."""
+    from paddle_tpu_torch.ops import registry
+    op_type = program.global_block().ops[0].type
+    saved = registry._UNCAPTURABLE.get(op_type)
+    registry.declare_uncapturable(op_type, 'refused for the comparison')
+    try:
+        yield
+    finally:
+        if saved is None:
+            registry._UNCAPTURABLE.pop(op_type)
+        else:
+            registry._UNCAPTURABLE[op_type] = saved
+
+
+def phase_plan_bitwise(card, tag, program, feed, fetch, state):
+    """One step from ``state`` captured with the release plan against the
+    same step in a refused block (eager, nothing freed): the fetches and
+    every state var written, to 0 difference.  cuDNN runs its
+    deterministic algorithms for both (its default ones differ from run
+    to run on their own)."""
+    import paddle_tpu_torch.fluid as fluid
+    place = fluid.CUDAPlace(0)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        _load(scope, state)
+        exe.run(program, feed=feed, fetch_list=fetch, scope=scope)  # eager
+        _load(scope, state)
+        got = exe.run(program, feed=feed, fetch_list=fetch, scope=scope)
+        block = exe.cached_blocks()[-1]
+        check(block.last_ran == 'capture' and block.refusal is None,
+              '%s: the plan\'s call ran %s' % (tag, block.last_ran))
+        freed = sum(len(v) for v in block._release.values())
+        got_state = [scope.find_var(n).value().cpu().numpy()
+                     for n in block.state_out]
+        del exe, scope
+        with _refused(program):
+            exe, scope = fluid.Executor(place), fluid.Scope()
+            _load(scope, state)
+            want = exe.run(program, feed=feed, fetch_list=fetch, scope=scope)
+            ref = exe.cached_blocks()[-1]
+            check(ref.refusal is not None and not ref._release,
+                  '%s: the refused block frees %s' % (tag, ref._release))
+            want_state = [scope.find_var(n).value().cpu().numpy()
+                          for n in ref.state_out]
+            del exe, scope
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    err = max(_max_diff(got, want), _max_diff(got_state, want_state))
+    check(err == 0, '%s: captured with the release plan and refused differ '
+          'by %g' % (tag, err))
+    print('plan %s: captured with the release plan (%d names freed) and the '
+          'block refused (eager, none freed) from one state: bitwise equal '
+          'over %d fetches and %d state vars [%s]' %
+          (tag, freed, len(got), len(got_state), card), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def phase_transformer_capture(card, model, scope):
     cfg = TRANSFORMER_BASE
     rng = np.random.RandomState(SEED + 30)
@@ -2622,6 +2732,9 @@ def phase_transformer_capture(card, model, scope):
     phase_capture(card, 'transformer train %d x %d' % (BATCH, cfg['max_len']),
                   model['main'], feed, [model['loss']], state,
                   dict(fwd=2 * n, dq=n, dkv=n))
+    phase_plan_bitwise(card, 'transformer train %d x %d' %
+                       (BATCH, cfg['max_len']), model['main'], feed,
+                       [model['loss']], state)
 
 
 def phase_lstm_capture(card, forms):
@@ -2659,6 +2772,8 @@ def phase_resnet_capture(card, model, scope):
                   [model['prediction']], state, {})
     phase_capture(card, 'resnet train ' + what, model['main'], feed,
                   [model['loss']], state, {})
+    phase_plan_bitwise(card, 'resnet train ' + what, model['main'], feed,
+                       [model['loss']], state)
 
 
 # ---- mixed precision: paths A-D ----
@@ -3731,6 +3846,291 @@ def phase_ctr_capture(card, sparse, dense, state):
           flush=True)
 
 
+# ----------------------------------------------------------------------------
+# path E: bench.py's configurations at bench.py's widths, with the release
+# plan
+# ----------------------------------------------------------------------------
+# config -> (the batch the card runs, bench.py's batch); a batch below
+# bench.py's is a cut, printed beside it (``cut_from``), its out-of-memory
+# error recorded in PERF.md (found by probe_bench_widths.py, never here)
+BENCH_WIDTHS = {
+    'resnet': (512, 512),              # bench.py:351, 224 x 224, AMP
+    'transformer': (128, 128),         # bench.py:506, seq 256, base, AMP
+    'nmt': (512, 512),                 # bench.py:392, T 32, AMP, LoD feeds
+    'stacked_lstm': (128, 128),        # bench.py:596, T 64, AMP
+    'resnet_infer_bf16': (256, 256),   # bench.py:689, f32 and bf16
+    'ctr': (1024, 1024),               # bench.py:1025, 1,000,000 x 64
+}
+BENCH_REPLAYS = 3   # timed replays of each configuration after its capture
+BENCH_INFER_K = 10  # lots a run_eval_multi call, as bench.py's K
+
+
+def _transformer_flops_per_token(n_layer, d, d_ff, seq, vocab):
+    """bench.py's analytic training FLOPs a token (bench.py:494)."""
+    enc = n_layer * (4 * d * d + 2 * d * d_ff + 2 * seq * d)
+    dec = n_layer * (8 * d * d + 2 * d * d_ff + 4 * seq * d)
+    return 3.0 * 2.0 * (enc + dec + vocab * d)
+
+
+def _device_feed(feed):
+    """Dense feeds staged on the card once, as bench.py stages them (a LoD
+    feed stays a host LoDTensor)."""
+    return {k: v if not isinstance(v, np.ndarray) else
+            torch.from_numpy(v).cuda() for k, v in feed.items()}
+
+
+def bench_runners(name, batch):
+    """bench.py's configuration ``name`` built as bench.py builds it, at
+    ``batch``, its startup run on the card from SEED: a list of (tag,
+    model dict with 'program', 'startup', 'feed', 'fetch', 'amp',
+    'analytic' (bench.py's analytic FLOPs a step) and 'eval_k'), one for
+    each program bench.py times (two for resnet_infer_bf16: f32 as loaded
+    and folded + bf16)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.dataset import ctr as ctr_data
+    from paddle_tpu_torch.models import (ctr, resnet, seq2seq,
+                                         stacked_lstm, transformer)
+    rng = np.random.RandomState(SEED + 71)
+    with fluid.unique_name.guard():
+        if name in ('resnet', 'resnet_infer_bf16'):
+            m = resnet.build(depth=50, class_dim=1000,
+                             image_shape=(3, 224, 224), lr=0.1)
+        elif name == 'transformer':
+            m = transformer.build(src_vocab=30000, trg_vocab=30000,
+                                  max_len=256, n_layer=6, n_head=8,
+                                  d_model=512, d_ff=2048)
+        elif name == 'nmt':
+            m = seq2seq.build(src_dict_dim=30000, trg_dict_dim=30000,
+                              embedding_dim=512, encoder_size=512,
+                              decoder_size=512)
+        elif name == 'stacked_lstm':
+            m = stacked_lstm.build()
+        else:
+            m = ctr.build(sparse_dim=1000000, embed_size=64,
+                          hidden_sizes=(256, 128), is_sparse=True,
+                          is_distributed=True,
+                          optimizer=fluid.optimizer.Adam(learning_rate=1e-3))
+    m['startup'].random_seed = SEED
+    spec = dict(program=m['main'], startup=m['startup'], fetch=[m['loss']],
+                amp=True, eval_k=None, expect={})
+    if name == 'resnet':
+        spec['feed'] = _device_feed(image_batch(rng, batch, (3, 224, 224),
+                                                1000))
+        spec['analytic'] = 23.15e9 * batch
+    elif name == 'transformer':
+        spec['feed'] = _device_feed({
+            k: rng.randint(1, 30000, size=(batch, 256)).astype('int64')
+            for k in ('src_ids', 'trg_ids', 'lbl_ids')})
+        spec['analytic'] = _transformer_flops_per_token(
+            6, 512, 2048, 256, 30000) * batch * 256
+        # 18 attentions: each forward launched twice (the pass and the
+        # grads' replay), dQ and dK/dV once
+        spec['expect'] = dict(fwd=36, dq=18, dkv=18)
+    elif name == 'nmt':
+        def lod(ids):
+            rows = [r.reshape(-1, 1).tolist() for r in ids]
+            return fluid.create_lod_tensor(rows, [[32] * len(rows)])
+        trg = lod(rng.randint(3, 30000, size=(batch, 32)))
+        spec['feed'] = {'src_word_id': lod(rng.randint(3, 30000,
+                                                       size=(batch, 32))),
+                        'target_language_word': trg,
+                        'target_language_next_word': trg}
+        spec['analytic'] = 1.404e8 * batch * 32
+    elif name == 'stacked_lstm':
+        rows = [rng.randint(0, 5149, size=(64, 1)).tolist()
+                for _ in range(batch)]
+        spec['feed'] = {'words': fluid.create_lod_tensor(rows,
+                                                         [[64] * batch]),
+                        'label': rng.randint(0, 2, size=(batch, 1)).astype(
+                            'int64')}
+        spec['analytic'] = 3.0 * 2.0 * (128 * 512 + 128 * 512 + 2 * (
+            256 * 512 + 128 * 512)) * batch * 64
+    elif name == 'ctr':
+        spec['feed'] = _device_feed(ctr_data.zipf_batch(rng, batch, 1000000))
+        spec['amp'] = False
+        d_in = ctr_data.DENSE_DIM + ctr_data.SPARSE_SLOTS * 64
+        spec['analytic'] = (d_in * 256 + 256 * 128 + 128 +
+                            ctr_data.DENSE_DIM) * 2 * 3 * batch
+    if name != 'resnet_infer_bf16':
+        return [(name, spec)]
+    # bench_resnet_infer_bf16: the test program saved with
+    # save_inference_model, loaded as it is (f32) and loaded, batch norm
+    # folded and Float16Transpiler('bfloat16')'d; K lots a call
+    import tempfile
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, 3, 224, 224)).astype('float32')).cuda()
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(m['startup'], scope=scope)
+    runners = []
+    with tempfile.TemporaryDirectory() as td:
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(td, ['img'], [m['prediction']], exe,
+                                          main_program=m['test'])
+        del exe, scope
+        for half in (False, True):
+            exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+            with fluid.scope_guard(scope):
+                prog, feeds, fetches = fluid.io.load_inference_model(td, exe)
+                if half:
+                    fluid.InferenceTranspiler().transpile(prog, scope=scope)
+                    fluid.Float16Transpiler().transpile(
+                        prog, scope=scope, dtype='bfloat16',
+                        feeded_var_names=feeds, fetch_var_names=fetches)
+            runners.append(('resnet_infer_%s' % ('bf16' if half else 'f32'),
+                            dict(program=prog, startup=None, exe=exe,
+                                 scope=scope, feed={feeds[0]: x},
+                                 fetch=fetches, amp=False,
+                                 eval_k=BENCH_INFER_K, expect={},
+                                 analytic=23.15e9 / 3 * batch)))
+            del exe, scope
+    return runners
+
+
+def run_bench_width(card, name, batch, cut_from=None):
+    """Path E for one configuration: startup, an eager call, the capture
+    (a second call), BENCH_REPLAYS replays (resnet_infer_bf16: a
+    run_eval_multi call of BENCH_INFER_K lots, captured, then
+    BENCH_REPLAYS of them), under FLAGS_cost_accounting.  The launch
+    counts are set to 0 before the eager call and read after the capture
+    (the hand-written kernels of two calls: bench_transformer's three bf16
+    flash kernels; none elsewhere), and a replay's kernels are counted by
+    name in the profiler, every one a bf16 instantiation.  Prints each
+    program's peak device memory on the eager call and on the capture and
+    replays, ``memory_analysis``'s temp bytes beside the capture's peak
+    above what was allocated before it, ``cost_report``'s FLOPs a step
+    beside bench.py's analytic count, ms a step (a lot), and the loss;
+    returns the printed records."""
+    import paddle_tpu_torch.fluid as fluid
+    records = []
+    fluid.FLAGS.cost_accounting = True
+    try:
+        for tag, spec in bench_runners(name, batch):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            exe = spec.get('exe') or fluid.Executor(fluid.CUDAPlace(0))
+            scope = spec.get('scope') or fluid.Scope()
+            if spec['startup'] is not None:
+                exe.run(spec['startup'], scope=scope)
+            program, feed, fetch = spec['program'], spec['feed'], \
+                spec['fetch']
+            amp = fluid.amp_guard() if spec['amp'] else \
+                contextlib.nullcontext()
+
+            def call():
+                out = exe.run(program, feed=feed, fetch_list=fetch,
+                              scope=scope)
+                torch.cuda.synchronize()
+                return out
+
+            def timed():
+                t0 = time.perf_counter()
+                if spec['eval_k']:
+                    out = exe.run_eval_multi(program, feed=feed,
+                                             fetch_list=fetch,
+                                             steps=spec['eval_k'],
+                                             scope=scope)
+                else:
+                    out = call()
+                torch.cuda.synchronize()
+                return out, (time.perf_counter() - t0) / (spec['eval_k']
+                                                         or 1)
+
+            with amp:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                _zero_counts()
+                t0 = time.perf_counter()
+                first = call()  # eager
+                eager_s = time.perf_counter() - t0
+                peak_eager = torch.cuda.max_memory_allocated()
+                torch.cuda.empty_cache()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                call()  # the capture
+                peak_capture = torch.cuda.max_memory_allocated()
+                launched = _wrapper_counts()
+                want = _expect(**{k: 2 * v
+                                  for k, v in spec['expect'].items()})
+                check(launched == want, 'path E %s: the eager call and the '
+                      'capture launched %s, expected %s' %
+                      (tag, launched, want))
+                if spec['expect']:
+                    seen, kinds = _replay_kernels(call,
+                                                  _expect(**spec['expect']))
+                    check(seen == _expect(**spec['expect']), 'path E %s: a '
+                          'replay launched %s on the card' % (tag, seen))
+                    _check_dtype('path E ' + tag, kinds, 'bf16', seen)
+                walls, out = [], None
+                timed()  # the first eval call of a K lots
+                for _ in range(BENCH_REPLAYS):
+                    out, wall = timed()
+                    walls.append(wall)
+                peak_captured = torch.cuda.max_memory_allocated()
+                stats = exe.memory_analysis(program, feed=feed,
+                                            fetch_list=fetch, scope=scope)
+            block = exe.cached_blocks()[-1]
+            check(block.mode == 'graph' and block.captures == 1 and
+                  block.last_ran == 'replay', 'path E %s: the block runs %s '
+                  '(%s), %d captures, last %s' %
+                  (tag, block.mode, block.why, block.captures,
+                   block.last_ran))
+            freed = sum(len(v) for v in block._release.values())
+            check(freed > 0, 'path E %s: the release plan frees nothing'
+                  % tag)
+            entries = [e for e in exe.cost_report() if e['kind'] == 'run'
+                       and e['fetch_names'] == block.fetch_names]
+            check(len(entries) == 1 and entries[0]['flops_per_step'] > 0,
+                  'path E %s: cost entries %s' % (tag, entries))
+            flops = entries[0]['flops_per_step']
+            vals = [np.asarray(v, np.float64) for v in list(first) +
+                    list(out)]
+            check(all(np.isfinite(v).all() for v in vals),
+                  'path E %s: a fetch is not finite' % tag)
+            rec = {
+                'path': 'E', 'config': tag, 'batch': batch,
+                'cut_from': cut_from, 'amp': spec['amp'],
+                'eager_s': round(eager_s, 4),
+                'peak_mib_eager': round(peak_eager / 2**20, 1),
+                'peak_mib_captured': round(peak_captured / 2**20, 1),
+                'state_mib': round(base / 2**20, 1),
+                'capture_above_before_mib': round(
+                    (peak_capture - before) / 2**20, 1),
+                'temp_mib': round(stats.temp_size_in_bytes / 2**20, 1),
+                'argument_mib': round(stats.argument_size_in_bytes / 2**20,
+                                      1),
+                'ops': len(block.ops), 'freed_names': freed,
+                'launches': {k: v for k, v in launched.items() if v},
+                'flops_per_step': flops,
+                'analytic_flops_per_step': spec['analytic'],
+                'flops_ratio': round(flops / spec['analytic'], 4),
+                'ms_per_step': round(1e3 * statistics.median(walls), 3),
+                'tflops_per_s': round(flops / statistics.median(walls) /
+                                      1e12, 2),
+                'loss': (float(np.asarray(out[0], np.float64).mean())
+                         if not spec['eval_k'] else None),
+                'card': card,
+            }
+            print('path E: %s' % json.dumps(rec), flush=True)
+            records.append(rec)
+            del exe, scope, first, out
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    finally:
+        fluid.FLAGS.cost_accounting = False
+    return records
+
+
+def phase_bench_widths(card):
+    """Path E: every configuration of BENCH_WIDTHS at its batch."""
+    records = []
+    for name, (batch, bench_batch) in BENCH_WIDTHS.items():
+        records += run_bench_width(card, name, batch,
+                                   None if batch == bench_batch else
+                                   bench_batch)
+    return records
+
+
 def _time_ms(fn, launches_per_sample=10, samples=20, warmup=5):
     """Median device time of one call (CUDA events around back-to-back
     launches, so host overhead between launches is hidden)."""
@@ -4308,6 +4708,7 @@ def main():
                       _persistables(sparse['main'], scope))
     del sparse, dense, scope, exe, start
     torch.cuda.empty_cache()
+    phase_bench_widths(card)
     kernels = phase_times(card, launches, fwd_err, bwd_err)
     kernels += phase_lstm_times(card, launches, lstm_err)
     kernels += phase_lstm_times(card, launches, None, b=NMT_BATCH,

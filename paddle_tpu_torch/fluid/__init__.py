@@ -6,7 +6,9 @@ the image blocks of ``nets``, LoD feeds (``create_lod_tensor``)
 flags (``FLAGS``, bootstrapped from ``FLAGS_<name>`` environment
 variables), mixed precision (``amp_guard``, ``enable_amp``) and the
 inference path (``io.save_inference_model`` / ``load_inference_model``,
-``InferenceTranspiler``, ``Float16Transpiler``); ``Executor.run``
+``InferenceTranspiler``, ``Float16Transpiler``), ``memory_optimize``,
+the ``profiler`` and ``trace`` (spans, flight recorder, cost registry);
+``Executor.run``
 interprets the program op by op on a torch device, by default the CUDA
 card (``CUDAPlace(0)``).
 """
@@ -21,6 +23,8 @@ from . import framework
 from .framework import (Program, Operator, Variable, Parameter,
                         default_main_program, default_startup_program,
                         program_guard)
+from . import trace
+from . import profiler
 from . import executor
 from .executor import Executor, global_scope, scope_guard
 from . import initializer
@@ -40,7 +44,8 @@ from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
 from . import amp
 from .amp import amp_guard, enable_amp
 from . import transpiler
-from .transpiler import InferenceTranspiler, Float16Transpiler
+from .transpiler import (InferenceTranspiler, Float16Transpiler,
+                         memory_optimize, release_memory)
 
 __all__ = framework.__all__ + executor.__all__ + [
     'io', 'initializer', 'layers', 'LoDTensor', 'CPUPlace', 'CUDAPlace',
@@ -49,4 +54,5 @@ __all__ = framework.__all__ + executor.__all__ + [
     'regularizer', 'optimizer', 'nets', 'flags', 'FLAGS', 'lod_tensor',
     'create_lod_tensor', 'create_random_int_lodtensor', 'amp', 'amp_guard',
     'enable_amp', 'transpiler', 'InferenceTranspiler', 'Float16Transpiler',
+    'memory_optimize', 'release_memory', 'profiler', 'trace',
 ]

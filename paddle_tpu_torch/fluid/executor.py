@@ -29,30 +29,50 @@ graph (``torch.cuda.graph``), the PyTorch counterpart of ``jax.jit``:
      A block with a lowering the registry declares uncapturable runs
      eagerly, and its ``mode`` says why;
   4. fetch to numpy (a copy: the next replay overwrites the graph's
-     outputs; numpy has no bfloat16, so a bf16 fetch raises unless
-     ``return_numpy=False`` asks for the tensor); a sparse gradient
-     (``SparseRows``) is fetched as a ``core.SelectedRows``, as the JAX
-     package fetches it.
+     outputs; a bf16 fetch comes back as an ``ml_dtypes.bfloat16`` array,
+     as the JAX package returns it); a sparse gradient (``SparseRows``) is
+     fetched as a ``core.SelectedRows``, as the JAX package fetches it.
+
+Each block frees every var after its last op (its release plan), except
+the fetches, the state, the persistables and the vars its sub-blocks
+touch: XLA's buffer assignment gives the JAX package's jitted blocks that
+reuse.  A block that must run eagerly frees only the vars that
+``memory_optimize`` marked (``program._releasable``), as the JAX package's
+eager path does.  Inside a capture a freed tensor goes back to the graph's
+own pool.
 
 ``run_multi`` runs K steps of a block and ``run_eval_multi`` K evaluation
 lots, on the card as K replays with no host sync between them.
+``memory_analysis`` gives a block's argument, output and temporary bytes
+(the largest live total of its release plan), and under
+``FLAGS_cost_accounting`` ``cost_report`` gives each block's FLOPs and
+bytes (``trace.analyze_cost``).  ``FLAGS_check_nan_inf`` raises on a NaN
+(an op's outputs, as it runs eagerly) or a NaN or Inf (the state and the
+fetches after a run; each op's outputs in a block that runs eagerly);
+``FLAGS_benchmark`` synchronizes and logs each run's milliseconds; while
+``fluid.profiler`` is on, each ``run``, ``run_multi`` and
+``run_eval_multi`` call records one slice.
 
 Not ported yet: ``run_decode_multi`` and ``run_chunk_prefill`` (serving),
-``memory_analysis`` and the cost report, ``FLAGS_benchmark`` and the
-profiler's run slices, ``py_reader`` feeds, host ops, nested (two-level)
-LoD feeds, ``SelectedRows`` feeds and scope values (the JAX package hands
-them only to host ops).
+``py_reader`` feeds, host ops, nested (two-level) LoD feeds,
+``SelectedRows`` feeds and scope values (the JAX package hands them only
+to host ops).
 """
 
 import collections
 import contextlib
+import logging
 import threading
+import time
 import weakref
 
 import numpy as np
 import torch
 
 from . import core
+from . import flags
+from . import profiler as _profiler
+from . import trace as _trace
 from .framework import default_main_program, Variable
 from .shape_policy import bucketed_len
 from .. import ops as _ops  # noqa: F401  (registers the lowerings)
@@ -316,19 +336,90 @@ def convert_eval_fetches(stacked, reals, target, compiled, steps,
     return out
 
 
+def collect_cost_report(compiled_blocks):
+    """The blocks' cost entries as ``cost_report()``'s list: one record per
+    (kind, key), with its key's repr."""
+    out = []
+    for compiled in compiled_blocks:
+        for key, entry in compiled.cost_entries().items():
+            if entry is None:
+                continue
+            rec = dict(entry)
+            rec['key'] = repr(key)
+            out.append(rec)
+    return out
+
+
 # ----------------------------------------------------------------------------
 # the compiled block
 # ----------------------------------------------------------------------------
 def to_numpy(tensor, name):
-    """A fetched tensor as a numpy array.  numpy has no bfloat16: a bf16
-    fetch raises rather than hand back its bits as another type."""
+    """A fetched tensor as a numpy array; a bf16 one as an
+    ``ml_dtypes.bfloat16`` array of the same bits, as the JAX package
+    fetches it (numpy has no bfloat16 of its own)."""
     if tensor.dtype == torch.bfloat16:
-        raise TypeError(
-            'fetch %r: a bfloat16 value has no numpy form; fetch it with '
-            'return_numpy=False (a LoDTensor over the torch tensor), or '
-            'cast it to float32 in the program (Float16Transpiler casts '
-            'its fetch targets back)' % name)
+        import ml_dtypes
+        return tensor.detach().view(torch.int16).cpu().numpy().view(
+            ml_dtypes.bfloat16)
     return tensor.detach().cpu().numpy()
+
+
+def _floats(val):
+    """The floating tensor a value holds (a sparse gradient's rows), or
+    None."""
+    if isinstance(val, SparseRows):
+        val = val.values
+    return val if isinstance(val, torch.Tensor) and \
+        val.is_floating_point() else None
+
+
+def _check_nan_inf(pairs, where):
+    """FLAGS_check_nan_inf's scan after a run (and of each op's outputs in
+    a block that runs eagerly): raises naming the first var that holds a
+    NaN or an Inf, with the JAX package's message."""
+    for name, val in pairs:
+        val = _floats(val)
+        if val is not None and not bool(torch.isfinite(val).all()):
+            raise RuntimeError(
+                'check_nan_inf: %s %r contains NaN/Inf' % (where, name))
+
+
+def _check_op_nans(op, env):
+    """FLAGS_check_nan_inf's check of one op's outputs as it runs: raises
+    FloatingPointError naming the op on a NaN, as jax_debug_nans (which
+    the flag turns on in the JAX package) names the primitive."""
+    for name in op.output_arg_names:
+        val = _floats(env.get(name))
+        if val is not None and bool(torch.isnan(val).any()):
+            raise FloatingPointError('invalid value (nan) encountered in %s'
+                                     % op.type)
+
+
+class MemoryStats(object):
+    """``memory_analysis``'s result: the fields of the JAX package's
+    ``CompiledMemoryStats`` that its callers read.  ``argument`` bytes are
+    the state and the feeds a block reads, ``output`` bytes the state it
+    writes and its fetches, ``temp`` bytes the largest total of the other
+    vars live at once under the block's release plan."""
+
+    generated_code_size_in_bytes = 0
+    alias_size_in_bytes = 0
+
+    def __init__(self, argument, output, temp):
+        self.argument_size_in_bytes = int(argument)
+        self.output_size_in_bytes = int(output)
+        self.temp_size_in_bytes = int(temp)
+
+    def __repr__(self):
+        return ('MemoryStats(argument_size_in_bytes=%d, output_size_in_bytes'
+                '=%d, temp_size_in_bytes=%d)' % (
+                    self.argument_size_in_bytes, self.output_size_in_bytes,
+                    self.temp_size_in_bytes))
+
+
+def _nbytes(value):
+    meta = registry.value_meta(value)
+    return meta[1] if meta is not None else 0
 
 
 def _feed_value(tensor, var_desc, device):
@@ -447,7 +538,13 @@ class _CompiledBlock(object):
             self.mode, self.why = 'eager', self.refusal
         else:
             self.mode, self.why = 'graph', None
+        self._release = self._release_plan(program)
         self._memory = memory
+        # one eager run's op records (registry.recording) and its argument
+        # and output bytes: the cost entries and the memory stats
+        self._records = None
+        self._io_bytes = None
+        self._cost_entries = {}
         self._batch_feed_names = None  # set by run_eval_multi's padding
         self._fetch_batch_led = None
         # the (steps, stacked feed signature) pairs run_multi and
@@ -462,9 +559,38 @@ class _CompiledBlock(object):
         self.captured_launches = {}
         self._graph = None
 
+    def _release_plan(self, program):
+        """{op index: names to drop after that op}, each name at the last op
+        that reads or writes it.  A block without a capture refusal (one
+        the JAX package jits) drops every name; one that must run eagerly
+        only those ``memory_optimize`` marked.  Never a fetch, a state var,
+        a persistable or a name that a sub-block touches."""
+        from .transpiler.memory_optimization_transpiler import \
+            _sub_block_names
+        allowed = None
+        if self.refusal is not None:
+            allowed = getattr(program, '_releasable', None)
+            if not allowed:
+                return {}
+        keep = set(self.fetch_names) | set(self.state_in) | \
+            set(self.state_out)
+        keep.update(v.name for v in program.list_vars() if v.persistable)
+        _sub_block_names(self.block, keep)
+        last = {}
+        for i, op in enumerate(self.ops):
+            for n in list(op.input_arg_names) + list(op.output_arg_names):
+                last[n] = i
+        plan = {}
+        for n, i in last.items():
+            if n not in keep and (allowed is None or n in allowed):
+                plan.setdefault(i, []).append(n)
+        return plan
+
     # ---- execution ----
-    def _execute(self, env, generator):
-        """Every op over ``env``: (new state, fetches)."""
+    def _execute(self, env, generator, capturing=False):
+        """Every op over ``env``, each name dropped after its last use as
+        the release plan says: (new state, fetches).  The first eager run
+        of the block records its ops' shapes (``registry.recording``)."""
         ctx = registry.LoweringContext(self.block, env, self.place,
                                        generator=generator)
         mask = env.get(registry.SAMPLE_MASK_NAME)
@@ -474,16 +600,35 @@ class _CompiledBlock(object):
                 n for n in self.feed_names
                 if (n in declared if declared is not None else
                     env[n].dim() >= 1 and env[n].shape[0] == mask.shape[0])}
-        with torch.no_grad():
-            for op in self.ops:
+        record = self._records is None and not capturing
+        args = {n: _nbytes(v) for n, v in env.items()} if record else None
+        check = flags.FLAGS.check_nan_inf and not capturing
+        release = self._release
+        with torch.no_grad(), (registry.recording() if record else
+                               contextlib.nullcontext()) as records:
+            for i, op in enumerate(self.ops):
                 registry.run_op(ctx, op)
+                if check:
+                    _check_op_nans(op, env)
+                    if self.refusal is not None:
+                        _check_nan_inf(
+                            [(n, env[n]) for n in op.output_arg_names
+                             if n in env], 'output of op %r' % op.type)
+                for n in release.get(i, ()):
+                    env.pop(n, None)
         self._fetch_batch_led = [n in ctx.batch_led for n in self.fetch_names]
         missing = [n for n in self.fetch_names if n not in env]
         if missing:
             raise ValueError('fetch %s: not fed, not computed by the '
                              'program, and not persistable' % missing)
         new_state = {n: env[n] for n in self.state_out if n in env}
-        return new_state, [env[n] for n in self.fetch_names]
+        fetches = [env[n] for n in self.fetch_names]
+        if record:
+            outs = dict(new_state, **dict(zip(self.fetch_names, fetches)))
+            self._records = records
+            self._io_bytes = (sum(args.values()),
+                              sum(_nbytes(v) for v in outs.values()), args)
+        return new_state, fetches
 
     def _feeds_env(self, feeds, device):
         return {n: _feed_value(v, self.block._find_var_recursive(n), device)
@@ -568,7 +713,8 @@ class _CompiledBlock(object):
         with torch.cuda.graph(graph, pool=mem.pool):
             env = dict(state)
             env.update(feed_bufs)
-            new_state, fetches = self._execute(env, generator)
+            new_state, fetches = self._execute(env, generator,
+                                               capturing=True)
 
             def own(v, buf=None):
                 # a value that views a buffer the copies below overwrite
@@ -633,7 +779,18 @@ class _CompiledBlock(object):
         """One step; returns the fetch tensors (on the card, the graph's
         own outputs after a capture or replay: copy before the next
         call).  ``eager`` runs the lowerings one by one whatever the mode:
-        the path a block takes before its capture, to time beside it."""
+        the path a block takes before its capture, to time beside it.
+        Under FLAGS_check_nan_inf the state and the fetches of a block the
+        JAX package would jit are scanned after the step."""
+        fetches = self._run(scope, feeds, generator, eager)
+        if flags.FLAGS.check_nan_inf and self.refusal is None:
+            _check_nan_inf([(n, _scope_tensor(scope, n))
+                            for n in self.state_out
+                            if scope.find_var(n) is not None], 'state var')
+            _check_nan_inf(zip(self.fetch_names, fetches), 'fetch')
+        return fetches
+
+    def _run(self, scope, feeds, generator, eager):
         self.calls += 1
         if eager or self.mode != 'graph':
             return self._run_eager(scope, feeds, generator)
@@ -651,6 +808,64 @@ class _CompiledBlock(object):
         self._publish(scope)
         self.last_ran = 'replay'
         return self._fetch_outs
+
+    # ---- memory and cost ----
+    def analyze(self, scope, feeds):
+        """Run the block once, eagerly, to record its ops' shapes, unless a
+        run already did: on clones of the state it writes, with a
+        generator of its own and nothing stored, so that the scope and
+        the executor's random stream stay as they were."""
+        if self._records is not None:
+            return
+        device = self.place.device
+        rw = set(self.state_out)
+        env = {n: _state_value(scope, n, device) for n in self.state_in}
+        env = {n: v.clone() if n in rw else v for n, v in env.items()}
+        env.update(self._feeds_env(feeds, device))
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+        self._execute(env, generator)
+
+    def memory_stats(self):
+        """MemoryStats of the recorded run: the argument and output bytes,
+        and the largest total of the other vars live at once while the
+        block's ops run under its release plan."""
+        arg_bytes, out_bytes, args = self._io_bytes
+        live = {}
+        cur = peak = 0
+        for i, (op, meta, _) in enumerate(self._records):
+            for n in op.output_arg_names:
+                if n in args or n not in meta:
+                    continue
+                cur += meta[n][1] - live.get(n, 0)
+                live[n] = meta[n][1]
+            peak = max(peak, cur)
+            for n in self._release.get(i, ()):
+                cur -= live.pop(n, 0)
+        return MemoryStats(arg_bytes, out_bytes, peak)
+
+    _COST_LOCK = threading.Lock()
+
+    def capture_cost(self, kind, key, scope, feeds, steps=1):
+        """Under FLAGS_cost_accounting, the block's cost entry for
+        (``kind``, ``key``), made once (``trace.analyze_cost``)."""
+        if not flags.FLAGS.cost_accounting:
+            return None
+        full_key = (kind, ) + tuple(key)
+        with self._COST_LOCK:
+            if full_key in self._cost_entries:
+                return self._cost_entries[full_key]
+        self.analyze(scope, feeds)
+        entry = _trace.analyze_cost(self._records, kind=kind, steps=steps,
+                                    fetch_names=self.fetch_names,
+                                    memory=self.memory_stats())
+        with self._COST_LOCK:
+            return self._cost_entries.setdefault(full_key, entry)
+
+    def cost_entries(self):
+        """This block's cost-registry entries."""
+        with self._COST_LOCK:
+            return dict(self._cost_entries)
 
     def _check_multi(self, what, steps):
         if steps < 1:
@@ -856,9 +1071,30 @@ class Executor(object):
         time and compare beside it (the port's own option)."""
         program, scope, feed_arrays, compiled = self._resolve_and_compile(
             program, feed, fetch_list, scope)
-        fetches = compiled.run(scope, feed_arrays, self._rng(program),
-                               eager=eager)
+        rng = self._rng(program)
+        go = lambda: compiled.run(scope, feed_arrays, rng, eager=eager)
+        if _profiler.is_profiler_enabled() and not flags.FLAGS.benchmark:
+            # one slice per run, covering the device's work
+            with _profiler.record_block(
+                    'executor_run/block0[%s]' %
+                    (','.join(compiled.fetch_names) or 'nofetch')):
+                fetches = go()
+                self._sync()
+        elif flags.FLAGS.benchmark:
+            t0 = time.perf_counter()
+            fetches = go()
+            self._sync()
+            logging.getLogger('paddle_tpu_torch').info(
+                'FLAGS_benchmark: run %.3f ms, %d fetches',
+                (time.perf_counter() - t0) * 1e3, len(fetches))
+        else:
+            fetches = go()
+        compiled.capture_cost('run', (), scope, feed_arrays)
         return self._convert_fetches(fetches, return_numpy, compiled)
+
+    def _sync(self):
+        if self.place.device.type == 'cuda':
+            torch.cuda.synchronize(self.place.device)
 
     def run_multi(self,
                   program=None,
@@ -894,8 +1130,24 @@ class Executor(object):
         program, scope, feed_arrays, compiled = self._resolve_and_compile(
             program, feed, fetch_list, scope)
         self._note_multi_compile(compiled.multi_steps_seen, steps, per_step)
-        fetches = compiled.run_multi(scope, feed_arrays, self._rng(program),
-                                     int(steps), per_step=per_step)
+        names = tuple(sorted(feed_arrays))
+        cost_key = ((), names, int(steps)) if per_step is not None else \
+            (names, (), int(steps))
+        _trace.flight_recorder.record(
+            'multi_dispatch', executor='Executor', steps=int(steps),
+            fetch_names=list(compiled.fetch_names),
+            trace_id=getattr(_trace.current(), 'trace_id', None))
+        go = lambda: compiled.run_multi(scope, feed_arrays, self._rng(
+            program), int(steps), per_step=per_step)
+        if _profiler.is_profiler_enabled():
+            with _profiler.record_block(
+                    'executor_run_multi/block0[x%d]' % int(steps)):
+                fetches = go()
+                self._sync()
+        else:
+            fetches = go()
+        compiled.capture_cost('multi', cost_key, scope, feed_arrays,
+                              steps=steps)
         return self._convert_fetches(fetches, return_numpy, compiled)
 
     def run_eval_multi(self,
@@ -943,11 +1195,58 @@ class Executor(object):
             # fixed by the feed signature, which keys the block
             compiled._batch_feed_names = frozenset(batch_feed_names)
         self._note_multi_compile(compiled.eval_steps_seen, steps, per_step)
-        stacked = compiled.run_eval_multi(scope, feed_arrays,
-                                          self._rng(program), steps,
-                                          per_step=per_step)
-        return convert_eval_fetches(stacked, reals, target, compiled, steps,
-                                    return_numpy)
+        names = tuple(sorted(feed_arrays))
+        cost_key = ((), names, steps) if per_step is not None else \
+            (names, (), steps)
+        _trace.flight_recorder.record(
+            'eval_dispatch', executor='Executor', steps=steps,
+            fetch_names=list(compiled.fetch_names),
+            trace_id=getattr(_trace.current(), 'trace_id', None))
+
+        def go():
+            stacked = compiled.run_eval_multi(scope, feed_arrays,
+                                              self._rng(program), steps,
+                                              per_step=per_step)
+            compiled.capture_cost('eval_multi', cost_key, scope,
+                                  feed_arrays, steps=steps)
+            return convert_eval_fetches(stacked, reals, target, compiled,
+                                        steps, return_numpy)
+
+        if _profiler.is_profiler_enabled():
+            with _profiler.record_block('executor_run_eval_multi/block0'):
+                return go()  # the fetches' copy to the host syncs
+        return go()
+
+    def memory_analysis(self, program=None, feed=None, fetch_list=None,
+                        scope=None):
+        """The block's memory plan for these feeds (they key the block, as
+        a real run's do): a ``MemoryStats`` with ``temp_size_in_bytes``,
+        the largest total of non-argument vars live at once under the
+        block's release plan, ``argument_size_in_bytes`` and
+        ``output_size_in_bytes``.  A block that has not run yet runs once,
+        eagerly, on clones of its state (nothing is stored in the
+        scope)."""
+        program = program if program is not None else \
+            default_main_program()
+        if any(op.type == 'read' for op in program.block(0).ops):
+            raise RuntimeError(
+                'memory_analysis: the program is reader-fed; popping a '
+                'py_reader batch here would silently drop a minibatch '
+                'from training — pass representative arrays via feed= '
+                'on a reader-free clone instead')
+        program, scope, feed_arrays, compiled = self._resolve_and_compile(
+            program, feed, fetch_list, scope)
+        compiled.analyze(scope, feed_arrays)
+        return compiled.memory_stats()
+
+    def cost_report(self):
+        """Every cached block's cost-registry entries, captured under
+        FLAGS_cost_accounting: kind ('run', 'multi', 'eval_multi'),
+        steps, FLOPs (total and per step), bytes accessed, and the memory
+        stats' argument, output and temporary bytes."""
+        with self._cache_lock:
+            blocks = list(self._cache.values())
+        return collect_cost_report(blocks)
 
     def _note_multi_compile(self, seen, steps, per_step):
         """Count a (steps, stacked feed signature) pair the block has not

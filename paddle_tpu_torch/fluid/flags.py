@@ -2,11 +2,12 @@
 
 Counterpart of ``paddle_tpu/fluid/flags.py``: the same registry, the same
 flag names and defaults, and the same ``FLAGS_<name>`` environment variables,
-so launcher scripts keep working.  The JAX package's two flags with side
-effects on JAX (``check_nan_inf`` turning on ``jax_debug_nans``, and
-``xla_compile_cache_dir``) are accepted here and inert; their help text says
-so.  ``fused_lstm`` keeps its values and its validation, with the card's own
-policy (see its help text and ``ops/sequence_ops.py:_fused_lstm_ok``).
+so launcher scripts keep working.  ``check_nan_inf``, ``benchmark`` and
+``cost_accounting`` act in the executor as in the JAX package (each help
+text says how); ``xla_compile_cache_dir`` names XLA's cache there and is
+accepted here and inert, as its help text says.  ``fused_lstm`` keeps its
+values and its validation, with the card's own policy (see its help text
+and ``ops/sequence_ops.py:_fused_lstm_ok``).
 """
 
 import os
@@ -118,19 +119,22 @@ FLAGS = _FlagsView()
 
 # ---------------------------------------------------------------------------
 # The flag set: the JAX package's names and defaults.  Flags whose effect is
-# JAX's or XLA's are accepted and inert here, and say so.
+# XLA's are accepted and inert here, and say so.
 # ---------------------------------------------------------------------------
 
 DEFINE_bool('check_nan_inf', False,
-            'Inert in the PyTorch port: in the JAX package it turns on '
-            'jax_debug_nans.')
+            'Raise on a NaN in an op\'s outputs as it runs eagerly '
+            '(FloatingPointError naming the op, as jax_debug_nans names '
+            'the primitive), and on a NaN or Inf in the state vars and '
+            'fetches after a run and in each op\'s outputs in a block that '
+            'runs eagerly (RuntimeError naming the var).')
 DEFINE_bool('cpu_deterministic', False,
             'Force deterministic execution (accepted for launcher parity).')
 DEFINE_bool('cudnn_deterministic', False,
             'Accepted for launcher parity; an alias of cpu_deterministic.')
 DEFINE_bool('benchmark', False,
-            'Log per-run wall time and fetch sizes (accepted for launcher '
-            'parity).')
+            'Synchronize after each Executor.run and log its wall time in '
+            'milliseconds (logger paddle_tpu_torch, level INFO).')
 DEFINE_double('fraction_of_gpu_memory_to_use', 0.92,
               'Inert: device memory belongs to PyTorch\'s caching allocator.')
 DEFINE_bool('use_pinned_memory', True,
@@ -153,8 +157,9 @@ DEFINE_string('xla_compile_cache_dir', '',
               'Inert in the PyTorch port: in the JAX package it names the '
               'persistent XLA compilation cache.')
 DEFINE_bool('cost_accounting', False,
-            'Accepted for launcher parity: the JAX package captures XLA '
-            'cost analysis with it.')
+            'Record each executed block\'s cost entry once per key '
+            '(FLOPs counted from its ops\' shapes, bytes accessed, memory '
+            'stats) for Executor.cost_report().')
 DEFINE_string('fused_lstm', 'auto',
               "lstm-op recurrence impl: on a CUDA place 'auto' and 'always' "
               'run the hand-written LSTM kernels (ops/kernels/lstm.py) for '

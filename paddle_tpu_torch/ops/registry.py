@@ -31,10 +31,14 @@ captured tensor, and no ``.item()`` or ``.numpy()`` of a differentiated
 value.
 """
 
+import contextlib
+import threading
+
 import torch
 
 __all__ = ['register_lowering', 'register_grad_lowering', 'get_lowering',
-           'LoweringContext', 'run_op', 'fwd_structure', 'SEQLEN_SUFFIX',
+           'LoweringContext', 'run_op', 'recording', 'value_meta',
+           'fwd_structure', 'SEQLEN_SUFFIX',
            'GRAD_SUFFIX', 'SAMPLE_MASK_NAME', 'declare_uncapturable',
            'capture_refusal', 'register_counter', 'counts', 'set_amp',
            'amp_enabled', 'amp_cast_in', 'amp_cast_out', 'amp_upcast_f32',
@@ -191,10 +195,59 @@ class LoweringContext(object):
                                is_test=self.is_test)
 
 
+_RECORDING = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every op that ``run_op`` runs in this thread inside the
+    block: a list of ``(op, meta, children)``, ``meta`` mapping each of
+    the op's argument names to ``(shape, nbytes)`` (``value_meta``) as the
+    op left them, ``children`` the records of the ops it ran inside it (a
+    ``recurrent`` op's step block at every step).  The executor's cost
+    accounting and memory analysis read it."""
+    records = []
+    prev = getattr(_RECORDING, 'stack', None)
+    _RECORDING.stack = [records]
+    try:
+        yield records
+    finally:
+        _RECORDING.stack = prev
+
+
+def value_meta(value):
+    """(shape, bytes) of an environment value: a tensor, or a sparse
+    gradient (its values' shape; its values' and rows' bytes); None for
+    anything else."""
+    if isinstance(value, torch.Tensor):
+        return tuple(value.shape), value.numel() * value.element_size()
+    values, rows = getattr(value, 'values', None), getattr(value, 'rows',
+                                                           None)
+    if isinstance(values, torch.Tensor) and isinstance(rows, torch.Tensor):
+        return tuple(values.shape), (values.numel() * values.element_size()
+                                     + rows.numel() * rows.element_size())
+    return None
+
+
 def run_op(ctx, op):
     """Run one op's lowering, then propagate sequence-length metadata from
     its inputs to its outputs."""
-    get_lowering(op.type)(ctx, op)
+    stack = getattr(_RECORDING, 'stack', None)
+    if stack:
+        children = []
+        stack.append(children)
+        try:
+            get_lowering(op.type)(ctx, op)
+        finally:
+            stack.pop()
+        meta = {}
+        for n in list(op.input_arg_names) + list(op.output_arg_names):
+            m = value_meta(ctx.env.get(n))
+            if m is not None:
+                meta[n] = m
+        stack[-1].append((op, meta, children))
+    else:
+        get_lowering(op.type)(ctx, op)
     mask = ctx.env.get(SAMPLE_MASK_NAME)
     if mask is not None and not op.type.endswith('_grad'):
         # an output is batch-led iff an input was and it still carries the

@@ -495,14 +495,32 @@ def test_compile_count_under_toggled_amp_matches_jax():
                       'bfloat16', 'float32']
 
 
-def test_bf16_fetch_with_numpy_raises():
+def test_bf16_fetch_with_numpy_matches_jax():
+    """A bf16 fetch with ``return_numpy=True`` comes back as the JAX
+    package's does, an ``ml_dtypes.bfloat16`` array, bit for bit, from
+    the same weights."""
+    import ml_dtypes
+    jprog, jstartup, jy = _cache_program(jfluid)
+    jscope = jfluid.Scope()
+    jexe = jfluid.Executor(jfluid.CPUPlace())
+    jexe.run(jstartup, scope=jscope)
     prog, startup, y = _cache_program(tfluid)
     scope = tfluid.Scope()
+    tfluid.persistables_from_numpy(
+        prog, {v.name: np.asarray(jscope.find_var(v.name).value())
+               for v in prog.list_vars() if v.persistable},
+        scope=scope, place=tfluid.CPUPlace())
     exe = tfluid.Executor(tfluid.CPUPlace())
-    exe.run(startup, scope=scope)
-    with tfluid.amp_guard(), pytest.raises(TypeError, match='bfloat16'):
-        exe.run(prog, feed={'x': np.ones((3, 8), 'float32')},
-                fetch_list=[y], scope=scope)
+    feed = {'x': np.random.RandomState(3).uniform(
+        -1, 1, (3, 8)).astype('float32')}
+    with jfluid.amp_guard():
+        want, = jexe.run(jprog, feed=feed, fetch_list=[jy], scope=jscope)
+    with tfluid.amp_guard():
+        got, = exe.run(prog, feed=feed, fetch_list=[y], scope=scope)
+    want = np.asarray(want)
+    assert want.dtype == ml_dtypes.bfloat16
+    assert got.dtype == want.dtype and got.shape == want.shape == (3, 4)
+    np.testing.assert_array_equal(got.view(np.uint16), want.view(np.uint16))
 
 
 # ---- whole models ----

@@ -209,9 +209,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             'paddle_tpu_torch.fluid.transpiler, '
             'paddle_tpu_torch.fluid.transpiler.inference_transpiler, '
             'paddle_tpu_torch.fluid.transpiler.float16_transpiler, '
+            'paddle_tpu_torch.fluid.transpiler.memory_optimization_transpiler, '
+            'paddle_tpu_torch.fluid.trace, paddle_tpu_torch.fluid.profiler, '
             'chip_smoke, '
             'profile_torch_slice, profile_ctr_merge, '
-            'profile_amp_resnet_grads; '
+            'profile_amp_resnet_grads, probe_bench_widths; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "paddle_tpu.")) or m == "paddle_tpu"); '
             'print(bad); sys.exit(1 if bad else 0)')
