@@ -218,6 +218,34 @@ E. bench widths, after CTR's phases: bench.py's six configurations as
    ``cost_report``'s FLOPs a step beside bench.py's analytic count, ms a
    step (a lot) and the loss.  ``probe_bench_widths.py`` finds the batches
    that fit.
+F. the book models, run after phase 3 and before phase 4, each fed
+   through its dataset's reader, ``paddle_tpu_torch.batch`` and
+   ``fluid.DataFeeder``.  No hand-written kernel lies on this path: the
+   launch counters are set to 0 before each of its training and serving
+   runs and must read 0 after it, and its calls run without the profiler
+   (a replay of each block is counted by name in ``phase_capture``):
+   F1. SRL (``label_semantic_roles``) at the widths of the book chapter
+       (word_dim 32, mark_dim 5, hidden 512, depth 8; conll05's 4000
+       words, 200 verbs, 59 labels): ``BOOK_STEPS`` SGD steps of
+       ``SRL_BATCH`` sentences, eager then captured, the loss falling; one
+       step against the CPU (``SRL_TRAIN_TOL``); ``SRL_SERVE`` sentences
+       decoded against the CPU, tie-aware (``compare_viterbi``,
+       ``SRL_DECODE_TOL``); a ``ChunkEvaluator`` (IOB, 29 chunk types) over
+       the served paths, run eagerly through its host op and never
+       captured, with the CPU's precision, recall and F1;
+   F2. the recommender at its build's widths on movielens: ``BOOK_STEPS``
+       steps of ``REC_BATCH`` ratings, one against the CPU, a request
+       against the CPU;
+   F3. fit_a_line on uci_housing: ``FIT_EPOCHS`` epochs of ``FIT_BATCH``
+       rows, one step against the CPU, ``save_inference_model`` ->
+       ``load_inference_model`` predicting what the test program does.
+   Each step and request is also captured against eager
+   (``phase_capture``), and each prints a ``path F: {...}`` line: walls
+   eager and captured, busy and idle share, peak memory,
+   ``memory_analysis``'s temp bytes and ``cost_report``'s FLOPs a step
+   (the host-op block: its eager wall beside the decode's, no temp, as
+   ``memory_analysis`` raises on it by design).  ``--only-book`` runs the
+   device phase and path F alone and prints no result line.
 
 It imports nothing of JAX or of the JAX package ``paddle_tpu``.
 """
@@ -1056,6 +1084,66 @@ def _expect(**nonzero):
     return out
 
 
+# torch.profiler loses a run of device activities at the head of a
+# session on the card: none in most short sessions, hundreds in some
+# sessions of a long run, varying from one to the next (a late session
+# lost the head of a training step, most calls of a timed kernel, or all of
+# a short call).  The activities it keeps carry right timestamps: the loss
+# is a count, not a time window (``probe_profiler.py``).  So every session
+# (``_profiled``) opens with a preamble of short marker kernels
+# (``torch.cuda._sleep``'s spin_kernel) for the loss to take: while one of
+# them is recorded, none of the session's own activities was lost.  A
+# preamble half lost is doubled for the sessions after it.
+PROFILER_MARKER = 'spin_kernel'
+MARK_CYCLES = 100
+PROFILER = {'preamble': 1024, 'lost': []}
+
+
+def _is_marker(name):
+    return PROFILER_MARKER in name
+
+
+@contextlib.contextmanager
+def _profiled():
+    """One torch.profiler session of host and device activity behind its
+    preamble (PROFILER): yields an object whose ``prof`` is the profiler,
+    to be read after the block, and whose ``kept`` says that the loss at
+    the session's head stayed inside the preamble.  The block ends its own
+    work on the card (``torch.cuda.synchronize``)."""
+    session = type('ProfilerSession', (), {'prof': None, 'kept': True})()
+    preamble = PROFILER['preamble']
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(preamble):
+            torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+        yield session
+    session.prof = prof
+    marks = sum(e.device_type == torch.autograd.DeviceType.CUDA and
+                _is_marker(e.name) for e in prof.events())
+    lost = preamble - marks
+    PROFILER['lost'].append(lost)
+    session.kept = marks > 0
+    if 2 * lost > preamble:
+        PROFILER['preamble'] = 2 * preamble
+        print('profiler: session %d lost %d of its %d preamble kernels; the '
+              'preamble is now %d' % (len(PROFILER['lost']), lost, preamble,
+                                      PROFILER['preamble']), flush=True)
+
+
+def profiler_summary():
+    """One line: the profiler sessions of the run and the device
+    activities each lost at its head (PROFILER)."""
+    lost = PROFILER['lost']
+    print('profiler: %d sessions; device activities lost at a session\'s '
+          'head: %s in the first, %s in the last, at most %s; preamble at '
+          'the end %d kernels' %
+          (len(lost), lost[0] if lost else '-', lost[-1] if lost else '-',
+           max(lost) if lost else '-', PROFILER['preamble']), flush=True)
+
+
 def _kernel_base(name):
     """A device activity's function name without namespace or template."""
     return _activity_name(name).split('<')[0].split()[-1].split('::')[-1]
@@ -1079,7 +1167,8 @@ def _device_kernels(prof):
     kinds = {t: dict.fromkeys(KERNEL_KEYS, 0) for t in ('bf16', 'f32')}
     device = 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA and
+                not _is_marker(e.name)):
             device += 1
             base = _kernel_base(e.name)
             key = by_name.get(base)
@@ -1114,10 +1203,10 @@ class _Path(object):
     The wrappers' counters must have grown by ``want`` in a call that ran
     the lowerings (the eager first call, a capture) and by nothing in a
     replay, which calls no wrapper; so must the lstm op's scan-path runs
-    (``scans``).  The profiler sometimes drops events (``_device_ms``): a
-    call whose session counted fewer kernels than ``want``, and none more,
-    is printed and made again, five times at most over the path (it ran
-    all the same: a training step's loss is kept)."""
+    (``scans``).  The profiler loses events at a session's head
+    (PROFILER): a call whose session counted fewer kernels than ``want``,
+    and none more, is printed and made again, five times at most over the
+    path (it ran all the same: a training step's loss is kept)."""
 
     RETAKES = 5
 
@@ -1141,14 +1230,12 @@ class _Path(object):
         made = []
         while True:
             before, scans0 = _wrapper_counts(), _scan_runs()
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with _profiled() as session:
                 t0 = time.perf_counter()
                 result = fn()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+            prof = session.prof
             after = _wrapper_counts()
             wrapped = {k: after[k] - before[k] for k in KERNEL_KEYS}
             ran_scans = _scan_runs() - scans0
@@ -2138,17 +2225,15 @@ def profile_run(fn, trace_path=None, recompute=False):
 
     if recompute:
         torch.func.vjp = annotated_vjp
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     try:
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
+        with _profiled() as session:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         torch.func.vjp = real_vjp
+    prof = session.prof
     if trace_path:
         os.makedirs(os.path.dirname(trace_path), exist_ok=True)
         prof.export_chrome_trace(trace_path)
@@ -2158,7 +2243,7 @@ def profile_run(fn, trace_path=None, recompute=False):
         if dev_us is None:
             dev_us = getattr(evt, 'self_cuda_time_total', 0)
         # a range's device-side span (idle gaps included) is no kernel
-        if evt.key == RECOMPUTE:
+        if evt.key == RECOMPUTE or _is_marker(evt.key):
             continue
         if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + dev_us / 1e3
@@ -2167,8 +2252,24 @@ def profile_run(fn, trace_path=None, recompute=False):
                  if evt.name == RECOMPUTE and
                  evt.device_type == torch.autograd.DeviceType.CPU)
     return {'wall_s': wall, 'busy_ms': sum(by_name.values()),
-            'by_name': by_name, 'recompute_ms': replay,
+            'kept': session.kept, 'by_name': by_name, 'recompute_ms': replay,
             'top': sorted(by_name.items(), key=lambda kv: -kv[1])[:12]}
+
+
+def profile_busy(fn, what, sessions=5):
+    """``profile_run(fn)`` until its session records device time and
+    keeps it all (PROFILER; each retake runs ``fn`` once more, and is
+    printed); fails after ``sessions``."""
+    for session in range(sessions):
+        prof = profile_run(fn)
+        if prof['busy_ms'] > 0 and prof['kept']:
+            return prof
+        print('%s: profiler session %d of %d recorded %s: taken again' %
+              (what, session + 1, sessions, 'no device kernel' if
+               prof['busy_ms'] <= 0 else 'a loss past its preamble'),
+              flush=True)
+    fail('%s: torch.profiler saw no device kernel in %d sessions' %
+         (what, sessions))
 
 
 def conv_ms(prof):
@@ -2458,16 +2559,14 @@ def _max_diff(got, want, names=None):
 def _replay_kernels(run, want):
     """The kernel launches, by key, of one call of ``run`` that replays a
     captured graph, counted by name in the profiler's device activity.  The
-    profiler sometimes drops events (``_device_ms``): a session that does
-    not count ``want`` is printed and taken again, five sessions at most."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    profiler loses events at a session's head (PROFILER): a session that
+    does not count ``want`` is printed and taken again, five sessions at
+    most."""
     for session in range(5):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
+        with _profiled() as profiled:
             run()
             torch.cuda.synchronize()
-        seen, device, kinds = _device_kernels(prof)
+        seen, device, kinds = _device_kernels(profiled.prof)
         if seen == want:
             break
         print('capture: profiler session %d of 5 counted %s of %s (%d device '
@@ -2499,7 +2598,8 @@ def amp_call(exe, program, feed, fetch_list, scope, eager=False):
                                    eager=eager))
 
 
-def phase_capture(card, tag, program, feed, fetch, state, expect, amp=False):
+def phase_capture(card, tag, program, feed, fetch, state, expect, amp=False,
+                  calls=CAPTURE_CALLS):
     """One path captured against eager from the same state: the eager call
     (``eager_run``) and the capture's call compared, a replay
     from the state again compared with the capture's call, the kernels of a
@@ -2507,7 +2607,8 @@ def phase_capture(card, tag, program, feed, fetch, state, expect, amp=False):
     timed (median wall, device busy and idle share of one call under
     torch.profiler, peak memory).  ``expect``: the hand-written kernels a
     call launches, by key.  ``amp``: every call under ``amp_guard()``,
-    the replay's hand-written kernels all bf16 instantiations."""
+    the replay's hand-written kernels all bf16 instantiations.  ``calls``:
+    the calls of each path timed."""
     import paddle_tpu_torch.fluid as fluid
     place = fluid.CUDAPlace(0)
     if amp:
@@ -2523,13 +2624,12 @@ def phase_capture(card, tag, program, feed, fetch, state, expect, amp=False):
 
     def time_calls(call, exe, scope, path):
         walls = []
-        for _ in range(CAPTURE_CALLS):
+        for _ in range(calls):
             t0 = time.perf_counter()
             call(exe, scope)
             walls.append(time.perf_counter() - t0)
-        prof = profile_run(lambda: call(exe, scope))
-        check(prof['busy_ms'] > 0, '%s: torch.profiler saw no device kernel '
-              'on the %s path' % (tag, path))
+        prof = profile_busy(lambda: call(exe, scope),
+                            '%s, the %s path' % (tag, path))
         timed[path] = dict(
             wall=statistics.median(walls), wall_min=min(walls),
             wall_max=max(walls), busy_ms=prof['busy_ms'],
@@ -2644,7 +2744,7 @@ def phase_capture(card, tag, program, feed, fetch, state, expect, amp=False):
            'bitwise equal' if err == 0 else 'within %g' % tol, err,
            len(got), len(got_state), worst if err else '-', control_err,
            replay_err, {k: v for k, v in seen.items() if v} or 'none', e['wall'],
-           CAPTURE_CALLS, e['wall_min'], e['wall_max'], e['busy_ms'],
+           calls, e['wall_min'], e['wall_max'], e['busy_ms'],
            e['idle'], e['peak'] / 2**20, c['wall'], c['wall_min'],
            c['wall_max'], c['busy_ms'], c['idle'], c['peak'] / 2**20,
            e['wall'] / c['wall'], card), flush=True)
@@ -4131,6 +4231,524 @@ def phase_bench_widths(card):
     return records
 
 
+# ---- path F: the book models, fed as the book chapters feed them ----
+# SRL at the widths of the PaddlePaddle book's chapter 07
+# (label_semantic_roles: word_dim 32, mark_dim 5, hidden 512, depth 8),
+# with the dictionary sizes of the port's conll05.get_dict()
+SRL = dict(word_dict_len=4000, pred_dict_len=200, mark_dict_len=2,
+           label_dict_len=59, word_dim=32, mark_dim=5, hidden_dim=512,
+           depth=8, lr=0.01)
+SRL_BATCH = 10        # the chapter's BATCH_SIZE
+BOOK_STEPS = 20       # SGD steps of each book model
+SRL_SERVE = 128       # conll05.test() sentences a decode request
+SRL_CHUNK_TYPES = 29  # IOB over the 59 labels: 2 x 29 tags and O
+# conll05's columns, in the order the DataFeeder takes them
+SRL_FEEDS = ['word_data', 'ctx_n2_data', 'ctx_n1_data', 'ctx_0_data',
+             'ctx_p1_data', 'ctx_p2_data', 'verb_data', 'mark_data',
+             'target']
+# one SRL step, card vs CPU (compare_train_step): 8 LSTM layers, the CRF's
+# log-sum-exp recursion over T = 32 and its vjp sum in another order on
+# each; the updated parameters move by lr times the gradients' differences.
+# Measured on an NVIDIA H100 80GB HBM3 at 700.00 W: loss rel 0, the worst
+# max|dg| / max|g| 4.2e-6 (lstm_5.b_0), |dg| / |g| over all 1.7e-6,
+# max|dp| 1.5e-8
+SRL_TRAIN_TOL = dict(loss=1e-5, grad_rtol=1e-3, grad_atol=1e-6,
+                     grad_norm=1e-4, param_max=1e-5, param_atol=1e-6,
+                     param_frac=1e-3)
+# a served Viterbi path may differ from the CPU's only where both paths'
+# scores, taken under the CPU's emissions and transition, agree within this
+# share of max(1, |score|) (measured on the same card: max|d emission|
+# 1.6e-6, no path differs)
+SRL_DECODE_TOL = 1e-4
+REC = dict(lr=0.2)    # the recommender at its build's widths
+REC_BATCH = 256
+# measured on the same card: the request's |d| / |v| 9.8e-8; the step's
+# loss rel 6.1e-8, the worst max|dg| / max|g| 7.1e-7, |dg| / |g| 2.9e-7
+# (fit_a_line: 1.3e-7, 1.2e-7)
+REC_SERVE_RTOL = 1e-5
+REC_TRAIN_TOL = dict(loss=1e-5, grad_rtol=1e-3, grad_atol=1e-6,
+                     grad_norm=1e-4, param_max=1e-5, param_atol=1e-6,
+                     param_frac=1e-3)
+FIT = dict(lr=0.01)   # fit_a_line: 13 features, SGD at its build's lr
+FIT_BATCH = 20
+FIT_EPOCHS = 5        # of uci_housing.train()'s 20 batches of 20: the loss
+                      # of the last epoch's steps against the first's
+FIT_TRAIN_TOL = REC_TRAIN_TOL
+BOOK_CAPTURE_CALLS = 10  # timed calls of each path F block, eager and captured
+
+
+def _book_model(module, **kwargs):
+    """``module.build(**kwargs)`` with its startup run on the card from
+    SEED: (model, scope, executor)."""
+    import paddle_tpu_torch.fluid as fluid
+    with fluid.unique_name.guard():
+        model = module.build(**kwargs)
+    model['startup'].random_seed = SEED
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    t0 = time.perf_counter()
+    exe.run(model['startup'], scope=scope)
+    torch.cuda.synchronize()
+    state = [scope.find_var(v.name).value()
+             for v in model['main'].list_vars() if v.persistable]
+    print('model: %s %s, %d persistable vars of %.1f MiB, startup %.2f s' %
+          (module.__name__.split('.')[-1], kwargs, len(state),
+           _nbytes(state) / 2**20, time.perf_counter() - t0), flush=True)
+    return model, scope, exe
+
+
+def _feeder(program, names, place=None):
+    """A DataFeeder over ``program``'s vars ``names``."""
+    import paddle_tpu_torch.fluid as fluid
+    blk = program.global_block()
+    return fluid.DataFeeder([blk.var(n) for n in names],
+                            place or fluid.CUDAPlace(0), program=program)
+
+
+def _minibatches(reader, size, count):
+    """``count`` minibatches of ``size`` samples: ``paddle_tpu_torch.batch``
+    over ``reader`` (drop_last), its epochs repeated."""
+    import paddle_tpu_torch
+    out = []
+    while len(out) < count:
+        for mb in paddle_tpu_torch.batch(reader, size, drop_last=True)():
+            out.append(mb)
+            if len(out) == count:
+                break
+    return out
+
+
+def _cost_per_step(exe, fetch_names):
+    """``cost_report()``'s FLOPs a step of each block run with these
+    fetches."""
+    return sorted({e['flops_per_step'] for e in exe.cost_report()
+                   if e['kind'] == 'run' and e['fetch_names'] == fetch_names})
+
+
+def _book_run(tag, exe, calls, scans):
+    """``calls`` (thunks, each one ``Executor.run``) under FLAGS_cost_accounting
+    as one main path: the launch counters set to 0 before it and read after
+    it (none may grow: no hand-written kernel lies on path F), ``scans``
+    scan-path LSTM runs in each call that ran the lowerings and none in a
+    replay, each call's wall on the host clock up to the card's end.
+    Returns (results, walls, how each call ran)."""
+    import paddle_tpu_torch.fluid as fluid
+    results, walls, ran = [], [], []
+    fluid.FLAGS.cost_accounting = True
+    try:
+        _zero_counts()  # every launch counter to 0 just before the path
+        for call in calls:
+            scans0 = _scan_runs()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results.append(call())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            ran.append(exe.cached_blocks()[-1].last_ran)
+            grew = _scan_runs() - scans0
+            check(grew == (0 if ran[-1] == 'replay' else scans),
+                  '%s: a call (%s) ran the scan path %d times, expected %d'
+                  % (tag, ran[-1], grew, 0 if ran[-1] == 'replay' else
+                     scans))
+        counts = _wrapper_counts()  # read just after the path
+    finally:
+        fluid.FLAGS.cost_accounting = False
+    check(counts == _expect(), '%s: hand-written kernels launched: %s' %
+          (tag, counts))
+    return results, walls, ran
+
+
+def _book_train(card, tag, model, scope, exe, feeds, scans, window=5):
+    """One SGD step of ``model['main']`` on each of ``feeds`` (DataFeeder
+    outputs) through ``_book_run``; the loss falls (the mean of the last
+    ``window`` steps below that of the first ``window``).  Returns (losses,
+    flops a step)."""
+    loss_name = model['loss'].name
+    results, walls, ran = _book_run(tag + ' train', exe, [
+        (lambda f=f: exe.run(model['main'], feed=f, fetch_list=[loss_name],
+                             scope=scope)) for f in feeds], scans)
+    losses = [float(r[0][0]) for r in results]
+    check(all(np.isfinite(losses)), '%s: a loss is not finite: %s' %
+          (tag, losses))
+    first, last = np.mean(losses[:window]), np.mean(losses[-window:])
+    check(last < first, '%s: the loss did not fall over %d steps: %s' %
+          (tag, len(losses), losses))
+    flops = _cost_per_step(exe, [loss_name])
+    check(flops and min(flops) > 0, '%s: cost_report FLOPs %s' % (tag, flops))
+    replays = [w for w, r in zip(walls, ran) if r == 'replay']
+    print('%s train: %d SGD steps, each a new minibatch through the reader, '
+          'batch and DataFeeder; loss %.4f -> %.4f (mean of the first %d '
+          '%.4f, of the last %d %.4f); wall of the eager call '
+          '%.4f s, of the capture %.4f s, median replay %.4f s; launches '
+          'none; calls %s; cost_report FLOPs a step %s [%s]' %
+          (tag, len(losses), losses[0], losses[-1], window, first, window,
+           last, walls[ran.index('eager')],
+           walls[ran.index('capture')] if 'capture' in ran else float('nan'),
+           statistics.median(replays) if replays else float('nan'),
+           ', '.join('%d %s' % (ran.count(r), r) for r in
+                     ('eager', 'capture', 'replay') if r in ran),
+           ', '.join('%.4e' % f for f in flops), card),
+          flush=True)
+    return losses, flops[-1]
+
+
+def _book_record(card, tag, timed, flops, **extra):
+    """One phase's ``path F:`` line from ``phase_capture``'s times."""
+    e, c = timed['eager'], timed['captured']
+    rec = dict(path='F', phase=tag, eager_s=round(e['wall'], 5),
+               captured_s=round(c['wall'], 5),
+               busy_ms_eager=round(e['busy_ms'], 3),
+               busy_ms_captured=round(c['busy_ms'], 3),
+               idle_eager=round(e['idle'], 3), idle_captured=round(c['idle'], 3),
+               peak_mib_eager=round(e['peak'] / 2**20, 1),
+               peak_mib_captured=round(c['peak'] / 2**20, 1),
+               temp_bytes=int(timed['memory']['temp']),
+               flops_per_step=flops, card=card)
+    rec.update(extra)
+    print('path F: %s' % json.dumps(rec), flush=True)
+    return rec
+
+
+def _viterbi_score(em, tr, path):
+    """A tag path's score under emissions ``em`` [L, D] and the CRF's
+    transition ``tr`` (row 0 start, row 1 end, rows 2.. [D, D]), f64."""
+    em, tr = em.astype(np.float64), tr.astype(np.float64)
+    return float(tr[0][path[0]] + tr[1][path[-1]] +
+                 em[np.arange(len(path)), path].sum() +
+                 tr[2:][path[:-1], path[1:]].sum())
+
+
+def compare_viterbi(got, want, em, tr, lengths, tol):
+    """Card paths ``got`` against CPU paths ``want`` ([B, T, 1]), tie-aware:
+    each row's padding is 0 on both, and where the two paths differ, their
+    scores under the CPU's emissions ``em`` and transition ``tr`` agree
+    within ``tol`` of max(1, |score|).  Returns (rows that differ,
+    positions that differ, the worst score difference so measured)."""
+    rows = positions = 0
+    worst = 0.0
+    for i, n in enumerate(lengths):
+        g, w = got[i, :, 0], want[i, :, 0]
+        check(not g[n:].any() and not w[n:].any(), 'decode row %d: a '
+              'padding step is not 0' % i)
+        if (g[:n] == w[:n]).all():
+            continue
+        rows += 1
+        positions += int((g[:n] != w[:n]).sum())
+        sg = _viterbi_score(em[i, :n], tr, g[:n])
+        sw = _viterbi_score(em[i, :n], tr, w[:n])
+        d = abs(sg - sw) / max(1.0, abs(sw))
+        worst = max(worst, d)
+        check(d <= tol, 'decode row %d: the card\'s path scores %.6f, the '
+              'CPU\'s %.6f under the CPU\'s emissions (|d| / max(1, |s|) '
+              '%g > %g)' % (i, sg, sw, d, tol))
+    return rows, positions, worst
+
+
+def _chunk_evaluator(fluid):
+    """A ChunkEvaluator program (IOB, SRL_CHUNK_TYPES chunk types) over
+    inferred and gold tag sequences: (program, startup, evaluator, feed
+    vars)."""
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog, startup):
+        inf = fluid.layers.data(name='inference', shape=[1], dtype='int64',
+                                lod_level=1)
+        lab = fluid.layers.data(name='label', shape=[1], dtype='int64',
+                                lod_level=1)
+        ev = fluid.evaluator.ChunkEvaluator(
+            input=inf, label=lab, chunk_scheme='IOB',
+            num_chunk_types=SRL_CHUNK_TYPES)
+    return prog, startup, ev, [inf, lab]
+
+
+def _chunk_eval(place, records):
+    """The ChunkEvaluator streamed over ``records`` ((inferred tags, gold
+    tags) a sentence) in two halves on ``place``: (precision, recall and
+    F1; the counts; the walls of its runs; the executor, scope, program and
+    the last feed)."""
+    import paddle_tpu_torch.fluid as fluid
+    prog, startup, ev, feed_vars = _chunk_evaluator(fluid)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    feeder = fluid.DataFeeder(feed_vars, place, program=prog)
+    walls = []
+    half = len(records) // 2
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for part in (records[:half], records[half:]):
+            feed = feeder.feed(part)
+            t0 = time.perf_counter()
+            exe.run(prog, feed=feed, fetch_list=ev.metrics)
+            if place.device.type == 'cuda':
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        prf = ev.eval(exe)
+    counts = [int(scope.find_var(s.name).value().reshape(-1)[0])
+              for s in ev.states]
+    return prf, counts, walls, (exe, scope, prog, feed, ev)
+
+
+def phase_book_srl(card):
+    """F1: SRL at the chapter's widths.  BOOK_STEPS SGD steps, each on a
+    new SRL_BATCH-sentence minibatch of conll05.train() (reader, batch,
+    DataFeeder), eager then captured, the loss falling; one step from that
+    state against the CPU (SRL_TRAIN_TOL); the step captured against eager;
+    the test program decoding SRL_SERVE sentences of conll05.test() (the
+    Viterbi paths fetched) against the CPU, tie-aware (SRL_DECODE_TOL), and
+    captured against eager; then a ChunkEvaluator over the served paths:
+    eager, through its host op, never captured, with the CPU's precision,
+    recall and F1 on the same paths."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.dataset import conll05
+    from paddle_tpu_torch.models import label_semantic_roles
+    model, scope, exe = _book_model(label_semantic_roles, **SRL)
+    lstm_ops = sum(op.type == 'lstm' for op in model['main'].global_block().ops)
+    check(lstm_ops == SRL['depth'], 'SRL: %d lstm ops' % lstm_ops)
+    feeder = _feeder(model['main'], SRL_FEEDS)
+    batches = _minibatches(conll05.train(), SRL_BATCH, BOOK_STEPS + 1)
+    feeds = [feeder.feed(mb) for mb in batches]
+    # the forward's lstm ops and their grads' replays, each a scan-path run
+    _, train_flops = _book_train(card, 'F1 SRL', model, scope, exe,
+                                 feeds[:BOOK_STEPS], scans=2 * lstm_ops)
+    loss_name = model['loss'].name
+    compare_train_step(card, 'F1 SRL', '%d sentences' % SRL_BATCH,
+                       model['main'], loss_name, feeds[BOOK_STEPS], scope,
+                       exe, SRL['lr'], SRL_TRAIN_TOL)
+    state = _persistables(model['main'], scope)
+    timed = phase_capture(card, 'F1 SRL step', model['main'],
+                          feeds[BOOK_STEPS], [loss_name], state, {},
+                          calls=BOOK_CAPTURE_CALLS)
+    _book_record(card, 'F1 SRL step', timed, train_flops,
+                 batch=SRL_BATCH, widths=SRL)
+
+    # serving: SRL_SERVE test sentences, the Viterbi paths fetched
+    test = model['test']
+    records = _minibatches(conll05.test(), SRL_SERVE, 1)[0]
+    feed = _feeder(test, SRL_FEEDS).feed(records)
+    lengths = [len(r[0]) for r in records]
+    decode = model['crf_decode'].name
+    crf_op, = [op for op in test.global_block().ops
+               if op.type == 'crf_decoding']
+    emission = crf_op.input('Emission')[0]
+    [[paths]], walls, ran = _book_run('F1 SRL decode', exe, [
+        lambda: exe.run(test, feed=feed, fetch_list=[decode], scope=scope)],
+        scans=lstm_ops)
+    decode_flops = _cost_per_step(exe, [decode])
+    from paddle_tpu_torch.fluid.shape_policy import bucketed_len
+    check(paths.shape == (SRL_SERVE, bucketed_len(max(lengths)), 1) and
+          paths.min() >= 0 and paths.max() < SRL['label_dict_len'],
+          'F1 SRL decode: paths %s in [%d, %d]' % (paths.shape, paths.min(),
+                                                    paths.max()))
+    cpu_scope = _cpu_copy(test, scope)
+    t0 = time.perf_counter()
+    want, want_em = fluid.Executor(fluid.CPUPlace()).run(
+        test, feed=_feeder(test, SRL_FEEDS, fluid.CPUPlace()).feed(records),
+        fetch_list=[decode, emission], scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    got, got_em = exe.run(test, feed=feed, fetch_list=[decode, emission],
+                          scope=scope)
+    em_err = float(np.abs(got_em - want_em).max())
+    tr = cpu_scope.find_var('crfw').value().numpy()
+    rows, positions, worst = compare_viterbi(got, want, want_em, tr, lengths,
+                                             SRL_DECODE_TOL)
+    print('F1 SRL decode: %d sentences (lengths %d-%d, T %d), one request '
+          '(%s, wall %.4f s), card vs CPU tie-aware: '
+          '%d rows and %d positions differ, the worst score difference '
+          '%.3g (tol %g of max(1, |score|)); max|d emission| %.3g; CPU run '
+          '%.2f s; cost_report FLOPs %s [%s]' %
+          (SRL_SERVE, min(lengths), max(lengths), paths.shape[1], ran[0],
+           walls[0], rows, positions, worst, SRL_DECODE_TOL, em_err, cpu_s,
+           ', '.join('%.4e' % f for f in decode_flops), card), flush=True)
+    timed = phase_capture(card, 'F1 SRL decode', test, feed, [decode],
+                          _persistables(test, scope), {},
+                          calls=BOOK_CAPTURE_CALLS)
+    _book_record(card, 'F1 SRL decode', timed, decode_flops[-1],
+                 batch=SRL_SERVE, rows_differ=rows)
+
+    # chunk evaluation of the served paths, on the card and on the CPU
+    chunks = [(list(paths[i, :n, 0]), r[8])
+              for i, (n, r) in enumerate(zip(lengths, records))]
+    fluid.FLAGS.cost_accounting = True
+    try:
+        prf, counts, walls, (cexe, cscope, cprog, cfeed, ev) = _chunk_eval(
+            fluid.CUDAPlace(0), chunks)
+    finally:
+        fluid.FLAGS.cost_accounting = False
+    chunk_flops = _cost_per_step(cexe, [m.name for m in ev.metrics])
+    block = cexe.cached_blocks()[-1]
+    check(block.mode == 'eager' and 'host op' in (block.refusal or '') and
+          block.captures == 0 and block.calls == 2 and
+          block.host_ops == ['chunk_eval'],
+          'F1 chunk_eval: the block runs %s (%s), %d captures, %d calls, '
+          'host ops %s' % (block.mode, block.why, block.captures,
+                           block.calls, block.host_ops))
+    want_prf, want_counts, cpu_walls, _ = _chunk_eval(fluid.CPUPlace(),
+                                                      chunks)
+    check(counts == want_counts and np.array_equal(prf, want_prf),
+          'F1 chunk_eval: card %s %s, CPU %s %s' % (counts, prf, want_counts,
+                                                    want_prf))
+    for what, call in (('memory_analysis', lambda: cexe.memory_analysis(
+            cprog, feed=cfeed, fetch_list=[], scope=cscope)),
+                       ('run_multi', lambda: cexe.run_multi(
+            cprog, feed=cfeed, fetch_list=[], steps=2, scope=cscope))):
+        try:
+            call()
+            fail('F1 chunk_eval: %s ran on a host-op block' % what)
+        except RuntimeError as e:
+            check('host ops' in str(e), 'F1 chunk_eval: %s raised %s' %
+                  (what, e))
+    eager_walls = []
+    with fluid.scope_guard(cscope):
+        for _ in range(BOOK_CAPTURE_CALLS):
+            t0 = time.perf_counter()
+            cexe.run(cprog, feed=cfeed, fetch_list=ev.metrics)
+            torch.cuda.synchronize()
+            eager_walls.append(time.perf_counter() - t0)
+        prof = profile_busy(lambda: cexe.run(cprog, feed=cfeed,
+                                             fetch_list=ev.metrics),
+                            'F1 chunk_eval')
+    check(block.captures == 0 and block.mode == 'eager',
+          'F1 chunk_eval: captured after %d calls' % block.calls)
+    wall = statistics.median(eager_walls)
+    rec = dict(path='F', phase='F1 chunk_eval', eager_s=round(wall, 5),
+               captured_s=None, mode=block.mode, why=block.why,
+               busy_ms_eager=round(prof['busy_ms'], 3),
+               idle_eager=round(1 - prof['busy_ms'] / 1e3 / prof['wall_s'],
+                                3),
+               temp_bytes=None, flops_per_step=chunk_flops[-1],
+               decode_eager_s=round(timed['eager']['wall'], 5),
+               decode_captured_s=round(timed['captured']['wall'], 5),
+               precision_recall_f1=[float(v) for v in prf],
+               counts=counts, card=card)
+    print('F1 chunk_eval: ChunkEvaluator (IOB, %d chunk types) over the %d '
+          'served paths in two halves, eagerly through its host op (%s), '
+          'never captured; precision %.4f, recall %.4f, F1 %.4f, counts '
+          '(inferred, gold, correct) %s, equal to the CPU\'s on the same '
+          'paths; the host-op block %.4f s a call (median of %d) beside the '
+          'decode it follows, eager %.4f s, captured %.4f s; '
+          'memory_analysis and run_multi raise on it, by design [%s]' %
+          (SRL_CHUNK_TYPES, SRL_SERVE, block.why, prf[0], prf[1], prf[2],
+           counts, wall, len(eager_walls), timed['eager']['wall'],
+           timed['captured']['wall'], card), flush=True)
+    print('path F: %s' % json.dumps(rec), flush=True)
+    del model, scope, exe, cexe, cscope
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_book_recommender(card):
+    """F2: the recommender at its build's widths on movielens: BOOK_STEPS
+    SGD steps of REC_BATCH ratings (reader, batch, DataFeeder; two LoD
+    inputs of different LoD), eager then captured, the loss falling; one
+    step against the CPU (REC_TRAIN_TOL); the step captured against eager;
+    ``prediction`` served on REC_BATCH test ratings against the CPU
+    (REC_SERVE_RTOL) and captured against eager."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.dataset import movielens
+    from paddle_tpu_torch.models import recommender
+    model, scope, exe = _book_model(recommender, **REC)
+    names = model['feeds']
+    feeder = _feeder(model['main'], names)
+    feeds = [feeder.feed(mb) for mb in _minibatches(
+        movielens.train(), REC_BATCH, BOOK_STEPS + 1)]
+    lods = [feeds[0][n].lod() for n in ('category_id', 'movie_title')]
+    check(all(lods) and lods[0] != lods[1], 'F2: category_id and '
+          'movie_title LoD %s' % lods)
+    _, train_flops = _book_train(card, 'F2 recommender', model, scope, exe,
+                                 feeds[:BOOK_STEPS], scans=0)
+    loss_name = model['loss'].name
+    compare_train_step(card, 'F2 recommender', '%d ratings' % REC_BATCH,
+                       model['main'], loss_name, feeds[BOOK_STEPS], scope,
+                       exe, REC['lr'], REC_TRAIN_TOL)
+    timed = phase_capture(card, 'F2 recommender step', model['main'],
+                          feeds[BOOK_STEPS], [loss_name],
+                          _persistables(model['main'], scope), {},
+                          calls=BOOK_CAPTURE_CALLS)
+    _book_record(card, 'F2 recommender step', timed, train_flops,
+                 batch=REC_BATCH)
+    test, pred = model['test'], model['prediction'].name
+    records = _minibatches(movielens.test(), REC_BATCH, 1)[0]
+    feed = _feeder(test, names).feed(records)
+    [[got]], walls, ran = _book_run('F2 recommender serve', exe, [
+        lambda: exe.run(test, feed=feed, fetch_list=[pred], scope=scope)],
+        scans=0)
+    serve_flops = _cost_per_step(exe, [pred])
+    want, = fluid.Executor(fluid.CPUPlace()).run(
+        test, feed=_feeder(test, names, fluid.CPUPlace()).feed(records),
+        fetch_list=[pred], scope=_cpu_copy(test, scope))
+    err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    check(got.shape == (REC_BATCH, 1) and np.isfinite(got).all() and
+          err <= REC_SERVE_RTOL, 'F2 recommender serve: card vs CPU |d| / '
+          '|v| %g (tol %g), shape %s' % (err, REC_SERVE_RTOL, got.shape))
+    print('F2 recommender serve: %d ratings (%s, wall %.4f s), '
+          'prediction in [%.3f, %.3f], card vs CPU |d| / '
+          '|v| %.3g (tol %g) [%s]' %
+          (REC_BATCH, ran[0], walls[0], got.min(), got.max(), err,
+           REC_SERVE_RTOL, card), flush=True)
+    timed = phase_capture(card, 'F2 recommender serve', test, feed, [pred],
+                          _persistables(test, scope), {},
+                          calls=BOOK_CAPTURE_CALLS)
+    _book_record(card, 'F2 recommender serve', timed, serve_flops[-1],
+                 batch=REC_BATCH)
+    del model, scope, exe
+    torch.cuda.empty_cache()
+
+
+def phase_book_fit_a_line(card):
+    """F3: fit_a_line (13 features, SGD) on uci_housing: FIT_EPOCHS epochs
+    of FIT_BATCH-row steps (reader, batch, DataFeeder), eager then
+    captured, the last epoch's loss below the first's; one step against the CPU; the step captured against
+    eager; then ``save_inference_model`` -> ``load_inference_model``, the
+    loaded program's prediction equal to the test program's."""
+    import tempfile
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.dataset import uci_housing
+    from paddle_tpu_torch.models import fit_a_line
+    model, scope, exe = _book_model(fit_a_line, **FIT)
+    feeder = _feeder(model['main'], ['x', 'y'])
+    epoch = 404 // FIT_BATCH
+    feeds = [feeder.feed(mb) for mb in _minibatches(
+        uci_housing.train(), FIT_BATCH, FIT_EPOCHS * epoch + 1)]
+    _, flops = _book_train(card, 'F3 fit_a_line', model, scope, exe,
+                           feeds[:-1], scans=0, window=epoch)
+    loss_name = model['loss'].name
+    compare_train_step(card, 'F3 fit_a_line', '%d rows' % FIT_BATCH,
+                       model['main'], loss_name, feeds[-1], scope,
+                       exe, FIT['lr'], FIT_TRAIN_TOL)
+    timed = phase_capture(card, 'F3 fit_a_line step', model['main'],
+                          feeds[-1], [loss_name],
+                          _persistables(model['main'], scope), {},
+                          calls=BOOK_CAPTURE_CALLS)
+    _book_record(card, 'F3 fit_a_line step', timed, flops, batch=FIT_BATCH)
+    records = _minibatches(uci_housing.test(), FIT_BATCH, 1)[0]
+    feed = _feeder(model['test'], ['x', 'y']).feed(records)
+    with tempfile.TemporaryDirectory() as d, fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, ['x'], [model['prediction']], exe,
+                                      main_program=model['main'])
+        prog, feed_names, fetch_targets = fluid.io.load_inference_model(d,
+                                                                         exe)
+        want, = exe.run(model['test'], feed=feed,
+                        fetch_list=[model['prediction']])
+        got, = exe.run(prog, feed={feed_names[0]: feed['x']},
+                       fetch_list=fetch_targets)
+    check(got.shape == want.shape == (FIT_BATCH, 1) and
+          np.allclose(got, want, rtol=1e-5, atol=1e-6),
+          'F3 fit_a_line: the loaded inference model predicts %s, the test '
+          'program %s' % (got.ravel()[:4], want.ravel()[:4]))
+    print('F3 fit_a_line: save_inference_model -> load_inference_model: '
+          'the loaded program\'s %d predictions within rtol 1e-5, atol 1e-6 '
+          'of the test program\'s (max|d| %.3g) [%s]' %
+          (FIT_BATCH, float(np.abs(got - want).max()), card), flush=True)
+    del model, scope, exe
+    torch.cuda.empty_cache()
+
+
+def phase_book(card):
+    """Path F: the three book models the port runs since the book slice."""
+    phase_book_srl(card)
+    phase_book_recommender(card)
+    phase_book_fit_a_line(card)
+
+
 def _time_ms(fn, launches_per_sample=10, samples=20, warmup=5):
     """Median device time of one call (CUDA events around back-to-back
     launches, so host overhead between launches is hidden)."""
@@ -4163,34 +4781,31 @@ def _device_ms(fn, calls=20, warmup=3):
     host work does not count.  A count that is not a multiple of ``calls``
     is printed; (None, names) when the profiler saw no device events.
 
-    The profiler sometimes records no device activity in a session, or
-    drops most of one activity's events (seen in late phases of long runs
-    on the card; every activity here runs at least once a call): such a
-    session is printed and taken again, five sessions at most, and the last
-    one is used."""
+    A session that records no device activity, drops most of one
+    activity's events (every activity here runs at least once a call) or
+    loses more than its preamble (PROFILER) is printed and taken again,
+    five sessions at most, and the last one is used."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     for session in range(5):
-        with torch.profiler.profile(activities=acts) as prof:
+        with _profiled() as profiled:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         durations = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+        for e in profiled.prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA and
+                    not _is_marker(e.name)):
                 durations.setdefault(e.name, []).append(
                     e.time_range.elapsed_us())
         short = [n for n, d in durations.items() if 2 * len(d) < calls]
-        if durations and not short:
+        if durations and not short and profiled.kept:
             break
         print('times: profiler session %d of 5 recorded %s' %
               (session + 1, 'no device activity' if not durations else
                'under half the events of %s' %
-               ', '.join(_activity_name(n)[:60] for n in short)),
-              flush=True)
+               ', '.join(_activity_name(n)[:60] for n in short) if short
+               else 'a loss past its preamble'), flush=True)
     names = sorted(set(_activity_name(n)[:100] for n in durations))
     for name, d in sorted(durations.items()):
         if len(d) % calls:
@@ -4651,14 +5266,26 @@ def main():
     global SEED
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=SEED)
-    SEED = ap.parse_args().seed
+    ap.add_argument('--only-book', action='store_true',
+                    help='run the device phase and path F alone, and print '
+                    'no result line (a partial run)')
+    args = ap.parse_args()
+    SEED = args.seed
     card = phase_device()
     sys.path.insert(0, REPO)
+    if args.only_book:
+        _scan_runs()
+        phase_book(card)
+        profiler_summary()
+        print('chip_smoke: --only-book: path F passed; a partial run prints '
+              'no result line', flush=True)
+        return
     phase_build()
     _scan_runs()  # counts the lstm op's scan path from here on
     fwd_err = phase_kernel_vs_plain()
     bwd_err = phase_bwd_vs_plain()
     lstm_err = phase_lstm_vs_plain()
+    phase_book(card)
     model, scope, exe = build_model()
     launches = {'serve': phase_slice(card, model, scope, exe),
                 'train': phase_train(card, model, scope, exe)}
@@ -4721,6 +5348,7 @@ def main():
     kernels += phase_lstm_times(card, launches, None, path='amp_lstm_train',
                                 suffix='_bf16', extras=False,
                                 dtype=torch.bfloat16)
+    profiler_summary()
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ flags (``FLAGS``, bootstrapped from ``FLAGS_<name>`` environment
 variables), mixed precision (``amp_guard``, ``enable_amp``) and the
 inference path (``io.save_inference_model`` / ``load_inference_model``,
 ``InferenceTranspiler``, ``Float16Transpiler``), ``memory_optimize``,
-the ``profiler`` and ``trace`` (spans, flight recorder, cost registry);
+the ``profiler`` and ``trace`` (spans, flight recorder, cost registry),
+``DataFeeder``, the graph-state ``evaluator``s and the numpy ``metrics``;
 ``Executor.run``
 interprets the program op by op on a torch device, by default the CUDA
 card (``CUDAPlace(0)``).
@@ -44,6 +45,10 @@ from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
 from . import amp
 from .amp import amp_guard, enable_amp
 from . import transpiler
+from . import data_feeder
+from .data_feeder import DataFeeder
+from . import evaluator
+from . import metrics
 from .transpiler import (InferenceTranspiler, Float16Transpiler,
                          memory_optimize, release_memory)
 
@@ -55,4 +60,5 @@ __all__ = framework.__all__ + executor.__all__ + [
     'create_lod_tensor', 'create_random_int_lodtensor', 'amp', 'amp_guard',
     'enable_amp', 'transpiler', 'InferenceTranspiler', 'Float16Transpiler',
     'memory_optimize', 'release_memory', 'profiler', 'trace',
+    'data_feeder', 'DataFeeder', 'evaluator', 'metrics',
 ]

@@ -1,8 +1,5 @@
-"""Gradient / error clipping (counterpart of ``paddle_tpu/fluid/clip.py``).
-
-The program-building side is complete; the ``clip`` and ``clip_by_norm``
-ops have no PyTorch lowering yet and raise ``NotImplementedError`` when
-run."""
+"""Gradient / error clipping (counterpart of ``paddle_tpu/fluid/clip.py``):
+by value (``clip``), by norm (``clip_by_norm``) and by global norm."""
 
 import copy
 

@@ -27,7 +27,10 @@ graph (``torch.cuda.graph``), the PyTorch counterpart of ``jax.jit``:
      that the scope no longer holds gets the scope's value copied in before
      the replay (or, at a new shape or dtype, the block is captured again).
      A block with a lowering the registry declares uncapturable runs
-     eagerly, and its ``mode`` says why;
+     eagerly, and its ``mode`` says why.  A host op (``chunk_eval``; the
+     registry's host-op table) is such a lowering: the eager walk copies
+     its inputs to the host, calls its numpy function, and puts its
+     outputs back on the block's device;
   4. fetch to numpy (a copy: the next replay overwrites the graph's
      outputs; a bf16 fetch comes back as an ``ml_dtypes.bfloat16`` array,
      as the JAX package returns it); a sparse gradient (``SparseRows``) is
@@ -54,9 +57,10 @@ fetches after a run; each op's outputs in a block that runs eagerly);
 ``run_eval_multi`` call records one slice.
 
 Not ported yet: ``run_decode_multi`` and ``run_chunk_prefill`` (serving),
-``py_reader`` feeds, host ops, nested (two-level) LoD feeds,
-``SelectedRows`` feeds and scope values (the JAX package hands them only
-to host ops).
+``py_reader`` feeds, the host ops but ``chunk_eval`` (``print``, ``save``,
+``load``, ``save_combine``, ``load_combine``, the distributed and detection
+ones), nested (two-level) LoD feeds, ``SelectedRows`` feeds and scope
+values (the JAX package hands them only to host ops).
 """
 
 import collections
@@ -384,6 +388,25 @@ def _check_nan_inf(pairs, where):
                 'check_nan_inf: %s %r contains NaN/Inf' % (where, name))
 
 
+def _run_host_op(ctx, op, scope):
+    """One host op on the eager walk: its inputs and their ``@SEQLEN``
+    side-bands copied to the host, its function called on them, and what
+    it wrote put back on the block's device."""
+    host_env = {}
+    for n in op.input_arg_names:
+        for k in (n, n + registry.SEQLEN_SUFFIX):
+            if k in ctx.env:
+                v = ctx.env[k]
+                host_env[k] = to_numpy(v, k) if isinstance(
+                    v, torch.Tensor) else v
+    before = dict(host_env)
+    hctx = registry.LoweringContext(ctx.block, host_env, core.CPUPlace())
+    registry.get_host_op(op.type)(hctx, op, scope)
+    for k, v in host_env.items():
+        if before.get(k) is not v:
+            ctx.env[k] = torch.as_tensor(np.asarray(v)).to(ctx.device)
+
+
 def _check_op_nans(op, env):
     """FLAGS_check_nan_inf's check of one op's outputs as it runs: raises
     FloatingPointError naming the op on a NaN, as jax_debug_nans (which
@@ -527,6 +550,8 @@ class _CompiledBlock(object):
         out = set(self.state_out)
         self.state_rw = [n for n in self.state_in if n in out]
         self.state_ro = [n for n in self.state_in if n not in out]
+        self.host_ops = sorted({op.type for op in self.ops
+                                if registry.is_host_op_type(op.type)})
         self.refusal = None
         for op in self.ops:
             self.refusal = registry.capture_refusal(op)
@@ -587,10 +612,11 @@ class _CompiledBlock(object):
         return plan
 
     # ---- execution ----
-    def _execute(self, env, generator, capturing=False):
+    def _execute(self, env, generator, capturing=False, scope=None):
         """Every op over ``env``, each name dropped after its last use as
         the release plan says: (new state, fetches).  The first eager run
-        of the block records its ops' shapes (``registry.recording``)."""
+        of the block records its ops' shapes (``registry.recording``).  A
+        host op gets ``scope``."""
         ctx = registry.LoweringContext(self.block, env, self.place,
                                        generator=generator)
         mask = env.get(registry.SAMPLE_MASK_NAME)
@@ -607,7 +633,10 @@ class _CompiledBlock(object):
         with torch.no_grad(), (registry.recording() if record else
                                contextlib.nullcontext()) as records:
             for i, op in enumerate(self.ops):
-                registry.run_op(ctx, op)
+                if registry.is_host_op_type(op.type):
+                    _run_host_op(ctx, op, scope)
+                else:
+                    registry.run_op(ctx, op)
                 if check:
                     _check_op_nans(op, env)
                     if self.refusal is not None:
@@ -638,7 +667,7 @@ class _CompiledBlock(object):
         device = self.place.device
         env = {n: _state_value(scope, n, device) for n in self.state_in}
         env.update(self._feeds_env(feeds, device))
-        new_state, fetches = self._execute(env, generator)
+        new_state, fetches = self._execute(env, generator, scope=scope)
         fetches = self._store(scope, new_state, fetches)
         self.last_ran = 'eager'
         return fetches
@@ -824,7 +853,7 @@ class _CompiledBlock(object):
         env.update(self._feeds_env(feeds, device))
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
-        self._execute(env, generator)
+        self._execute(env, generator, scope=scope)
 
     def memory_stats(self):
         """MemoryStats of the recorded run: the argument and output bytes,
@@ -870,6 +899,10 @@ class _CompiledBlock(object):
     def _check_multi(self, what, steps):
         if steps < 1:
             raise ValueError('%s: steps must be >= 1, got %r' % (what, steps))
+        if self.host_ops:
+            raise RuntimeError(
+                '%s: the program contains host ops and cannot run as one '
+                'on-device loop — use run() per step' % what)
         if self.refusal is not None:
             raise RuntimeError(
                 '%s: the block cannot be captured (%s) and so cannot run as '
@@ -1236,6 +1269,12 @@ class Executor(object):
                 'on a reader-free clone instead')
         program, scope, feed_arrays, compiled = self._resolve_and_compile(
             program, feed, fetch_list, scope)
+        if compiled.host_ops:
+            raise RuntimeError(
+                'memory_analysis: the program contains host ops '
+                '(%s) and runs on the eager path, which has no single '
+                'compiled executable — remove them or analyse the '
+                'compute-only portion' % compiled.host_ops)
         compiled.analyze(scope, feed_arrays)
         return compiled.memory_stats()
 

@@ -131,6 +131,12 @@ class LayerHelper(object):
         return self.main_program.global_block().create_parameter(
             shape=shape, dtype=dtype, **attr._to_kwargs())
 
+    def get_parameter(self, name):
+        param = self.main_program.global_block().var(name)
+        if not isinstance(param, Parameter):
+            raise ValueError('no Parameter named %s' % name)
+        return param
+
     def create_variable_for_type_inference(self, dtype, stop_gradient=False):
         return self.main_program.current_block().create_var(
             name=unique_name.generate('.'.join([self.name, 'tmp'])),

@@ -1,9 +1,9 @@
 """Metric layers (counterpart of ``paddle_tpu/fluid/layers/metric_op.py``:
-``accuracy``)."""
+``accuracy`` and ``chunk_eval``, whose op runs on the host)."""
 
 from ..layer_helper import LayerHelper
 
-__all__ = ['accuracy']
+__all__ = ['accuracy', 'chunk_eval']
 
 
 def accuracy(input, label, k=1, correct=None, total=None):
@@ -37,3 +37,36 @@ def accuracy(input, label, k=1, correct=None, total=None):
         })
     acc_out.stop_gradient = True
     return acc_out
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None):
+    """Chunk detection precision, recall and F1 over tagged sequences
+    (reference layers/nn.py chunk_eval; operators/chunk_eval_op.cc).
+    Returns (precision, recall, f1, num_infer, num_label, num_correct)."""
+    helper = LayerHelper('chunk_eval', **locals())
+    precision = helper.create_variable_for_type_inference('float32')
+    recall = helper.create_variable_for_type_inference('float32')
+    f1_score = helper.create_variable_for_type_inference('float32')
+    num_infer_chunks = helper.create_variable_for_type_inference('int64')
+    num_label_chunks = helper.create_variable_for_type_inference('int64')
+    num_correct_chunks = helper.create_variable_for_type_inference('int64')
+    helper.append_op(
+        type='chunk_eval',
+        inputs={'Inference': [input],
+                'Label': [label]},
+        outputs={
+            'Precision': [precision],
+            'Recall': [recall],
+            'F1-Score': [f1_score],
+            'NumInferChunks': [num_infer_chunks],
+            'NumLabelChunks': [num_label_chunks],
+            'NumCorrectChunks': [num_correct_chunks],
+        },
+        attrs={
+            'chunk_scheme': chunk_scheme,
+            'num_chunk_types': num_chunk_types,
+            'excluded_chunk_types': excluded_chunk_types or [],
+        })
+    return (precision, recall, f1_score, num_infer_chunks,
+            num_label_chunks, num_correct_chunks)

@@ -1,5 +1,6 @@
 """Neural-network layers (counterpart of ``paddle_tpu/fluid/layers/nn.py``,
-the layers the Transformer, stacked-LSTM and dense CV slices build with).
+the layers the Transformer, stacked-LSTM, dense CV and book-model slices
+build with).
 
 Each layer appends OpDescs to the current program block; shapes are inferred
 eagerly so later layers can read ``input.shape``.
@@ -14,7 +15,8 @@ __all__ = [
     'softmax_with_cross_entropy', 'cross_entropy', 'mean', 'reshape',
     'unsqueeze', 'flash_attention', 'reduce_sum', 'clip', 'clip_by_norm',
     'conv2d', 'pool2d', 'batch_norm', 'gather', 'topk', 'concat',
-    'sigmoid_cross_entropy_with_logits',
+    'sigmoid_cross_entropy_with_logits', 'square_error_cost',
+    'linear_chain_crf', 'crf_decoding', 'cos_sim',
 ]
 
 
@@ -599,4 +601,98 @@ def sigmoid_cross_entropy_with_logits(x, label, name=None):
         inputs={'X': [x],
                 'Label': [label]},
         outputs={'Out': [out]})
+    return out
+
+
+def square_error_cost(input, label):
+    """(input - label)^2 (reference layers/nn.py square_error_cost)."""
+    helper = LayerHelper('square_error_cost', **locals())
+    minus_out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    minus_out.shape = input.shape
+    helper.append_op(
+        type='elementwise_sub',
+        inputs={'X': [input],
+                'Y': [label]},
+        outputs={'Out': [minus_out]})
+    square_out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    square_out.shape = input.shape
+    helper.append_op(
+        type='square',
+        inputs={'X': [minus_out]},
+        outputs={'Out': [square_out]})
+    return square_out
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """Linear-chain CRF negative log-likelihood per sequence (reference
+    layers/nn.py linear_chain_crf); creates the [size + 2, size] transition
+    parameter (row 0 the start weights, row 1 the end weights)."""
+    helper = LayerHelper('linear_chain_crf', **locals())
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=helper.param_attr, shape=[size + 2, size], dtype='float32')
+    alpha = helper.create_variable_for_type_inference('float32')
+    emission_exps = helper.create_variable_for_type_inference('float32')
+    transition_exps = helper.create_variable_for_type_inference('float32')
+    log_likelihood = helper.create_variable_for_type_inference('float32')
+    helper.append_op(
+        type='linear_chain_crf',
+        inputs={'Emission': [input],
+                'Transition': [transition],
+                'Label': [label]},
+        outputs={
+            'Alpha': [alpha],
+            'EmissionExps': [emission_exps],
+            'TransitionExps': [transition_exps],
+            'LogLikelihood': [log_likelihood],
+        })
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr, label=None):
+    """Viterbi decode with the CRF transition parameter (reference
+    layers/nn.py crf_decoding); with a label, the per-token correctness
+    indicator instead.  In a program without the parameter (one built for
+    decoding, its weights loaded later by name) the parameter is created
+    zero-initialized, with a warning."""
+    helper = LayerHelper('crf_decoding', **locals())
+    try:
+        transition = helper.get_parameter(param_attr.name)
+    except ValueError:
+        import warnings
+        warnings.warn(
+            "crf_decoding: transition parameter %r does not exist in this "
+            "program; creating it zero-initialized (expecting "
+            "load_persistables to fill it)" % param_attr.name)
+        size = input.shape[-1]
+        transition = helper.create_parameter(
+            attr=helper.param_attr, shape=[size + 2, size],
+            dtype='float32', default_initializer=Constant(0.0))
+    viterbi_path = helper.create_variable_for_type_inference('int64')
+    viterbi_path.lod_level = input.lod_level
+    inputs = {'Emission': [input], 'Transition': [transition]}
+    if label is not None:
+        inputs['Label'] = [label]
+    helper.append_op(
+        type='crf_decoding',
+        inputs=inputs,
+        outputs={'ViterbiPath': [viterbi_path]})
+    return viterbi_path
+
+
+def cos_sim(X, Y):
+    """Row-wise cosine similarity [B, 1] (reference layers/nn.py
+    cos_sim)."""
+    helper = LayerHelper('cos_sim', **locals())
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xnorm = helper.create_variable_for_type_inference(X.dtype)
+    ynorm = helper.create_variable_for_type_inference(X.dtype)
+    out.shape = (X.shape[0], 1)
+    helper.append_op(
+        type='cos_sim',
+        inputs={'X': [X],
+                'Y': [Y]},
+        outputs={'Out': [out],
+                 'XNorm': [xnorm],
+                 'YNorm': [ynorm]})
     return out

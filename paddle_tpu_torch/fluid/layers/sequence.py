@@ -1,6 +1,6 @@
 """Sequence layers (counterpart of ``paddle_tpu/fluid/layers/sequence.py``:
-``dynamic_lstm``, ``gru_unit``, ``sequence_pool`` and its first/last-step
-aliases, ``sequence_softmax``, ``sequence_expand``, and the beam-search
+``dynamic_lstm``, ``gru_unit``, ``sequence_conv``, ``sequence_pool`` and
+its first/last-step aliases, ``sequence_softmax``, ``sequence_expand``, and the beam-search
 layers ``beam_expand``, ``beam_init_scores``, ``beam_search`` and
 ``beam_search_decode``).
 
@@ -10,8 +10,8 @@ under ``<name>@SEQLEN`` (see ``ops/sequence_ops.py``).
 
 from ..layer_helper import LayerHelper
 
-__all__ = ['dynamic_lstm', 'gru_unit', 'sequence_pool', 'sequence_first_step',
-           'sequence_last_step', 'sequence_softmax', 'sequence_expand',
+__all__ = ['dynamic_lstm', 'gru_unit', 'sequence_conv', 'sequence_pool',
+           'sequence_first_step', 'sequence_last_step', 'sequence_softmax', 'sequence_expand',
            'beam_expand', 'beam_init_scores', 'beam_search',
            'beam_search_decode']
 
@@ -111,6 +111,41 @@ def gru_unit(input,
             'gate_activation': activation_dict[gate_activation],
         })
     return updated_hidden, reset_hidden_pre, gate
+
+
+def sequence_conv(input,
+                  num_filters,
+                  filter_size=3,
+                  filter_stride=1,
+                  padding=None,
+                  bias_attr=None,
+                  param_attr=None,
+                  act=None):
+    """Context-window convolution over time (reference nn.py
+    sequence_conv)."""
+    helper = LayerHelper('sequence_conv', **locals())
+    dtype = helper.input_dtype()
+    filter_shape = [filter_size * input.shape[-1], num_filters]
+    filter_param = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    pre_bias.shape = tuple(input.shape[:-1]) + (num_filters, )
+    pre_bias.lod_level = input.lod_level
+    helper.append_op(
+        type='sequence_conv',
+        inputs={
+            'X': [input],
+            'Filter': [filter_param],
+        },
+        outputs={'Out': [pre_bias]},
+        attrs={
+            'contextStride': filter_stride,
+            'contextStart': -int(filter_size // 2),
+            'contextLength': filter_size
+        })
+    pre_act = helper.append_bias_op(pre_bias,
+                                    dim_start=len(pre_bias.shape) - 1)
+    return helper.append_activation(pre_act)
 
 
 def sequence_pool(input, pool_type, agg_to_no_sequence=False):

@@ -1,6 +1,6 @@
 """Weight-decay regularizers (counterpart of
-``paddle_tpu/fluid/regularizer.py``).  L2 decay runs (``scale`` + ``sum``);
-L1's ``sign`` op has no PyTorch lowering yet and raises when run."""
+``paddle_tpu/fluid/regularizer.py``): L2 decay (``scale`` + ``sum``) and
+L1 decay (``sign`` + ``scale`` + ``sum``)."""
 
 from . import framework
 

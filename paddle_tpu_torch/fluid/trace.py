@@ -415,7 +415,7 @@ _NO_FLOPS = frozenset((
     'fill_constant', 'fill_constant_batch_size_like', 'gather',
     'gaussian_random', 'lookup_table', 'reshape', 'sequence_expand',
     'sequence_first_step', 'sequence_last_step', 'uniform_random',
-    'unsqueeze'))
+    'unsqueeze', 'chunk_eval'))
 # reductions: one FLOP per input element
 _REDUCTIONS = frozenset(('mean', 'reduce_sum', 'sequence_pool', 'top_k',
                          'accuracy'))
@@ -446,6 +446,10 @@ def _product_flops(op, shape_of):
         xn = op.attrs.get('x_num_col_dims', 1)
         yn = op.attrs.get('y_num_col_dims', 1)
         return 2.0 * _numel(x[:xn]) * _numel(x[xn:]) * _numel(y[yn:])
+    if kind == 'sequence_conv':
+        x = shape_of(op.input('X')[0])
+        k, m = shape_of(op.input('Filter')[0])
+        return 2.0 * _numel(x[:-1]) * k * m
     if kind == 'matmul':
         x = shape_of(op.input('X')[0])
         out = shape_of(op.input('Out')[0] if op.type.endswith('_grad')
@@ -476,7 +480,8 @@ def _kernel_flops(op, shape_of):
     return 2.0 * flops if grad else flops
 
 
-_PRODUCTS = frozenset(('mul', 'matmul', 'conv2d', 'depthwise_conv2d'))
+_PRODUCTS = frozenset(('mul', 'matmul', 'conv2d', 'depthwise_conv2d',
+                       'sequence_conv'))
 
 
 def op_flops(op, meta, children=()):
@@ -493,6 +498,11 @@ def op_flops(op, meta, children=()):
         return 2.0 * inner if grad else float(inner)
     if kind in ('flash_attention', 'lstm'):
         return _kernel_flops(op, shape_of)
+    if kind in ('linear_chain_crf', 'crf_decoding'):
+        # each step adds the [D, D] transition to every row's [D] scores
+        # and reduces over the source tag: 2 B T D^2, the grad twice that
+        b, t, d = shape_of(op.input('Emission')[0])
+        return 2.0 * b * t * d * d * (2 if grad else 1)
     grads = [n for s in op.outputs for n in op.output(s)
              if grad and s.endswith('@GRAD') and n in meta]
     if kind in _PRODUCTS:

@@ -1,8 +1,9 @@
 """Math op lowerings (counterpart of ``paddle_tpu/ops/math_ops.py``): ``mul``,
 the ``elementwise_*`` broadcast family, ``sum`` and ``scale`` (each also
 over sparse ``SparseRows`` gradients), ``mean``,
-``reduce_sum`` and the unary ``pow`` (``x ** factor``, which the ``pow``
-activation layer builds).
+``reduce_sum``, the unary ``pow`` (``x ** factor``, which the ``pow``
+activation layer builds), ``clip``, ``clip_by_norm``, ``sign`` (which
+``fluid/clip.py`` and the L1 regularizer build) and ``cos_sim``.
 
 ``mul``'s product is ``registry.amp_matmul``: ``torch.matmul``, in bf16
 under AMP, as the JAX package leaves its product to XLA.  Under AMP the
@@ -179,3 +180,41 @@ def _reduce_sum(ctx, op):
 @register_lowering('pow')
 def _pow(ctx, op):
     ctx.set(op, 'Out', torch.pow(ctx.get(op, 'X'), op.attrs.get('factor', 1.0)))
+
+
+@register_lowering('clip')
+def _clip(ctx, op):
+    x = ctx.get(op, 'X')
+    ctx.set(op, 'Out', torch.clamp(x, op.attrs.get('min', float('-inf')),
+                                   op.attrs.get('max', float('inf'))))
+
+
+@register_lowering('clip_by_norm')
+def _clip_by_norm(ctx, op):
+    """X scaled to ``max_norm`` where its 2-norm is larger."""
+    x = ctx.get(op, 'X')
+    max_norm = op.attrs['max_norm']
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp_min(norm, 1e-12),
+                        torch.ones((), dtype=x.dtype, device=x.device))
+    ctx.set(op, 'Out', x * scale)
+
+
+@register_lowering('sign')
+def _sign(ctx, op):
+    ctx.set(op, 'Out', torch.sign(ctx.get(op, 'X')))
+
+
+@register_lowering('cos_sim')
+def _cos_sim(ctx, op):
+    """Row-wise cosine similarity (reference operators/cos_sim_op.cc); Y
+    broadcasts when it has one row."""
+    x = ctx.get(op, 'X')
+    y = ctx.get(op, 'Y')
+    xn = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
+    dot = torch.sum(x * y, dim=-1, keepdim=True)  # broadcasts a [1, D] y
+    ctx.set(op, 'Out', dot / torch.clamp_min(xn * yn, 1e-12))
+    ctx.set(op, 'XNorm', xn)
+    ctx.set(op, 'YNorm', yn)

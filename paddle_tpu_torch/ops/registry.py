@@ -18,6 +18,13 @@ value on the host, copies from host memory, or draws from a generator of its
 own) is declared with ``declare_uncapturable``; a block that holds one runs
 eagerly, as the JAX package runs a block with a host op eagerly.
 
+Host ops (``register_host_op``) run outside the lowerings, on numpy, as in
+the JAX package: ``fn(ctx, op, scope)`` reads its inputs from ``ctx.env``
+as host arrays and writes host arrays.  A host op is declared
+uncapturable, so a block that holds one runs op by op on every call; the
+executor copies the op's inputs to the host before the call and puts its
+outputs back on the block's device after it.
+
 Gradients: ``backward.append_backward`` appends one ``<op>_grad`` OpDesc per
 forward op.  Unless an op registers an explicit grad lowering (random ops
 must: the generic one would redraw their randomness), ``<op>_grad`` runs
@@ -37,6 +44,7 @@ import threading
 import torch
 
 __all__ = ['register_lowering', 'register_grad_lowering', 'get_lowering',
+           'register_host_op', 'get_host_op', 'is_host_op_type',
            'LoweringContext', 'run_op', 'recording', 'value_meta',
            'fwd_structure', 'SEQLEN_SUFFIX',
            'GRAD_SUFFIX', 'SAMPLE_MASK_NAME', 'declare_uncapturable',
@@ -47,6 +55,9 @@ __all__ = ['register_lowering', 'register_grad_lowering', 'get_lowering',
 _LOWERINGS = {}
 _GRAD_LOWERINGS = {}
 _UNCAPTURABLE = {}  # op type -> (reason, predicate over the op or None)
+# host ops: fn(ctx, op, scope) over numpy values, run by the executor's
+# eager walk in place of a lowering
+_HOST_OPS = {}
 _COUNTERS = []  # callables -> {name: count}
 
 SEQLEN_SUFFIX = '@SEQLEN'
@@ -76,6 +87,26 @@ def register_grad_lowering(op_type):
         return fn
 
     return deco
+
+
+def register_host_op(op_type):
+    """Register ``fn(ctx, op, scope)`` as ``op_type``'s host function; a
+    block that holds the op is refused capture and runs eagerly."""
+
+    def deco(fn):
+        _HOST_OPS[op_type] = fn
+        declare_uncapturable(op_type, 'runs on the host (a host op)')
+        return fn
+
+    return deco
+
+
+def get_host_op(op_type):
+    return _HOST_OPS.get(op_type)
+
+
+def is_host_op_type(op_type):
+    return op_type in _HOST_OPS
 
 
 def declare_uncapturable(op_type, reason, when=None):

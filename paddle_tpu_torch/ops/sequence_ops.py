@@ -1,6 +1,6 @@
 """Sequence op lowerings (counterpart of ``paddle_tpu/ops/sequence_ops.py``:
 ``sequence_pool`` with its first/last-step aliases, ``sequence_softmax``,
-``sequence_expand``, ``lstm`` and ``gru_unit``).
+``sequence_expand``, ``sequence_conv``, ``lstm`` and ``gru_unit``).
 
 A LoD feed runs as a padded ``[B, T, ...]`` tensor with its int32 lengths
 carried beside it under ``<name>@SEQLEN`` (``registry.run_op`` propagates
@@ -144,6 +144,29 @@ def _sequence_expand(ctx, op):
     if ynames and (ynames[0] + SEQLEN_SUFFIX) in ctx.env:
         for n in op.output('Out'):
             ctx.env[n + SEQLEN_SUFFIX] = ctx.env[ynames[0] + SEQLEN_SUFFIX]
+
+
+@register_lowering('sequence_conv')
+def _sequence_conv(ctx, op):
+    """Context-window projection over time (reference
+    operators/sequence_conv_op.cc, math/context_project.h): the padded
+    steps masked to zero, the time axis padded so that every window is in
+    bounds, the ``contextLength`` shifted views concatenated and multiplied
+    by Filter."""
+    x = ctx.get(op, 'X')  # [B, T, D]
+    w = ctx.get(op, 'Filter')  # [ctx_len * D, M]
+    lengths = _seqlen(ctx, op)
+    ctx_len = op.attrs.get('contextLength', 3)
+    ctx_start = op.attrs.get('contextStart', -(ctx_len // 2))
+    t = x.shape[1]
+    if lengths is not None:
+        x = x * _expand_mask(_mask(x, lengths, x.dtype), x)
+    pad_lo = max(-ctx_start, 0)
+    pad_hi = max(ctx_start + ctx_len - 1, 0)
+    xp = torch.nn.functional.pad(x, (0, 0, pad_lo, pad_hi))
+    views = [xp[:, pad_lo + ctx_start + i:pad_lo + ctx_start + i + t]
+             for i in range(ctx_len)]
+    ctx.set(op, 'Out', torch.matmul(torch.cat(views, dim=-1), w))
 
 
 @register_lowering('sequence_last_step')

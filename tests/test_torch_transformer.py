@@ -202,6 +202,16 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             'paddle_tpu_torch.ops.tensor_ops, paddle_tpu_torch.ops.math_ops, '
             'paddle_tpu_torch.ops.sparse, paddle_tpu_torch.ops.loss_ops, '
             'paddle_tpu_torch.dataset.ctr, paddle_tpu_torch.models.ctr, '
+            'paddle_tpu_torch.reader, paddle_tpu_torch.dataset.conll05, '
+            'paddle_tpu_torch.dataset.movielens, '
+            'paddle_tpu_torch.dataset.uci_housing, '
+            'paddle_tpu_torch.fluid.evaluator, '
+            'paddle_tpu_torch.fluid.metrics, '
+            'paddle_tpu_torch.fluid.data_feeder, '
+            'paddle_tpu_torch.ops.crf_ops, paddle_tpu_torch.ops.host_ops, '
+            'paddle_tpu_torch.models.fit_a_line, '
+            'paddle_tpu_torch.models.recommender, '
+            'paddle_tpu_torch.models.label_semantic_roles, '
             'paddle_tpu_torch.models.word2vec, '
             'paddle_tpu_torch.fluid.amp, paddle_tpu_torch.fluid.io, '
             'paddle_tpu_torch.fluid.proto_serde, '
