@@ -246,6 +246,49 @@ F. the book models, run after phase 3 and before phase 4, each fed
    (the host-op block: its eager wall beside the decode's, no temp, as
    ``memory_analysis`` raises on it by design).  ``--only-book`` runs the
    device phase and path F alone and prints no result line.
+G. control flow, tensor arrays, learning-rate schedules and the optimizers
+   of the control-flow slice, run right after path F, f32:
+   G1. Transformer-base (``TRANSFORMER_BASE``, BATCH x 256) built from
+       ``models/transformer.py``'s helpers (``transformer_noam_programs``)
+       and trained by Fluid's recipe: Adam (beta2 0.98, epsilon 1e-9)
+       under ``2.0 * noam_decay(512, 4000)``, the scale through
+       ``math_op_patch``.  One eager call, the capture and
+       ``FLOW_REPLAYS`` replays, each counting 36 flash forwards, 18 dQ
+       and 18 dK/dV on the card (``_Path``); the rate fetched at every
+       step against noam's closed form within ``LR_RTOL``; the step
+       counter equal to the calls; one 2 x 256 step against the CPU
+       (``TRAIN_TOL``); the step captured against eager.
+   G2. CTR at bench_ctr's widths (1,000,000 x 64, batch 1024, sparse)
+       under each optimizer with a sparse form: Adagrad, RMSProp, Ftrl and
+       Adadelta by row subset, Adamax and DecayedAdagrad by ``lazy_apply``,
+       each at a rate from ``piecewise_decay`` (``CTR_PIECEWISE``:
+       boundaries cut to steps 2 and 4 so that the replays cross both),
+       one after another, each one's state freed before the next:
+       ``FLOW_STEPS`` calls on new batches, the rate at each; the rows no
+       batch touched bitwise as they were in the table and every
+       accumulator, no NaN; one step against the CPU (``CTR_TRAIN_TOL``,
+       its untouched rows bitwise on both); the step captured against
+       eager.
+   G3. the MNIST MLP (784-200-200-10, batch ``MNIST_BATCH``) under
+       ProximalGD and ProximalAdagrad, each with exponential_decay,
+       natural_exp_decay, inverse_time_decay and polynomial_decay(cycle)
+       (``G3_SCHEDULES``): the rates against their closed forms, one step
+       against the CPU, the step captured against eager; append_LARS's
+       rates and one step against the CPU; ModelAverage over captured
+       SGD steps: apply against the mean of the updates, restore bitwise,
+       the next replay against an eager step from the restored state.
+   G4. control flow at width ``FLOW_WIDTH``, batch ``FLOW_BATCH``: a
+       bounded While (``FLOW_TRIPS`` trips through an fc, a tensor array)
+       trained, its request (the array fetched as a ``LoDTensorArray``)
+       and step against the CPU; the same loop unbounded as a request,
+       eager at every call (``why`` names ``while``: its condition is
+       read on the host each trip), against the CPU; IfElse routing rows
+       to two fc branches, trained; a Switch over a step counter setting
+       SGD's rate.  Each captured block also against eager.
+   No hand-written kernel lies on G2-G4 (their calls run as path F's,
+   their counters 0 before and after); each block prints a ``path G:
+   {...}`` line as path F's.  ``--only-flow`` runs the device phase, the
+   kernels' build and path G alone and prints no result line.
 
 It imports nothing of JAX or of the JAX package ``paddle_tpu``.
 """
@@ -253,6 +296,7 @@ It imports nothing of JAX or of the JAX package ``paddle_tpu``.
 import argparse
 import concurrent.futures
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1045,6 +1089,68 @@ def build_model():
           '%.2f s' % (cfg, n_params, LR, time.perf_counter() - t0),
           flush=True)
     return model, scope, exe
+
+
+NOAM = dict(scale=2.0, warmup_steps=4000)  # 2.0 * noam_decay(d_model, 4000)
+NOAM_ADAM = dict(beta1=0.9, beta2=0.98, epsilon=1e-9)
+
+
+def noam_lr(step, d_model, scale=NOAM['scale'],
+            warmup_steps=NOAM['warmup_steps']):
+    """The closed form of ``scale * noam_decay(d_model, warmup_steps)`` at
+    run ``step`` (counted from 1)."""
+    return scale * d_model ** -0.5 * min(step ** -0.5,
+                                         step * warmup_steps ** -1.5)
+
+
+def transformer_noam_programs(fluid, transformer, src_vocab=1000,
+                              trg_vocab=1000, max_len=32, n_layer=2,
+                              n_head=4, d_model=64, d_ff=128, dropout=0.0,
+                              scale=NOAM['scale'],
+                              warmup_steps=NOAM['warmup_steps']):
+    """Fluid's published Transformer recipe: the encoder-decoder of
+    ``transformer.build`` (``fluid``'s package and its ``transformer``
+    module's own helpers), trained by Adam at beta2 0.98 and epsilon 1e-9
+    with the learning rate ``scale * noam_decay(d_model, warmup_steps)``
+    (the scale through ``math_op_patch``).  Returns the programs, the feed
+    names, the loss and the learning-rate var."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src, trg, lbl = (fluid.layers.data(name=n, shape=[max_len],
+                                           dtype='int64')
+                         for n in ('src_ids', 'trg_ids', 'lbl_ids'))
+        enc = transformer._embed(src, src_vocab, d_model, max_len,
+                                 'src_emb')
+        for i in range(n_layer):
+            attn = transformer._attention(enc, enc, d_model, n_head,
+                                          causal=False,
+                                          name='enc_self_%d' % i)
+            enc = transformer._add_norm(enc, attn, dropout)
+            enc = transformer._add_norm(
+                enc, transformer._ffn(enc, d_model, d_ff), dropout)
+        dec = transformer._embed(trg, trg_vocab, d_model, max_len,
+                                 'trg_emb')
+        for i in range(n_layer):
+            attn = transformer._attention(dec, dec, d_model, n_head,
+                                          causal=True,
+                                          name='dec_self_%d' % i)
+            dec = transformer._add_norm(dec, attn, dropout)
+            cross = transformer._attention(dec, enc, d_model, n_head,
+                                           causal=False,
+                                           name='dec_cross_%d' % i)
+            dec = transformer._add_norm(dec, cross, dropout)
+            dec = transformer._add_norm(
+                dec, transformer._ffn(dec, d_model, d_ff), dropout)
+        logits = fluid.layers.fc(input=dec, size=trg_vocab,
+                                 num_flatten_dims=2)
+        cost = fluid.layers.softmax_with_cross_entropy(
+            logits, fluid.layers.unsqueeze(lbl, axes=[2]))
+        loss = fluid.layers.mean(cost)
+        test = main.clone(for_test=True)
+        lr = scale * fluid.layers.noam_decay(d_model, warmup_steps)
+        fluid.optimizer.Adam(learning_rate=lr, **NOAM_ADAM).minimize(loss)
+    return dict(main=main, startup=startup, test=test,
+                feeds=['src_ids', 'trg_ids', 'lbl_ids'], loss=loss, lr=lr)
 
 
 KERNEL_KEYS = ('fwd', 'dq', 'dkv', 'lstm_fwd', 'lstm_bwd', 'lstm_dw')
@@ -3705,20 +3811,25 @@ def phase_ctr_train(card, model, scope, exe):
                      exe)
 
 
-def compare_ctr_step(card, tag, model, feed, scope, exe):
-    """compare_train_step on one CTR step, then the table's and its moments'
-    rows that ``feed`` does not touch: bitwise as they were, on the card and
-    on the CPU (lazy Adam)."""
+def compare_ctr_step(card, tag, model, feed, scope, exe, lr=CTR['lr'],
+                     tol=CTR_TRAIN_TOL):
+    """compare_train_step on one CTR step, then the rows that ``feed`` does
+    not touch of the table and of its optimizer's row-shaped accumulators
+    (Adam's moments, ...): bitwise as they were, on the card and on the
+    CPU (the lazy sparse optimizers)."""
     main = model['main']
+    blk = main.global_block()
     lazy = ['ctr_embedding'] + sorted(
-        n for op in main.global_block().ops if op.type == 'adam' and
-        op.input('Param') == ['ctr_embedding']
-        for n in op.input('Moment1') + op.input('Moment2'))
+        n for op in blk.ops if op.input('Param') == ['ctr_embedding']
+        for slot, names in op.inputs.items()
+        if slot not in ('Param', 'Grad', 'LearningRate')
+        for n in names if tuple(blk.var(n).shape[:1]) ==
+        (CTR['sparse_dim'], ))
     before = {n: scope.find_var(n).value().cpu().numpy().copy()
               for n in lazy}
     cpu_scope = compare_train_step(card, tag, '%d rows' % len(feed['dense']),
                                    main, model['loss'].name, feed, scope, exe,
-                                   CTR['lr'], CTR_TRAIN_TOL)
+                                   lr, tol)
     touched = _touched(feed)
     for name in lazy:
         for where, s in (('CPU', cpu_scope), ('card', scope)):
@@ -4283,6 +4394,14 @@ def _book_model(module, **kwargs):
     import paddle_tpu_torch.fluid as fluid
     with fluid.unique_name.guard():
         model = module.build(**kwargs)
+    return _started('%s %s' % (module.__name__.split('.')[-1], kwargs),
+                    model)
+
+
+def _started(tag, model):
+    """``model``'s startup run on the card from SEED: (model, scope,
+    executor)."""
+    import paddle_tpu_torch.fluid as fluid
     model['startup'].random_seed = SEED
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
@@ -4291,9 +4410,9 @@ def _book_model(module, **kwargs):
     torch.cuda.synchronize()
     state = [scope.find_var(v.name).value()
              for v in model['main'].list_vars() if v.persistable]
-    print('model: %s %s, %d persistable vars of %.1f MiB, startup %.2f s' %
-          (module.__name__.split('.')[-1], kwargs, len(state),
-           _nbytes(state) / 2**20, time.perf_counter() - t0), flush=True)
+    print('model: %s, %d persistable vars of %.1f MiB, startup %.2f s' %
+          (tag, len(state), _nbytes(state) / 2**20,
+           time.perf_counter() - t0), flush=True)
     return model, scope, exe
 
 
@@ -4392,10 +4511,11 @@ def _book_train(card, tag, model, scope, exe, feeds, scans, window=5):
     return losses, flops[-1]
 
 
-def _book_record(card, tag, timed, flops, **extra):
-    """One phase's ``path F:`` line from ``phase_capture``'s times."""
+def _book_record(card, tag, timed, flops, path='F', **extra):
+    """One phase's ``path F:`` (or ``path``) line from ``phase_capture``'s
+    times."""
     e, c = timed['eager'], timed['captured']
-    rec = dict(path='F', phase=tag, eager_s=round(e['wall'], 5),
+    rec = dict(path=path, phase=tag, eager_s=round(e['wall'], 5),
                captured_s=round(c['wall'], 5),
                busy_ms_eager=round(e['busy_ms'], 3),
                busy_ms_captured=round(c['busy_ms'], 3),
@@ -4405,7 +4525,7 @@ def _book_record(card, tag, timed, flops, **extra):
                temp_bytes=int(timed['memory']['temp']),
                flops_per_step=flops, card=card)
     rec.update(extra)
-    print('path F: %s' % json.dumps(rec), flush=True)
+    print('path %s: %s' % (path, json.dumps(rec)), flush=True)
     return rec
 
 
@@ -4747,6 +4867,803 @@ def phase_book(card):
     phase_book_srl(card)
     phase_book_recommender(card)
     phase_book_fit_a_line(card)
+
+
+# ----------------------------------------------------------------------------
+# path G: control flow, tensor arrays, learning-rate schedules and the
+# optimizers the port took on in its control-flow slice
+# ----------------------------------------------------------------------------
+FLOW_REPLAYS = 10        # G1's replays after the eager call and the capture
+FLOW_CAPTURE_CALLS = 5   # timed calls of each path G block, eager and captured
+FLOW_STEPS = 6           # G2-G4's main paths: eager, capture, 4 replays
+G3_STEPS = 8
+# G2's piecewise_decay: the ImageNet recipe's boundaries (epochs 30, 60, 90,
+# a tenth each) cut to steps 2 and 4, so that the replays cross both
+CTR_PIECEWISE = dict(boundaries=[2, 4], factors=(1.0, 0.1, 0.01))
+# G2: each optimizer with a sparse form (row subset or lazy_apply) at its
+# defaults, its base rate, and the most one step can move an element, in
+# rates (param_max is twice it: a gradient of rounding noise may take
+# either sign on each side): Adagrad lr; RMSProp and DecayedAdagrad lr /
+# sqrt(1 - 0.95); Ftrl at l1 = l2 = 0 lr (a row's first step is
+# p - lr sign(g)); Adamax lr / (1 - beta1^t), under 2 lr from t = 7;
+# Adadelta takes no rate, and moves an element by at most
+# sqrt(epsilon / (1 - rho)) (None below)
+G2_OPTIMIZERS = {
+    'adagrad': ('Adagrad', 0.01, 1.0),
+    'rmsprop': ('RMSProp', 1e-3, (1 - 0.95) ** -0.5),
+    'ftrl': ('Ftrl', 0.01, 1.0),
+    'adadelta': ('Adadelta', 1.0, None),
+    'adamax': ('Adamax', 1e-3, 2.0),
+    'decayed_adagrad': ('DecayedAdagrad', 0.01, (1 - 0.95) ** -0.5),
+}
+ROW_SUBSET = ('adagrad', 'rmsprop', 'ftrl', 'adadelta')
+# G2's step against the CPU leaves out the batch's rows at which a ReLU
+# input lies on the other side of 0 on the card than on the CPU from the
+# same state (``relu_ties``): f32 sums of 1677 terms differ by ~1e-6
+# between cuBLAS and the CPU, and a unit that one side zeroes moves that
+# row's gradient by the unit's whole share, in the table's sparse
+# gradient (a row a looked-up id) and in the first fc's (a sum over the
+# batch).  The other rows are held to CTR_TRAIN_TOL.  Measured on one
+# H100 (the first path G calls, NVIDIA H100 80GB HBM3, 700.00 W): after
+# six Adadelta steps the whole batch's table gradient differed by max|dg|
+# 1.26e-6 of max|g| 1.14e-4 and fc_0.w_0's by 4.9e-5 of 0.0147, where the
+# other optimizers' steps held at 1e-6 of max|g| and below.
+# G3: the MNIST MLP's optimizers, each with its base rate (ProximalAdagrad
+# at 0.1 drove the batch's loss to 1.7e-4 in 8 steps, where the softmax's
+# p -> 1 leaves the f32 loss a few ulps of 1 wide: card and CPU 4.4e-5
+# apart, measured on one H100), and the schedules (decay_steps 3, so that the
+# replays move the rate), each with its closed form at base rate lr and
+# counter value s
+G3_OPTIMIZERS = {'ProximalGD': 0.1, 'ProximalAdagrad': 0.01}
+G3_SCHEDULES = {
+    'exponential_decay': (dict(decay_steps=3, decay_rate=0.5),
+                          lambda lr, s: lr * 0.5 ** (s / 3)),
+    'natural_exp_decay': (dict(decay_steps=3, decay_rate=0.5),
+                          lambda lr, s: lr * math.exp(-0.5 * s / 3)),
+    'inverse_time_decay': (dict(decay_steps=3, decay_rate=0.5),
+                           lambda lr, s: lr / (1 + 0.5 * s / 3)),
+    'polynomial_decay': (dict(decay_steps=3, cycle=True),
+                         lambda lr, s: (lr - 1e-4) * (1 - s / (3 * max(
+                             math.ceil(s / 3), 1))) + 1e-4),
+}
+G3_LR = G3_OPTIMIZERS['ProximalGD']  # append_LARS's and ModelAverage's SGD
+LR_RTOL = 1e-6  # a fetched rate against its closed form (f64)
+LARS = dict(lr=0.1, weight_decay=5e-4)
+LARS_RTOL = 1e-4  # the card's LARS rates against the CPU's (norms of sums)
+MA = dict(average_window_rate=10.0, min_average_window=1,
+          max_average_window=100)
+MA_RTOL = 1e-5  # the applied parameters against the mean of the snapshots
+FLOW_WIDTH, FLOW_BATCH, FLOW_TRIPS = 512, 128, 16
+FLOW_LR = 0.01
+FLOW_SWITCH = dict(boundaries=(2.0, 4.0), values=(0.1, 0.05, 0.01))
+# card vs CPU for the G3 and G4 blocks: f32 sums in another order, as
+# MNIST's (CV_TRAIN_TOL['mnist']), param_max set by each block's rate
+FLOW_TRAIN_TOL = dict(loss=1e-5, grad_rtol=1e-3, grad_atol=1e-6,
+                      grad_norm=1e-3, param_atol=1e-6, param_frac=1e-3)
+FLOW_SERVE_RTOL = 1e-4  # a forward's fetches card vs CPU, ratio of 2-norms
+
+
+def _free():
+    """Free what a dropped model held on the card.  A program is a
+    reference cycle (its blocks point back at it), so Python's cyclic
+    collector frees it, and until then its executor finalizer keeps the
+    executor's purged blocks, CUDA graphs and graph pools alive."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print('memory: freed; %.1f MiB allocated, %.1f MiB reserved' %
+          (torch.cuda.memory_allocated() / 2**20,
+           torch.cuda.memory_reserved() / 2**20), flush=True)
+
+
+def _counter(scope, name):
+    return int(scope.find_var(name).value().reshape(-1)[0])
+
+
+def _check_rates(tag, rates, closed, start=0):
+    """Each fetched rate against ``closed(counter)``, the counter ``start``
+    at the first."""
+    worst = 0.0
+    for i, got in enumerate(rates):
+        want = closed(start + i)
+        err = abs(got - want) / abs(want)
+        check(err <= LR_RTOL, '%s: the rate at step %d is %.9g, its closed '
+              'form %.9g (rel %g, tol %g)' % (tag, start + i, got, want, err,
+                                              LR_RTOL))
+        worst = max(worst, err)
+    return worst
+
+
+def relu_ties(program, feed, scope, exe):
+    """[B] bool: the rows of ``feed`` at which an input of one of
+    ``program``'s relu ops has another sign on the card than on the CPU,
+    from the card's state."""
+    import paddle_tpu_torch.fluid as fluid
+    names = [op.input('X')[0] for op in program.global_block().ops
+             if op.type == 'relu']
+    got = exe.run(program, feed=feed, fetch_list=names, scope=scope)
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        program, feed=feed, fetch_list=names,
+        scope=_cpu_copy(program, scope))
+    rows = len(next(iter(feed.values())))
+    tied = np.zeros(rows, bool)
+    for g, w in zip(got, want):
+        tied |= ((g > 0) != (w > 0)).reshape(rows, -1).any(axis=1)
+    return tied
+
+
+def compare_fetches(card, tag, program, feed, fetch, scope, exe, rtol):
+    """One run of ``program`` on the card and on the CPU from the card's
+    state: each fetch (a tensor array as its stacked elements) within
+    ``rtol`` (ratio of 2-norms).  Returns the card's fetches."""
+    import paddle_tpu_torch.fluid as fluid
+    cpu_scope = _cpu_copy(program, scope)
+    got = exe.run(program, feed=feed, fetch_list=fetch, scope=scope)
+    want = fluid.Executor(fluid.CPUPlace()).run(program, feed=feed,
+                                                fetch_list=fetch,
+                                                scope=cpu_scope)
+    worst = 0.0
+    for name, g, w in zip(fetch, got, want):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        err = float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+        check(g.shape == w.shape and np.isfinite(g).all() and err <= rtol,
+              '%s: card vs CPU, %s shape %s / %s, |d| / |v| %g (tol %g)' %
+              (tag, name, g.shape, w.shape, err, rtol))
+        worst = max(worst, err)
+    print('%s: card vs CPU, %d fetches from the same state within |d| / |v| '
+          '%.3g (tol %g) [%s]' % (tag, len(fetch), worst, rtol, card),
+          flush=True)
+    return got
+
+
+def phase_flow_transformer(card):
+    """G1: Transformer-base at full width trained by Fluid's recipe, Adam
+    (beta2 0.98, epsilon 1e-9) under 2 * noam_decay(512, 4000): one eager
+    call, the capture and FLOW_REPLAYS replays of BATCH x 256, every call
+    counting 36 flash forwards, 18 dQ and 18 dK/dV on the card; the rate
+    fetched at every step against noam's closed form; the step counter
+    advanced by every call, replays included; one 2 x 256 step against the
+    CPU (TRAIN_TOL); the step captured against eager."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import transformer
+    cfg = TRANSFORMER_BASE
+    tag = 'G1 Transformer-base noam'
+    with fluid.unique_name.guard():
+        model = transformer_noam_programs(fluid, transformer, **cfg)
+    model, scope, exe = _started(tag + ' ' + str(cfg), model)
+    main, loss = model['main'], model['loss'].name
+    counter = '@LR_DECAY_COUNTER@'
+    seq, vocab, d_model = cfg['max_len'], cfg['trg_vocab'], cfg['d_model']
+    rng = np.random.RandomState(SEED + 30)
+    feeds = [{n: rng.randint(1, vocab, size=(BATCH, seq)).astype('int64')
+              for n in model['feeds']} for _ in range(2 + FLOW_REPLAYS)]
+    n_flash = 3 * cfg['n_layer']
+    per_step = _expect(fwd=2 * n_flash, dq=n_flash, dkv=n_flash)
+    fetch = [loss, model['lr'].name]
+    made = []
+    path = _Path(tag, exe, 'f32').begin()
+    fluid.FLAGS.cost_accounting = True
+    try:
+        for feed in feeds:
+            made += path.call(lambda: exe.run(main, feed=feed,
+                                              fetch_list=fetch, scope=scope),
+                              per_step)
+    finally:
+        fluid.FLAGS.cost_accounting = False
+    path.end()
+    block = exe.cached_blocks()[-1]
+    ran = [m[3] for m in made]
+    check(block.mode == 'graph' and block.captures == 1 and
+          ran.count('replay') >= FLOW_REPLAYS,
+          '%s: the block ran %s (%s), %d captures, calls %s' %
+          (tag, block.mode, block.why, block.captures, ran))
+    losses = [float(m[0][0][0]) for m in made]
+    rates = [float(m[0][1][0]) for m in made]
+    check(np.isfinite(losses).all(), '%s: losses %s' % (tag, losses))
+    worst = _check_rates(tag, rates, lambda s: noam_lr(s, d_model), start=1)
+    runs = _counter(scope, counter)
+    check(runs == len(made), '%s: the step counter reads %d after %d calls '
+          '(the eager call, the capture and the replays)' % (tag, runs,
+                                                             len(made)))
+    flops = _cost_per_step(exe, fetch)
+    check(flops and min(flops) > 0, '%s: cost_report FLOPs %s' % (tag, flops))
+    walls = [m[1] for m in made if m[3] == 'replay']
+    print('%s: %d Adam steps (beta2 0.98, epsilon 1e-9), loss %.6f -> %.6f; '
+          'rate 2 * noam_decay(%d, %d) from %.6g to %.6g, every step within '
+          '%.2g of its closed form (tol %g); the step counter %d = the calls '
+          '(%d replays); launches %s (%s a step); median replay wall %.4f s '
+          'under torch.profiler; cost_report FLOPs a step %.4e [%s]' %
+          (tag, len(made), losses[0], losses[-1], d_model,
+           NOAM['warmup_steps'], rates[0], rates[-1], worst, LR_RTOL, runs,
+           ran.count('replay'), path.summary(),
+           {k: v for k, v in per_step.items() if v},
+           statistics.median(walls), flops[-1], card), flush=True)
+    small = {n: rng.randint(1, vocab, size=(2, seq)).astype('int64')
+             for n in model['feeds']}
+    compare_train_step(card, tag, '2 x %d' % seq, main, loss, small, scope,
+                       exe, noam_lr(runs + 1, d_model))
+    timed = phase_capture(card, tag + ' step', main, feeds[0], [loss],
+                          _persistables(main, scope),
+                          dict(fwd=2 * n_flash, dq=n_flash, dkv=n_flash),
+                          calls=FLOW_CAPTURE_CALLS)
+    _book_record(card, tag + ' step', timed, flops[-1], path='G',
+                 batch=BATCH, replays=ran.count('replay'),
+                 launches={k: v for k, v in per_step.items() if v})
+    del model, scope, exe
+    torch.cuda.empty_cache()
+
+
+class _Scheduled(object):
+    """An optimizer whose rate is a schedule: ``minimize``, called inside
+    the model's program_guard, builds ``lr = make_lr()`` there and then
+    ``make_opt(lr)``'s update ops (``models.ctr.build`` takes an optimizer
+    object)."""
+
+    def __init__(self, make_lr, make_opt):
+        self.make_lr, self.make_opt = make_lr, make_opt
+        self.lr = None
+
+    def minimize(self, loss, **kwargs):
+        self.lr = self.make_lr()
+        return self.make_opt(self.lr).minimize(loss, **kwargs)
+
+
+def _piecewise(base):
+    return [base * f for f in CTR_PIECEWISE['factors']]
+
+
+def _piecewise_at(base, step):
+    values = _piecewise(base)
+    for b, v in zip(CTR_PIECEWISE['boundaries'], values):
+        if step < b:
+            return v
+    return values[-1]
+
+
+def phase_flow_ctr(card):
+    """G2: CTR at bench_ctr's widths (1,000,000 x 64, batch 1024, sparse)
+    with each optimizer that has a sparse form, its rate from
+    piecewise_decay (CTR_PIECEWISE), one after another, each one's state
+    freed before the next: the eager call, the capture and 4 replays on new
+    batches, the rate against the piecewise values at every step; the rows
+    of the table and of every accumulator that no batch touched bitwise as
+    they were, no NaN anywhere; one step against the CPU (CTR_TRAIN_TOL,
+    param_max twice the optimizer's largest move of an element), its
+    untouched rows bitwise on both; the step captured against eager."""
+    rng = np.random.RandomState(SEED + 31)
+    for name, (cls, base, step_max) in G2_OPTIMIZERS.items():
+        _flow_ctr(card, rng, name, cls, base, step_max)
+        _free()
+
+
+def _flow_ctr(card, rng, name, cls, base, step_max):
+    """One optimizer of G2 (``phase_flow_ctr``)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import ctr
+    tag = 'G2 CTR %s' % name
+    sched = _Scheduled(
+        lambda: fluid.layers.piecewise_decay(
+            CTR_PIECEWISE['boundaries'], _piecewise(base)),
+        lambda lr: getattr(fluid.optimizer, cls)(learning_rate=lr))
+    with fluid.unique_name.guard():
+        model = ctr.build(is_sparse=True, is_distributed=True,
+                          optimizer=sched, **CTR)
+    model, scope, exe = _started(
+        '%s (%s, %s)' % (tag, 'row subset' if name in ROW_SUBSET else
+                         'lazy_apply', CTR_PIECEWISE), model)
+    main, loss = model['main'], model['loss'].name
+    height = CTR['sparse_dim']
+    lazy = [v.name for v in main.list_vars() if v.persistable and
+            tuple(scope.find_var(v.name).value().shape[:1]) == (height, )]
+    check(len(lazy) >= 2, '%s: the table and its accumulators %s' %
+          (tag, lazy))
+    before = {n: scope.find_var(n).value().clone() for n in lazy}
+    feeds = [ctr_batch(rng) for _ in range(FLOW_STEPS)]
+    fetch = [loss, sched.lr.name]
+    results, walls, ran = _book_run(tag + ' train', exe, [
+        (lambda f=f: exe.run(main, feed=f, fetch_list=fetch,
+                             scope=scope)) for f in feeds], scans=0)
+    block = exe.cached_blocks()[-1]
+    check(block.mode == 'graph' and ran.count('replay') == FLOW_STEPS - 2,
+          '%s: calls %s, the block %s (%s)' % (tag, ran, block.mode,
+                                               block.why))
+    rates = [float(r[1][0]) for r in results]
+    for i, rate in enumerate(rates):
+        check(rate == np.float32(_piecewise_at(base, i)),
+              '%s: the rate at step %d is %r, piecewise_decay %r' %
+              (tag, i, rate, _piecewise_at(base, i)))
+    losses = [float(r[0][0]) for r in results]
+    check(np.isfinite(losses).all(), '%s: losses %s' % (tag, losses))
+    touched = torch.zeros(height, dtype=torch.bool, device='cuda')
+    for f in feeds:
+        touched[torch.as_tensor(np.unique(f['sparse_ids']),
+                                device='cuda')] = True
+    for n in lazy:
+        after = scope.find_var(n).value()
+        check(bool(torch.isfinite(after).all()), '%s: %s holds a NaN or '
+              'an Inf' % (tag, n))
+        check(torch.equal(after[~touched], before[n][~touched]),
+              '%s: rows of %s that no batch touched moved' % (tag, n))
+    moved = (scope.find_var('ctr_embedding').value() !=
+             before['ctr_embedding']).any(dim=1)
+    check(bool(moved[touched].float().mean() > 0.99),
+          '%s: only %d of %d touched rows of the table moved' %
+          (tag, int(moved[touched].sum()), int(touched.sum())))
+    del before
+    flops = _cost_per_step(exe, fetch)
+    print('%s: %d steps (%s), loss %.6f -> %.6f, rates %s (piecewise '
+          'boundaries %s); %d of %d rows touched; the untouched rows of '
+          '%s bitwise as they were, no NaN; median replay wall %.5f s; '
+          'cost_report FLOPs a step %.4e [%s]' %
+          (tag, len(losses), ', '.join('%d %s' % (ran.count(r), r) for r
+                                       in ('eager', 'capture', 'replay')),
+           losses[0], losses[-1], rates, CTR_PIECEWISE['boundaries'],
+           int(touched.sum()), height, ', '.join(lazy),
+           statistics.median(w for w, r in zip(walls, ran)
+                             if r == 'replay'), flops[-1], card),
+          flush=True)
+    # the rate of the next step
+    lr_now = _piecewise_at(base, _counter(scope, '@LR_DECAY_COUNTER@') + 1)
+    move = 2 * (step_max * lr_now if step_max is not None else
+                (1e-6 / (1 - 0.95)) ** 0.5)
+    feed = ctr_batch(rng)
+    tied = relu_ties(model['test'], feed, scope, exe)
+    print('%s: %d of %d rows have a ReLU input on the other side of 0 '
+          'on the card than on the CPU; the step against the CPU '
+          'leaves them out [%s]' % (tag, tied.sum(), len(tied), card),
+          flush=True)
+    compare_ctr_step(card, tag, model,
+                     {k: v[~tied] for k, v in feed.items()}, scope, exe,
+                     lr=lr_now, tol=dict(CTR_TRAIN_TOL, param_max=move))
+    timed = phase_capture(card, tag + ' step', main, feeds[0], [loss],
+                          _persistables(main, scope), {},
+                          calls=FLOW_CAPTURE_CALLS)
+    _book_record(card, tag + ' step', timed, flops[-1], path='G',
+                 batch=CTR_BATCH, sparse='row subset'
+                 if name in ROW_SUBSET else 'lazy_apply')
+
+
+def _mlp(fluid, make_opt, make_lr=None):
+    """The MNIST MLP (784-200-200-10, tanh, softmax), trained by
+    ``make_opt(lr)`` with ``lr = make_lr()`` (a schedule) or G3_LR."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data('img', shape=[784])
+        label = fluid.layers.data('label', shape=[1], dtype='int64')
+        h = fluid.layers.fc(img, size=200, act='tanh')
+        h = fluid.layers.fc(h, size=200, act='tanh')
+        pred = fluid.layers.fc(h, size=10, act='softmax')
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
+        test = main.clone(for_test=True)
+        lr = make_lr() if make_lr is not None else None
+        opt = make_opt(lr if lr is not None else G3_LR)
+        if opt is not None:
+            opt.minimize(loss)
+    return dict(main=main, startup=startup, test=test, loss=loss, lr=lr,
+                prediction=pred)
+
+
+def _mnist_batch(rng):
+    return {'img': rng.uniform(-1, 1, (MNIST_BATCH, 784)).astype('float32'),
+            'label': rng.randint(0, 10, (MNIST_BATCH, 1)).astype('int64')}
+
+
+def _flow_train(card, tag, model, scope, exe, feed, fetch, steps):
+    """``steps`` calls of the training program on one batch through
+    ``_book_run`` (no hand-written kernel; the eager call, the capture,
+    replays): the block captured, the loss falling.  Returns (fetches of
+    each call, FLOPs a step)."""
+    main = model['main']
+    results, walls, ran = _book_run(tag + ' train', exe, [
+        lambda: exe.run(main, feed=feed, fetch_list=fetch, scope=scope)] *
+        steps, scans=0)
+    block = exe.cached_blocks()[-1]
+    check(block.mode == 'graph' and block.captures == 1 and
+          ran.count('replay') == steps - 2, '%s: calls %s, the block %s (%s)'
+          % (tag, ran, block.mode, block.why))
+    losses = [float(r[0][0]) for r in results]
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          '%s: the loss did not fall: %s' % (tag, losses))
+    flops = _cost_per_step(exe, fetch)
+    print('%s: %d steps on one batch (%s), loss %.6f -> %.6f; median replay '
+          'wall %.5f s; cost_report FLOPs a step %.4e [%s]' %
+          (tag, steps, ', '.join('%d %s' % (ran.count(r), r) for r in
+                                 ('eager', 'capture', 'replay')),
+           losses[0], losses[-1],
+           statistics.median(w for w, r in zip(walls, ran) if r == 'replay'),
+           flops[-1], card), flush=True)
+    return results, flops[-1]
+
+
+def phase_flow_mlp(card):
+    """G3: the MNIST MLP at its published widths, batch MNIST_BATCH:
+    ProximalGD and ProximalAdagrad under each of exponential_decay,
+    natural_exp_decay, inverse_time_decay and polynomial_decay(cycle=True)
+    (G3_SCHEDULES), G3_STEPS calls each (eager, capture, replays), each
+    rate against its closed form, one step against the CPU, the step
+    captured against eager; append_LARS once against the CPU; ModelAverage
+    over a captured SGD run: apply against the mean of the updated
+    parameters, restore bitwise to the parameters before apply, and the
+    next replayed step against an eager step from the same state."""
+    rng = np.random.RandomState(SEED + 32)
+    feed = _mnist_batch(rng)
+    for cls, base in G3_OPTIMIZERS.items():
+        for sched, (kwargs, form) in G3_SCHEDULES.items():
+            _flow_mlp(card, feed, cls, base, sched, kwargs, form)
+            _free()
+    phase_flow_lars(card, feed)
+    _free()
+    phase_flow_model_average(card, feed)
+
+
+def _flow_mlp(card, feed, cls, base, sched, kwargs, form):
+    """One optimizer and schedule of G3 (``phase_flow_mlp``)."""
+    import paddle_tpu_torch.fluid as fluid
+    tag = 'G3 MLP %s %s' % (cls, sched)
+    closed = lambda s: form(base, s)
+    with fluid.unique_name.guard():
+        model = _mlp(fluid, lambda lr: getattr(fluid.optimizer, cls)(
+            learning_rate=lr, l1=1e-4, l2=1e-4),
+            lambda: getattr(fluid.layers, sched)(base, **kwargs))
+    model, scope, exe = _started(tag, model)
+    fetch = [model['loss'].name, model['lr'].name]
+    results, flops = _flow_train(card, tag, model, scope, exe, feed,
+                                 fetch, G3_STEPS)
+    worst = _check_rates(tag, [float(r[1][0]) for r in results],
+                         closed)
+    print('%s: %d rates within %.2g of the closed form (tol %g) '
+          '[%s]' % (tag, len(results), worst, LR_RTOL, card),
+          flush=True)
+    lr = closed(_counter(scope, '@LR_DECAY_COUNTER@') + 1)
+    compare_train_step(card, tag, '%d images' % MNIST_BATCH,
+                       model['main'], model['loss'].name, feed,
+                       scope, exe, lr,
+                       dict(FLOW_TRAIN_TOL, param_max=2 * lr))
+    timed = phase_capture(card, tag + ' step', model['main'], feed,
+                          [model['loss'].name],
+                          _persistables(model['main'], scope), {},
+                          calls=FLOW_CAPTURE_CALLS)
+    _book_record(card, tag + ' step', timed, flops, path='G',
+                 batch=MNIST_BATCH)
+
+
+def phase_flow_lars(card, feed):
+    """append_LARS on the MLP: each parameter's rate LARS['lr'] |p| /
+    (|g| + weight_decay |p|), an sgd op a parameter driven by it; one step
+    on the card and on the CPU from one state, the rates within
+    LARS_RTOL, then compare_train_step."""
+    import paddle_tpu_torch.fluid as fluid
+    tag = 'G3 MLP append_LARS'
+    with fluid.unique_name.guard():
+        model = _mlp(fluid, lambda lr: None)
+        main = model['main']
+        with fluid.program_guard(main, model['startup']):
+            params_grads = fluid.backward.append_backward(model['loss'])
+            fluid.layers.append_LARS(params_grads, LARS['lr'],
+                                     LARS['weight_decay'])
+            rates = []
+            for p, g in params_grads:
+                rate = p.optimize_attr['learning_rate']
+                rates.append(rate.name)
+                main.global_block().append_op(
+                    type='sgd', inputs={'Param': [p], 'Grad': [g],
+                                        'LearningRate': [rate]},
+                    outputs={'ParamOut': [p]})
+    model, scope, exe = _started(tag, model)
+    got = compare_fetches(card, tag, main, feed, rates, scope, exe,
+                          LARS_RTOL)
+    top = max(float(r[0]) for r in got)
+    compare_train_step(card, tag, '%d images' % MNIST_BATCH, main,
+                       model['loss'].name, feed, scope, exe, top,
+                       dict(FLOW_TRAIN_TOL, param_max=top))
+    print('%s: %d parameter rates from %.4g to %.4g [%s]' %
+          (tag, len(got), min(float(r[0]) for r in got), top, card),
+          flush=True)
+
+
+def phase_flow_model_average(card, feed):
+    """ModelAverage (MA) after SGD on the MLP: G3_STEPS captured calls, the
+    parameters after each kept; ``apply`` (its program through the same
+    executor) against their mean (MA_RTOL), ``restore`` bitwise to the
+    parameters before apply; then a replay of the training block from the
+    restored state against an eager step from the same state."""
+    import paddle_tpu_torch.fluid as fluid
+    tag = 'G3 MLP ModelAverage'
+    with fluid.unique_name.guard():
+        model = _mlp(fluid, lambda lr: fluid.optimizer.SGD(learning_rate=lr))
+        with fluid.program_guard(model['main'], model['startup']):
+            ma = fluid.optimizer.ModelAverage(**MA)
+    model, scope, exe = _started(tag, model)
+    main, loss = model['main'], model['loss'].name
+    params = [p.name for p in main.all_parameters()]
+    snapshots = []
+
+    def step():
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        snapshots.append([scope.find_var(n).value().cpu().numpy().copy()
+                          for n in params])
+        return out
+
+    _book_run(tag + ' train', exe, [step] * G3_STEPS, scans=0)
+    block = exe.cached_blocks()[-1]
+    check(block.captures == 1 and block.last_ran == 'replay',
+          '%s: the training block %s, %d captures' % (tag, block.last_ran,
+                                                       block.captures))
+    value = lambda: [scope.find_var(n).value().cpu().numpy().copy()
+                     for n in params]
+    live = value()
+    with fluid.scope_guard(scope):
+        with ma.apply(exe):
+            averaged = value()
+        restored = value()
+    worst = 0.0
+    for name, got, snaps in zip(params, averaged, zip(*snapshots)):
+        want = np.mean(np.stack(snaps).astype(np.float64), axis=0)
+        err = float(np.abs(got - want).max() / max(np.abs(want).max(),
+                                                   1e-30))
+        check(err <= MA_RTOL, '%s: applied %s differs from the mean of %d '
+              'updates by %g (tol %g)' % (tag, name, len(snaps), err,
+                                          MA_RTOL))
+        worst = max(worst, err)
+    for name, got, want in zip(params, restored, live):
+        check(np.array_equal(got, want), '%s: restore left %s other than '
+              'before apply' % (tag, name))
+    # the next replay from the restored state against an eager step from it
+    state = _persistables(main, scope)
+    got = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    check(block.last_ran == 'replay' and block.captures == 1,
+          '%s: the step after restore ran %s, %d captures' %
+          (tag, block.last_ran, block.captures))
+    got_state = value()
+    eager_exe, eager_scope = fluid.Executor(fluid.CUDAPlace(0)), \
+        fluid.Scope()
+    _load(eager_scope, state)
+    want = eager_run(eager_exe, main, feed, [loss], eager_scope)
+    want_state = [eager_scope.find_var(n).value().cpu().numpy()
+                  for n in params]
+    err = max(_max_diff(got, want), _max_diff(got_state, want_state))
+    check(err <= CAPTURE_TOL, '%s: the replay after restore differs from '
+          'an eager step from the same state by %g (tol %g)' %
+          (tag, err, CAPTURE_TOL))
+    print('%s (%s): %d captured SGD steps; apply: every parameter within '
+          '%.3g of the mean of its %d updates (tol %g); restore: bitwise the '
+          'parameters before apply; the next replay %s an eager step from '
+          'the restored state [%s]' %
+          (tag, MA, G3_STEPS, worst, len(snapshots), MA_RTOL,
+           'bitwise equal to' if err == 0 else 'within %g of' % err, card),
+          flush=True)
+
+
+def flow_loop_programs(fluid, max_trip_count=FLOW_TRIPS, width=FLOW_WIDTH):
+    """A While carrying a [B, width] state through an fc (tanh) for
+    FLOW_TRIPS trips, each trip's state written into a tensor array
+    (``tests/test_control_flow.py::test_while_grad_bounded``'s pattern);
+    bounded by ``max_trip_count`` (0: unbounded).  ``main`` regresses the
+    last state on y by SGD, ``test`` fetches the last state and the
+    array."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data('x', shape=[width])
+        y = fluid.layers.data('y', shape=[width])
+        i = fluid.layers.fill_constant(shape=[1], dtype='int64', value=0)
+        states = fluid.layers.array_write(x, i)
+        trips = fluid.layers.fill_constant(shape=[1], dtype='int64',
+                                           value=FLOW_TRIPS)
+        cond = fluid.layers.less_than(x=i, y=trips)
+        loop = fluid.layers.While(cond=cond, max_trip_count=max_trip_count)
+        with loop.block():
+            h = fluid.layers.array_read(states, i)
+            h.shape = x.shape  # an array element's shape, for fc's weight
+            h = fluid.layers.fc(h, size=width, act='tanh',
+                                param_attr=fluid.ParamAttr(name='loop_w'),
+                                bias_attr=fluid.ParamAttr(name='loop_b'))
+            fluid.layers.increment(x=i, in_place=True)
+            fluid.layers.array_write(h, i, array=states)
+            fluid.layers.less_than(x=i, y=trips, cond=cond)
+        last = fluid.layers.array_read(states, i)
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(last, y))
+        test = main.clone(for_test=True)
+        fluid.optimizer.SGD(learning_rate=FLOW_LR).minimize(loss)
+    return dict(main=main, startup=startup, test=test, loss=loss,
+                last=last, states=states)
+
+
+def flow_ifelse_programs(fluid, width=FLOW_WIDTH):
+    """IfElse over y < 0 routing rows to two fc branches (tanh), each
+    reading its rows through ``ie.input`` (``tests/test_split_merge_lod.py``'s
+    pattern), regressing on t by SGD."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data('x', shape=[width])
+        y = fluid.layers.data('y', shape=[1])
+        t = fluid.layers.data('t', shape=[width])
+        cond = fluid.layers.less_than(
+            x=y, y=fluid.layers.fill_constant([1], 'float32', 0.0))
+        ie = fluid.layers.IfElse(cond)
+        for branch, block in ((True, ie.true_block), (False, ie.false_block)):
+            with block():
+                ie.output(fluid.layers.fc(
+                    ie.input(x), size=width, act='tanh',
+                    param_attr=fluid.ParamAttr(name='branch_%s' % branch)))
+        out = ie()[0]
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(out, t))
+        fluid.optimizer.SGD(learning_rate=FLOW_LR).minimize(loss)
+    return dict(main=main, startup=startup, loss=loss, out=out)
+
+
+def flow_switch_programs(fluid, width=FLOW_WIDTH):
+    """An fc regression trained by SGD at a rate a Switch sets from a step
+    counter: FLOW_SWITCH's values before each boundary, the last after."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data('x', shape=[width])
+        t = fluid.layers.data('t', shape=[width])
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(
+            fluid.layers.fc(x, size=width, act='tanh'), t))
+        step = fluid.layers.cast(fluid.layers.autoincreased_step_counter(
+            counter_name='@SWITCH_STEP@', begin=0), 'float32')
+        lr = fluid.layers.create_global_var(shape=[1], value=0.0,
+                                            dtype='float32', persistable=True,
+                                            name='switch_lr')
+        (b1, b2), (v1, v2, v3) = FLOW_SWITCH['boundaries'], \
+            FLOW_SWITCH['values']
+        const = lambda v: fluid.layers.fill_constant([1], 'float32', v)
+        switch = fluid.layers.Switch()
+        with switch.block():
+            with switch.case(fluid.layers.less_than(step, const(b1))):
+                fluid.layers.assign(const(v1), lr)
+            with switch.case(fluid.layers.less_than(step, const(b2))):
+                fluid.layers.assign(const(v2), lr)
+            with switch.default():
+                fluid.layers.assign(const(v3), lr)
+        fluid.optimizer.SGD(learning_rate=lr).minimize(loss)
+    return dict(main=main, startup=startup, loss=loss, lr=lr)
+
+
+def _switch_rate(step):
+    for b, v in zip(FLOW_SWITCH['boundaries'], FLOW_SWITCH['values']):
+        if step < b:
+            return v
+    return FLOW_SWITCH['values'][-1]
+
+
+def phase_flow_control(card):
+    """G4: control flow at width FLOW_WIDTH, batch FLOW_BATCH.  A bounded
+    While (FLOW_TRIPS trips, ``flow_loop_programs``) trained: FLOW_STEPS
+    calls, the loss falling, one step against the CPU, its request (the
+    last state and the tensor array, fetched as a LoDTensorArray) against
+    the CPU, the step captured against eager; the same loop unbounded as a
+    request: eager on every call with its reason naming while, against
+    the CPU; IfElse routing rows to two fc branches trained likewise; a
+    Switch over a step counter setting SGD's rate, each call's rate
+    against FLOW_SWITCH."""
+    import paddle_tpu_torch.fluid as fluid
+    rng = np.random.RandomState(SEED + 33)
+    f32 = lambda *s: rng.standard_normal(s).astype('float32')
+    feed = {'x': f32(FLOW_BATCH, FLOW_WIDTH), 'y': f32(FLOW_BATCH,
+                                                       FLOW_WIDTH)}
+
+    # the bounded loop, trained
+    tag = 'G4 While bounded (%d trips)' % FLOW_TRIPS
+    with fluid.unique_name.guard():
+        model = flow_loop_programs(fluid)
+    model, scope, exe = _started(tag, model)
+    fetch = [model['loss'].name]
+    _, flops = _flow_train(card, tag, model, scope, exe, feed, fetch,
+                           FLOW_STEPS)
+    compare_train_step(card, tag, '%d rows' % FLOW_BATCH, model['main'],
+                       model['loss'].name, feed, scope, exe, FLOW_LR,
+                       dict(FLOW_TRAIN_TOL, param_max=FLOW_LR))
+    request = [model['last'].name, model['states'].name]
+    got = compare_fetches(card, tag + ' request', model['test'], feed,
+                          request, scope, exe, FLOW_SERVE_RTOL)
+    check(isinstance(got[1], fluid.core.LoDTensorArray) and
+          len(got[1]) == 1 + FLOW_TRIPS,
+          '%s: the tensor array fetched as %s of %d' %
+          (tag, type(got[1]).__name__, len(got[1])))
+    timed = phase_capture(card, tag + ' step', model['main'], feed, fetch,
+                          _persistables(model['main'], scope), {},
+                          calls=FLOW_CAPTURE_CALLS)
+    _book_record(card, tag + ' step', timed, flops, path='G',
+                 batch=FLOW_BATCH, width=FLOW_WIDTH, trips=FLOW_TRIPS)
+    params = {n: scope.find_var(n).value().cpu().numpy()
+              for n in ('loop_w', 'loop_b')}
+    del model, scope, exe
+
+    # the same loop unbounded, served: eager on every call
+    tag = 'G4 While unbounded request'
+    with fluid.unique_name.guard():
+        model = flow_loop_programs(fluid, max_trip_count=0)
+    model, scope, exe = _started(tag, model)
+    test = model['test']
+    fluid.params_from_numpy(test, params, scope=scope,
+                            place=fluid.CUDAPlace(0))
+    results, walls, ran = _book_run(tag, exe, [
+        lambda: exe.run(test, feed=feed, fetch_list=request, scope=scope)] *
+        FLOW_CAPTURE_CALLS, scans=0)
+    block = exe.cached_blocks()[-1]
+    check(block.mode == 'eager' and 'while' in (block.why or '') and
+          set(ran) == {'eager'} and not block.captures,
+          '%s: the block ran %s (%s), calls %s' % (tag, block.mode,
+                                                   block.why, ran))
+    got = compare_fetches(card, tag, test, feed, request, scope, exe,
+                          FLOW_SERVE_RTOL)
+    check(isinstance(got[1], fluid.core.LoDTensorArray) and
+          len(got[1]) == 1 + FLOW_TRIPS, '%s: the tensor array fetched as '
+          '%s of %d (a list grown trip by trip)' %
+          (tag, type(got[1]).__name__, len(got[1])))
+    prof = profile_busy(lambda: exe.run(test, feed=feed, fetch_list=request,
+                                        scope=scope), tag)
+    stats = exe.memory_analysis(test, feed=feed, fetch_list=request,
+                                scope=scope)
+    flops = _cost_per_step(exe, request)
+    rec = dict(path='G', phase=tag, eager_s=round(statistics.median(walls), 5),
+               captured_s=None, busy_ms_eager=round(prof['busy_ms'], 3),
+               idle_eager=round(1 - prof['busy_ms'] / 1e3 / prof['wall_s'],
+                                3),
+               peak_mib_eager=round(torch.cuda.max_memory_allocated() /
+                                    2**20, 1),
+               temp_bytes=int(stats.temp_size_in_bytes),
+               flops_per_step=flops[-1] if flops else None, why=block.why,
+               batch=FLOW_BATCH, width=FLOW_WIDTH, trips=FLOW_TRIPS, card=card)
+    print('%s: %d calls, every one eager (%s); median wall %.4f s [%s]' %
+          (tag, len(ran), block.why, rec['eager_s'], card), flush=True)
+    print('path G: %s' % json.dumps(rec), flush=True)
+    del model, scope, exe
+
+    # IfElse, trained
+    tag = 'G4 IfElse routed'
+    with fluid.unique_name.guard():
+        model = flow_ifelse_programs(fluid)
+    model, scope, exe = _started(tag, model)
+    ifeed = {'x': feed['x'], 'y': f32(FLOW_BATCH, 1), 't': feed['y']}
+    fetch = [model['loss'].name]
+    _, flops = _flow_train(card, tag, model, scope, exe, ifeed, fetch,
+                           FLOW_STEPS)
+    compare_train_step(card, tag, '%d rows, %d true' %
+                       (FLOW_BATCH, int((ifeed['y'] < 0).sum())),
+                       model['main'], fetch[0], ifeed, scope, exe, FLOW_LR,
+                       dict(FLOW_TRAIN_TOL, param_max=FLOW_LR))
+    timed = phase_capture(card, tag + ' step', model['main'], ifeed, fetch,
+                          _persistables(model['main'], scope), {},
+                          calls=FLOW_CAPTURE_CALLS)
+    _book_record(card, tag + ' step', timed, flops, path='G',
+                 batch=FLOW_BATCH, width=FLOW_WIDTH)
+    del model, scope, exe
+
+    # Switch over a step counter
+    tag = 'G4 Switch over a step counter'
+    with fluid.unique_name.guard():
+        model = flow_switch_programs(fluid)
+    model, scope, exe = _started(tag, model)
+    sfeed = {'x': feed['x'], 't': feed['y']}
+    fetch = [model['loss'].name, model['lr'].name]
+    results, flops = _flow_train(card, tag, model, scope, exe, sfeed, fetch,
+                                 FLOW_STEPS)
+    rates = [float(r[1][0]) for r in results]
+    want = [np.float32(_switch_rate(s)) for s in range(len(rates))]
+    check(rates == want, '%s: rates %s, the Switch\'s %s' % (tag, rates,
+                                                             want))
+    lr = _switch_rate(_counter(scope, '@SWITCH_STEP@') + 1)
+    compare_train_step(card, tag, '%d rows' % FLOW_BATCH, model['main'],
+                       fetch[0], sfeed, scope, exe, lr,
+                       dict(FLOW_TRAIN_TOL, param_max=lr))
+    timed = phase_capture(card, tag + ' step', model['main'], sfeed,
+                          fetch[:1], _persistables(model['main'], scope), {},
+                          calls=FLOW_CAPTURE_CALLS)
+    _book_record(card, tag + ' step', timed, flops, path='G',
+                 batch=FLOW_BATCH, width=FLOW_WIDTH, rates=rates)
+    del model, scope, exe
+    torch.cuda.empty_cache()
+
+
+def phase_flow(card):
+    """Path G: control flow, tensor arrays, schedules and the optimizers
+    of the control-flow slice."""
+    _free()
+    for phase in (phase_flow_transformer, phase_flow_ctr, phase_flow_mlp,
+                  phase_flow_control):
+        phase(card)
+        _free()
 
 
 def _time_ms(fn, launches_per_sample=10, samples=20, warmup=5):
@@ -5269,6 +6186,9 @@ def main():
     ap.add_argument('--only-book', action='store_true',
                     help='run the device phase and path F alone, and print '
                     'no result line (a partial run)')
+    ap.add_argument('--only-flow', action='store_true',
+                    help='run the device phase, the kernels\' build and path '
+                    'G alone, and print no result line (a partial run)')
     args = ap.parse_args()
     SEED = args.seed
     card = phase_device()
@@ -5282,10 +6202,17 @@ def main():
         return
     phase_build()
     _scan_runs()  # counts the lstm op's scan path from here on
+    if args.only_flow:
+        phase_flow(card)
+        profiler_summary()
+        print('chip_smoke: --only-flow: path G passed; a partial run prints '
+              'no result line', flush=True)
+        return
     fwd_err = phase_kernel_vs_plain()
     bwd_err = phase_bwd_vs_plain()
     lstm_err = phase_lstm_vs_plain()
     phase_book(card)
+    phase_flow(card)
     model, scope, exe = build_model()
     launches = {'serve': phase_slice(card, model, scope, exe),
                 'train': phase_train(card, model, scope, exe)}
@@ -5334,7 +6261,7 @@ def main():
     phase_ctr_capture(card, sparse, dense,
                       _persistables(sparse['main'], scope))
     del sparse, dense, scope, exe, start
-    torch.cuda.empty_cache()
+    _free()
     phase_bench_widths(card)
     kernels = phase_times(card, launches, fwd_err, bwd_err)
     kernels += phase_lstm_times(card, launches, lstm_err)

@@ -12,13 +12,16 @@ Counterpart of ``paddle_tpu/fluid/core.py``.  A ``Place`` carries an explicit
   executor lowers a one-level LoD feed to a padded tensor plus lengths.
 - ``SelectedRows`` is a row subset {rows, value, height}: the host-side form
   of a sparse gradient, as the executor hands a fetched one back.
+- ``LoDTensorArray`` is a list of LoDTensors: the host-side form of a
+  tensor array (a ``LOD_TENSOR_ARRAY`` var), as the executor hands a
+  fetched one back.
 """
 
 import numpy as np
 import torch
 
 __all__ = ['CPUPlace', 'CUDAPlace', 'Place', 'VarDesc', 'LoDTensor',
-           'SelectedRows', 'Scope', 'global_scope']
+           'LoDTensorArray', 'SelectedRows', 'Scope', 'global_scope']
 
 
 class Place(object):
@@ -206,6 +209,16 @@ class LoDTensor(object):
 
     def __repr__(self):
         return 'LoDTensor(shape=%s, lod=%s)' % (self.shape(), self._lod)
+
+
+class LoDTensorArray(list):
+    """An ordered list of LoDTensors (the reference's LoDTensorArray:
+    ``append`` and indexing), made and read by the tensor-array ops."""
+
+    def append(self, tensor):
+        if not isinstance(tensor, LoDTensor):
+            tensor = LoDTensor(np.asarray(tensor))
+        list.append(self, tensor)
 
 
 # ----------------------------------------------------------------------------

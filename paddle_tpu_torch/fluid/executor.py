@@ -34,7 +34,10 @@ graph (``torch.cuda.graph``), the PyTorch counterpart of ``jax.jit``:
   4. fetch to numpy (a copy: the next replay overwrites the graph's
      outputs; a bf16 fetch comes back as an ``ml_dtypes.bfloat16`` array,
      as the JAX package returns it); a sparse gradient (``SparseRows``) is
-     fetched as a ``core.SelectedRows``, as the JAX package fetches it.
+     fetched as a ``core.SelectedRows``, as the JAX package fetches it, and
+     a tensor array as a ``core.LoDTensorArray``.  A fetch of a var whose
+     only write is inside one ``conditional_block`` raises, as the
+     reference's read of an uninitialized var does.
 
 Each block frees every var after its last op (its release plan), except
 the fetches, the state, the persistables and the vars its sub-blocks
@@ -57,9 +60,9 @@ fetches after a run; each op's outputs in a block that runs eagerly);
 ``run_eval_multi`` call records one slice.
 
 Not ported yet: ``run_decode_multi`` and ``run_chunk_prefill`` (serving),
-``py_reader`` feeds, the host ops but ``chunk_eval`` (``print``, ``save``,
-``load``, ``save_combine``, ``load_combine``, the distributed and detection
-ones), nested (two-level) LoD feeds, ``SelectedRows`` feeds and scope
+``py_reader`` feeds, the host ops but ``chunk_eval`` and ``print``
+(``save``, ``load``, ``save_combine``, ``load_combine``, the distributed and
+detection ones), nested (two-level) LoD feeds, ``SelectedRows`` feeds and scope
 values (the JAX package hands them only to host ops).
 """
 
@@ -454,6 +457,11 @@ def _feed_value(tensor, var_desc, device):
     return tensor.to(device)
 
 
+# ops that run every branch and select: each keeps a written var's old
+# value where its condition is false
+_BLENDED = ('conditional_block', 'ifelse', 'switch_case')
+
+
 def _state_plan(block, ops, feed_names, fetch_names):
     """(state_in, state_out): persistable vars read before any op writes
     them, and persistable vars some op writes, in program order."""
@@ -466,7 +474,13 @@ def _state_plan(block, ops, feed_names, fetch_names):
         return v is not None and v.persistable
 
     for op in ops:
-        for name in op.input_arg_names:
+        reads = list(op.input_arg_names)
+        if op.type in _BLENDED:
+            # blended control flow reads every written var's old value
+            # (the cond-false blend): a persistable updated in a branch
+            # arrives as state
+            reads += op.output_arg_names
+        for name in reads:
             if name not in defined and persistable(name):
                 state_in.append(name)
                 defined.add(name)
@@ -634,7 +648,13 @@ class _CompiledBlock(object):
                                contextlib.nullcontext()) as records:
             for i, op in enumerate(self.ops):
                 if registry.is_host_op_type(op.type):
+                    # a host op skips run_op: its read of a conditionally
+                    # uninitialized var raises here, and its write covers
+                    # the var
+                    registry.check_cond_uninit(ctx, op.input_arg_names,
+                                               'host op %r' % op.type)
                     _run_host_op(ctx, op, scope)
+                    ctx.cond_uninit.difference_update(op.output_arg_names)
                 else:
                     registry.run_op(ctx, op)
                 if check:
@@ -646,6 +666,7 @@ class _CompiledBlock(object):
                 for n in release.get(i, ()):
                     env.pop(n, None)
         self._fetch_batch_led = [n in ctx.batch_led for n in self.fetch_names]
+        registry.check_cond_uninit(ctx, self.fetch_names, 'fetch')
         missing = [n for n in self.fetch_names if n not in env]
         if missing:
             raise ValueError('fetch %s: not fed, not computed by the '
@@ -1305,11 +1326,20 @@ class Executor(object):
         rows they touch into the table)."""
         graph_owned = compiled.last_ran in ('capture', 'replay')
         state = set(compiled.state_out)
+        arrays = {n for n in compiled.fetch_names
+                  if getattr(compiled.block._find_var_recursive(n), 'type',
+                             None) == core.VarDesc.VarType.LOD_TENSOR_ARRAY}
 
         def own(t, name):
             return t.clone() if graph_owned or name in state else t
 
         def convert(f, name):
+            if isinstance(f, list) or name in arrays:
+                # a tensor array: its elements, each a LoDTensor on the host
+                out = core.LoDTensorArray()
+                for t in (f if isinstance(f, list) else f.unbind(0)):
+                    out.append(core.LoDTensor(t.detach().cpu().clone()))
+                return out
             if isinstance(f, SparseRows):
                 sr = core.SelectedRows(rows=f.rows.cpu().tolist(),
                                        height=f.height)

@@ -144,9 +144,18 @@ class LayerHelper(object):
             persistable=False,
             stop_gradient=stop_gradient)
 
+    def create_variable(self, *args, **kwargs):
+        return self.main_program.current_block().create_var(*args, **kwargs)
+
     def create_global_variable(self, persistable=False, *args, **kwargs):
         return self.main_program.global_block().create_var(
             *args, persistable=persistable, **kwargs)
+
+    def create_or_get_global_variable(self, name, *args, **kwargs):
+        block = self.main_program.global_block()
+        if not block.has_var(name):
+            return self.create_global_variable(name=name, *args, **kwargs)
+        return block.var(name)
 
     def set_variable_initializer(self, var, initializer):
         startup_block = self.startup_program.global_block()

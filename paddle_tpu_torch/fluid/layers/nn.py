@@ -17,6 +17,7 @@ __all__ = [
     'conv2d', 'pool2d', 'batch_norm', 'gather', 'topk', 'concat',
     'sigmoid_cross_entropy_with_logits', 'square_error_cost',
     'linear_chain_crf', 'crf_decoding', 'cos_sim',
+    'autoincreased_step_counter',
 ]
 
 
@@ -696,3 +697,25 @@ def cos_sim(X, Y):
                  'XNorm': [xnorm],
                  'YNorm': [ynorm]})
     return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 [1] counter that one ``increment`` op, the first
+    time the counter is asked for, advances by ``step`` at every run of
+    the program; it reads ``begin`` at the first run.  The op writes the
+    var it reads, so on the card each replay of the captured block
+    advances the scope's counter."""
+    helper = LayerHelper('global_step_counter')
+    counter_name = counter_name or '@STEP_COUNTER@'
+    counter = helper.create_or_get_global_variable(
+        name=counter_name, dtype='int64', shape=[1], persistable=True)
+    if counter.op is None:
+        helper.set_variable_initializer(
+            counter, initializer=Constant(value=begin - 1))
+        counter.op = helper.append_op(
+            type='increment',
+            inputs={'X': [counter]},
+            outputs={'Out': [counter]},
+            attrs={'step': float(step)})
+        counter.stop_gradient = True
+    return counter

@@ -1,6 +1,6 @@
 """Op wrapper layers (counterpart of ``paddle_tpu/fluid/layers/ops.py``:
-the unary activation layers of ``__activations__``, ``scale`` and the
-``elementwise_*`` layers)."""
+the unary activation layers of ``__activations__``, ``scale``, the
+``elementwise_*`` layers and the ``logical_*`` layers)."""
 
 from ..layer_helper import LayerHelper
 
@@ -15,7 +15,8 @@ __activations__ = [
 __all__ = __activations__ + [
     'elementwise_add', 'elementwise_sub', 'elementwise_mul',
     'elementwise_div', 'elementwise_max', 'elementwise_min',
-    'elementwise_pow', 'scale',
+    'elementwise_pow', 'scale', 'logical_and', 'logical_or', 'logical_xor',
+    'logical_not',
 ]
 
 
@@ -74,3 +75,25 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
             'bias_after_scale': bias_after_scale
         })
     return helper.append_activation(out)
+
+
+def _logical_layer(op_type, binary=True):
+    def func(x, y=None, out=None, name=None):
+        helper = LayerHelper(op_type, **locals())
+        if out is None:
+            out = helper.create_variable_for_type_inference(dtype='bool')
+        inputs = {'X': [x]}
+        if binary:
+            inputs['Y'] = [y]
+        helper.append_op(type=op_type, inputs=inputs,
+                         outputs={'Out': [out]})
+        return out
+
+    func.__name__ = op_type
+    return func
+
+
+logical_and = _logical_layer('logical_and')
+logical_or = _logical_layer('logical_or')
+logical_xor = _logical_layer('logical_xor')
+logical_not = _logical_layer('logical_not', binary=False)

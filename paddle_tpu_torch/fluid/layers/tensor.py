@@ -8,7 +8,8 @@ from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
 __all__ = ['assign', 'fill_constant', 'fill_constant_batch_size_like',
-           'create_global_var', 'sums', 'cast', 'concat']
+           'create_global_var', 'sums', 'cast', 'concat', 'create_array',
+           'zeros', 'ones']
 
 
 def create_global_var(shape,
@@ -130,3 +131,21 @@ def fill_constant_batch_size_like(input,
         })
     out.stop_gradient = True
     return out
+
+
+def create_array(dtype):
+    """An empty tensor array (a LOD_TENSOR_ARRAY var) for array_write and
+    array_read."""
+    helper = LayerHelper('create_array')
+    return helper.create_variable(
+        name='{0}.out'.format(helper.name),
+        type=core.VarDesc.VarType.LOD_TENSOR_ARRAY,
+        dtype=dtype)
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(value=1.0, shape=shape, dtype=dtype)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(value=0.0, shape=shape, dtype=dtype)

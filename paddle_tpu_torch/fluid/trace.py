@@ -482,17 +482,21 @@ def _kernel_flops(op, shape_of):
 
 _PRODUCTS = frozenset(('mul', 'matmul', 'conv2d', 'depthwise_conv2d',
                        'sequence_conv'))
+_BLOCK_OPS = frozenset(('recurrent', 'while', 'conditional_block', 'ifelse',
+                        'switch_case'))
 
 
 def op_flops(op, meta, children=()):
     """FLOPs of one executed op, from the shapes it ran at.  A grad counts
     the products (or passes) of each gradient it makes; the forward replay
-    that the generic grad runs is not counted.  ``recurrent`` counts the
-    ops its step block ran, every step, and its grad twice that."""
+    that the generic grad runs is not counted.  An op that runs a block
+    (``recurrent``, ``while``, the branches of ``conditional_block``,
+    ``ifelse`` and ``switch_case``) counts the ops the block ran, every
+    step, trip and branch, and its grad twice that."""
     grad = op.type.endswith('_grad')
     kind = op.type[:-5] if grad else op.type
     shape_of = lambda n: meta[n][0]
-    if kind == 'recurrent':
+    if kind in _BLOCK_OPS:
         inner = sum(op_flops(*c) for c in children
                     if not c[0].type.endswith('_grad'))
         return 2.0 * inner if grad else float(inner)

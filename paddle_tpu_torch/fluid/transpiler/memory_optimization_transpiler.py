@@ -35,12 +35,23 @@ def _liveness(program):
     return first_def, last_use
 
 
+def nested_blocks(op):
+    """The blocks an op's attrs name: a loop's ``sub_block``, the branches
+    of ``ifelse`` (``true_block``, ``false_block``) and ``switch_case``
+    (``case_blocks``)."""
+    for key in ('sub_block', 'true_block', 'false_block'):
+        blk = op.attrs.get(key)
+        if blk is not None and hasattr(blk, 'ops'):
+            yield blk
+    for blk in op.attrs.get('case_blocks') or ():
+        yield blk
+
+
 def _sub_block_names(block, acc):
-    """Every var name read or written inside the sub-blocks of ``block``'s
-    ops, at any depth, added to ``acc``."""
+    """Every var name read or written inside the blocks nested in
+    ``block``'s ops, at any depth, added to ``acc``."""
     for op in block.ops:
-        sub = op.attrs.get('sub_block') if op.attrs else None
-        if sub is not None:
+        for sub in nested_blocks(op):
             for sop in sub.ops:
                 acc.update(sop.input_arg_names)
                 acc.update(sop.output_arg_names)

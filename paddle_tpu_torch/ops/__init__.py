@@ -23,6 +23,7 @@ from . import sparse  # noqa: F401
 
 # the optimizers that take a SparseRows gradient, as the reference has a
 # SelectedRows kernel for each
-for _opt in ('sgd', 'momentum', 'adam'):
+for _opt in ('sgd', 'momentum', 'adam', 'adamax', 'adagrad',
+             'decayed_adagrad', 'rmsprop', 'adadelta', 'ftrl'):
     sparse.sparsify_optimizer(_opt)
 del _opt

@@ -1,18 +1,38 @@
 """Host ops of the PyTorch port (counterpart of ``paddle_tpu/ops/host_ops.py``):
-``chunk_eval``, the port's own copy of the JAX package's chunk extraction.
+``chunk_eval``, the port's own copy of the JAX package's chunk extraction,
+and ``print`` (``fluid.layers.Print``).
 
 A host op works on numpy: the executor's eager walk copies the op's inputs
 (and their ``@SEQLEN`` side-bands) to the host, calls the function, and
 puts what it wrote back on the block's device.  A block that holds one is
 refused capture (``registry.register_host_op``) and runs op by op.  The
-JAX package's ``print``, ``save``, ``load``, ``save_combine``,
-``load_combine`` and its distributed and detection host ops are not
-ported yet.
+JAX package's ``save``, ``load``, ``save_combine``, ``load_combine`` and
+its distributed and detection host ops are not ported yet.
 """
 
 import numpy as np
 
 from .registry import register_host_op, SEQLEN_SUFFIX
+
+
+@register_host_op('print')
+def _print(ctx, op, scope):
+    """Print the input's value (its first ``first_n`` runs, all with -1)
+    and pass it through to Out."""
+    x = ctx.get(op, 'In')
+    if x is None:
+        x = ctx.get(op, 'X')
+    first_n = op.attrs.get('first_n', -1)
+    count = op.attrs.setdefault('__print_count__', 0)
+    if first_n < 0 or count < first_n:
+        arr = np.asarray(x)
+        print('%s %s  shape=%s\n%s' % (op.attrs.get('message', ''),
+                                        op.input('In') or op.input('X'),
+                                        arr.shape, arr))
+        op.attrs['__print_count__'] = count + 1
+    out_names = op.output('Out')
+    if out_names and x is not None:
+        ctx.store(out_names[0], x)
 
 
 # ---- chunk evaluation (reference operators/chunk_eval_op.cc — CPU-only

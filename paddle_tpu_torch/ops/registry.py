@@ -48,6 +48,7 @@ __all__ = ['register_lowering', 'register_grad_lowering', 'get_lowering',
            'LoweringContext', 'run_op', 'recording', 'value_meta',
            'fwd_structure', 'SEQLEN_SUFFIX',
            'GRAD_SUFFIX', 'SAMPLE_MASK_NAME', 'declare_uncapturable',
+           'check_cond_uninit',
            'capture_refusal', 'register_counter', 'counts', 'set_amp',
            'amp_enabled', 'amp_cast_in', 'amp_cast_out', 'amp_upcast_f32',
            'amp_harmonize', 'amp_matmul']
@@ -172,12 +173,33 @@ class LoweringContext(object):
     ``torch.Generator`` random ops draw from.
     """
 
-    def __init__(self, block, env, place, generator=None, is_test=False):
+    def __init__(self, block, env, place, generator=None, is_test=False,
+                 cond_uninit=None, conditional_scope=False):
         self.block = block
         self.env = env
         self.place = place
         self._generator = generator
         self.is_test = is_test
+        # host-side values of scalar index chains, as in the JAX package:
+        # fill_constant, increment and assign record a [1] var's known
+        # value here (run_op drops the entry of a name any other op
+        # writes), so that a tensor-array op takes a Python index and
+        # never reads one off the device (a sync a capture cannot hold)
+        self.concrete = {}
+        # each tensor-array op's index as its forward ran, by the op's
+        # ``_array_op_id``: the index var may be incremented in place by
+        # the time the op's grad runs
+        self.array_log = {}
+        # names whose only assignment so far is inside one
+        # conditional_block: when its cond is false the reference leaves
+        # the var uninitialized and errors on a read; the blended lowering
+        # zero-fills it, so an unguarded read of it is rejected
+        # (``check_cond_uninit``).  The set is shared by nested contexts;
+        # ``conditional_scope`` marks one whose ops run conditionally (a
+        # branch or a loop body): there reads are not checked and writes
+        # do not clear the flag
+        self.cond_uninit = cond_uninit if cond_uninit is not None else set()
+        self.conditional_scope = conditional_scope
         # ragged-batch provenance, as in the JAX package: env names derived
         # from batch-led feeds that still carry the batch on dim 0.  Seeded
         # by the executor when a @SAMPLE_MASK rides along, propagated by
@@ -220,10 +242,16 @@ class LoweringContext(object):
         return self.block._find_var_recursive(name)
 
     def sub_context(self, env):
-        """A context over ``env`` that shares this one's block, place and
-        mode but has no generator: a replayed forward must draw nothing."""
-        return LoweringContext(self.block, env, self.place,
-                               is_test=self.is_test)
+        """A context over ``env`` that shares this one's block, place,
+        mode and uninitialized-read tracking, with a copy of its known host
+        values, but has no generator: a replayed forward must draw
+        nothing."""
+        sub = LoweringContext(self.block, env, self.place,
+                              is_test=self.is_test,
+                              cond_uninit=self.cond_uninit,
+                              conditional_scope=self.conditional_scope)
+        sub.concrete = dict(self.concrete)
+        return sub
 
 
 _RECORDING = threading.local()
@@ -252,6 +280,11 @@ def value_meta(value):
     anything else."""
     if isinstance(value, torch.Tensor):
         return tuple(value.shape), value.numel() * value.element_size()
+    if isinstance(value, list) and value and all(
+            isinstance(v, torch.Tensor) for v in value):
+        # a tensor array: its elements stacked
+        return ((len(value), ) + tuple(value[0].shape),
+                sum(v.numel() * v.element_size() for v in value))
     values, rows = getattr(value, 'values', None), getattr(value, 'rows',
                                                            None)
     if isinstance(values, torch.Tensor) and isinstance(rows, torch.Tensor):
@@ -260,9 +293,38 @@ def value_meta(value):
     return None
 
 
+# op types that keep ``ctx.concrete`` themselves; every other op's outputs
+# drop their entries
+_CONCRETE_PRESERVING = {'fill_constant', 'increment', 'assign'}
+
+
+def check_cond_uninit(ctx, names, what):
+    """Reject a read of a var whose only assignment is inside one
+    conditional_block: when the cond is false the var is uninitialized, and
+    the reference's conditional_block op errors on such a read.  One helper
+    for every call site (op inputs, host-op inputs, fetches)."""
+    if not ctx.cond_uninit:
+        return
+    for n in names:
+        if n in ctx.cond_uninit:
+            raise RuntimeError(
+                '%s reads var %r, whose only assignment is inside a '
+                'single conditional_block: when the cond is false the '
+                'var is uninitialized (reference conditional_block_op.cc '
+                'errors on such a read) — write it unconditionally or '
+                'in both branches first' % (what, n))
+
+
 def run_op(ctx, op):
     """Run one op's lowering, then propagate sequence-length metadata from
-    its inputs to its outputs."""
+    its inputs to its outputs.  An unguarded read of a conditionally
+    uninitialized var raises first, and an unguarded write covers it."""
+    guarded = ctx.conditional_scope or op.type == 'conditional_block'
+    if not guarded:
+        check_cond_uninit(ctx, op.input_arg_names, 'op %r' % op.type)
+    if op.type not in _CONCRETE_PRESERVING:
+        for n in op.output_arg_names:
+            ctx.concrete.pop(n, None)
     stack = getattr(_RECORDING, 'stack', None)
     if stack:
         children = []
@@ -279,6 +341,9 @@ def run_op(ctx, op):
         stack[-1].append((op, meta, children))
     else:
         get_lowering(op.type)(ctx, op)
+    if ctx.cond_uninit and not guarded:
+        for n in op.output_arg_names:
+            ctx.cond_uninit.discard(n)
     mask = ctx.env.get(SAMPLE_MASK_NAME)
     if mask is not None and not op.type.endswith('_grad'):
         # an output is batch-led iff an input was and it still carries the
@@ -350,10 +415,17 @@ def _make_generic_grad(fwd_type):
 
         fwd_input_vals = {slot: [ctx.lookup(n) for n in names]
                           for slot, names in fwd_inputs.items()}
+        # only floating primals: an integer or bool input (a loop counter,
+        # an index) has no gradient
+        diff_specs = [spec for spec in diff_specs
+                      if _inexact(fwd_input_vals[spec[0]][spec[1]])]
+        if not diff_specs:
+            return
         # only outputs the forward produced, and only floating ones: integer
-        # outputs carry no gradient
+        # outputs (a bounded while's condition and counters) carry no
+        # gradient
         out_names = [n for names in fwd_outputs.values() for n in names
-                     if ctx.has(n) and ctx.lookup(n).is_floating_point()]
+                     if ctx.has(n) and _inexact(ctx.lookup(n))]
         faux = Operator(ctx.block, fwd_type,
                         inputs={s: list(n) for s, n in fwd_inputs.items()},
                         outputs={s: list(n) for s, n in fwd_outputs.items()},
@@ -377,8 +449,8 @@ def _make_generic_grad(fwd_type):
         diff_vals = [fwd_input_vals[s][i] for s, i, _ in diff_specs]
         primal_outs, vjp_fn = torch.func.vjp(primal, *diff_vals)
         cotangents = tuple(
-            ctx.lookup(n + GRAD_SUFFIX).to(ref.dtype)
-            if ctx.has(n + GRAD_SUFFIX) else torch.zeros_like(ref)
+            _match_cotangent(ctx.lookup(n + GRAD_SUFFIX), ref)
+            if ctx.has(n + GRAD_SUFFIX) else _tree_zeros(ref)
             for n, ref in zip(out_names, primal_outs))
         grads = vjp_fn(cotangents)
         # when an op writes a var it also reads, the input-grad name is the
@@ -387,10 +459,43 @@ def _make_generic_grad(fwd_type):
         cotangent_names = {n + GRAD_SUFFIX for n in out_names}
         for (_, _, gname), g in zip(diff_specs, grads):
             if ctx.has(gname) and gname not in cotangent_names:
-                g = ctx.lookup(gname) + g  # rename pass didn't split it
+                g = _tree_add(ctx.lookup(gname), g)  # not split by renaming
             ctx.store(gname, g)
 
     return grad_lowering
+
+
+def _inexact(value):
+    """Whether a value carries a gradient: a floating tensor, or a tensor
+    array (a list) of them."""
+    if isinstance(value, (list, tuple)):
+        return bool(value) and _inexact(value[0])
+    return isinstance(value, torch.Tensor) and value.is_floating_point()
+
+
+def _tree_zeros(ref):
+    if isinstance(ref, (list, tuple)):
+        return [_tree_zeros(r) for r in ref]
+    return torch.zeros_like(ref)
+
+
+def _match_cotangent(ct, ref):
+    """A cotangent in its primal's structure and dtypes: a tensor array's
+    gradient may be a list (indexed writes) or stacked, and its primal the
+    other."""
+    if isinstance(ref, (list, tuple)):
+        if isinstance(ct, torch.Tensor):
+            ct = list(ct.unbind(0))
+        return [_match_cotangent(c, r) for c, r in zip(ct, ref)]
+    if isinstance(ct, (list, tuple)):
+        ct = torch.stack(list(ct))
+    return ct.to(ref.dtype)
+
+
+def _tree_add(a, b):
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return [_tree_add(x, y) for x, y in zip(a, b)]
+    return a + b
 
 
 # ---- mixed precision (bf16 compute / f32 master weights) ----

@@ -317,3 +317,29 @@ def _lstm_scan(xs, w_r, gate_bias, bias, h, c, step_mask, d, use_peepholes,
         hs.append(h)
         cs.append(c)
     return torch.stack(hs), torch.stack(cs)
+
+
+@register_lowering('lod_rank_table')
+def _lod_rank_table(ctx, op):
+    """The rows sorted by length, longest first, ties in row order (the
+    reference's LoDRankTable): on the padded layout, the [B] int32 row
+    permutation.  Without lengths every row has X's padded length."""
+    x = ctx.get(op, 'X')
+    lengths = _seqlen(ctx, op)
+    if lengths is None:
+        lengths = torch.full((x.shape[0], ), x.shape[1] if x.dim() > 1
+                             else 1, dtype=torch.int32, device=x.device)
+    perm = torch.argsort(-lengths.to(torch.int32), stable=True)
+    ctx.set(op, 'Out', perm.to(torch.int32))
+
+
+@register_lowering('reorder_lod_tensor_by_rank')
+def _reorder_lod_tensor_by_rank(ctx, op):
+    """X's rows gathered by a rank table's permutation, its lengths
+    permuted with them."""
+    perm = ctx.get(op, 'RankTable').long()
+    ctx.set(op, 'Out', torch.index_select(ctx.get(op, 'X'), 0, perm))
+    lengths = _seqlen(ctx, op)
+    if lengths is not None:
+        ctx.env[op.output('Out')[0] + SEQLEN_SUFFIX] = torch.index_select(
+            lengths, 0, perm)

@@ -5,10 +5,13 @@ A ``lookup_table`` op built with ``is_sparse=True`` gets a ``SparseRows``
 gradient: one row id (int64 [N]) and one value row ([N, D]) for each
 looked-up id, and the table's height.  The [V, D] dense gradient is never
 made.  ``sgd``, ``momentum`` and ``adam`` update only the rows the
-gradient touches (the reference's lazy SelectedRows kernels): duplicate
-ids merge into one row each (``merge_rows``), the touched rows of the
-parameter and its accumulators are gathered, the dense update runs on
-them, and one scatter writes them back.  Untouched rows stay bitwise as
+gradient touches (the reference's lazy SelectedRows kernels), and so do
+``adagrad``, ``rmsprop``, ``ftrl`` and ``adadelta``: duplicate ids merge
+into one row each (``merge_rows``), the touched rows of the parameter and
+its accumulators are gathered, the dense update runs on them, and one
+scatter writes them back.  ``adamax`` and ``decayed_adagrad`` run their
+dense update on the dense form of the gradient and keep the untouched
+rows (``lazy_apply``).  Untouched rows stay bitwise as
 they were, and their moments do not decay.  The dense lane's gradient is
 the same merge scattered into zeros, so the two forms sum a repeated id's
 rows alike.
@@ -23,9 +26,7 @@ optimizers build it).  This is the counterpart of XLA's buffer donation in
 the JAX package: an out-of-place scatter would copy the whole [V, D] table,
 and each of its moments, at every step.
 
-Not ported yet: the sparse branches of adagrad, rmsprop, ftrl and adadelta
-(they come with their dense optimizers), and the embedding cache's slab
-exchange.
+Not ported yet: the embedding cache's slab exchange.
 """
 
 import torch
@@ -76,6 +77,9 @@ class SparseRows(object):
 def sparse_add(a, b):
     """Gradient accumulation over dense tensors and SparseRows: two sparse
     parts concatenate, a dense and a sparse part give a dense sum."""
+    if isinstance(a, list) and isinstance(b, list):
+        # two tensor-array gradients: element by element
+        return [sparse_add(x, y) for x, y in zip(a, b)]
     a_sparse = isinstance(a, SparseRows)
     b_sparse = isinstance(b, SparseRows)
     if a_sparse and b_sparse:
@@ -182,12 +186,12 @@ def _scatter_rows(dense, rows, new_rows):
     return dense.index_put_((idx, ), vals)
 
 
-def _target(ctx, op, slot):
+def _target(ctx, op, slot, out_slot=None):
     """The tensor the update of input ``slot`` writes into: the input
-    itself when the op writes back the var it reads (``<slot>Out`` names
-    it), else a copy of it."""
+    itself when the op writes back the var it reads (``out_slot``, by
+    default ``<slot>Out``, names it), else a copy of it."""
     t = ctx.get(op, slot)
-    outs = op.output(slot + 'Out')
+    outs = op.output(out_slot or slot + 'Out')
     return t if outs and outs[0] == op.input(slot)[0] else t.clone()
 
 
@@ -249,10 +253,88 @@ def _rows_adam(ctx, op, g):
     ctx.set(op, 'Moment2Out', _scatter_rows(m2, rows, m2_new))
 
 
+def _rows_adagrad(ctx, op, g):
+    """Row-subset Adagrad: the touched rows of param and moment updated
+    against the merged gradient.  An untouched row's dense update adds 0,
+    so the lazy and dense forms agree everywhere."""
+    p = _target(ctx, op, 'Param')
+    mom = _target(ctx, op, 'Moment')
+    eps = op.attrs.get('epsilon', 1e-6)
+    rows, grad = merge_rows(g.rows, g.values, g.height)
+    m_new = _gather_rows(mom, rows) + torch.square(grad)
+    p_new = _gather_rows(p, rows) - _lr(ctx, op) * grad / (
+        torch.sqrt(m_new) + eps)
+    ctx.set(op, 'ParamOut', _scatter_rows(p, rows, p_new))
+    ctx.set(op, 'MomentOut', _scatter_rows(mom, rows, m_new))
+
+
+def _rows_rmsprop(ctx, op, g):
+    """Row-subset RMSProp: param, mean square and momentum updated at the
+    touched rows only; an untouched row's mean square does not decay."""
+    p = _target(ctx, op, 'Param')
+    ms = _target(ctx, op, 'MeanSquare')
+    mom = _target(ctx, op, 'Moment')
+    eps = op.attrs.get('epsilon', 1e-10)
+    decay = op.attrs.get('decay', 0.9)
+    momentum = op.attrs.get('momentum', 0.0)
+    rows, grad = merge_rows(g.rows, g.values, g.height)
+    ms_new = decay * _gather_rows(ms, rows) + (1 - decay) * torch.square(grad)
+    mom_new = momentum * _gather_rows(mom, rows) + \
+        _lr(ctx, op) * grad / torch.sqrt(ms_new + eps)
+    ctx.set(op, 'ParamOut', _scatter_rows(p, rows,
+                                          _gather_rows(p, rows) - mom_new))
+    ctx.set(op, 'MomentOut', _scatter_rows(mom, rows, mom_new))
+    ctx.set(op, 'MeanSquareOut', _scatter_rows(ms, rows, ms_new))
+
+
+def _rows_ftrl(ctx, op, g):
+    """Row-subset FTRL: param and both accumulators updated at the touched
+    rows only.  FTRL derives the param from its accumulators at each
+    visit (a dense step with a zero gradient still moves a row), so the
+    untouched rows keeping all three is the lazy semantics."""
+    from .optimizer_ops import ftrl_update
+    p = _target(ctx, op, 'Param')
+    sq = _target(ctx, op, 'SquaredAccumulator', 'SquaredAccumOut')
+    lin = _target(ctx, op, 'LinearAccumulator', 'LinearAccumOut')
+    rows, grad = merge_rows(g.rows, g.values, g.height)
+    p_new, sq_new, lin_new = ftrl_update(
+        _gather_rows(p, rows), grad, _gather_rows(sq, rows),
+        _gather_rows(lin, rows), _lr(ctx, op), op.attrs.get('l1', 0.0),
+        op.attrs.get('l2', 0.0), op.attrs.get('lr_power', -0.5))
+    ctx.set(op, 'ParamOut', _scatter_rows(p, rows, p_new))
+    ctx.set(op, 'SquaredAccumOut', _scatter_rows(sq, rows, sq_new))
+    ctx.set(op, 'LinearAccumOut', _scatter_rows(lin, rows, lin_new))
+
+
+def _rows_adadelta(ctx, op, g):
+    """Row-subset Adadelta (it takes no learning rate): param and both
+    running averages updated at the touched rows only; an untouched row's
+    averages do not decay."""
+    p = _target(ctx, op, 'Param')
+    asg = _target(ctx, op, 'AvgSquaredGrad')
+    asu = _target(ctx, op, 'AvgSquaredUpdate')
+    rho = op.attrs.get('rho', 0.95)
+    eps = op.attrs.get('epsilon', 1e-6)
+    rows, grad = merge_rows(g.rows, g.values, g.height)
+    asu_rows = _gather_rows(asu, rows)
+    asg_new = rho * _gather_rows(asg, rows) + (1 - rho) * torch.square(grad)
+    update = -torch.sqrt((asu_rows + eps) / (asg_new + eps)) * grad
+    asu_new = rho * asu_rows + (1 - rho) * torch.square(update)
+    ctx.set(op, 'ParamOut', _scatter_rows(p, rows,
+                                          _gather_rows(p, rows) + update))
+    ctx.set(op, 'AvgSquaredGradOut', _scatter_rows(asg, rows, asg_new))
+    ctx.set(op, 'AvgSquaredUpdateOut', _scatter_rows(asu, rows, asu_new))
+
+
+# the optimizers with a row-subset update; the others take lazy_apply
 _ROW_SUBSET_APPLY = {
     'sgd': _rows_sgd,
     'momentum': _rows_momentum,
     'adam': _rows_adam,
+    'adagrad': _rows_adagrad,
+    'rmsprop': _rows_rmsprop,
+    'ftrl': _rows_ftrl,
+    'adadelta': _rows_adadelta,
 }
 
 
@@ -294,8 +376,8 @@ def lazy_apply(ctx, op, dense_fn):
 
 def sparsify_optimizer(op_type):
     """Register ``op_type``'s lowering again, wrapped to take a SparseRows
-    gradient: the row-subset update for sgd, momentum and adam, else
-    ``lazy_apply`` over the dense lowering."""
+    gradient: its row-subset update where ``_ROW_SUBSET_APPLY`` has one,
+    else ``lazy_apply`` over the dense lowering."""
     from . import registry
     dense_fn = registry._LOWERINGS[op_type]
     row_fn = _ROW_SUBSET_APPLY.get(op_type)

@@ -43,10 +43,18 @@ def _generator(ctx, op):
 
 @register_lowering('fill_constant')
 def _fill_constant(ctx, op):
-    ctx.set(op, 'Out', torch.full(tuple(op.attrs.get('shape', [1])),
-                                  op.attrs.get('value', 0.0),
+    shape = tuple(op.attrs.get('shape', [1]))
+    value = op.attrs.get('value', 0.0)
+    ctx.set(op, 'Out', torch.full(shape, value,
                                   dtype=_torch_dtype(op.attrs.get('dtype')),
                                   device=ctx.device))
+    if shape == (1, ):  # a scalar: its value is known on the host
+        ctx.concrete[op.output('Out')[0]] = value
+
+
+@register_lowering('fill_zeros_like')
+def _fill_zeros_like(ctx, op):
+    ctx.set(op, 'Out', torch.zeros_like(ctx.get(op, 'X')))
 
 
 @register_lowering('fill_constant_batch_size_like')
@@ -100,9 +108,20 @@ def _unsqueeze(ctx, op):
     ctx.set(op, 'Out', out)
 
 
+def _carry_concrete(ctx, op, fn=lambda v: v):
+    """Out's known host value: ``fn`` of X's, or none."""
+    out_name = op.output('Out')[0]
+    cin = ctx.concrete.get(op.input('X')[0])
+    if cin is not None:
+        ctx.concrete[out_name] = fn(cin)
+    else:
+        ctx.concrete.pop(out_name, None)
+
+
 @register_lowering('assign')
 def _assign(ctx, op):
     ctx.set(op, 'Out', ctx.get(op, 'X'))
+    _carry_concrete(ctx, op)
 
 
 @register_grad_lowering('assign')
@@ -167,3 +186,54 @@ def _top_k(ctx, op):
     values, indices = torch.topk(ctx.get(op, 'X'), op.attrs['k'], dim=-1)
     ctx.set(op, 'Out', values)
     ctx.set(op, 'Indices', indices.to(torch.int64))
+
+
+@register_lowering('increment')
+def _increment(ctx, op):
+    """Out = X + step in X's dtype (an integer counter adds the step's
+    integer part), and X's known host value carried forward.  Functional:
+    where Out is X (``in_place``, the step counter), the executor writes
+    the new value into the var's state buffer, so a replayed graph
+    advances the scope's counter."""
+    x = ctx.get(op, 'X')
+    step = op.attrs.get('step', 1.0)
+    ctx.set(op, 'Out', x + (step if x.is_floating_point() else int(step)))
+    _carry_concrete(ctx, op, lambda v: v + step)
+
+
+def _register_compare(name, fn):
+    @register_lowering(name)
+    def _lower(ctx, op, fn=fn):
+        ctx.set(op, 'Out', fn(ctx.get(op, 'X'), ctx.get(op, 'Y')))
+
+
+_register_compare('less_than', torch.lt)
+_register_compare('less_equal', torch.le)
+_register_compare('greater_than', torch.gt)
+_register_compare('greater_equal', torch.ge)
+_register_compare('equal', torch.eq)
+_register_compare('not_equal', torch.ne)
+_register_compare('logical_and', torch.logical_and)
+_register_compare('logical_or', torch.logical_or)
+_register_compare('logical_xor', torch.logical_xor)
+
+
+@register_lowering('logical_not')
+def _logical_not(ctx, op):
+    ctx.set(op, 'Out', torch.logical_not(ctx.get(op, 'X')))
+
+
+@register_lowering('where_select')
+def _where_select(ctx, op):
+    """X where the one-element Cond holds, else Y (piecewise_decay's
+    select chain)."""
+    cond = torch.reshape(ctx.get(op, 'Cond'), ()).bool()
+    ctx.set(op, 'Out', torch.where(cond, ctx.get(op, 'X'), ctx.get(op, 'Y')))
+
+
+@register_lowering('is_empty')
+def _is_empty(ctx, op):
+    """[1] bool: X has no elements (a fill on the device: the count is a
+    host shape)."""
+    ctx.set(op, 'Out', torch.full((1, ), ctx.get(op, 'X').numel() == 0,
+                                  dtype=torch.bool, device=ctx.device))

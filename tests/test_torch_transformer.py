@@ -221,6 +221,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             'paddle_tpu_torch.fluid.transpiler.float16_transpiler, '
             'paddle_tpu_torch.fluid.transpiler.memory_optimization_transpiler, '
             'paddle_tpu_torch.fluid.trace, paddle_tpu_torch.fluid.profiler, '
+            'paddle_tpu_torch.fluid.layers.learning_rate_scheduler, '
+            'paddle_tpu_torch.fluid.layers.math_op_patch, '
             'chip_smoke, '
             'profile_torch_slice, profile_ctr_merge, '
             'profile_amp_resnet_grads, probe_bench_widths; '
