@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--seed N]   # from the repository root
+    python3 chip_smoke.py --only-book | --only-flow | --only-serve
 
 Weights, token ids, lengths and labels are drawn from ``--seed``.
 
@@ -289,6 +290,39 @@ G. control flow, tensor arrays, learning-rate schedules and the optimizers
    their counters 0 before and after); each block prints a ``path G:
    {...}`` line as path F's.  ``--only-flow`` runs the device phase, the
    kernels' build and path G alone and prints no result line.
+H. the serving tier (``paddle_tpu_torch.serving``, ``inference``), run
+   right after path G, f32:
+   H1. Transformer-base's test program served by a started
+       ``InferenceEngine`` on ``CUDAPlace(0)`` as bench.py's
+       bench_transformer serves it: requests of ``SERVE_ROWS`` rows at
+       lengths ``SERVE_LENGTHS``, every id feed on the explicit trailing
+       ladder [256], lots of 16 rows (one bucket).  Two warm lots (the
+       block's eager call and its capture), then ``SERVE_WINDOWS`` windows
+       of 16 requests under torch.profiler, each lot one replay of the
+       graph through ``run_eval_multi``, 18 f32 flash forwards a lot
+       counted by name; lots fewer than requests; every response against
+       a direct ``exe.run`` of its zero-padded request
+       (``SERVE_RTOL``/``SERVE_ATOL``); then the engine and its executor
+       dropped with the cyclic collector off, ``memory_reserved``
+       falling.
+   H2. ResNet-50 f32 and its path C inference form (folded, bf16) in one
+       ``ModelRegistry``, batch ``REGISTRY_BATCH``: each served resident
+       (eager, capture, ``REGISTRY_REPLAYS`` replays), then a budget that
+       holds either model but not both; ``REGISTRY_ROUNDS`` rounds in
+       which each model's first request evicts the other and reloads it,
+       every response after a reload bitwise equal to the resident one of
+       the same call (eager, capture, replay; cuDNN deterministic), and an
+       eviction through the arbiter that lowers ``memory_allocated`` by at
+       least the bytes moved.  No hand-written kernel.
+   H3. the stacked LSTM's kernel form saved with ``save_inference_model``
+       and served by ``create_paddle_predictor(NativeConfig(use_gpu=
+       True))`` with LoD ``PaddleTensor``s of 128 rows: 3 ``lstm_fwd`` a
+       request (``_Path``), an 8-row request against a CPU predictor
+       (``LSTM_PRED_RTOL``).
+   Each part prints a ``path H: {...}`` line (rows or images a second,
+   lots and executables, trailing padding waste, p50/p99 latency, peak
+   memory, the card).  ``--only-serve`` runs the device phase, the
+   kernels' build and path H alone and prints no result line.
 
 It imports nothing of JAX or of the JAX package ``paddle_tpu``.
 """
@@ -4944,10 +4978,11 @@ FLOW_SERVE_RTOL = 1e-4  # a forward's fetches card vs CPU, ratio of 2-norms
 
 
 def _free():
-    """Free what a dropped model held on the card.  A program is a
-    reference cycle (its blocks point back at it), so Python's cyclic
-    collector frees it, and until then its executor finalizer keeps the
-    executor's purged blocks, CUDA graphs and graph pools alive."""
+    """Free what a dropped model held on the card.  A dropped executor
+    frees its blocks and graphs at once (its cache's finalizers hold it
+    weakly; path H checks it); a program is a reference cycle (its blocks
+    point back at it), which Python's cyclic collector frees, with what
+    the program holds."""
     gc.collect()
     torch.cuda.empty_cache()
     print('memory: freed; %.1f MiB allocated, %.1f MiB reserved' %
@@ -5666,6 +5701,451 @@ def phase_flow(card):
         _free()
 
 
+# ----------------------------------------------------------------------------
+# path H: the serving tier (paddle_tpu_torch.serving, inference)
+# ----------------------------------------------------------------------------
+# H1: bench_transformer's trailing-bucket block (bench.py:527-549): requests
+# of SERVE_ROWS rows at the lengths seq/4 .. seq, every id feed on the
+# explicit ladder [seq], lots of max_batch_size 16 padded to the one bucket
+SERVE_LENGTHS = (64, 128, 192, 256)
+SERVE_ROWS = 4
+SERVE_MAX_BATCH = 16
+SERVE_WINDOWS = 2  # timed windows of SERVE_WINDOW_ROUNDS rounds each
+SERVE_WINDOW_ROUNDS = 4
+# a response against a direct exe.run of its own (zero-padded) request on
+# the card: the lot runs 16 rows, the direct run 4, and cuBLAS picks its
+# algorithms by the row count, so the 12 layers sum in another order; the
+# prediction is a 30000-way softmax (values about 3e-5)
+SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-7
+# H2: ResNet-50 f32 and its bf16 inference form in one registry, the budget
+# 1.5x one model's live bytes (bench.py:735-798), lots of REGISTRY_BATCH
+REGISTRY_BATCH = 64
+REGISTRY_ROUNDS = 2  # rounds of (f32 x 3 calls, bf16 x 3 calls) after warm
+REGISTRY_REPLAYS = 4  # resident replays timed beside the reloads
+
+
+def _serve_line(part, record, card):
+    record = dict(record, card=card)
+    print('path H: %s' % json.dumps(dict(part=part, **record)), flush=True)
+
+
+def _latency(m):
+    return {'p50_latency_ms': m['p50_latency_ms'],
+            'p99_latency_ms': m['p99_latency_ms']}
+
+
+def _stream_kernels(path, fn, want, lowered):
+    """``fn()`` under torch.profiler: the hand-written kernels counted by
+    name on the card must be ``want()`` (read after the call) and the
+    wrappers must have grown by ``lowered``; a session that counted fewer
+    (its head lost, PROFILER) is made again, five times at most.  Returns
+    fn's last result and wall."""
+    for attempt in range(_Path.RETAKES + 1):
+        before = _wrapper_counts()
+        with _profiled() as session:
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        after = _wrapper_counts()
+        grew = {k: after[k] - before[k] for k in KERNEL_KEYS}
+        check(grew == lowered, '%s: the wrappers grew by %s, expected %s' %
+              (path.tag, grew, lowered))
+        seen, device, kinds = _device_kernels(session.prof)
+        for k in KERNEL_KEYS:
+            path.device[k] += seen[k]
+            for t in kinds:
+                path.by_dtype[t][k] += kinds[t][k]
+        want_now = want()
+        if seen == want_now:
+            _check_dtype(path.tag, kinds, 'f32', want_now)
+            return result, wall
+        want = lambda w=want_now: w
+        check(all(seen[k] <= want_now[k] for k in KERNEL_KEYS) and
+              attempt < _Path.RETAKES,
+              '%s: the profiler counted %s on the card (%d device '
+              'activities), expected %s' % (path.tag, seen, device,
+                                            want_now))
+        path.retakes += 1
+        print('%s: profiler session counted %s of %s: made again' %
+              (path.tag, seen, want_now), flush=True)
+
+
+def phase_serve_transformer(card):
+    """H1: Transformer-base's test program served by a started
+    InferenceEngine with bench_transformer's trailing ladder."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import serving
+    model, scope, exe = build_model()
+    cfg = TRANSFORMER_BASE
+    seq, vocab = cfg['max_len'], cfg['trg_vocab']
+    feeds, pred = model['feeds'], model['prediction']
+    per_lot = _expect(fwd=3 * cfg['n_layer'])
+    rng = np.random.RandomState(SEED + 61)
+
+    def rounds(n):
+        return [{name: rng.randint(1, vocab, size=(SERVE_ROWS, l)).astype(
+            'int64') for name in feeds} for _ in range(n)
+            for l in SERVE_LENGTHS]
+
+    eng = serving.InferenceEngine(
+        model['test'], feed_names=feeds, fetch_list=[pred], scope=scope,
+        place=fluid.CUDAPlace(0), name='h1-transformer',
+        config=serving.ServingConfig(
+            max_batch_size=SERVE_MAX_BATCH, bucket_sizes=[SERVE_MAX_BATCH],
+            max_wait_ms=20, steps_per_dispatch=4,
+            trailing_ladders={name: [seq] for name in feeds}))
+    check(eng.place == fluid.CUDAPlace(0) and eng._exe is not exe,
+          'h1: the engine runs on %s' % eng.place)
+    served = []
+
+    def window(reqs):
+        futs = [eng.submit(r) for r in reqs]
+        outs = [f.result(600) for f in futs]
+        served.extend(zip(reqs, outs))
+        return outs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    path = _Path('serve engine', None, 'f32').begin()
+    eng.start()
+    # two warm lots, each alone in its dispatch: the block's eager call and
+    # its capture (the graph's one replay)
+    for _ in range(2):
+        with eng.paused():
+            warm = rounds(1)
+            futs = [eng.submit(r) for r in warm]
+        served.extend((r, f.result(600)) for r, f in zip(warm, futs))
+    block = eng._exe.cached_blocks()[-1]
+    check(block.mode == 'graph' and block.captures == 1 and
+          _wrapper_counts() == _expect(fwd=2 * per_lot['fwd']),
+          'h1: after two lots the block is %s (%s), %d captures, the '
+          'wrappers %s' % (block.mode, block.why, block.captures,
+                           _wrapper_counts()))
+    walls, lots = [], []
+    for _ in range(SERVE_WINDOWS):
+        # the window's lots, each one replay of the captured block
+        lots0 = eng.metrics()['lots']
+        _, wall = _stream_kernels(
+            path, lambda: window(rounds(SERVE_WINDOW_ROUNDS)),
+            lambda: {k: v * (eng.metrics()['lots'] - lots0)
+                     for k, v in per_lot.items()}, _expect())
+        walls.append(wall)
+        lots.append(eng.metrics()['lots'] - lots0)
+    eng.stop()
+    path.end()
+    path.ran = (['eager'] * (block.calls - block.captures - block.replays) +
+                ['capture'] * block.captures + ['replay'] * block.replays)
+    peak = torch.cuda.max_memory_allocated()
+    m = eng.metrics()
+    check(m['lots'] < m['requests'] and m['errors'] == 0,
+          'h1: %d lots for %d requests, %d errors' %
+          (m['lots'], m['requests'], m['errors']))
+    check(block.replays >= sum(lots) and block.captures == 1 and
+          len(eng._exe.cached_blocks()) == 1,
+          'h1: %d replays, %d captures, %d blocks' %
+          (block.replays, block.captures, len(eng._exe.cached_blocks())))
+    # every response against a direct exe.run of its own request
+    worst_abs = worst_rel = 0.0
+    for r, (out, ) in served:
+        padded = {n: np.pad(v, ((0, 0), (0, seq - v.shape[1])))
+                  for n, v in r.items()}
+        ref, = exe.run(model['test'], feed=padded, fetch_list=[pred],
+                       scope=scope)
+        check(out.shape == ref.shape == (SERVE_ROWS, seq, vocab) and
+              np.isfinite(out).all(), 'h1: response %s, direct run %s' %
+              (out.shape, ref.shape))
+        d = np.abs(out - ref)
+        worst_abs = max(worst_abs, float(d.max()))
+        worst_rel = max(worst_rel, float((d / np.maximum(
+            np.abs(ref), 1e-30)).max()))
+        check(np.allclose(out, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL),
+              'h1: a response and the direct run of its request disagree: '
+              'max|d| %g (rtol %g, atol %g)' % (float(d.max()), SERVE_RTOL,
+                                                SERVE_ATOL))
+    rows = SERVE_ROWS * len(SERVE_LENGTHS) * SERVE_WINDOW_ROUNDS
+    record = {
+        'model': 'Transformer-base %s' % cfg, 'requests': m['requests'],
+        'lots': m['lots'], 'dispatches': m['dispatches'],
+        'executables': m['executor_compile_count'],
+        'block_calls': {'calls': block.calls, 'captures': block.captures,
+                        'replays': block.replays},
+        'trailing_padding_waste': m['trailing_padding_waste'],
+        'trailing_hits': m['trailing_buckets']['hits'],
+        'window_lots': lots,
+        'rows_per_s_profiled': [round(rows / w, 2) for w in walls],
+        'peak_mib': round(peak / 2**20, 1),
+        'response_vs_direct_max_abs': worst_abs,
+        'response_vs_direct_max_rel': worst_rel,
+        'launches': path.summary()}
+    record.update(_latency(m))
+    _serve_line('H1 engine', record, card)
+    # a dropped engine and its executor free their graphs at once: no
+    # cyclic collection runs here
+    torch.cuda.synchronize()
+    gc.disable()
+    try:
+        reserved = torch.cuda.memory_reserved()
+        del eng, block
+        torch.cuda.empty_cache()
+        freed = reserved - torch.cuda.memory_reserved()
+    finally:
+        gc.enable()
+    check(freed > 0, 'h1: memory_reserved did not fall when the engine and '
+          'its executor were dropped (%d bytes)' % freed)
+    print('serve engine: dropping the engine and its executor released %.1f '
+          'MiB of reserved memory without a cyclic collection [%s]' %
+          (freed / 2**20, card), flush=True)
+    del model, scope, exe, served
+    _free()
+    return path
+
+
+def _registry_models(tmpdir):
+    """ResNet-50's test program saved with save_inference_model and loaded
+    twice on the card: f32 as loaded, and the path C inference format
+    (batch norm folded, Float16Transpiler('bfloat16')).  {name: (program,
+    feed names, fetch targets, scope)}."""
+    import paddle_tpu_torch.fluid as fluid
+    model, scope, exe = build_cv_model('resnet', lr=CV_LR, **RESNET50)
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(tmpdir, ['img'], [model['prediction']],
+                                      exe, main_program=model['test'])
+    del model, scope, exe
+    handles = {}
+    for name in ('resnet_f32', 'resnet_bf16'):
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        with fluid.scope_guard(scope):
+            prog, feeds, fetches = fluid.io.load_inference_model(tmpdir, exe)
+            if name == 'resnet_bf16':
+                fluid.InferenceTranspiler().transpile(prog, scope=scope)
+                fluid.Float16Transpiler().transpile(
+                    prog, scope=scope, dtype='bfloat16',
+                    feeded_var_names=feeds, fetch_var_names=fetches)
+        # the transpilers leave the f32 originals in the scope; the model
+        # serves (and a reload stages) only what its program reads
+        used = {n for blk in prog.blocks for op in blk.ops
+                for n in list(op.input_arg_names) + list(op.output_arg_names)}
+        for n in scope.local_var_names():
+            if n not in used:
+                scope.find_var(n).set_value(None)
+        handles[name] = (prog, feeds, fetches, scope)
+    return handles
+
+
+def phase_serve_registry(card):
+    """H2: two ResNet-50 models in one ModelRegistry under a budget of 1.5x
+    one model's live bytes: evictions, reloads, the responses after a
+    reload bitwise equal to the resident ones, memory_allocated falling on
+    an eviction.  No hand-written kernel lies on this part."""
+    import tempfile
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import serving
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            handles = _registry_models(td)
+        x = np.random.RandomState(SEED + 67).standard_normal(
+            (REGISTRY_BATCH, ) + tuple(RESNET50['image_shape'])).astype(
+                'float32')
+        reg = serving.ModelRegistry(
+            place=fluid.CUDAPlace(0), config=serving.ServingConfig(
+                max_batch_size=REGISTRY_BATCH, bucket_sizes=[REGISTRY_BATCH]))
+        for name, (prog, feeds, fetches, scope) in handles.items():
+            reg.load(name, program=prog, feed_names=feeds,
+                     fetch_list=fetches, scope=scope)
+        names = list(handles)
+        feed = {handles[names[0]][1][0]: x}
+        _zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident, walls = {}, {'resident': [], 'reload': []}
+        with reg:
+            # resident: each model's eager call, capture and replays (the
+            # replays timed)
+            for name in names:
+                resident[name] = []
+                for k in range(3 + REGISTRY_REPLAYS):
+                    t0 = time.perf_counter()
+                    out = reg.infer(name, feed, timeout=600)[0]
+                    if k >= 2:
+                        walls['resident'].append(time.perf_counter() - t0)
+                        check(k == 2 or np.array_equal(out, resident[name][2]),
+                              'h2: %s: two replays differ' % name)
+                    if k < 3:
+                        resident[name].append(out)
+            for name in names:
+                reg._ensure_resident(name)
+            live = sorted(s['hbm_bytes']
+                          for s in reg.status()['models'].values())
+            # room for either model, not both: bench.py's 1.5x of the larger
+            # would hold both here (the bf16 model has half the bytes)
+            reg.arbiter.set_budget(live[-1] + live[0] // 2)
+            print('h2: live bytes %s, budget %d [%s]' %
+                  ({n: a['bytes'] for n, a in reg.arbiter.snapshot()[
+                      'accounts'].items()}, reg.arbiter.budget_bytes, card),
+                  flush=True)
+            # the second model's request evicts the first (least recently
+            # used): from here on each model's first call reloads it
+            out = reg.infer(names[1], feed, timeout=600)[0]
+            check(reg.arbiter.evictions == 1 and
+                  np.array_equal(out, resident[names[1]][2]),
+                  'h2: the priming request evicted %d models' %
+                  reg.arbiter.evictions)
+            worst, alloc = 0.0, []
+            for _ in range(REGISTRY_ROUNDS):
+                for name in names:
+                    # the first call evicts the other model and reloads this
+                    # one (an eager call), the next two capture and replay
+                    for k in range(3):
+                        ev0 = reg.arbiter.evictions
+                        rl0 = reg.arbiter.reloads
+                        t0 = time.perf_counter()
+                        out = reg.infer(name, feed, timeout=600)[0]
+                        wall = time.perf_counter() - t0
+                        if k == 0:
+                            walls['reload'].append(wall)
+                            check(reg.arbiter.evictions == ev0 + 1 and
+                                  reg.arbiter.reloads == rl0 + 1,
+                                  'h2: a request to %s evicted %d models, '
+                                  'reloaded %d; accounts %s' % (
+                                      name, reg.arbiter.evictions - ev0,
+                                      reg.arbiter.reloads - rl0,
+                                      reg.arbiter.snapshot()['accounts']))
+                        check(np.array_equal(out, resident[name][k]),
+                              'h2: %s call %d after a reload differs from the '
+                              'resident one: max|d| %g' % (
+                                  name, k, float(np.abs(
+                                      out - resident[name][k]).max())))
+                        worst = max(worst, float(np.abs(
+                            out.astype(np.float64) -
+                            resident[name][k]).max()))
+            # an explicit eviction through the arbiter: the allocator's
+            # count falls by at least the bytes moved
+            victim = reg.arbiter.snapshot()['lru_order'][-1]
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            moved = reg.arbiter.evict(victim, reg._evict_to_host)
+            after = torch.cuda.memory_allocated()
+            alloc = (before, after, moved)
+            m = reg.metrics()
+            status = reg.status()
+        _no_launches('h2 registry')
+        check(after <= before - moved and moved > 0,
+              'h2: evicting %s moved %d bytes but memory_allocated went %d -> '
+              '%d' % (victim, moved, before, after))
+        check(m['evictions'] == 2 * REGISTRY_ROUNDS + 2 and m['reloads'] ==
+              2 * REGISTRY_ROUNDS and m['admission_rejects'] == 0 and
+              all(mm['errors'] == 0 for mm in m['models'].values()),
+              'h2: evictions %d, reloads %d, admission rejects %d' %
+              (m['evictions'], m['reloads'], m['admission_rejects']))
+        record = {
+            'models': {n: {'live_bytes': status['models'][n]['hbm_bytes'],
+                           'executables': m['models'][n][
+                               'executor_compile_count'],
+                           'lots': m['models'][n]['lots']}
+                       for n in names},
+            'budget_bytes': m['budget_bytes'], 'evictions': m['evictions'],
+            'reloads': m['reloads'],
+            'admission_rejects': m['admission_rejects'],
+            'images_per_s_resident': round(REGISTRY_BATCH / statistics.median(
+                walls['resident']), 2),
+            'images_per_s_reload': round(REGISTRY_BATCH / statistics.median(
+                walls['reload']), 2),
+            'after_reload_vs_resident_max_abs': worst,
+            'evict_allocated_mib': [round(v / 2**20, 1) for v in alloc],
+            'peak_mib': round(torch.cuda.max_memory_allocated() / 2**20, 1)}
+        record.update(_latency(m['models'][names[0]]))
+        _serve_line('H2 registry', record, card)
+        del reg, handles
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    _free()
+
+
+def phase_serve_predictor(card):
+    """H3: the stacked LSTM's kernel form saved with save_inference_model
+    and served by create_paddle_predictor(NativeConfig(use_gpu=True)) with
+    LoD PaddleTensors; an 8-row request against a CPU predictor."""
+    import tempfile
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import inference
+    n_layers = STACKED_LSTM['stacked_num']
+    with fluid.unique_name.guard():
+        model = stacked_lstm_programs(fluid, use_peepholes=False, lr=LSTM_LR,
+                                      **STACKED_LSTM)
+    model['startup'].random_seed = SEED
+    scope, exe = fluid.Scope(), fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(model['startup'], scope=scope)
+    rng = np.random.RandomState(SEED + 71)
+
+    def tensors(rows):
+        req = lstm_request(rng, rows)['words']
+        return [inference.PaddleTensor(name='words', data=req.numpy(),
+                                       lod=req.lod())]
+
+    with tempfile.TemporaryDirectory() as td:
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(td, ['words'],
+                                          [model['prediction']], exe,
+                                          main_program=model['test'])
+        pred = inference.create_paddle_predictor(
+            inference.NativeConfig(model_dir=td, use_gpu=True))
+        cpu = inference.create_paddle_predictor(
+            inference.NativeConfig(model_dir=td, use_gpu=False))
+    check(pred._exe.place == fluid.CUDAPlace(0) and
+          cpu._exe.place == fluid.CPUPlace(), 'h3: predictor places %s, %s' %
+          (pred._exe.place, cpu._exe.place))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    path = _Path('serve predictor', pred._exe, 'f32').begin()
+    walls = []
+    for i in range(REQUESTS + 2):
+        req = tensors(LSTM_BATCH)
+        out, wall, seen, ran = path.call(
+            lambda: pred.run(req), _expect(lstm_fwd=n_layers))[-1]
+        walls.append(wall)
+        p = out[0].data
+        row_err = float(np.abs(p.sum(-1, dtype=np.float64) - 1).max())
+        check(p.shape == (LSTM_BATCH, STACKED_LSTM['class_dim']) and
+              np.isfinite(p).all() and row_err < 1e-5,
+              'h3: request %d prediction %s, rows sum to 1 +- %g' %
+              (i, p.shape, row_err))
+    path.end()
+    check(path.ran[:2] == ['eager', 'capture'] and
+          set(path.ran[2:]) == {'replay'}, 'h3: calls %s' % path.ran)
+    small = tensors(LSTM_CPU_ROWS)
+    got, want = pred.run(small)[0].data, cpu.run(small)[0].data
+    err = float(np.abs(got - want).max())
+    check(np.allclose(got, want, rtol=LSTM_PRED_RTOL, atol=LSTM_PRED_ATOL),
+          'h3: the card and the CPU predictors disagree: max|dpred| %g '
+          '(rtol %g, atol %g)' % (err, LSTM_PRED_RTOL, LSTM_PRED_ATOL))
+    steady = statistics.median(walls[2:])
+    record = {'model': 'stacked LSTM kernel form %s' % STACKED_LSTM,
+              'requests': len(walls), 'rows': LSTM_BATCH,
+              'lots': len(walls), 'executables': pred._exe.compile_count,
+              'rows_per_s': round(LSTM_BATCH / steady, 2),
+              'wall_ms_p50': round(1e3 * steady, 3),
+              'wall_ms_max': round(1e3 * max(walls[2:]), 3),
+              'peak_mib': round(torch.cuda.max_memory_allocated() / 2**20, 1),
+              'card_vs_cpu_max_abs': err, 'launches': path.summary()}
+    _serve_line('H3 predictor', record, card)
+    del pred, cpu, model, scope, exe
+    _free()
+    return path
+
+
+def phase_serve(card):
+    """Path H: the serving tier.  Returns the launch records of its two
+    parts with hand-written kernels, by path name."""
+    _free()
+    launches = {'serve_engine': phase_serve_transformer(card)}
+    phase_serve_registry(card)
+    launches['serve_predictor'] = phase_serve_predictor(card)
+    return launches
+
+
 def _time_ms(fn, launches_per_sample=10, samples=20, warmup=5):
     """Median device time of one call (CUDA events around back-to-back
     launches, so host overhead between launches is hidden)."""
@@ -6189,6 +6669,9 @@ def main():
     ap.add_argument('--only-flow', action='store_true',
                     help='run the device phase, the kernels\' build and path '
                     'G alone, and print no result line (a partial run)')
+    ap.add_argument('--only-serve', action='store_true',
+                    help='run the device phase, the kernels\' build and path '
+                    'H alone, and print no result line (a partial run)')
     args = ap.parse_args()
     SEED = args.seed
     card = phase_device()
@@ -6208,14 +6691,22 @@ def main():
         print('chip_smoke: --only-flow: path G passed; a partial run prints '
               'no result line', flush=True)
         return
+    if args.only_serve:
+        phase_serve(card)
+        profiler_summary()
+        print('chip_smoke: --only-serve: path H passed; a partial run prints '
+              'no result line', flush=True)
+        return
     fwd_err = phase_kernel_vs_plain()
     bwd_err = phase_bwd_vs_plain()
     lstm_err = phase_lstm_vs_plain()
     phase_book(card)
     phase_flow(card)
+    serve_launches = phase_serve(card)
     model, scope, exe = build_model()
     launches = {'serve': phase_slice(card, model, scope, exe),
                 'train': phase_train(card, model, scope, exe)}
+    launches.update(serve_launches)
     phase_train_card_vs_cpu(card, model, scope, exe)
     phase_transformer_capture(card, model, scope)
     launches.update(phase_amp_transformer(card, model, scope, exe))

@@ -8,7 +8,8 @@ variables), mixed precision (``amp_guard``, ``enable_amp``) and the
 inference path (``io.save_inference_model`` / ``load_inference_model``,
 ``InferenceTranspiler``, ``Float16Transpiler``), ``memory_optimize``,
 the ``profiler`` and ``trace`` (spans, flight recorder, cost registry),
-``DataFeeder``, the graph-state ``evaluator``s and the numpy ``metrics``;
+``DataFeeder``, the graph-state ``evaluator``s and the numpy ``metrics``,
+``Inferencer`` (through the serving engine) and ``contrib.memory_usage``;
 ``Executor.run``
 interprets the program op by op on a torch device, by default the CUDA
 card (``CUDAPlace(0)``).
@@ -51,6 +52,9 @@ from . import evaluator
 from . import metrics
 from .transpiler import (InferenceTranspiler, Float16Transpiler,
                          memory_optimize, release_memory)
+from . import contrib
+from . import inferencer
+from .inferencer import Inferencer
 
 __all__ = framework.__all__ + executor.__all__ + [
     'io', 'initializer', 'layers', 'LoDTensor', 'CPUPlace', 'CUDAPlace',
@@ -60,5 +64,6 @@ __all__ = framework.__all__ + executor.__all__ + [
     'create_lod_tensor', 'create_random_int_lodtensor', 'amp', 'amp_guard',
     'enable_amp', 'transpiler', 'InferenceTranspiler', 'Float16Transpiler',
     'memory_optimize', 'release_memory', 'profiler', 'trace',
-    'data_feeder', 'DataFeeder', 'evaluator', 'metrics',
+    'data_feeder', 'DataFeeder', 'evaluator', 'metrics', 'contrib',
+    'inferencer', 'Inferencer',
 ]

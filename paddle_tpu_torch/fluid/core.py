@@ -15,13 +15,17 @@ Counterpart of ``paddle_tpu/fluid/core.py``.  A ``Place`` carries an explicit
 - ``LoDTensorArray`` is a list of LoDTensors: the host-side form of a
   tensor array (a ``LOD_TENSOR_ARRAY`` var), as the executor hands a
   fetched one back.
+- ``PaddedSequence`` is a LoD feed already lowered: padded [B, T, ...]
+  data and per-row lengths, which the executor feeds as the data and its
+  ``@SEQLEN`` side-band.
 """
 
 import numpy as np
 import torch
 
 __all__ = ['CPUPlace', 'CUDAPlace', 'Place', 'VarDesc', 'LoDTensor',
-           'LoDTensorArray', 'SelectedRows', 'Scope', 'global_scope']
+           'LoDTensorArray', 'SelectedRows', 'PaddedSequence', 'Scope',
+           'global_scope']
 
 
 class Place(object):
@@ -145,6 +149,21 @@ def convert_dtype_to_np(dtype):
 def convert_dtype_to_torch(dtype):
     """VarType enum (or string/np dtype) -> torch dtype."""
     return _DTYPE_TO_TORCH[convert_np_dtype_to_dtype_(dtype)]
+
+
+class PaddedSequence(object):
+    """A LoD feed already lowered to padded [B, T, ...] ``data`` plus
+    per-row ``lengths`` (counterpart of the JAX package's
+    ``core.PaddedSequence``, which its double-buffer reader stages ahead
+    of the compute).  ``rows`` is the OUTER level of a nested (2-level
+    LoD) batch, or None; the port does not feed nested LoD yet."""
+
+    __slots__ = ('data', 'lengths', 'rows')
+
+    def __init__(self, data, lengths, rows=None):
+        self.data = data
+        self.lengths = lengths
+        self.rows = rows
 
 
 # ----------------------------------------------------------------------------

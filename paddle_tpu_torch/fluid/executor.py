@@ -57,9 +57,14 @@ bytes (``trace.analyze_cost``).  ``FLAGS_check_nan_inf`` raises on a NaN
 fetches after a run; each op's outputs in a block that runs eagerly);
 ``FLAGS_benchmark`` synchronizes and logs each run's milliseconds; while
 ``fluid.profiler`` is on, each ``run``, ``run_multi`` and
-``run_eval_multi`` call records one slice.
+``run_eval_multi`` call records one slice.  ``purge_programs`` drops one
+program's blocks (the serving engine's eviction), releasing their graphs
+at the next resolve; ``close()`` releases every graph at once, and a
+dropped executor frees its blocks with it (the cache's finalizers hold it
+weakly).
 
-Not ported yet: ``run_decode_multi`` and ``run_chunk_prefill`` (serving),
+Not ported yet: ``run_decode_multi`` and ``run_chunk_prefill`` (generation
+serving),
 ``py_reader`` feeds, the host ops but ``chunk_eval`` and ``print``
 (``save``, ``load``, ``save_combine``, ``load_combine``, the distributed and
 detection ones), nested (two-level) LoD feeds, ``SelectedRows`` feeds and scope
@@ -115,10 +120,21 @@ def _as_tensor(value):
 
 def prepare_feed_arrays(feed):
     """Normalize a user feed dict to {name: torch tensor}: a LoD feed lowers
-    to padded [B, T, ...] plus a ``<name>@SEQLEN`` int32 lengths entry."""
+    to padded [B, T, ...] plus a ``<name>@SEQLEN`` int32 lengths entry, and a
+    ``core.PaddedSequence`` (already lowered) feeds its data and lengths as
+    the same pair."""
     feed_arrays = {}
     for name, value in feed.items():
-        if isinstance(value, core.LoDTensor) and value.lod():
+        if isinstance(value, core.PaddedSequence):
+            if value.rows is not None:
+                raise NotImplementedError(
+                    'feed %r: a nested PaddedSequence (rows=) needs the '
+                    '@ROWS side-band, which comes with a later sequence '
+                    'slice of the PyTorch port' % name)
+            feed_arrays[name] = _as_tensor(value.data)
+            feed_arrays[name + registry.SEQLEN_SUFFIX] = _as_tensor(
+                value.lengths).to(torch.int32)
+        elif isinstance(value, core.LoDTensor) and value.lod():
             if len(value.lod()) >= 2:
                 raise NotImplementedError(
                     'feed %r: a nested (%d-level) LoD feed needs the '
@@ -527,6 +543,12 @@ class _GraphMemory(object):
         self.pool = torch.cuda.graph_pool_handle()
         self._buffers = {}  # id -> weakref of a state buffer
 
+    def renew(self):
+        """A fresh pool for the captures to come.  The allocator retires a
+        pool once the last graph using it is gone, and a capture into a
+        retired pool fails; the graphs still alive keep the old one."""
+        self.pool = torch.cuda.graph_pool_handle()
+
     def add(self, t):
         buffers, key = self._buffers, id(t)
 
@@ -585,6 +607,7 @@ class _CompiledBlock(object):
         self._io_bytes = None
         self._cost_entries = {}
         self._batch_feed_names = None  # set by run_eval_multi's padding
+        self.last_eval_cost = None
         self._fetch_batch_led = None
         # the (steps, stacked feed signature) pairs run_multi and
         # run_eval_multi have run: the JAX package compiles one executable
@@ -732,7 +755,11 @@ class _CompiledBlock(object):
         state buffers first where they are not yet), then replay it once."""
         device = self.place.device
         mem = self._memory
-        self._graph = None
+        if self._graph is not None:
+            # a capture again (new state shapes): the old graph may have been
+            # its pool's last user
+            self._graph = None
+            mem.renew()
         taken = set()
 
         def buffer(n):
@@ -975,10 +1002,13 @@ class _CompiledBlock(object):
         self._steps(scope, feeds, per_step, generator, steps, keep)
         return last
 
-    def run_eval_multi(self, scope, feeds, generator, steps, per_step=None):
+    def run_eval_multi(self, scope, feeds, generator, steps, per_step=None,
+                       host=True):
         """``steps`` evaluation steps; every step's fetches, stacked
-        [K, ...], as numpy.  On the card each step's fetches are copied on
-        the device into a [K, ...] buffer, and the host copies once."""
+        [K, ...], as numpy (``host=False``: the stacked tensors on the
+        block's device, nothing synchronized).  On the card each step's
+        fetches are copied on the device into a [K, ...] buffer, and the
+        host copies once."""
         self._check_multi('run_eval_multi', steps)
         stacked = []
 
@@ -995,6 +1025,8 @@ class _CompiledBlock(object):
                 buf[i].copy_(f)
 
         self._steps(scope, feeds, per_step, generator, steps, collect)
+        if not host:
+            return stacked
         return [to_numpy(s, n) for s, n in zip(stacked, self.fetch_names)]
 
     def release(self):
@@ -1037,8 +1069,9 @@ class Executor(object):
         self._generator = None
         self._closed = False
         self._cache = collections.OrderedDict()
-        # blocks purged while a capture may be running: dropped at the next
-        # resolve, never inside a capture
+        # blocks purged while a capture may be running (their program or
+        # scope died, or ``purge_programs``): released at the next resolve,
+        # never inside a capture
         self._retired = []
         self._finalizers = {}
         # each cache miss is one plan (and on the card one capture to come)
@@ -1054,25 +1087,60 @@ class Executor(object):
 
     def _pin_cache_lifetime(self, obj):
         """Purge the cache entries keyed by id(obj) when obj dies, so that a
-        recycled id never reaches a stale block."""
+        recycled id never reaches a stale block.  The finalizer reaches the
+        executor through a weak reference: a dropped executor's blocks (and
+        their graphs) die with it, whatever programs and scopes live on."""
         oid = id(obj)
         fin = self._finalizers.get(oid)
         if fin is not None and fin.alive:
             return
-        cache_ref = weakref.ref(self._cache)
-        lock, retired = self._cache_lock, self._retired
-        finalizers = self._finalizers
+        ref = weakref.ref(self)
 
         def _purge():
-            cache = cache_ref()
-            if cache is None:
+            exe = ref()
+            if exe is None:
                 return
-            with lock:
-                finalizers.pop(oid, None)
-                for k in [k for k in list(cache) if oid in (k[0], k[5])]:
-                    retired.append(cache.pop(k))
+            with exe._cache_lock:
+                exe._finalizers.pop(oid, None)
+                for k in [k for k in list(exe._cache)
+                          if oid in (k[0], k[5])]:
+                    exe._retired.append(exe._cache.pop(k))
 
         self._finalizers[oid] = weakref.finalize(obj, _purge)
+
+    def purge_programs(self, programs):
+        """Drop every cached block of ``programs`` (a list of Programs):
+        their entries leave the cache at once (the next run of such a
+        program plans and captures again, counting in ``compile_count``)
+        and their graphs and state buffers are released at the next
+        resolve, or by ``release_retired()``, never inside a capture.
+        Returns the number of entries dropped.  Blocks of other programs
+        stay: an executor shared between models keeps theirs."""
+        pids = {id(p) for p in programs}
+        with self._cache_lock:
+            keys = [k for k in list(self._cache) if k[0] in pids]
+            for k in keys:
+                self._retired.append(self._cache.pop(k))
+        return len(keys)
+
+    def release_retired(self):
+        """Release the graphs and state buffers of purged blocks now.  The
+        caller makes sure that no capture on this executor's pool runs
+        meanwhile (the serving engine calls it paused, under its dispatch
+        gate)."""
+        with self._cache_lock:
+            retired, self._retired[:] = list(self._retired), []
+        self._release(retired)
+        return len(retired)
+
+    def _release(self, blocks):
+        """Release ``blocks``' graphs and buffers; when a graph went, the
+        next capture takes a fresh pool (``_GraphMemory.renew``)."""
+        graphs = any(c._graph is not None for c in blocks)
+        for compiled in blocks:
+            compiled.release()
+        if graphs and self._memory is not None:
+            self._memory.renew()
 
     def _resolve_and_compile(self, program, feed, fetch_list, scope):
         """Normalize the arguments, prepare and validate the feeds, and
@@ -1093,8 +1161,8 @@ class Executor(object):
                self.place, id(scope), registry.amp_enabled())
         self._pin_cache_lifetime(program)
         self._pin_cache_lifetime(scope)
+        self.release_retired()
         with self._cache_lock:
-            del self._retired[:]
             compiled = self._cache.get(key)
             if compiled is None:
                 self.compile_count += 1
@@ -1103,7 +1171,7 @@ class Executor(object):
                                           self._memory)
                 self._cache[key] = compiled
                 if len(self._cache) > self._CACHE_MAX:
-                    self._cache.popitem(last=False)[1].release()
+                    self._release([self._cache.popitem(last=False)[1]])
             else:
                 self._cache.move_to_end(key)
         return program, scope, feed_arrays, compiled
@@ -1204,24 +1272,22 @@ class Executor(object):
                               steps=steps)
         return self._convert_fetches(fetches, return_numpy, compiled)
 
-    def run_eval_multi(self,
-                       program=None,
-                       feed=None,
-                       fetch_list=None,
-                       steps=None,
-                       scope=None,
-                       return_numpy=True,
-                       feed_list=None,
-                       reader=None):
-        """Run ``steps`` evaluation steps and return every step's fetches:
-        one [K, ...] array per fetch, except a batch-led fetch over ragged
-        lots of unequal real rows, which comes back as a list of K arrays
-        trimmed to each lot's rows.
-
-        feed: one batch evaluated ``steps`` times, OR feed_list: one lot per
-        step.  Lots of other time extents are padded to one bucket, lots of
-        other row counts to the largest with a sample mask, and trimmed on
-        the way out."""
+    def _dispatch_eval_multi(self,
+                             program=None,
+                             feed=None,
+                             fetch_list=None,
+                             steps=None,
+                             scope=None,
+                             feed_list=None,
+                             reader=None,
+                             host=False):
+        """The front half of run_eval_multi: resolve the block, pad ragged
+        lots to one bucket, run the K steps, and return ``(stacked, reals,
+        target, compiled, k)`` with ``stacked`` the [K, ...] fetch tensors
+        on the block's device, nothing synchronized (``host=True``: numpy).
+        The serving engine drives this, so that it delivers one dispatch
+        while the card runs the next.  ``reals`` is each lot's real row
+        count (None when nothing was padded), ``target`` the padded rows."""
         if reader is not None:
             raise NotImplementedError(
                 'run_eval_multi(reader=...): py_reader is not ported to '
@@ -1256,15 +1322,40 @@ class Executor(object):
             'eval_dispatch', executor='Executor', steps=steps,
             fetch_names=list(compiled.fetch_names),
             trace_id=getattr(_trace.current(), 'trace_id', None))
+        stacked = compiled.run_eval_multi(scope, feed_arrays,
+                                          self._rng(program), steps,
+                                          per_step=per_step, host=host)
+        # under FLAGS_cost_accounting the serving engine reads this
+        # dispatch's entry (its FLOPs over the dispatch's wall)
+        compiled.last_eval_cost = compiled.capture_cost(
+            'eval_multi', cost_key, scope, feed_arrays, steps=steps)
+        return stacked, reals, target, compiled, steps
+
+    def run_eval_multi(self,
+                       program=None,
+                       feed=None,
+                       fetch_list=None,
+                       steps=None,
+                       scope=None,
+                       return_numpy=True,
+                       feed_list=None,
+                       reader=None):
+        """Run ``steps`` evaluation steps and return every step's fetches:
+        one [K, ...] array per fetch, except a batch-led fetch over ragged
+        lots of unequal real rows, which comes back as a list of K arrays
+        trimmed to each lot's rows.
+
+        feed: one batch evaluated ``steps`` times, OR feed_list: one lot per
+        step.  Lots of other time extents are padded to one bucket, lots of
+        other row counts to the largest with a sample mask, and trimmed on
+        the way out."""
 
         def go():
-            stacked = compiled.run_eval_multi(scope, feed_arrays,
-                                              self._rng(program), steps,
-                                              per_step=per_step)
-            compiled.capture_cost('eval_multi', cost_key, scope,
-                                  feed_arrays, steps=steps)
+            stacked, reals, target, compiled, k = self._dispatch_eval_multi(
+                program, feed=feed, fetch_list=fetch_list, steps=steps,
+                scope=scope, feed_list=feed_list, reader=reader, host=True)
             return convert_eval_fetches(stacked, reals, target, compiled,
-                                        steps, return_numpy)
+                                        k, return_numpy)
 
         if _profiler.is_profiler_enabled():
             with _profiler.record_block('executor_run_eval_multi/block0'):
@@ -1363,9 +1454,13 @@ class Executor(object):
             return list(self._cache.values())
 
     def close(self):
-        """Drop the compile cache, its graphs with it."""
+        """Drop the compile cache and every purged block, their graphs with
+        them, and detach the cache's finalizers."""
         with self._cache_lock:
-            for compiled in self._cache.values():
-                compiled.release()
-            self._cache = collections.OrderedDict()
+            self._release(list(self._cache.values()) + self._retired)
+            self._cache.clear()
+            del self._retired[:]
+            finalizers, self._finalizers = self._finalizers, {}
+        for fin in finalizers.values():
+            fin.detach()
         self._closed = True

@@ -73,10 +73,18 @@ class FusedCEBf16(torch.autograd.Function):
 
 @register_lowering('softmax_with_cross_entropy')
 def _softmax_with_cross_entropy(ctx, op):
-    if op.attrs.get('soft_label', False):
-        raise NotImplementedError('softmax_with_cross_entropy with '
-                                  'soft_label=True is not ported yet')
     raw = ctx.get(op, 'Logits')
+    if op.attrs.get('soft_label', False):
+        # Label is a distribution over the last axis: loss = -sum(label *
+        # log_softmax), f32 throughout (bf16 logits upcast, as the JAX
+        # package's soft-label path does); Softmax is an intermediate
+        # output its grad never reads, so it carries no gradient
+        logits = amp_upcast_f32(raw)
+        label = amp_upcast_f32(ctx.get(op, 'Label'))
+        log_p = torch.log_softmax(logits, dim=-1)
+        ctx.set(op, 'Softmax', torch.exp(log_p).detach())
+        ctx.set(op, 'Loss', -(label * log_p).sum(dim=-1, keepdim=True))
+        return
     idx = _index_label(ctx.get(op, 'Label'))
     ignore = op.attrs.get('ignore_index', -100)
     if raw.dtype == torch.bfloat16:

@@ -223,6 +223,12 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             'paddle_tpu_torch.fluid.trace, paddle_tpu_torch.fluid.profiler, '
             'paddle_tpu_torch.fluid.layers.learning_rate_scheduler, '
             'paddle_tpu_torch.fluid.layers.math_op_patch, '
+            'paddle_tpu_torch.serving, paddle_tpu_torch.serving.engine, '
+            'paddle_tpu_torch.serving.registry, '
+            'paddle_tpu_torch.serving.arbiter, paddle_tpu_torch.inference, '
+            'paddle_tpu_torch.fluid.inferencer, '
+            'paddle_tpu_torch.fluid.parallel_executor, '
+            'paddle_tpu_torch.fluid.contrib, '
             'chip_smoke, '
             'profile_torch_slice, profile_ctr_merge, '
             'profile_amp_resnet_grads, probe_bench_widths; '
