@@ -302,9 +302,10 @@ H. the serving tier (``paddle_tpu_torch.serving``, ``inference``), run
        graph through ``run_eval_multi``, 18 f32 flash forwards a lot
        counted by name; lots fewer than requests; every response against
        a direct ``exe.run`` of its zero-padded request
-       (``SERVE_RTOL``/``SERVE_ATOL``); then the engine and its executor
-       dropped with the cyclic collector off, ``memory_reserved``
-       falling.
+       (``SERVE_RTOL``/``SERVE_ATOL``); then, the allocator's cache
+       emptied, the engine and its executor dropped with the cyclic
+       collector off: both dead at once, and ``memory_reserved`` falling
+       by their graphs and pool.
    H2. ResNet-50 f32 and its path C inference form (folded, bf16) in one
        ``ModelRegistry``, batch ``REGISTRY_BATCH``: each served resident
        (eager, capture, ``REGISTRY_REPLAYS`` replays), then a budget that
@@ -338,6 +339,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -5881,16 +5883,23 @@ def phase_serve_transformer(card):
     record.update(_latency(m))
     _serve_line('H1 engine', record, card)
     # a dropped engine and its executor free their graphs at once: no
-    # cyclic collection runs here
+    # cyclic collection runs here.  The allocator's cache is emptied first,
+    # so the fall is the dropped executor's graphs and pool alone, not the
+    # windows' freed fetch buffers
     torch.cuda.synchronize()
     gc.disable()
     try:
+        torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
+        exe_ref, eng_ref = weakref.ref(eng._exe), weakref.ref(eng)
         del eng, block
         torch.cuda.empty_cache()
         freed = reserved - torch.cuda.memory_reserved()
+        dead = exe_ref() is None and eng_ref() is None
     finally:
         gc.enable()
+    check(dead, 'h1: the dropped engine or its executor is still alive '
+          'without a cyclic collection')
     check(freed > 0, 'h1: memory_reserved did not fall when the engine and '
           'its executor were dropped (%d bytes)' % freed)
     print('serve engine: dropping the engine and its executor released %.1f '
@@ -5922,13 +5931,9 @@ def _registry_models(tmpdir):
                 fluid.Float16Transpiler().transpile(
                     prog, scope=scope, dtype='bfloat16',
                     feeded_var_names=feeds, fetch_var_names=fetches)
-        # the transpilers leave the f32 originals in the scope; the model
-        # serves (and a reload stages) only what its program reads
-        used = {n for blk in prog.blocks for op in blk.ops
-                for n in list(op.input_arg_names) + list(op.output_arg_names)}
-        for n in scope.local_var_names():
-            if n not in used:
-                scope.find_var(n).set_value(None)
+        # the transpilers leave the f32 originals in the scope, on the
+        # card: the engine counts, evicts and stages only what its program
+        # reads, so they stay there, outside every account
         handles[name] = (prog, feeds, fetches, scope)
     return handles
 

@@ -281,8 +281,15 @@ def stack_steps(vals):
 
 
 def _lead(v):
-    """Leading dim of a feed value, None for a scalar."""
-    return int(v.shape[0]) if v.dim() >= 1 else None
+    """Leading dim of a feed value (a torch tensor, a LoDTensor or anything
+    numpy reads), None for a scalar."""
+    if isinstance(v, torch.Tensor):
+        shape = v.shape
+    elif isinstance(v, core.LoDTensor):
+        shape = v.shape()
+    else:
+        shape = np.shape(v)
+    return int(shape[0]) if len(shape) >= 1 else None
 
 
 def _pad_rows(fa, batch_names, target):

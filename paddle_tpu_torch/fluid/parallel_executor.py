@@ -1,13 +1,11 @@
-"""The ragged-batch helpers of ``paddle_tpu/fluid/parallel_executor.py``.
+"""The ragged-batch helper of ``paddle_tpu/fluid/parallel_executor.py``.
 
 ``pad_ragged_batch`` pads a lot's batch feeds up to a target row count
 with a ``registry.SAMPLE_MASK_NAME`` feed (the serving engine's bucket
-padding), on the executor's ``_pad_rows``; ``_lead`` reads a feed value's
-leading dim.  ``ParallelExecutor`` itself (data-parallel execution on
-``torch.distributed``) is not ported yet: ROADMAP.md, Queue 1 item 7.
+padding), on the executor's ``_pad_rows``.  ``ParallelExecutor`` itself
+(data-parallel execution on ``torch.distributed``) is not ported yet:
+ROADMAP.md, Queue 1 item 7.
 """
-
-import numpy as np
 
 from . import core
 from .executor import _as_tensor, _pad_rows
@@ -15,49 +13,15 @@ from .executor import _as_tensor, _pad_rows
 __all__ = ['pad_ragged_batch']
 
 
-def _lead(v):
-    """Leading dim of a feed value (a LoDTensor, a torch tensor or anything
-    numpy reads), None for a scalar."""
-    if isinstance(v, core.LoDTensor):
-        shape = v.shape()
-    elif hasattr(v, 'shape') and not callable(v.shape):
-        shape = tuple(v.shape)
-    else:
-        shape = np.shape(v)
-    return int(shape[0]) if len(shape) >= 1 else None
-
-
-def pad_ragged_batch(feed_arrays, multiple, target=None, force_mask=False,
-                     batch_names=None):
-    """Pad the lot's batch dim up to ``target`` (default: the next multiple
-    of ``multiple``) by repeating the last real row, and add the sample
-    mask (1.0 a real row, 0.0 padding), so the mean lowerings count the real
-    rows only.  ``batch_names`` names the batch-led feeds; without it the
-    largest leading dim is the batch.  Returns (feed, real rows, padded
-    rows); the feed comes back untouched when nothing pads and no mask is
-    forced.  The JAX package's mesh options (``skip``, ``sizes_only``,
-    ``report``) come with ``ParallelExecutor``."""
-    dims = sorted({_lead(v) for n, v in feed_arrays.items()
-                   if (batch_names is None or n in batch_names)
-                   and _lead(v) is not None})
-    if batch_names is not None:
-        if len(dims) != 1:
-            raise ValueError(
-                'ragged lot is ambiguous: batch feeds %s disagree on '
-                'rows %s' % (sorted(batch_names), dims))
-    elif target is not None:
-        raise ValueError('pad_ragged_batch: target= requires batch_names=')
-    b = dims[-1] if dims else 0
-    if target is not None:
-        tgt = int(target)
-    else:
-        tgt = -(-b // multiple) * multiple if multiple > 1 else b
-    if b == 0 or (tgt == b and not force_mask):
-        return feed_arrays, b, b
-    names = set(batch_names) if batch_names is not None else {
-        n for n, v in feed_arrays.items() if _lead(v) == b}
+def pad_ragged_batch(feed_arrays, target, batch_names):
+    """Pad the lot's batch feeds ``batch_names`` up to ``target`` rows by
+    repeating the last real row, and add the sample mask (1.0 a real row,
+    0.0 padding), so the mean lowerings count the real rows only.  The
+    mask is added even when nothing pads, so a full lot and a padded lot
+    share one signature.  Returns (feed, real rows, target).  The JAX
+    package's ``multiple`` rounding and mesh options (``skip``,
+    ``sizes_only``, ``report``) come with ``ParallelExecutor``."""
     fa = {n: (v.tensor() if isinstance(v, core.LoDTensor) else
               _as_tensor(v)) for n, v in feed_arrays.items()}
-    out, _ = _pad_rows(fa, names, tgt)
-    return out, b, tgt
-
+    out, real = _pad_rows(fa, batch_names, int(target))
+    return out, real, int(target)

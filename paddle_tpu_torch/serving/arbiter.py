@@ -12,7 +12,8 @@ the ledger:
     program's var-sum upper bound at the top bucket size: weights plus
     one lot's activations) and CORRECTED to the live bytes once the model
     has served: the engine's ``device_footprint()``, the bytes of the
-    CUDA tensors its scope holds;
+    CUDA tensors of the persistables its program reads (what an eviction
+    moves and a reload stages back);
   * ``admit`` is the load-time gate: a model whose seed alone exceeds
     the budget raises ``HBMBudgetError`` (typed, so callers tell
     capacity from bugs) instead of running out of memory mid-request;
@@ -26,8 +27,10 @@ the ledger:
 
 What ``torch.cuda.memory_allocated`` shows beside the accounts: every
 tensor of the caching allocator on the card, so besides the models'
-scope tensors the graphs' private pools (a captured block's activations
-and its static feed and fetch buffers) and any transient feed or fetch.
+weights the graphs' private pools (a captured block's activations and
+its static feed and fetch buffers), any transient feed or fetch, and the
+scope tensors no model's program reads (a transpiler's f32 originals
+left on the card).
 The accounts hold the weights only (the seed covers one lot's
 activations until the first correction); ``audit()`` reports the
 difference as drift.

@@ -33,21 +33,26 @@ dispatches inline on the submitter's thread (``fluid.Inferencer`` runs
 this mode).  ``start()`` spawns the worker loop for the queued mode; on
 the card the worker selects the engine's device before it runs anything.
 
-Device memory (the ModelRegistry's arbiter hooks): ``device_footprint``
-sums the scope's tensors on the engine's device; ``evict_to_host`` copies
-each to a CPU tensor bit for bit (the scope then holds its host form),
-drops the engine's blocks through ``Executor.purge_programs`` and
+Device memory (the ModelRegistry's arbiter hooks): the engine's model is
+the set of persistables its program reads.  ``device_footprint`` sums
+those of them that lie on the engine's device; ``evict_to_host`` copies
+the same ones to CPU tensors bit for bit (the scope then holds their host
+form), drops the engine's blocks through ``Executor.purge_programs`` and
 releases their graphs and state buffers, paused and under the dispatch
-gate, so no capture runs meanwhile; the next dispatch stages the host
-forms of the persistables the program reads back onto the device and the
-executor captures afresh.  An engine
-made by ``from_saved_model`` starts with its weights in host form, as the
-JAX package's loaded numpy arrays are, and stages them at its first
-dispatch.
+gate, so no capture runs meanwhile; the next dispatch stages the same
+ones back onto the device and the executor captures afresh.  So the
+account, the eviction and the reload cover one set, and a model's
+account is the same before its first eviction and after every reload.
+Scope tensors the program does not read (a transpiler's f32 originals, a
+training scope's optimizer moments) are not the model's: they are
+neither counted nor moved.  An engine made by ``from_saved_model``
+starts with its weights in host form, as the JAX package's loaded numpy
+arrays are, and stages them at its first dispatch.
 
 Not ported yet, each raising ``NotImplementedError``: generation
-(``generation=``, ``submit_generate``, ``generate``, ``prefill_chunk``:
-they need the executor's ``run_decode_multi`` and ``run_chunk_prefill``),
+(``generation=``, ``submit_generate``, ``generate``, and
+``ServingConfig``'s ``decode_*`` and ``prefill_chunk`` knobs: they need
+the executor's ``run_decode_multi`` and ``run_chunk_prefill``),
 dp/mesh serving (``parallel=``, ``mesh=``) and the embedding caches
 (``embed_caches=``).  ROADMAP.md, Queue 1 items 7-9.
 """
@@ -66,8 +71,8 @@ from ..fluid import core
 from ..fluid import profiler as _profiler
 from ..fluid import trace as _trace
 from ..fluid.executor import Executor, feed_signature, fetch_batch_led, \
-    prepare_feed_arrays, to_numpy, _as_tensor
-from ..fluid.parallel_executor import pad_ragged_batch, _lead
+    prepare_feed_arrays, to_numpy, _as_tensor, _lead
+from ..fluid.parallel_executor import pad_ragged_batch
 from ..ops import registry
 from ..ops.registry import SEQLEN_SUFFIX, SAMPLE_MASK_NAME
 from .batcher import InferenceRequest, MicroBatcher
@@ -113,9 +118,8 @@ class ServingConfig(object):
     watchdog_stall_s: queue-age stall threshold (seconds) of the trace
         watchdog probe a started engine registers; None registers none.
     decode_slots, decode_steps, decode_pipeline_depth, prefill_chunk: the
-        generation lane's knobs, validated as in the JAX package; a
-        ``prefill_chunk`` raises NotImplementedError (generation is not
-        ported yet).
+        generation lane's knobs; any value raises NotImplementedError
+        (generation is not ported yet).
     scheduling: 'edf' (default): highest priority first, earliest
         deadline first within a class, past-deadline requests SHED with
         DeadlineExceededError; requests without priorities or deadlines
@@ -135,8 +139,8 @@ class ServingConfig(object):
                  bucket_sizes=None, max_buckets=16,
                  trailing_buckets=True, trailing_ladders=None,
                  max_trailing_buckets=32, watchdog_stall_s=None,
-                 decode_slots=8, decode_steps=4, decode_pipeline_depth=2,
-                 prefill_chunk=None, scheduling='edf',
+                 decode_slots=None, decode_steps=None,
+                 decode_pipeline_depth=None, prefill_chunk=None, scheduling='edf',
                  admit_queue_depth=None, admit_queue_age_ms=None,
                  adaptive_admission=False, priority_aging_ms=None,
                  shed_by_class=False):
@@ -166,19 +170,13 @@ class ServingConfig(object):
         self.max_trailing_buckets = int(max_trailing_buckets)
         self.watchdog_stall_s = (float(watchdog_stall_s)
                                  if watchdog_stall_s is not None else None)
-        if int(decode_slots) < 1:
-            raise ValueError('decode_slots must be >= 1')
-        if int(decode_steps) < 1:
-            raise ValueError('decode_steps must be >= 1')
-        self.decode_slots = int(decode_slots)
-        self.decode_steps = int(decode_steps)
-        if int(decode_pipeline_depth) < 1:
-            raise ValueError('decode_pipeline_depth must be >= 1 '
-                             '(1 = the per-scan-sync lane)')
-        self.decode_pipeline_depth = int(decode_pipeline_depth)
-        if prefill_chunk is not None:
-            raise NotImplementedError('prefill_chunk: ' + _GENERATION_TODO)
-        self.prefill_chunk = None
+        for knob, value in (('decode_slots', decode_slots),
+                            ('decode_steps', decode_steps),
+                            ('decode_pipeline_depth', decode_pipeline_depth),
+                            ('prefill_chunk', prefill_chunk)):
+            if value is not None:
+                raise NotImplementedError('%s: %s' % (knob,
+                                                      _GENERATION_TODO))
         self.adaptive_admission = bool(adaptive_admission)
         if scheduling not in ('edf', 'fifo'):
             raise ValueError(
@@ -307,7 +305,12 @@ class InferenceEngine(object):
         # EAGERLY, one exe.run per request, no padding or coalescing
         self._eager = any(registry.is_host_op_type(op.type)
                           for op in program.global_block().ops)
-        self._reads = None  # the persistables the program reads
+        # the model: the persistables the program reads (account,
+        # eviction and staging all cover this one set)
+        self._model_vars = sorted(
+            {n for blk in program.blocks for op in blk.ops
+             for n in op.input_arg_names
+             if getattr(blk._find_var_recursive(n), 'persistable', False)})
         if place is None:
             place = executor.place if executor is not None else \
                 core.CUDAPlace(0)
@@ -482,16 +485,21 @@ class InferenceEngine(object):
             v.device.type == self.place.device.type and \
             (v.device.index or 0) == (self.place.device.index or 0)
 
+    def _model_values(self):
+        """(scope var, value) of each of the model's persistables that the
+        scope holds."""
+        for name in self._model_vars:
+            var = self._scope.find_var(name)
+            if var is not None:
+                yield var, var.value()
+
     def device_footprint(self):
         """Live device bytes of this engine's model: the bytes of the
-        tensors its scope holds on the engine's device (its weights; the
-        graphs' private pools are not in it).  Host forms count nothing."""
-        total = 0
-        for name in self._scope.local_var_names():
-            v = self._scope.find_var(name).value()
-            if self._on_device(v):
-                total += v.numel() * v.element_size()
-        return total
+        persistables its program reads that lie on the engine's device
+        (the graphs' private pools are not in it).  Host forms count
+        nothing."""
+        return sum(v.numel() * v.element_size()
+                   for _, v in self._model_values() if self._on_device(v))
 
     def hbm_footprint(self):
         """Per-device live bytes (the JAX engine's shard-aware count): one
@@ -510,8 +518,9 @@ class InferenceEngine(object):
 
     def evict_to_host(self):
         """Demote the model to host memory: paused and under the dispatch
-        gate, every scope tensor on the device is copied to a CPU tensor
-        (bitwise: dtype and values kept, so the round trip is exact), the
+        gate, each of the model's persistables on the device (those
+        ``device_footprint`` counts) is copied to a CPU tensor (bitwise:
+        dtype and values kept, so the round trip is exact), the
         engine's blocks are dropped and their graphs and state buffers
         released, and on the card the allocator's cache is emptied, so the
         memory goes back to the card.  Returns (bytes moved, blocks
@@ -520,9 +529,7 @@ class InferenceEngine(object):
         with self.paused():
             with self._gated():
                 moved = 0
-                for name in self._scope.local_var_names():
-                    var = self._scope.find_var(name)
-                    v = var.value()
+                for var, v in list(self._model_values()):
                     if self._on_device(v):
                         host = v.detach().to('cpu', copy=True)
                         var.set_value(_HostTensor(host))
@@ -534,21 +541,12 @@ class InferenceEngine(object):
         return moved, dropped
 
     def _stage(self):
-        """Put the host forms of the persistables the program reads back
-        on the engine's device (the reload half of ``evict_to_host``, and
-        a saved model's first staging), as the JAX executor caches its
-        read-only state back on the device; the others (a training
-        scope's optimizer moments) stay on the host.  Runs under the
-        dispatch gate."""
-        if self._reads is None:
-            self._reads = {n for blk in self._program.blocks
-                           for op in blk.ops for n in op.input_arg_names
-                           if getattr(blk._find_var_recursive(n),
-                                      'persistable', False)}
+        """Put the host forms of the model's persistables back on the
+        engine's device (the reload half of ``evict_to_host``, and a saved
+        model's first staging), as the JAX executor caches its read-only
+        state back on the device.  Runs under the dispatch gate."""
         device = self.place.device
-        for name in self._reads:
-            var = self._scope.find_var(name)
-            v = var.value() if var is not None else None
+        for var, v in self._model_values():
             if isinstance(v, _HostTensor):
                 var.set_value(v.tensor().to(device))
 
@@ -831,10 +829,9 @@ class InferenceEngine(object):
         else:
             feed = {n: torch.cat([_to_tensor(r.feed[n]) for r in requests])
                     for n in names}
-        # force_mask keeps ONE signature per bucket: a full lot and a
-        # padded lot run the same block (mask all ones vs ragged)
-        feed, real, target = pad_ragged_batch(
-            feed, 1, target=bucket, force_mask=True, batch_names=names)
+        # the mask rides every lot, so a full lot and a padded lot run
+        # the same block (mask all ones vs ragged)
+        feed, real, target = pad_ragged_batch(feed, bucket, names)
         deadline_flush = rows < self.config.max_batch_size
         self._metrics.note_lot(real, target, deadline_flush)
         t_lot = time.time()

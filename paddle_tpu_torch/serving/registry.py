@@ -15,13 +15,13 @@ in device memory, and which one is evicted when the next arrives.
     pre-builds the bucket ladder; ``status()`` snapshots the fleet.  All
     thread-safe against in-flight requests.
   * **HBM arbiter** (arbiter.py): every model's footprint is accounted
-    (seeded from ``fluid.contrib.memory_usage_calc``, corrected to the
-    live bytes of its scope's device tensors once it serves), admission
-    is checked against ``hbm_budget_bytes``, and the budget is kept by
-    LRU eviction to HOST memory: the victim engine is paused (its
-    in-flight dispatches deliver), its scope tensors are copied to the
-    host bitwise and its blocks' graphs released; the next request to
-    it stages the weights back and captures afresh (a reload).
+    (seeded from ``fluid.contrib.memory_usage_calc``, corrected once it
+    serves to the live device bytes of the persistables its program
+    reads), admission is checked against ``hbm_budget_bytes``, and the
+    budget is kept by LRU eviction to HOST memory: the victim engine is
+    paused (its in-flight dispatches deliver), those same persistables
+    are copied to the host bitwise and its blocks' graphs released; the
+    next request to it stages them back and captures afresh (a reload).
   * **router**: ``submit(model, feed)`` ensures residency, bumps the
     LRU, tracks per-model request and row counts, and forwards to the
     model's engine queue; each engine's worker drains its own queue
@@ -47,8 +47,6 @@ caches (``embed_caches=``).  ROADMAP.md, Queue 1 items 7-9.
 """
 
 import itertools
-import json
-import os
 import threading
 import time
 import weakref
@@ -58,18 +56,11 @@ import numpy as np
 from ..fluid import core
 from ..fluid import profiler as _profiler
 from ..fluid import trace as _trace
-from ..fluid.flags import FLAGS as _FLAGS
 from .arbiter import HBMArbiter, HBMBudgetError, program_seed_bytes
 from .engine import InferenceEngine, ServingConfig, _GENERATION_TODO
 from .errors import OverloadedError
 
-__all__ = ['ModelRegistry', 'WARM_CATALOG_BASENAME']
-
-# the warm catalog: every registry.warm() call recorded as a replayable
-# signature set (batch rungs x trailing rungs), persisted in
-# FLAGS_xla_compile_cache_dir; registry.prewarm(catalog) replays it
-WARM_CATALOG_BASENAME = 'serving_warm_catalog.json'
-
+__all__ = ['ModelRegistry']
 
 class _ModelEntry(object):
     __slots__ = ('name', 'engine', 'dirname', 'loaded_t', 'requests',
@@ -105,7 +96,6 @@ class ModelRegistry(object):
         self.name = name or 'model-registry'
         self.arbiter = HBMArbiter(hbm_budget_bytes)
         self._models = {}
-        self._warm_catalog = []
         # ONE reentrant lock over the model table + arbiter decisions: a
         # submit ensuring residency (which may pause and evict another
         # model) never interleaves with a load/unload mutating the table
@@ -225,34 +215,18 @@ class ModelRegistry(object):
         bounds through the extents passed.
 
         ``decode_prefill`` warms the generation lane, which is not
-        ported yet: it raises NotImplementedError.
-
-        Every successful warm is RECORDED into the registry's warm
-        catalog and, when FLAGS_xla_compile_cache_dir is set, persisted
-        as ``serving_warm_catalog.json`` there, so ``prewarm()`` on a
-        fresh registry replays the same signature set."""
+        ported yet: it raises NotImplementedError.  The JAX package's
+        warm catalog and ``prewarm()`` replay are not ported either."""
         entry = self._entry(name)
         engine = entry.engine
         served = 0
-        # materialize iterator-valued args ONCE, before anything reads
-        # them: the catalog record and the warm body must see the same
-        # extents (an iterator drained by the record would warm nothing
-        # while recording rungs)
         if decode_prefill is not None:
             raise NotImplementedError('warm(decode_prefill=): ' +
                                       _GENERATION_TODO)
         trailing = {str(f): [int(e) for e in v]
-                    for f, v in (trailing or {}).items()} or None
-        record = {
-            'model': str(name),
-            'bucket_ladder': ([int(b) for b in bucket_ladder]
-                              if bucket_ladder is not None else None),
-            'trailing': trailing,
-            'decode_prefill': decode_prefill,
-        }
+                    for f, v in (trailing or {}).items()}
         ladder = list(bucket_ladder if bucket_ladder is not None
                       else engine.buckets.sizes)
-        trailing = trailing or {}
         feed_names = engine._feed_names
         if not feed_names:
             raise ValueError(
@@ -353,113 +327,7 @@ class ModelRegistry(object):
                         for fname in feed_names}
                 self.infer(name, feed, timeout=600)
                 served += 1
-        self._record_warm(record)
         return served
-
-    # ---- prewarm catalog -------------------------------------
-
-    def warm_catalog_path(self):
-        """Where the warm catalog persists: in FLAGS_xla_compile_cache_dir
-        (the JAX package's place for it, beside XLA's cache), or None
-        when no directory is configured (the catalog then lives in memory
-        only; ``warm_catalog()`` still returns it)."""
-        cache_dir = _FLAGS.xla_compile_cache_dir
-        if not cache_dir:
-            return None
-        return os.path.join(cache_dir, WARM_CATALOG_BASENAME)
-
-    def warm_catalog(self):
-        """The recorded warm set: one replayable dict per distinct
-        warm() call (model, bucket_ladder, trailing, decode_prefill)."""
-        with self._lock:
-            return [dict(r) for r in self._warm_catalog]
-
-    def _record_warm(self, record):
-        """Append one warm record (deduped — prewarm replays through
-        warm(), which must not grow the catalog it is replaying) and
-        persist the catalog atomically in the cache directory.  The
-        write MERGES with what is already on disk: a staged restart
-        that loaded (and re-warmed) only some models — or a peer
-        process sharing the cache dir — has records there for models
-        THIS registry never warmed, and overwriting would delete their
-        replay set."""
-        path = self.warm_catalog_path()
-        # the read-merge-replace stays under self._lock: two threads
-        # warming concurrently would otherwise race read-vs-replace and
-        # one record would vanish from disk (a lost update).  Peer
-        # PROCESSES sharing the cache dir can still interleave — the
-        # merge shrinks that window but does not close it; same-process
-        # durability is the contract the prewarm acceptance pins.
-        with self._lock:
-            if record not in self._warm_catalog:
-                self._warm_catalog.append(record)
-            if path is None:
-                return
-            catalog = [dict(r) for r in self._warm_catalog]
-            tmp = path + '.tmp'
-            try:
-                # nothing else of the port creates the directory (the JAX
-                # package's compile cache does)
-                os.makedirs(os.path.dirname(path), exist_ok=True)
-                try:
-                    with open(path) as f:
-                        on_disk = json.load(f)
-                except (OSError, ValueError):
-                    on_disk = []
-                merged = list(on_disk) + [r for r in catalog
-                                          if r not in on_disk]
-                with open(tmp, 'w') as f:
-                    json.dump(merged, f, indent=1)
-                    f.write('\n')
-                os.replace(tmp, path)
-            except OSError:
-                # an unwritable cache dir must not fail the warm
-                # itself — the in-memory catalog still serves
-                # same-process prewarms
-                try:
-                    os.remove(tmp)
-                except OSError:
-                    pass
-
-    def prewarm(self, catalog=None):
-        """Replay a warm catalog on THIS registry (the cold-start path):
-        for every record whose model is loaded, re-run ``warm()`` with
-        the recorded bucket ladder x trailing rungs, so first real
-        traffic at the recorded signatures plans nothing
-        (``compile_count`` delta 0).
-
-        ``catalog``: a path to a catalog JSON, an already-loaded list
-        of records, or None to read the default
-        ``warm_catalog_path()``.  Records for models not currently
-        loaded are skipped (reported, not raised — a fleet restart may
-        stage models in stages).  Returns
-        {'served', 'replayed', 'skipped_models'}."""
-        if catalog is None:
-            catalog = self.warm_catalog_path()
-            if catalog is None:
-                raise ValueError(
-                    'prewarm(): no catalog given and no '
-                    'FLAGS_xla_compile_cache_dir to read the default '
-                    'from — pass a path or a record list')
-        if isinstance(catalog, str):
-            with open(catalog) as f:
-                catalog = json.load(f)
-        served = replayed = 0
-        skipped = []
-        for rec in list(catalog):
-            model = rec.get('model')
-            with self._lock:
-                loaded = model in self._models
-            if not loaded:
-                skipped.append(model)
-                continue
-            served += self.warm(
-                model, bucket_ladder=rec.get('bucket_ladder'),
-                trailing=rec.get('trailing'),
-                decode_prefill=rec.get('decode_prefill'))
-            replayed += 1
-        return {'served': served, 'replayed': replayed,
-                'skipped_models': sorted(set(skipped))}
 
     def _entry(self, name):
         with self._lock:

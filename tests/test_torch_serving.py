@@ -433,7 +433,7 @@ CONFIG_ERRORS = [
     dict(scheduling='fifo', priority_aging_ms=5),
     dict(scheduling='fifo', shed_by_class=True),
     dict(admit_queue_depth=0), dict(admit_queue_age_ms=-1),
-    dict(adaptive_admission=True), dict(decode_slots=0),
+    dict(adaptive_admission=True), dict(admit_queue_age_ms=0),
 ]
 
 
@@ -985,14 +985,17 @@ def test_queue_age_rides_engine_metrics(mlp_dir):
 
 @pytest.mark.parametrize('cut', ['generation', 'parallel', 'mesh',
                                  'embed_caches', 'prefill_chunk',
+                                 'decode_slots', 'decode_steps',
+                                 'decode_pipeline_depth',
                                  'submit_generate', 'generate'])
 def test_cut_features_raise_not_implemented(mlp_dir, cut):
     eng = _mlp_engine('torch', mlp_dir)
     args = dict(fetch_list=eng._fetch_list, scope=eng._scope,
                 executor=eng._exe)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        if cut == 'prefill_chunk':
-            tserving.ServingConfig(prefill_chunk=16)
+        if cut in ('prefill_chunk', 'decode_slots', 'decode_steps',
+                   'decode_pipeline_depth'):
+            tserving.ServingConfig(**{cut: 16})
         elif cut in ('submit_generate', 'generate'):
             getattr(eng, cut)({'img': np.zeros((1, 784), 'float32')})
         else:

@@ -237,6 +237,76 @@ def test_eviction_reload_round_trip_is_bitwise(model_dirs):
     np.testing.assert_allclose(res['torch'][4], res['jax'][4], **MLP_TOL)
 
 
+def _half_model(pkg, d):
+    """The MLP saved in ``d`` loaded and rewritten by
+    Float16Transpiler('bfloat16'), which leaves the f32 originals in the
+    scope beside the bf16 copies the program reads."""
+    fluid, _ = PACKAGES[pkg]
+    scope = fluid.core.Scope()
+    with fluid.scope_guard(scope):
+        prog, feeds, fetches = fluid.io.load_inference_model(
+            d, fluid.Executor(fluid.CPUPlace()))
+        fluid.Float16Transpiler().transpile(
+            prog, scope=scope, dtype='bfloat16', feeded_var_names=feeds,
+            fetch_var_names=fetches)
+    return prog, feeds, fetches, scope
+
+
+def test_transpiled_model_account_is_what_eviction_moves_like_jax(
+        model_dirs):
+    """A bf16-transpiled model beside an f32 one, under a budget that holds
+    either but not both (the card's H2 form): the account of each model is
+    the bytes its program reads, the same before its first eviction and
+    after every reload, so every switch evicts, with the JAX registry's
+    counts and accounts.  The f32 originals the transpiler leaves in the
+    scope are not the model's: they are neither counted nor moved."""
+    res = {}
+    q = _requests(8, [4])[0]
+    for pkg, (fluid, serving) in PACKAGES.items():
+        reg = _registry(pkg, config=serving.ServingConfig(
+            max_batch_size=4, bucket_sizes=[4]))
+        prog, feeds, fetches, scope = _half_model(pkg, model_dirs['mA'])
+        reg.load('half', program=prog, feed_names=feeds, fetch_list=fetches,
+                 scope=scope)
+        reg.load('f32', model_dirs['mB'])
+        names = ['half', 'f32']
+        with reg:
+            resident = {n: reg.infer(n, q, timeout=30)[0] for n in names}
+            for n in names:
+                reg._ensure_resident(n)
+            live = {n: s['hbm_bytes']
+                    for n, s in reg.status()['models'].items()}
+            reg.arbiter.set_budget(max(live.values()) +
+                                   min(live.values()) // 2)
+            outs, accounts = [], []
+            for i in range(6):
+                name = names[(i + 1) % 2]
+                out = reg.infer(name, q, timeout=30)[0]
+                if pkg == 'torch':
+                    assert np.array_equal(out, resident[name]), (i, name)
+                outs.append(out)
+                accounts.append(reg.status()['models'][name]['hbm_bytes'])
+            m = reg.metrics()
+        res[pkg] = (_reg_counts(m), live, accounts, outs)
+        if pkg == 'torch':
+            eng = reg._entry('half').engine
+            originals = [n for n in scope.local_var_names()
+                         if not n.endswith('.fp16') and
+                         n not in eng._model_vars]
+            assert originals, 'the transpiler kept no f32 original'
+            moved, _ = eng.evict_to_host()
+            assert moved == live['half'] and eng.device_footprint() == 0
+            for n in originals:
+                assert isinstance(scope.find_var(n).value(), torch.Tensor), n
+        reg.stop()
+    counts, live, accounts, outs = res['torch']
+    assert (counts, live, accounts) == res['jax'][:3]
+    assert counts['evictions'] == 6 and counts['reloads'] == 5
+    assert accounts == [live[('half', 'f32')[(i + 1) % 2]] for i in range(6)]
+    for i, (a, b) in enumerate(zip(res['jax'][3], outs)):
+        np.testing.assert_allclose(b, a, err_msg=str(i), **MLP_TOL)
+
+
 def test_evicted_scope_holds_host_copies_bitwise(model_dirs):
     eng = tserving.InferenceEngine.from_saved_model(
         model_dirs['mB'], place=tfluid.CPUPlace())
@@ -334,49 +404,17 @@ def test_warm_precompiles_the_bucket_ladder_like_jax(model_dirs):
     assert res['torch'] == res['jax']
 
 
-def test_warm_catalog_prewarm_compile_delta_zero(model_dirs, tmp_path):
-    """warm() records the catalog in FLAGS_xla_compile_cache_dir; a fresh
-    registry's prewarm() replays it, and first traffic across the rungs
-    plans nothing.  A catalog naming an unloaded model skips it."""
-    tfluid.FLAGS.xla_compile_cache_dir = str(tmp_path / 'cache')
-    try:
-        cfg = tserving.ServingConfig(max_batch_size=8, bucket_sizes=[4, 8])
-        reg = _registry('torch', config=cfg)
-        reg.load('m', model_dirs['mA'])
-        with reg:
-            assert reg.warm('m', bucket_ladder=[4, 8]) == 2
-        path = reg.warm_catalog_path()
-        assert path and os.path.exists(path)
-        assert reg.warm_catalog() == [
-            {'model': 'm', 'bucket_ladder': [4, 8], 'trailing': None,
-             'decode_prefill': None}]
-        reg.stop()
-        reg2 = _registry('torch', config=cfg)
-        reg2.load('m', model_dirs['mA'])
-        with reg2:
-            out = reg2.prewarm()
-            assert out == {'served': 2, 'replayed': 1,
-                           'skipped_models': []}
-            before = reg2.metrics()['models']['m']['executor_compile_count']
-            for r in _requests(5, [2, 4, 5, 8]):
-                reg2.infer('m', r, timeout=30)
-            assert reg2.metrics()['models']['m'][
-                'executor_compile_count'] == before
-            assert reg2.prewarm(catalog=[{'model': 'ghost'}])[
-                'skipped_models'] == ['ghost']
-        reg2.stop()
-    finally:
-        tfluid.FLAGS.xla_compile_cache_dir = ''
-
-
 def test_registry_overload_admission_typed_like_jax(model_dirs):
     """Past its queue-depth watermark the registry refuses at the door
     with OverloadedError and a retry hint; the held requests still serve;
-    the counters are the JAX registry's."""
+    the counters are the JAX registry's.  A paused engine's worker may
+    still take a flushed lot off the queue (it waits outside the pause),
+    so the flush window is wide enough that the two held requests are
+    still queued when the third arrives."""
     res = {}
     for pkg, (fluid, serving) in PACKAGES.items():
         reg = _registry(pkg, config=serving.ServingConfig(
-            max_batch_size=8, max_wait_ms=1, bucket_sizes=[8],
+            max_batch_size=8, max_wait_ms=500, bucket_sizes=[8],
             admit_queue_depth=2, admit_queue_age_ms=60000))
         reg.load('m', model_dirs['mA'])
         reqs = _requests(6, [2, 2, 2, 2, 2])
@@ -560,15 +598,29 @@ def test_transformer_registry_evicts_and_reloads_like_jax(
         transformer_models):
     """Two Transformers loaded unbudgeted and served once each; then the
     budget drops to 1.5x one model's live bytes (the card's H2 form) and
-    alternating requests evict and reload: the JAX registry's counts, its
-    fetches within 1e-4, and in the port each response after a reload
-    bitwise equal to the resident one."""
+    alternating requests evict and reload: the JAX registry's counts and
+    accounts, its fetches within 1e-4, and in the port each response after
+    a reload bitwise equal to the resident one.
+
+    The port's scopes hold Adam's accumulators on the device, which the
+    test program does not read: the port's account is the program's reads
+    from the first serve on, and every switch evicts.  The JAX registry is
+    handed its scopes in host form, as its ``load_inference_model`` gives
+    them: with device-resident unread state its account would count that
+    state until the first eviction and never stage it back, so it would
+    shrink after a reload and the budget stop evicting."""
     res = {}
     feeds = [_tf_feed(s) for s in range(3)]
     for pkg, (fluid, serving) in PACKAGES.items():
         reg = _registry(pkg, config=serving.ServingConfig(
             max_batch_size=4, bucket_sizes=[4]))
         for name, (m, scope) in transformer_models[pkg].items():
+            if pkg == 'jax':
+                host = fluid.core.Scope()
+                for n in scope.local_var_names():
+                    host.var(n).set_value(np.asarray(
+                        scope.find_var(n).value()))
+                scope = host
             reg.load(name, program=m['test'], feed_names=m['feeds'],
                      fetch_list=[m['prediction']], scope=scope)
         with reg:
@@ -579,19 +631,21 @@ def test_transformer_registry_evicts_and_reloads_like_jax(
             live = max(s['hbm_bytes']
                        for s in reg.status()['models'].values())
             reg.arbiter.set_budget(int(1.5 * live))
-            outs = []
+            outs, accounts = [], []
             for i in range(4):
                 name = ('tA', 'tB')[i % 2]
                 out = reg.infer(name, feeds[0], timeout=30)[0]
                 if pkg == 'torch':
                     assert np.array_equal(out, resident[name]), (i, name)
                 outs.append(out)
+                accounts.append(reg.status()['models'][name]['hbm_bytes'])
             outs.append(reg.infer('tB', feeds[1], timeout=30)[0])
             m = reg.metrics()
-        res[pkg] = (outs, _reg_counts(m), live)
+        res[pkg] = (outs, _reg_counts(m), live, accounts)
         reg.stop()
-    _, counts, live = res['torch']
-    assert counts == res['jax'][1] and live == res['jax'][2]
+    _, counts, live, accounts = res['torch']
+    assert (counts, live, accounts) == res['jax'][1:]
+    assert accounts == [live] * 4
     assert counts['evictions'] >= 3 and counts['reloads'] >= 3
     for a, b in zip(res['jax'][0], res['torch'][0]):
         np.testing.assert_allclose(b, a, **TF_TOL)
@@ -786,6 +840,35 @@ def test_dropped_executor_is_freed_without_cyclic_collection():
     finally:
         gc.enable()
     assert prog.global_block() is not None and scope is not None
+
+
+def test_dropped_engine_frees_its_executor_without_cyclic_collection(
+        model_dirs):
+    """A started engine (its watchdog probe registered) that served queued
+    windows and was stopped is freed with its executor and their blocks as
+    soon as it is dropped, no gc.collect() run: the CPU form of path H1's
+    check on the card."""
+    eng = tserving.InferenceEngine.from_saved_model(
+        model_dirs['mA'], place=tfluid.CPUPlace(), name='gc-free',
+        config=tserving.ServingConfig(max_batch_size=8, bucket_sizes=[8],
+                                      watchdog_stall_s=30))
+    eng.start()
+    for _ in range(2):
+        with eng.paused():
+            futs = [eng.submit(r) for r in _requests(9, [2, 3, 1])]
+        assert all(np.isfinite(f.result(30)[0]).all() for f in futs)
+    eng.stop()
+    assert eng.metrics()['lots'] < eng.metrics()['requests']
+    gc.collect()
+    gc.disable()
+    try:
+        refs = [weakref.ref(eng), weakref.ref(eng._exe)] + [
+            weakref.ref(b) for b in eng._exe.cached_blocks()]
+        assert len(refs) > 2
+        del eng, futs
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
 
 
 def test_close_releases_every_block_and_purge_keeps_others():
