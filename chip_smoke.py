@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--seed N]   # from the repository root
-    python3 chip_smoke.py --only-book | --only-flow | --only-serve
+    python3 chip_smoke.py --only-book | --only-flow | --only-serve |
+        --only-generate
 
 Weights, token ids, lengths and labels are drawn from ``--seed``.
 
@@ -324,6 +325,41 @@ H. the serving tier (``paddle_tpu_torch.serving``, ``inference``), run
    lots and executables, trailing padding waste, p50/p99 latency, peak
    memory, the card).  ``--only-serve`` runs the device phase, the
    kernels' build and path H alone and prints no result line.
+I. generation serving (``serving.decode``, the engine's decode and chunk
+   lanes), run right after path H, f32, random weights from ``--seed``:
+   I1. ``seq2seq.build_step_decode`` at bench_nmt's widths (``GEN_NMT``:
+       dictionaries 30000, embedding and decoder 512, ``max_len`` 16)
+       behind a started ``InferenceEngine`` as bench.py's decode block
+       serves it: ``GEN_SLOTS`` slots, ``GEN_STEPS`` steps a dispatch,
+       prompts of ``GEN_LENS`` tokens; a warm round, a timed round and a
+       profiled round, at ``decode_pipeline_depth`` 1 and 2.  Every
+       response against a per-request greedy loop of ``exe.run`` on the
+       card (prefill, then the step program), ``GEN_CPU_REQUESTS`` against
+       the port's CPU loop at the same weights, tie-aware
+       (``compare_tokens``: a differing token only where that step's two
+       top logits lie within ``GEN_TIE_RTOL``, the request compared no
+       further); the step block runs as a graph, its replays counted.
+   I2. ``transformer.build_step_decode`` at bench_transformer's widths
+       (``GEN_TF``: vocab 30000, d_model = d_k = 512, ``max_ctx`` 256),
+       prompts on the trailing ladder ``GEN_TF_LADDER``, as I1.
+   I3. chunked against monolithic prefill as tools/perf_gate.py's
+       chunked_prefill cell sets it (chunk 64, one 4096-token prompt
+       landing while three short ones decode, 4 slots, K 2, ``max_len``
+       24), on I1's model with a chunk program: both lanes against the
+       greedy loop, tie-aware; chunk dispatches > 0, no prefill lot on
+       the chunked lane; ``max_decode_stall_s`` of each.
+   I4. I1's model with ``generation=`` in a ``ModelRegistry`` beside the
+       MNIST MLP (saved and loaded by dirname) under a budget one byte
+       short of the three accounts: the ``nmt:decode-cache`` account
+       (the least recently used) is evicted, and back at the next
+       generation; the tokens after the reload equal those before.
+   No hand-written kernel lies on path I (the counters read 0 after it).
+   Each part prints a ``path I: {...}`` line (tokens/s, decode
+   dispatches, steps and tokens a dispatch, slot occupancy, host syncs a
+   token, executables, the step block's captures and replays, busy and
+   idle share of the profiled round, peak memory, the card).
+   ``--only-generate`` runs the device phase and path I alone and prints
+   no result line.
 
 It imports nothing of JAX or of the JAX package ``paddle_tpu``.
 """
@@ -6151,6 +6187,400 @@ def phase_serve(card):
     return launches
 
 
+# ---- path I: generation serving -------------------------------------------
+
+# bench.py's decode blocks at bench_nmt's and bench_transformer's widths
+GEN_NMT = dict(src_dict_dim=30000, trg_dict_dim=30000, embedding_dim=512,
+               encoder_size=512, decoder_size=512, max_len=16)
+GEN_TF = dict(vocab=30000, d_model=512, d_k=512, max_ctx=256, max_len=16)
+GEN_TF_LADDER = [4, 8, 12]
+GEN_LENS = [3, 6, 9, 4, 8, 5]
+GEN_SLOTS = 4
+GEN_STEPS = 4
+GEN_DEPTHS = (1, 2)
+GEN_CPU_REQUESTS = 2
+# tools/perf_gate.py's chunked_prefill cell on I1's model: one long prompt
+# among three short ones
+GEN_CHUNK = 64
+GEN_CHUNK_LONG = 4096
+GEN_CHUNK_SHORT = [5, 7, 6]
+GEN_CHUNK_STEPS = 2
+GEN_CHUNK_MAX_LEN = 24
+# a differing greedy token is a tie when the reference's two top logits at
+# that step lie within this relative distance
+GEN_TIE_RTOL = 1e-4
+
+
+def gen_model(kind, seed, chunk=None, **overrides):
+    """A ``build_step_decode`` model of the port (``kind`` 'nmt' or
+    'transformer') at path I's widths (``overrides`` replacing some of
+    them), its startups run on the card from ``seed``: (model, scope,
+    executor)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import seq2seq, transformer
+    place = fluid.CUDAPlace(0)
+    with fluid.unique_name.guard():
+        if kind == 'nmt':
+            m = seq2seq.build_step_decode(
+                chunk=chunk, **dict(GEN_NMT, **overrides))
+        else:
+            m = transformer.build_step_decode(
+                chunk=chunk, **dict(GEN_TF, **overrides))
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    for i, key in enumerate(('prefill_startup', 'chunk_startup',
+                             'step_startup')):
+        if m.get(key) is not None:
+            m[key].random_seed = seed + i
+            exe.run(m[key], scope=scope)
+    return m, scope, exe
+
+
+def gen_prompt(kind, rng, length):
+    """One prompt's feed: an LoD sequence for NMT, a dense [1, L, 1] block
+    and its length for the Transformer."""
+    import paddle_tpu_torch.fluid as fluid
+    vocab = GEN_NMT['src_dict_dim'] if kind == 'nmt' else GEN_TF['vocab']
+    ids = rng.randint(2, vocab, size=(length, 1)).astype('int64')
+    if kind == 'nmt':
+        return {'src_word_id': fluid.create_lod_tensor(
+            ids.tolist(), [[length]], fluid.CPUPlace())}
+    return {'gen_src': ids[None],
+            'gen_src_len': np.array([[length]], np.float32)}
+
+
+def greedy_reference(m, exe, scope, feed, max_len):
+    """Per-request greedy decode by ``exe.run``: the prefill program, then
+    the step program once per token.  Returns (tokens, each step's
+    logits)."""
+    from paddle_tpu_torch import serving
+    spec = serving.GenerationSpec.from_model(m)
+    boot = exe.run(m['prefill'], feed=feed, fetch_list=m['prefill_fetches'],
+                   scope=scope)
+    state = {}
+    for name, val in zip(spec.slot_feeds, boot):
+        want = (1, ) + spec.slot_shapes[name]
+        padded = np.zeros(want, spec.slot_dtypes[name])
+        padded[tuple(slice(0, d) for d in val.shape)] = val
+        state[name] = padded
+    tok, toks, logits = m['start_id'], [], []
+    names = [n for n, _ in m['state']]
+    for _ in range(max_len):
+        out = exe.run(m['step'], feed=dict(state, **{
+            m['token']: np.array([[tok]], np.int64)}),
+            fetch_list=[m['logits']] + [f for _, f in m['state']],
+            scope=scope)
+        lg = np.asarray(out[0]).reshape(-1)
+        tok = int(np.argmax(lg))
+        toks.append(tok)
+        logits.append(lg)
+        if tok == m['end_id']:
+            break
+        state.update(zip(names, out[1:]))
+    return toks, logits
+
+
+def compare_tokens(got, want, want_logits, rtol=GEN_TIE_RTOL):
+    """Tie-aware comparison of two greedy decodes of one prompt (``want``
+    the reference with its logits): equal, or equal up to a step where
+    the reference's two top logits lie within ``rtol`` of each other,
+    from which the request is compared no further.  Returns (ok, the step
+    of a tie or None)."""
+    for j, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        top = np.sort(want_logits[j])[-2:]
+        gap = abs(float(top[1] - top[0]))
+        return gap <= rtol * max(abs(float(top[1])), abs(float(top[0]))), j
+    return len(got) == len(want), None
+
+
+def _gen_engine(m, scope, exe, name, depth=2, chunk=None, slots=GEN_SLOTS,
+                steps=GEN_STEPS, ladders=None, max_batch=None):
+    from paddle_tpu_torch import serving
+    spec = serving.GenerationSpec.from_model(m)
+    return serving.InferenceEngine(
+        m['prefill'], fetch_list=m['prefill_fetches'], scope=scope,
+        executor=exe, config=serving.ServingConfig(
+            max_batch_size=max_batch or len(GEN_LENS), max_wait_ms=5,
+            decode_slots=slots, decode_steps=steps,
+            decode_pipeline_depth=depth, prefill_chunk=chunk,
+            trailing_ladders=ladders),
+        generation=spec, name=name)
+
+
+def _step_blocks(exe, program):
+    blocks = [c for c in exe.cached_blocks() if c.program is program]
+    return {'mode': [c.mode for c in blocks],
+            'captures': sum(c.captures for c in blocks),
+            'replays': sum(c.replays for c in blocks)}
+
+
+def _gen_line(part, record, card):
+    record = dict(record, card=card)
+    print('path I: %s' % json.dumps(dict(part=part, **record)), flush=True)
+
+
+def _check_against(tag, outs, refs):
+    """Every output against its reference, tie-aware; returns the ties."""
+    ties = []
+    for i, (got, (want, logits)) in enumerate(zip(outs, refs)):
+        ok, tie = compare_tokens(list(got), want, logits)
+        check(ok, '%s: request %d decoded %s, the reference %s' %
+              (tag, i, list(got), want))
+        if tie is not None:
+            ties.append((i, tie))
+    return ties
+
+
+def gen_decode_block(card, part, kind, m, scope, exe, prompts, refs,
+                     ladders=None):
+    """One model through started engines as bench.py's decode block runs
+    it, at each of GEN_DEPTHS: a warm round, a timed round, a profiled
+    round; every response against ``refs``."""
+    results = {}
+    for depth in GEN_DEPTHS:
+        torch.cuda.reset_peak_memory_stats()
+        before = _step_blocks(exe, m['step'])
+        eng = _gen_engine(m, scope, exe, '%s-d%d' % (part, depth),
+                          depth=depth, ladders=ladders)
+        with eng:
+            warm = [eng.submit_generate(p) for p in prompts]
+            [f.result(600) for f in warm]
+            t0 = time.perf_counter()
+            futs = [eng.submit_generate(p) for p in prompts]
+            outs = [f.result(600) for f in futs]
+            elapsed = time.perf_counter() - t0
+            prof = profile_run(lambda: [f.result(600) for f in [
+                eng.submit_generate(p) for p in prompts]])
+        m_eng = eng.metrics()
+        d = m_eng['decode']
+        check(d['dispatches'] > 0 and d['finished'] == 3 * len(prompts),
+              '%s: the decode lane did not finish every request: %s' %
+              (part, d))
+        check(d['tokens_per_dispatch'] > 1, '%s: %s' % (part, d))
+        ties = _check_against('%s depth %d' % (part, depth), outs, refs)
+        blocks = _step_blocks(exe, m['step'])
+        check(blocks['mode'] and set(blocks['mode']) == {'graph'},
+              '%s: the step block runs %s, not as a graph' %
+              (part, blocks['mode']))
+        check(blocks['replays'] > before['replays'],
+              '%s: no replay of the captured decode step' % part)
+        tokens = sum(len(o) for o in outs)
+        busy = prof['busy_ms']
+        record = {
+            'model': kind, 'depth': depth, 'requests': len(prompts),
+            'tokens': tokens, 'tokens_per_sec': tokens / elapsed,
+            'timed_round_s': elapsed,
+            'decode_dispatches': d['dispatches'],
+            'steps_per_dispatch': d['steps_per_dispatch'],
+            'tokens_per_dispatch': d['tokens_per_dispatch'],
+            'slot_occupancy': d['slot_occupancy'],
+            'host_syncs_per_token': d['host_syncs_per_token'],
+            'chain_flushes': d['chain_flushes'],
+            'prefill_lots': d['prefill_lots'],
+            'executables': m_eng['executor_compile_count'],
+            'step_captures': blocks['captures'] - before['captures'],
+            'step_replays': blocks['replays'] - before['replays'],
+            'busy_ms': busy, 'profiled_wall_s': prof['wall_s'],
+            'idle_share': 1 - busy / 1e3 / prof['wall_s'],
+            'peak_mib': torch.cuda.max_memory_allocated() / 2**20,
+            'ties': ties}
+        _gen_line(part, record, card)
+        results[depth] = [list(o) for o in outs]
+    return results
+
+
+def gen_cpu_check(part, m, scope, prompts, outs):
+    """GEN_CPU_REQUESTS requests of the card's engine against the port's
+    CPU greedy decode at the same weights, tie-aware."""
+    import paddle_tpu_torch.fluid as fluid
+    cpu_scope = fluid.Scope()
+    for key in ('prefill', 'step'):
+        _copy_params(m[key], scope, cpu_scope)
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    refs = [greedy_reference(m, cpu_exe, cpu_scope, p, m['max_len'])
+            for p in prompts[:GEN_CPU_REQUESTS]]
+    ties = _check_against('%s against the CPU' % part,
+                          outs[:GEN_CPU_REQUESTS], refs)
+    print('path I: %s: %d requests equal to the CPU port\'s greedy decode '
+          '(ties at %s)' % (part, len(refs), ties), flush=True)
+
+
+def _copy_params(program, scope, cpu_scope):
+    import paddle_tpu_torch.fluid as fluid
+    fluid.params_from_numpy(
+        program, {p.name: scope.find_var(p.name).value().cpu().numpy()
+                  for p in program.all_parameters()},
+        scope=cpu_scope, place=fluid.CPUPlace())
+
+
+def phase_generate_nmt(card):
+    """I1: the stepwise NMT decoder at bench_nmt's widths."""
+    m, scope, exe = gen_model('nmt', SEED + 81)
+    rng = np.random.RandomState(SEED + 82)
+    prompts = [gen_prompt('nmt', rng, n) for n in GEN_LENS]
+    refs = [greedy_reference(m, exe, scope, p, m['max_len'])
+            for p in prompts]
+    outs = gen_decode_block(card, 'I1', 'nmt', m, scope, exe, prompts, refs)
+    gen_cpu_check('I1', m, scope, prompts, outs[GEN_DEPTHS[-1]])
+    return m, scope, exe, prompts, refs
+
+
+def phase_generate_transformer(card):
+    """I2: the KV-cache Transformer decoder at bench_transformer's
+    widths, prompts on the trailing ladder GEN_TF_LADDER."""
+    m, scope, exe = gen_model('transformer', SEED + 83)
+    rng = np.random.RandomState(SEED + 84)
+    prompts = [gen_prompt('transformer', rng, n) for n in GEN_LENS]
+    refs = [greedy_reference(m, exe, scope, p, m['max_len'])
+            for p in prompts]
+    outs = gen_decode_block(card, 'I2', 'transformer', m, scope, exe,
+                            prompts, refs,
+                            ladders={'gen_src': GEN_TF_LADDER})
+    gen_cpu_check('I2', m, scope, prompts, outs[GEN_DEPTHS[-1]])
+    del m, scope, exe
+    _free()
+
+
+def phase_generate_chunked(card):
+    """I3: chunked against monolithic prefill on I1's model with a chunk
+    program, one GEN_CHUNK_LONG-token prompt among short ones."""
+    m, scope, exe = gen_model('nmt', SEED + 81, chunk=GEN_CHUNK,
+                              max_len=GEN_CHUNK_MAX_LEN)
+    rng = np.random.RandomState(SEED + 85)
+    lens = GEN_CHUNK_SHORT[:1] + [GEN_CHUNK_LONG] + GEN_CHUNK_SHORT[1:]
+    prompts = [gen_prompt('nmt', rng, n) for n in lens]
+    refs = [greedy_reference(m, exe, scope, p, GEN_CHUNK_MAX_LEN)
+            for p in prompts]
+    outs = {}
+    for chunk in (None, GEN_CHUNK):
+        torch.cuda.reset_peak_memory_stats()
+        eng = _gen_engine(m, scope, exe, 'I3-%s' % chunk, chunk=chunk,
+                          steps=GEN_CHUNK_STEPS, max_batch=1)
+        t0 = time.perf_counter()
+        with eng:
+            # the shorts first; the long prompt lands once they decode
+            futs = {i: eng.submit_generate(p, max_len=GEN_CHUNK_MAX_LEN)
+                    for i, p in enumerate(prompts) if i != 1}
+            deadline = time.time() + 60
+            while time.time() < deadline and not (
+                    eng.metrics()['decode'] or {}).get('dispatches'):
+                time.sleep(0.001)
+            futs[1] = eng.submit_generate(prompts[1],
+                                          max_len=GEN_CHUNK_MAX_LEN)
+            got = [list(futs[i].result(900)) for i in range(len(prompts))]
+        wall = time.perf_counter() - t0
+        d = eng.metrics()['decode']
+        ties = _check_against('I3 chunk=%s' % chunk, got, refs)
+        if chunk is not None:
+            check(d['prefill_chunks'] > 0 and d['prefill_lots'] == 0,
+                  'I3: the chunked lane ran %d chunks, %d prefill lots' %
+                  (d['prefill_chunks'], d['prefill_lots']))
+            check(d['prefill_chunk_tokens'] == sum(lens),
+                  'I3: %d prompt tokens chunked, %d submitted' %
+                  (d['prefill_chunk_tokens'], sum(lens)))
+        outs[chunk] = got
+        blocks = _step_blocks(exe, m['chunk']) if chunk else {}
+        _gen_line('I3', {
+            'lane': 'chunked' if chunk else 'monolithic', 'chunk': chunk,
+            'prompt_lengths': lens, 'wall_s': wall,
+            'decode_dispatches': d['dispatches'],
+            'prefill_chunks': d['prefill_chunks'],
+            'prefill_lots': d['prefill_lots'],
+            'max_decode_stall_s': d['max_decode_stall_s'],
+            'max_decode_stall_cycles': d['max_decode_stall_cycles'],
+            'host_syncs_per_token': d['host_syncs_per_token'],
+            'chunk_captures': blocks.get('captures'),
+            'chunk_replays': blocks.get('replays'),
+            'peak_mib': torch.cuda.max_memory_allocated() / 2**20,
+            'ties': ties}, card)
+    same = outs[None] == outs[GEN_CHUNK]
+    print('path I: I3: the chunked and the monolithic lanes decoded %s '
+          'tokens' % ('the same' if same else 'tie-equivalent'), flush=True)
+    del m, scope, exe
+    _free()
+
+
+def phase_generate_registry(card, nmt):
+    """I4: I1's model with generation= in a ModelRegistry beside the MNIST
+    MLP, under a budget that forces the ``:decode-cache`` account out and
+    back; the tokens after the reload against those before."""
+    import tempfile
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import serving
+    m, scope, exe, prompts, refs = nmt
+    spec = serving.GenerationSpec.from_model(m)
+    mlp, mlp_scope, mlp_exe = build_cv_model('mnist', nn_type='mlp')
+    reg = serving.ModelRegistry(name='path-I4')
+    reg.load('nmt', program=m['prefill'], feed_names=m['prefill_feeds'],
+             fetch_list=m['prefill_fetches'], scope=scope, executor=exe,
+             generation=spec, config=serving.ServingConfig(
+                 max_batch_size=1, decode_slots=GEN_SLOTS,
+                 decode_steps=GEN_STEPS))
+    with tempfile.TemporaryDirectory() as td:
+        with fluid.scope_guard(mlp_scope):
+            fluid.io.save_inference_model(td, ['img'], [mlp['prediction']],
+                                          mlp_exe, main_program=mlp['test'])
+        reg.load('mlp', td)
+    img = {'img': np.random.RandomState(SEED + 86).standard_normal(
+        (8, 784)).astype('float32')}
+    cache = 'nmt' + serving.registry.DECODE_CACHE_SUFFIX
+    with reg:
+        before = [list(reg.generate('nmt', p, timeout=600))
+                  for p in prompts[:2]]
+        _check_against('I4 resident', before, refs[:2])
+        # the MLP's first request stages its weights (its account is
+        # corrected to them at its next), the NMT model's own forward
+        # request, then the MLP's: the cache is now the least recently
+        # used account
+        reg.infer('mlp', img, timeout=600)
+        reg.infer('nmt', prompts[0], timeout=600)
+        reg.infer('mlp', img, timeout=600)
+        accounts = reg.arbiter.snapshot()['accounts']
+        total = sum(a['bytes'] for a in accounts.values())
+        reg.arbiter.set_budget(total - 1)
+        allocated = torch.cuda.memory_allocated()
+        reg.infer('mlp', img, timeout=600)
+        check(not reg.arbiter.is_resident(cache),
+              'I4: the budget did not evict %s: %s' %
+              (cache, reg.arbiter.snapshot()['accounts']))
+        check(reg.arbiter.is_resident('nmt'), 'I4: the weights went too')
+        evicted_to = torch.cuda.memory_allocated()
+        after = [list(reg.generate('nmt', p, timeout=600))
+                 for p in prompts[:2]]
+        check(reg.arbiter.is_resident(cache), 'I4: the cache did not '
+              'come back')
+        check(after == before, 'I4: after the reload the tokens %s, '
+              'before it %s' % (after, before))
+        met = reg.metrics()
+    _gen_line('I4', {
+        'accounts': {n: a['bytes'] for n, a in accounts.items()},
+        'budget_bytes': total - 1, 'evictions': met['evictions'],
+        'reloads': met['reloads'],
+        'allocated_mib_before_eviction': allocated / 2**20,
+        'allocated_mib_after_eviction': evicted_to / 2**20,
+        'tokens_equal_after_reload': True}, card)
+    reg.stop()
+    del reg, mlp, mlp_scope, mlp_exe
+    _free()
+
+
+def phase_generate(card):
+    """Path I: generation serving.  No hand-written kernel lies on it: the
+    launch counters are set to 0 before it and must read 0 after it."""
+    _free()
+    _zero_counts()
+    t0 = time.perf_counter()
+    nmt = phase_generate_nmt(card)
+    phase_generate_registry(card, nmt)
+    del nmt
+    _free()
+    phase_generate_transformer(card)
+    phase_generate_chunked(card)
+    _no_launches('path I')
+    print('path I: %.1f s' % (time.perf_counter() - t0), flush=True)
+
+
 def _time_ms(fn, launches_per_sample=10, samples=20, warmup=5):
     """Median device time of one call (CUDA events around back-to-back
     launches, so host overhead between launches is hidden)."""
@@ -6677,10 +7107,19 @@ def main():
     ap.add_argument('--only-serve', action='store_true',
                     help='run the device phase, the kernels\' build and path '
                     'H alone, and print no result line (a partial run)')
+    ap.add_argument('--only-generate', action='store_true',
+                    help='run the device phase and path I alone, and print '
+                    'no result line (a partial run)')
     args = ap.parse_args()
     SEED = args.seed
     card = phase_device()
     sys.path.insert(0, REPO)
+    if args.only_generate:
+        phase_generate(card)
+        profiler_summary()
+        print('chip_smoke: --only-generate: path I passed; a partial run '
+              'prints no result line', flush=True)
+        return
     if args.only_book:
         _scan_runs()
         phase_book(card)
@@ -6708,6 +7147,7 @@ def main():
     phase_book(card)
     phase_flow(card)
     serve_launches = phase_serve(card)
+    phase_generate(card)
     model, scope, exe = build_model()
     launches = {'serve': phase_slice(card, model, scope, exe),
                 'train': phase_train(card, model, scope, exe)}

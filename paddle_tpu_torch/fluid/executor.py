@@ -63,9 +63,17 @@ at the next resolve; ``close()`` releases every graph at once, and a
 dropped executor frees its blocks with it (the cache's finalizers hold it
 weakly).
 
-Not ported yet: ``run_decode_multi`` and ``run_chunk_prefill`` (generation
-serving),
-``py_reader`` feeds, the host ops but ``chunk_eval`` and ``print``
+``run_decode_multi`` runs K greedy decode steps of a step program over a
+slot batch (the generation serving lane's dispatch) and
+``_dispatch_chunk_prefill`` one C-token prefill advance of a chunk
+program.  On the card each captures one step as a CUDA graph whose input
+buffers are the carry (the slot slabs, the token, the alive mask and the
+step budget): the step program, the argmax, the stop masking and the
+merges of the state fetches into the slabs, ending with copies into the
+carry (the counterpart of donating it), so a dispatch of K steps is K
+replays with no host sync.
+
+Not ported yet: ``py_reader`` feeds, the host ops but ``chunk_eval`` and ``print``
 (``save``, ``load``, ``save_combine``, ``load_combine``, the distributed and
 detection ones), nested (two-level) LoD feeds, ``SelectedRows`` feeds and scope
 values (the JAX package hands them only to host ops).
@@ -380,6 +388,159 @@ def collect_cost_report(compiled_blocks):
     return out
 
 
+def _name_of(v):
+    return v.name if isinstance(v, Variable) else str(v)
+
+
+def _state_pairs(state):
+    if isinstance(state, dict):
+        state = list(state.items())
+    return tuple((str(feed_n), _name_of(fetch)) for feed_n, fetch in state)
+
+
+def normalize_decode_spec(decode):
+    """Validate and normalize ``run_decode_multi``'s ``decode=`` dict, the
+    autoregressive wiring of a STEP program:
+
+      token:   the feed carrying the current token ([S, 1] int)
+      logits:  the fetch (Variable or name) whose argmax is the next token
+      state:   ordered (feed_name, fetch) pairs: each step the fetch's
+               value becomes the feed's next value
+      context: slot feeds that never update (encoder outputs)
+      end_id:  the EOS token id, the per-slot stop condition beside the
+               per-slot step budget
+    """
+    if not isinstance(decode, dict):
+        raise ValueError('decode= must be a dict (token/logits/state/'
+                         'end_id), got %r' % (type(decode), ))
+    missing = [k for k in ('token', 'logits', 'state', 'end_id')
+               if k not in decode]
+    if missing:
+        raise ValueError('decode= is missing %s' % missing)
+    state = _state_pairs(decode['state'])
+    if not state:
+        raise ValueError('decode= needs at least one state pair — a '
+                         'stateless step function has nothing to carry '
+                         'between decode steps')
+    return {
+        'token': str(decode['token']),
+        'logits': _name_of(decode['logits']),
+        'state': state,
+        'context': tuple(str(n) for n in decode.get('context', ())),
+        'end_id': int(decode['end_id']),
+    }
+
+
+def canonical_decode_carry(carry):
+    """The carry's leaves as torch tensors (numpy arrays are wrapped, not
+    copied; tensors pass as they are)."""
+    return {'slots': {n: _as_tensor(v) for n, v in carry['slots'].items()},
+            'token': _as_tensor(carry['token']),
+            'alive': _as_tensor(carry['alive']),
+            'remaining': _as_tensor(carry['remaining'])}
+
+
+def check_decode_carry(carry, spec, what):
+    """Fail fast when a decode carry does not match its spec: the slot dict
+    must cover exactly the state and context feeds (their @SEQLEN/@ROWS
+    companions may ride along), and the token/alive/remaining leaves must
+    be present."""
+    if not isinstance(carry, dict):
+        raise ValueError('%s: carry must be a dict, got %r'
+                         % (what, type(carry)))
+    missing = [k for k in ('slots', 'token', 'alive', 'remaining')
+               if k not in carry]
+    if missing:
+        raise ValueError('%s: carry is missing %s' % (what, missing))
+    want = set(n for n, _ in spec['state']) | set(spec['context'])
+    have = set(carry['slots'])
+    extra = {n for n in have - want
+             if not n.endswith((registry.SEQLEN_SUFFIX, '@ROWS'))}
+    if want - have or extra:
+        raise ValueError(
+            '%s: carry slots %s do not match the decode spec (missing '
+            '%s, unexpected %s)' % (what, sorted(have),
+                                    sorted(want - have), sorted(extra)))
+
+
+def normalize_chunk_spec(chunk):
+    """Validate and normalize the ``chunk=`` dict of a chunked-prefill
+    dispatch, the wiring of a CHUNK program:
+
+      token:    the feed carrying one [S, C, 1] token block per slot
+      len:      an optional per-slot real-length feed ([S, 1] float); the
+                engine also feeds the token feed's @SEQLEN companion
+      state:    ordered (step_feed_name, chunk_fetch) pairs, the chunk's
+                advanced value of every decode-state slab
+      start_id: the BOS token written into finishing slots' carry
+    """
+    if not isinstance(chunk, dict):
+        raise ValueError('chunk= must be a dict (token/len/state/'
+                         'start_id), got %r' % (type(chunk), ))
+    missing = [k for k in ('token', 'state', 'start_id') if k not in chunk]
+    if missing:
+        raise ValueError('chunk= is missing %s' % missing)
+    state = _state_pairs(chunk['state'])
+    if not state:
+        raise ValueError('chunk= needs at least one state pair — a chunk '
+                         'that advances no slab is a no-op')
+    return {
+        'token': str(chunk['token']),
+        'len': (str(chunk['len']) if chunk.get('len') is not None
+                else None),
+        'state': state,
+        'start_id': int(chunk['start_id']),
+    }
+
+
+def check_chunk_aux(aux, what, slots=None):
+    """Fail fast when a chunk dispatch's per-slot aux leaves (the active
+    and finish masks, the finishing slots' step budget) are missing, not
+    1-D, or not ``slots`` long."""
+    if not isinstance(aux, dict):
+        raise ValueError('%s: aux must be a dict, got %r'
+                         % (what, type(aux)))
+    missing = [k for k in ('active', 'finish', 'budget') if k not in aux]
+    if missing:
+        raise ValueError('%s: aux is missing %s' % (what, missing))
+    for k in ('active', 'finish', 'budget'):
+        shape = tuple(np.shape(aux[k]))
+        if len(shape) != 1 or \
+                (slots is not None and int(shape[0]) != int(slots)):
+            raise ValueError(
+                '%s: aux[%r] must be a 1-D per-slot vector%s, got shape %s'
+                % (what, k, ' of length %d' % slots
+                   if slots is not None else '', shape))
+
+
+class HostCopy(object):
+    """Tensors on their way to the host.  On the card each is copied into
+    pinned host memory behind the work queued so far, and an event marks
+    the copies' end: ``result()`` waits for that event only, never for the
+    work queued after it (the chained decode lane harvests one dispatch
+    while the next computes).  On the CPU the tensors are already there."""
+
+    def __init__(self, tensors):
+        self._event = None
+        if tensors and tensors[0].device.type == 'cuda':
+            self._host = []
+            for t in tensors:
+                h = torch.empty(tuple(t.shape), dtype=t.dtype,
+                                pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self._host.append(h)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = list(tensors)
+
+    def result(self):
+        """The tensors as numpy arrays, once their copies are done."""
+        if self._event is not None:
+            self._event.synchronize()
+        return [h.detach().numpy() for h in self._host]
+
+
 # ----------------------------------------------------------------------------
 # the compiled block
 # ----------------------------------------------------------------------------
@@ -621,6 +782,16 @@ class _CompiledBlock(object):
         # for each
         self.multi_steps_seen = set()
         self.eval_steps_seen = set()
+        # the (steps, carry signature) pairs of the decode loop and the
+        # (width, carry signature) pairs of the chunk advance: the JAX
+        # package compiles one executable for each
+        self._decode_steps_seen = set()
+        self._chunk_widths_seen = set()
+        self.last_decode_cost = None
+        self.last_chunk_cost = None
+        # the captured decode step and chunk advance, by loop key
+        self._loops = {}
+        self._loop_calls = collections.Counter()
         self.calls = 0
         self.captures = 0
         self.replays = 0
@@ -768,19 +939,7 @@ class _CompiledBlock(object):
             self._graph = None
             mem.renew()
         taken = set()
-
-        def buffer(n):
-            """The scope's tensor for ``n`` as a state buffer: a buffer of
-            its own for each name, even where two names hold one tensor,
-            allocated here, outside the capture's pool."""
-            t = _state_value(scope, n, device)
-            if not mem.owns(t, device) or id(t) in taken:
-                t = t.clone(memory_format=torch.contiguous_format)
-                mem.add(t)
-                scope.var(n).set_value(t)
-            taken.add(id(t))
-            return t
-
+        buffer = lambda n: self._state_buffer(scope, n, taken)
         state = {n: buffer(n) for n in self.state_in}
         # state written before it is read: the eager call before every
         # capture left its value, and so its shape, in the scope
@@ -833,11 +992,27 @@ class _CompiledBlock(object):
         self.last_ran = 'capture'
         return fetches
 
-    def _state_ready(self, scope):
-        """Make every state buffer hold the scope's value: False when a
-        value changed shape or dtype, and the block must be captured
-        again."""
-        for n, buf in self._state_bufs.items():
+    def _state_buffer(self, scope, n, taken):
+        """The scope's tensor for ``n`` as a state buffer: a buffer of its
+        own for each name (``taken`` holds the ids given out), even where
+        two names hold one tensor, allocated here, outside any capture's
+        pool."""
+        device = self.place.device
+        mem = self._memory
+        t = _state_value(scope, n, device)
+        if not mem.owns(t, device) or id(t) in taken:
+            t = t.clone(memory_format=torch.contiguous_format)
+            mem.add(t)
+            scope.var(n).set_value(t)
+        taken.add(id(t))
+        return t
+
+    def _state_ready(self, scope, bufs=None):
+        """Make every state buffer (the block graph's, or ``bufs``) hold
+        the scope's value: False when a value changed shape or dtype, and
+        the graph must be captured again."""
+        bufs = self._state_bufs if bufs is None else bufs
+        for n, buf in bufs.items():
             t = _scope_tensor(scope, n)
             if t is buf:
                 continue
@@ -849,8 +1024,10 @@ class _CompiledBlock(object):
             scope.var(n).set_value(buf)
         return True
 
-    def _publish(self, scope):
-        for n, t in self._outs.items():
+    def _publish(self, scope, outs=None):
+        """Point the scope at the state buffers (the block graph's, or
+        ``outs``)."""
+        for n, t in (self._outs if outs is None else outs).items():
             var = scope.var(n)
             if var.value() is not t:
                 var.set_value(t)
@@ -1036,11 +1213,347 @@ class _CompiledBlock(object):
             return stacked
         return [to_numpy(s, n) for s, n in zip(stacked, self.fetch_names)]
 
+    # ---- the decode loop and the chunk advance ----
+    def note_decode_compile(self, steps, carry_sig):
+        """True when this (steps, carry signature) pair of the decode loop
+        has not run before (the JAX package compiles its decode scan
+        afresh for it)."""
+        return self._note_seen(self._decode_steps_seen, steps, carry_sig)
+
+    def note_chunk_compile(self, width, carry_sig):
+        """The same for the chunk advance (the chunk width is its static
+        shape knob)."""
+        return self._note_seen(self._chunk_widths_seen, width, carry_sig)
+
+    @staticmethod
+    def _note_seen(seen, n, carry_sig):
+        key = (int(n), feed_signature(carry_sig))
+        if key in seen:
+            return False
+        seen.add(key)
+        return True
+
+    def _check_loop(self, what):
+        if self.host_ops:
+            raise RuntimeError(
+                '%s: the program contains host ops (%s) and cannot run as '
+                'one on-device loop — decode-step and chunk programs must '
+                'be pure compute' % (what, self.host_ops))
+
+    def _loop_env(self, scope, feeds, device):
+        env = {n: _state_value(scope, n, device) for n in self.state_in}
+        env.update(self._feeds_env(feeds, device))
+        return env
+
+    def _merge(self, mask, upd, old):
+        """``upd`` where the per-slot ``mask`` holds, else ``old``, in the
+        slab's dtype."""
+        keep = torch.reshape(mask, (-1, ) + (1, ) * max(upd.dim() - 1, 0))
+        return torch.where(keep, upd.to(old.dtype), old)
+
+    def _decode_body(self, spec, generator, capturing=False):
+        """One greedy decode step as a function of (env, carry): the step
+        program over the slot batch, the argmax, the stop masking (a slot
+        that emitted end_id or spent its budget freezes) and the merges of
+        the state fetches into the slabs.  Returns (new state, new carry,
+        [emit, alive entering the step])."""
+        token_name = spec['token']
+        end_id = spec['end_id']
+        updates = [(feed_n, self.fetch_names.index(fetch_n))
+                   for feed_n, fetch_n in spec['state']]
+
+        def body(env, carry):
+            env = dict(env)
+            env.update(carry['slots'])
+            env[token_name] = carry['token']
+            new_state, fetches = self._execute(env, generator,
+                                               capturing=capturing)
+            token, alive = carry['token'], carry['alive']
+            remaining = carry['remaining']
+            logits = fetches[0]
+            nxt = torch.argmax(torch.reshape(logits, (logits.shape[0], -1)),
+                               dim=-1).to(token.dtype)
+            emit = torch.where(alive, nxt, torch.full_like(nxt, end_id))
+            rem = remaining - alive.to(remaining.dtype)
+            live = alive & (emit != end_id) & (rem > 0)
+            slots = dict(carry['slots'])
+            for feed_n, fi in updates:
+                slots[feed_n] = self._merge(alive, fetches[fi],
+                                            carry['slots'][feed_n])
+            new_token = torch.where(alive[:, None], emit[:, None], token)
+            return new_state, {'slots': slots, 'token': new_token,
+                               'alive': live, 'remaining': rem}, \
+                [emit, alive]
+
+        return body
+
+    def _chunk_body(self, spec, generator, capturing=False):
+        """One C-token prefill advance as a function of (env, carry): the
+        chunk program over the slot batch, its state fetches merged into
+        the slabs of the ``active`` slots, and the slots whose prompt ends
+        in this block (``finish``) flipped to decoding: token <- start_id,
+        alive <- True, remaining <- their budget.  The aux leaves ride in
+        ``env`` under their own keys.  Returns (new state, new carry,
+        [alive])."""
+        start_id = spec['start_id']
+        updates = [(feed_n, self.fetch_names.index(fetch_n))
+                   for feed_n, fetch_n in spec['state']]
+
+        def body(env, carry):
+            env = dict(env)
+            active = env.pop('@AUX_ACTIVE')
+            fin = env.pop('@AUX_FINISH')
+            budget = env.pop('@AUX_BUDGET')
+            env.update(carry['slots'])
+            new_state, fetches = self._execute(env, generator,
+                                               capturing=capturing)
+            slots = dict(carry['slots'])
+            for feed_n, fi in updates:
+                slots[feed_n] = self._merge(active, fetches[fi],
+                                            carry['slots'][feed_n])
+            token = carry['token']
+            token = torch.where(fin[:, None], torch.full_like(token,
+                                                              start_id),
+                                token)
+            alive = carry['alive'] | fin
+            remaining = carry['remaining']
+            remaining = torch.where(fin, budget.to(remaining.dtype),
+                                    remaining)
+            return new_state, {'slots': slots, 'token': token,
+                               'alive': alive, 'remaining': remaining}, \
+                [alive]
+
+        return body
+
+    @staticmethod
+    def _carry_leaves(carry):
+        """[(path, tensor)] of a carry, in a fixed order."""
+        out = [(('slots', n), carry['slots'][n])
+               for n in sorted(carry['slots'])]
+        return out + [((k, ), carry[k])
+                      for k in ('token', 'alive', 'remaining')]
+
+    @staticmethod
+    def _carry_from(leaves):
+        carry = {'slots': {}}
+        for path, t in leaves:
+            if path[0] == 'slots':
+                carry['slots'][path[1]] = t
+            else:
+                carry[path[0]] = t
+        return carry
+
+    def _run_loop(self, key, scope, feeds, generator, carry, make_body,
+                  steps, each):
+        """``steps`` applications of a carry-threading step (``make_body``
+        gives its function of (env, carry)), each step's outputs handed to
+        ``each(i, outs)``; returns the final carry.
+
+        On the CPU, and for a block that cannot be captured, every step
+        runs eagerly on new tensors.  On the card the first step of a loop
+        key runs eagerly, the next captures it as a CUDA graph over carry
+        buffers (the incoming carry's own tensors where they lie on the
+        card, contiguous, else copies) and replays it, and every later
+        step replays: a carry that is not the graph's buffers is copied
+        into them first, so the returned carry is the buffers themselves,
+        updated in place."""
+        device = self.place.device
+        loop = self._loops.get(key)
+        if loop is not None and not self._state_ready(scope, loop['state']):
+            # a state var changed shape or dtype: capture afresh
+            del self._loops[key]
+            self._memory.renew()
+            loop = None
+        i = 0
+        while i < steps and loop is None:
+            self.calls += 1
+            self._loop_calls[key] += 1
+            if self.mode == 'graph' and self._loop_calls[key] > 1:
+                loop = self._capture_loop(key, scope, feeds, generator,
+                                          carry, make_body)
+                carry, outs = loop['carry'], loop['outs']
+            else:
+                carry = {'slots': {n: v.to(device)
+                                   for n, v in carry['slots'].items()},
+                         'token': carry['token'].to(device),
+                         'alive': carry['alive'].to(device),
+                         'remaining': carry['remaining'].to(device)}
+                env = self._loop_env(scope, feeds, device)
+                new_state, carry, outs = make_body(False)(env, carry)
+                self._store(scope, new_state, [])
+                self.last_ran = 'eager'
+            each(i, outs)
+            i += 1
+        if i == steps:
+            return carry
+        self._load_loop(loop, feeds, carry)
+        for j in range(i, steps):
+            self.calls += 1
+            loop['graph'].replay()
+            self.replays += 1
+            self.last_ran = 'replay'
+            each(j, loop['outs'])
+        self._publish(scope, loop['outs_state'])
+        return loop['carry']
+
+    def _load_loop(self, loop, feeds, carry):
+        """Copy the feeds, and every carry leaf that is not already the
+        graph's buffer, into the captured loop's buffers."""
+        for n, buf in loop['feeds'].items():
+            buf.copy_(feeds[n])
+        for (path, buf), (_, t) in zip(
+                self._carry_leaves(loop['carry']), self._carry_leaves(carry)):
+            if t is not buf:
+                if tuple(t.shape) != tuple(buf.shape):
+                    raise ValueError(
+                        'carry leaf %s has shape %s, the captured loop %s' %
+                        ('/'.join(path), tuple(t.shape), tuple(buf.shape)))
+                buf.copy_(t)
+
+    def _capture_loop(self, key, scope, feeds, generator, carry, make_body):
+        """Capture one step of a loop as a CUDA graph and replay it once.
+        Its buffers, all allocated outside the capture: the state (as the
+        block graph's), the feeds, and the carry (its incoming tensors
+        adopted where they lie on the card and are contiguous).  The step
+        computes into temporaries and ends by copying the new carry and the
+        new state into the buffers."""
+        device = self.place.device
+        mem = self._memory
+        taken = set()
+        state = {n: self._state_buffer(scope, n, taken)
+                 for n in self.state_in}
+        outs_state = {n: self._state_buffer(scope, n, taken)
+                      for n in self.state_out if n not in state}
+        feed_bufs = {n: v.clone(memory_format=torch.contiguous_format)
+                     for n, v in self._feeds_env(feeds, device).items()}
+        leaves = []
+        for path, t in self._carry_leaves(carry):
+            if not (t.device == device and t.is_contiguous()) or \
+                    id(t) in taken:
+                t = t.to(device).clone(memory_format=torch.contiguous_format)
+            taken.add(id(t))
+            leaves.append((path, t))
+        bufs = self._carry_from(leaves)
+        state_bufs = dict(state, **outs_state)
+        rw = {t.untyped_storage().data_ptr() for _, t in leaves}
+        rw.update(state_bufs[n].untyped_storage().data_ptr()
+                  for n in self.state_out)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        before = registry.counts()
+        with torch.cuda.graph(graph, pool=mem.pool):
+            env = dict(state)
+            env.update(feed_bufs)
+            new_state, new_carry, outs = make_body(True)(env, bufs)
+
+            def own(v, buf=None):
+                return v.clone() if isinstance(v, torch.Tensor) and \
+                    v is not buf and v.untyped_storage().data_ptr() in rw \
+                    else v
+
+            outs = [own(o) for o in outs]
+            new_state = {n: own(v, state_bufs[n])
+                         for n, v in new_state.items()}
+            new_leaves = [(p, own(v, b)) for (p, v), (_, b) in zip(
+                self._carry_leaves(new_carry), leaves)]
+            for (path, v), (_, buf) in zip(new_leaves, leaves):
+                if v is not buf:
+                    buf.copy_(v)  # the counterpart of donating the carry
+            for n, v in new_state.items():
+                buf = state_bufs[n]
+                if v.shape != buf.shape or v.dtype != buf.dtype:
+                    raise RuntimeError(
+                        'capture: the step turns state var %r from %s %s '
+                        'into %s %s; a graph replays a fixed shape and '
+                        'dtype' % (n, tuple(buf.shape), buf.dtype,
+                                   tuple(v.shape), v.dtype))
+                if v is not buf:
+                    buf.copy_(v)
+        after = registry.counts()
+        launches = {k: after[k] - before.get(k, 0) for k in after
+                    if after[k] != before.get(k, 0)}
+        if launches:
+            self.captured_launches = launches
+        loop = {'graph': graph, 'state': state, 'feeds': feed_bufs,
+                'carry': bufs, 'outs': outs,
+                'outs_state': {n: state_bufs[n] for n in self.state_out}}
+        self._loops[key] = loop
+        self.captures += 1
+        self._load_loop(loop, feeds, carry)
+        graph.replay()
+        self._publish(scope, loop['outs_state'])
+        self.last_ran = 'capture'
+        return loop
+
+    def run_decode_multi(self, scope, feeds, generator, steps, carry, spec):
+        """``steps`` greedy decode steps over the whole slot batch: each
+        step's token comes from the previous step's argmax, a slot whose
+        token was end_id or whose budget ran out freezes (its slabs and
+        token keep their values).  Returns (carry', tokens [K, S], alive_in
+        [K, S]): tokens[i, s] counts for slot s exactly when alive_in[i, s].
+        Nothing is synchronized; on the card carry' is the captured step's
+        buffers and the tokens are written on the device, row by row."""
+        if steps < 1:
+            raise ValueError('run_decode_multi: steps must be >= 1, got %r'
+                             % (steps, ))
+        self._check_loop('run_decode_multi')
+        device = self.place.device
+        s = int(carry['token'].shape[0])
+        toks = torch.empty((steps, s), dtype=carry['token'].dtype,
+                           device=device)
+        alive_in = torch.empty((steps, s), dtype=torch.bool, device=device)
+
+        def each(i, outs):
+            toks[i].copy_(outs[0])
+            alive_in[i].copy_(outs[1])
+
+        key = ('decode', tuple(sorted(feeds)), spec['token'], spec['state'],
+               spec['end_id'])
+        carry = self._run_loop(
+            key, scope, feeds, generator, carry,
+            lambda capturing: self._decode_body(spec, generator, capturing),
+            steps, each)
+        step_feeds = dict(feeds)
+        step_feeds.update(carry['slots'])
+        step_feeds[spec['token']] = carry['token']
+        self.last_decode_cost = self.capture_cost(
+            'decode_multi', (tuple(sorted(feeds)),
+                             tuple(sorted(carry['slots'])), int(steps)),
+            scope, step_feeds, steps=steps)
+        return carry, toks, alive_in
+
+    def run_chunk_prefill(self, scope, feeds, generator, carry, aux, spec):
+        """One C-token prefill advance over the whole slot batch: each
+        ``active`` slot's slabs advance by its block of prompt tokens, the
+        others keep theirs, and the ``finish`` slots turn to decoding.
+        Returns (carry', alive') with nothing synchronized."""
+        self._check_loop('run_chunk_prefill')
+        feeds = dict(feeds)
+        feeds['@AUX_ACTIVE'] = _as_tensor(aux['active']).to(torch.bool)
+        feeds['@AUX_FINISH'] = _as_tensor(aux['finish']).to(torch.bool)
+        feeds['@AUX_BUDGET'] = _as_tensor(aux['budget'])
+        got = []
+        key = ('chunk', tuple(sorted(feeds)), spec['token'], spec['state'],
+               spec['start_id'])
+        carry = self._run_loop(
+            key, scope, feeds, generator, carry,
+            lambda capturing: self._chunk_body(spec, generator, capturing),
+            1, lambda i, outs: got.append(outs[0].clone()))
+        step_feeds = {n: v for n, v in feeds.items()
+                      if not n.startswith('@AUX_')}
+        step_feeds.update(carry['slots'])
+        self.last_chunk_cost = self.capture_cost(
+            'chunk_prefill', (tuple(sorted(step_feeds)),
+                              tuple(sorted(carry['slots']))),
+            scope, step_feeds)
+        return carry, got[0]
+
     def release(self):
-        """Drop the graph and the buffers it holds."""
+        """Drop the graphs and the buffers they hold."""
         self._graph = None
         self._state_bufs = self._feed_bufs = self._outs = None
         self._fetch_outs = None
+        self._loops = {}
 
 
 class Executor(object):
@@ -1143,7 +1656,7 @@ class Executor(object):
     def _release(self, blocks):
         """Release ``blocks``' graphs and buffers; when a graph went, the
         next capture takes a fresh pool (``_GraphMemory.renew``)."""
-        graphs = any(c._graph is not None for c in blocks)
+        graphs = any(c._graph is not None or c._loops for c in blocks)
         for compiled in blocks:
             compiled.release()
         if graphs and self._memory is not None:
@@ -1368,6 +1881,102 @@ class Executor(object):
             with _profiler.record_block('executor_run_eval_multi/block0'):
                 return go()  # the fetches' copy to the host syncs
         return go()
+
+    def run_decode_multi(self, program=None, feed=None, carry=None,
+                         steps=None, decode=None, scope=None):
+        """Run ``steps`` autoregressive greedy-decode iterations of a STEP
+        program over a whole slot batch (the serving engine's decode-lane
+        primitive).  ``decode`` names the token feed, the logits fetch
+        (argmax = next token), the (state feed, state fetch) pairs, the
+        read-only ``context`` slot feeds and ``end_id``; per-slot stop
+        conditions (EOS emitted, ``carry['remaining']`` spent) are masked
+        inside each step, so finished slots freeze.
+
+        carry: {'slots': {name: [S, ...]}, 'token': [S, 1] int, 'alive':
+        [S] bool, 'remaining': [S] int32}, numpy arrays or tensors.
+        feed: feeds held constant across iterations.  Returns (carry',
+        tokens [K, S], alive_in [K, S]) as tensors on the place's device:
+        tokens[i, s] counts for slot s exactly when alive_in[i, s].  On the
+        card carry' is the captured step's own buffers, updated in place
+        by every dispatch of this block."""
+        carry_out, toks, alive_in, _ = self._dispatch_decode_multi(
+            program, feed=feed, carry=carry, steps=steps, decode=decode,
+            scope=scope)
+        return carry_out, toks, alive_in
+
+    def _dispatch_decode_multi(self, program=None, feed=None, carry=None,
+                               steps=None, decode=None, scope=None):
+        """The front half of run_decode_multi, which the engine's chained
+        decode lane drives: resolve the step program's block for the
+        carry's shapes and queue the K steps against a carry whose leaves
+        may be the previous dispatch's buffers, so that dispatch N+1
+        follows N on the stream with no host round trip.  Returns (carry',
+        tokens, alive_in, compiled) with nothing synchronized."""
+        if carry is None or steps is None or decode is None:
+            raise ValueError('run_decode_multi: carry=, steps= and '
+                             'decode= are required')
+        steps = int(steps)
+        if steps < 1:
+            raise ValueError('run_decode_multi: steps must be >= 1, got %r'
+                             % (steps, ))
+        spec = normalize_decode_spec(decode)
+        check_decode_carry(carry, spec, 'run_decode_multi')
+        carry = canonical_decode_carry(carry)
+        fetch_list = [spec['logits']] + [f for _, f in spec['state']]
+        sig_feed = dict(feed or {})
+        sig_feed[spec['token']] = carry['token']
+        sig_feed.update(carry['slots'])
+        program, scope, feed_arrays, compiled = self._resolve_and_compile(
+            program, sig_feed, fetch_list, scope)
+        const = {n: v for n, v in feed_arrays.items()
+                 if n not in carry['slots'] and n != spec['token']}
+        carry_sig = dict(carry['slots'])
+        carry_sig[spec['token']] = carry['token']
+        if compiled.note_decode_compile(steps, carry_sig):
+            self.compile_count += 1
+        _trace.flight_recorder.record(
+            'decode_dispatch', executor='Executor', steps=steps,
+            slots=int(carry['token'].shape[0]),
+            trace_id=getattr(_trace.current(), 'trace_id', None))
+        carry_out, toks, alive_in = compiled.run_decode_multi(
+            scope, const, self._rng(program), steps, carry, spec)
+        return carry_out, toks, alive_in, compiled
+
+    def _dispatch_chunk_prefill(self, program=None, feed=None, carry=None,
+                                aux=None, chunk=None, scope=None):
+        """One C-token prefill advance of a CHUNK program over the slot
+        batch (the engine's chunk lane), queued against a carry whose
+        leaves may be the decode lane's buffers.  ``feed`` carries the
+        [S, C, 1] token block, its @SEQLEN companion and the optional
+        per-slot length feed; ``aux`` the active/finish/budget slot
+        vectors.  Returns (carry', alive', compiled) with nothing
+        synchronized."""
+        if carry is None or aux is None or chunk is None:
+            raise ValueError('run_chunk_prefill: carry=, aux= and chunk= '
+                             'are required')
+        spec = normalize_chunk_spec(chunk)
+        carry = canonical_decode_carry(carry)
+        check_chunk_aux(aux, 'run_chunk_prefill',
+                        slots=int(carry['token'].shape[0]))
+        fetch_list = [f for _, f in spec['state']]
+        sig_feed = dict(feed or {})
+        sig_feed.update(carry['slots'])
+        program, scope, feed_arrays, compiled = self._resolve_and_compile(
+            program, sig_feed, fetch_list, scope)
+        block_feed = {n: v for n, v in feed_arrays.items()
+                      if n not in carry['slots']}
+        width = int(feed_arrays[spec['token']].shape[1])
+        carry_sig = dict(carry['slots'])
+        carry_sig[spec['token']] = feed_arrays[spec['token']]
+        if compiled.note_chunk_compile(width, carry_sig):
+            self.compile_count += 1
+        _trace.flight_recorder.record(
+            'chunk_dispatch', executor='Executor', width=width,
+            slots=int(carry['token'].shape[0]),
+            trace_id=getattr(_trace.current(), 'trace_id', None))
+        carry_out, ok = compiled.run_chunk_prefill(
+            scope, block_feed, self._rng(program), carry, aux, spec)
+        return carry_out, ok, compiled
 
     def memory_analysis(self, program=None, feed=None, fetch_list=None,
                         scope=None):

@@ -17,7 +17,7 @@ __all__ = [
     'conv2d', 'pool2d', 'batch_norm', 'gather', 'topk', 'concat',
     'sigmoid_cross_entropy_with_logits', 'square_error_cost',
     'linear_chain_crf', 'crf_decoding', 'cos_sim',
-    'autoincreased_step_counter',
+    'autoincreased_step_counter', 'matmul', 'one_hot', 'expand',
 ]
 
 
@@ -262,6 +262,58 @@ def gather(input, index):
         inputs={'X': [input],
                 'Index': [index]},
         outputs={'Out': [out]})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    """x @ y with optional transposes of the last two dims and a scale."""
+    helper = LayerHelper('matmul', **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    xs = list(x.shape)
+    ys = list(y.shape)
+    if transpose_x and len(xs) >= 2:
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if transpose_y and len(ys) >= 2:
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    if len(xs) >= 2 and len(ys) >= 2:
+        out.shape = tuple(xs[:-1]) + (ys[-1], )
+    helper.append_op(
+        type='matmul',
+        inputs={'X': [x],
+                'Y': [y]},
+        outputs={'Out': [out]},
+        attrs={
+            'transpose_X': transpose_x,
+            'transpose_Y': transpose_y,
+            'alpha': float(alpha)
+        })
+    return out
+
+
+def one_hot(input, depth):
+    """float32 one-hot rows of ``depth`` columns (no gradient)."""
+    helper = LayerHelper('one_hot', **locals())
+    out = helper.create_variable_for_type_inference(dtype='float32')
+    helper.append_op(
+        type='one_hot',
+        inputs={'X': [input]},
+        outputs={'Out': [out]},
+        attrs={'depth': depth})
+    out.stop_gradient = True
+    return out
+
+
+def expand(x, expand_times, name=None):
+    """x tiled ``expand_times[i]`` times along each dim i."""
+    helper = LayerHelper('expand', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = tuple(
+        s * t for s, t in zip(x.shape, expand_times))
+    helper.append_op(
+        type='expand',
+        inputs={'X': [x]},
+        outputs={'Out': [out]},
+        attrs={'expand_times': list(expand_times)})
     return out
 
 

@@ -1,7 +1,8 @@
 """Sequence layers (counterpart of ``paddle_tpu/fluid/layers/sequence.py``:
-``dynamic_lstm``, ``gru_unit``, ``sequence_conv``, ``sequence_pool`` and
-its first/last-step aliases, ``sequence_softmax``, ``sequence_expand``, and the beam-search
-layers ``beam_expand``, ``beam_init_scores``, ``beam_search`` and
+``dynamic_lstm``, ``dynamic_gru``, ``gru_unit``, ``sequence_conv``,
+``sequence_mask``, ``sequence_pool`` and its first/last-step aliases,
+``sequence_softmax``, ``sequence_expand``, and the beam-search layers
+``beam_expand``, ``beam_init_scores``, ``beam_search`` and
 ``beam_search_decode``).
 
 A LoD input runs as a padded [B, T, ...] tensor with its lengths carried
@@ -10,8 +11,9 @@ under ``<name>@SEQLEN`` (see ``ops/sequence_ops.py``).
 
 from ..layer_helper import LayerHelper
 
-__all__ = ['dynamic_lstm', 'gru_unit', 'sequence_conv', 'sequence_pool',
-           'sequence_first_step', 'sequence_last_step', 'sequence_softmax', 'sequence_expand',
+__all__ = ['dynamic_lstm', 'dynamic_gru', 'gru_unit', 'sequence_conv',
+           'sequence_pool', 'sequence_mask', 'sequence_first_step',
+           'sequence_last_step', 'sequence_softmax', 'sequence_expand',
            'beam_expand', 'beam_init_scores', 'beam_search',
            'beam_search_decode']
 
@@ -71,6 +73,50 @@ def dynamic_lstm(input,
             'candidate_activation': candidate_activation
         })
     return hidden, cell
+
+
+def dynamic_gru(input,
+                size,
+                param_attr=None,
+                bias_attr=None,
+                is_reverse=False,
+                gate_activation='sigmoid',
+                candidate_activation='tanh',
+                h_0=None):
+    """GRU over a whole variable-length batch: ``input`` is the
+    pre-projected [*, 3D] sequence, ``size`` is D; returns the hidden
+    sequence."""
+    helper = LayerHelper('gru', **locals())
+    dtype = helper.input_dtype()
+    weight = helper.create_parameter(
+        attr=helper.param_attr, shape=[size, 3 * size], dtype=dtype)
+    bias = helper.create_parameter(
+        attr=helper.bias_attr, shape=[1, 3 * size], dtype=dtype,
+        is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    hidden.shape = tuple(input.shape[:-1]) + (size, )
+    hidden.lod_level = input.lod_level
+    batch_gate = helper.create_variable_for_type_inference(dtype)
+    batch_reset = helper.create_variable_for_type_inference(dtype)
+    batch_hidden = helper.create_variable_for_type_inference(dtype)
+    inputs = {'Input': [input], 'Weight': [weight], 'Bias': [bias]}
+    if h_0 is not None:
+        inputs['H0'] = [h_0]
+    helper.append_op(
+        type='gru',
+        inputs=inputs,
+        outputs={
+            'Hidden': [hidden],
+            'BatchGate': [batch_gate],
+            'BatchResetHiddenPrev': [batch_reset],
+            'BatchHidden': [batch_hidden]
+        },
+        attrs={
+            'is_reverse': is_reverse,
+            'gate_activation': gate_activation,
+            'activation': candidate_activation
+        })
+    return hidden
 
 
 def gru_unit(input,
@@ -284,3 +330,16 @@ def beam_search_decode(ids, scores, parent_idx, beam_size, end_id,
         attrs={'beam_size': beam_size,
                'end_id': end_id})
     return sentence_ids, sentence_scores
+
+
+def sequence_mask(x, maxlen=None, dtype='int64', name=None):
+    """Lengths [B] -> 0/1 mask [B, maxlen] in ``dtype``."""
+    helper = LayerHelper('sequence_mask', **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type='sequence_mask',
+        inputs={'X': [x]},
+        outputs={'Out': [out]},
+        attrs={'maxlen': maxlen if maxlen is not None else -1,
+               'out_dtype': dtype})
+    return out

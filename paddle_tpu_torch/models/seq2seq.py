@@ -7,14 +7,14 @@ over the target tokens with Bahdanau-style attention over the encoder
 states, the attention being sequence ops (expand, softmax, pool) inside the
 step block.  ``build_decode`` runs the decoder as a StaticRNN of
 ``max_length`` beam-search steps on the static [B*K] beam layout.
-
-Not ported yet: ``build_step_decode``, the stepwise greedy decode of the
-generation serving lane (it needs the ``gru`` op).
+``build_step_decode`` is the stepwise greedy decode the generation serving
+lane runs: a GRU prompt encoder whose hidden state is the decode state,
+its prefill, step and (``chunk=C``) chunk programs.
 """
 
 from .. import fluid
 
-__all__ = ['build', 'build_decode']
+__all__ = ['build', 'build_decode', 'build_step_decode']
 
 
 def encoder(src_word_id, src_dict_dim, embedding_dim, encoder_size):
@@ -202,3 +202,107 @@ def build_decode(src_dict_dim=1000,
         feeds=['src_word_id'],
         sentence_ids=sent_ids,
         sentence_scores=sent_scores)
+
+
+def build_step_decode(src_dict_dim=1000,
+                      trg_dict_dim=1000,
+                      embedding_dim=64,
+                      encoder_size=64,
+                      decoder_size=64,
+                      start_id=0,
+                      end_id=1,
+                      max_len=16,
+                      chunk=None):
+    """Stepwise greedy NMT decode for the generation serving lane.  The
+    prompt encoder is a masked GRU recurrence (``dynamic_gru``) whose
+    hidden state is the decode state, so a prompt prefills either in one
+    pass (``prefill``) or as a chain of C-token blocks (``chunk``, built
+    with ``chunk=C``) over the same shared weights.
+
+      prefill: src LoD -> embedding -> fc -> dynamic_gru (h0 zeros, steps
+          past each row's length frozen) -> sequence_last_step: one
+          [B, decoder_size] state fetch;
+      chunk: (gen_ctok [B, C, 1], gen_hidden) -> the same layers seeded
+          with ``h_0=gen_hidden`` and masked by the block's per-row real
+          length (the engine feeds the @SEQLEN companion) -> the advanced
+          hidden;
+      step: (token, hidden) -> (vocab logits, hidden'): embedding + fc +
+          one gru_unit sharing the prefill GRU's weight.
+
+    Every step op is row-independent, so the slot-batched decode is
+    token-identical to per-request decode.  The prefill and chunk
+    programs share one GRU bias; the step's ``gru_unit`` has none (the
+    two agree while that bias stays zero).  ``encoder_size`` is kept for
+    the call sites: the GRU encoder is ``decoder_size`` wide."""
+    del encoder_size  # the GRU prompt encoder is decoder_size-wide
+    shared = {
+        'emb': fluid.ParamAttr(name='gen_nmt_src_emb'),
+        'proj': fluid.ParamAttr(name='gen_nmt_src_proj'),
+        'gru': fluid.ParamAttr(name='gen_nmt_gru_w'),
+        'gru_b': fluid.ParamAttr(name='gen_nmt_gru_b'),
+    }
+
+    def _encode(tokens, h_0=None, flatten=1):
+        emb = fluid.layers.embedding(
+            input=tokens, size=[src_dict_dim, embedding_dim],
+            param_attr=shared['emb'])
+        proj = fluid.layers.fc(input=emb, size=decoder_size * 3,
+                               bias_attr=False, num_flatten_dims=flatten,
+                               param_attr=shared['proj'])
+        hidden_seq = fluid.layers.dynamic_gru(
+            proj, decoder_size, param_attr=shared['gru'],
+            bias_attr=shared['gru_b'], h_0=h_0)
+        return fluid.layers.sequence_last_step(input=hidden_seq)
+
+    prefill, prefill_startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prefill, prefill_startup):
+        src = fluid.layers.data(
+            name='src_word_id', shape=[1], dtype='int64', lod_level=1)
+        boot = _encode(src)
+    chunk_prog = chunk_startup = chunk_h = None
+    if chunk is not None:
+        from ..fluid.shape_policy import bucketed_len
+        chunk = bucketed_len(int(chunk))
+        chunk_prog, chunk_startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(chunk_prog, chunk_startup):
+            ctok = fluid.layers.data(name='gen_ctok', shape=[chunk, 1],
+                                     dtype='int64')
+            hidden_in = fluid.layers.data(
+                name='gen_hidden', shape=[decoder_size], dtype='float32')
+            chunk_h = _encode(ctok, h_0=hidden_in, flatten=2)
+    step, step_startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(step, step_startup):
+        token = fluid.layers.data(name='gen_token', shape=[1],
+                                  dtype='int64')
+        hidden = fluid.layers.data(name='gen_hidden',
+                                   shape=[decoder_size], dtype='float32')
+        pre_word = fluid.layers.embedding(
+            input=token, size=[trg_dict_dim, embedding_dim])
+        decoder_inputs = fluid.layers.fc(
+            input=pre_word, size=decoder_size * 3, bias_attr=False)
+        h, _, _ = fluid.layers.gru_unit(
+            decoder_inputs, hidden, decoder_size * 3,
+            param_attr=shared['gru'], bias_attr=False)
+        logits = fluid.layers.fc(input=h, size=trg_dict_dim)
+    out = dict(
+        prefill=prefill,
+        prefill_startup=prefill_startup,
+        step=step,
+        step_startup=step_startup,
+        prefill_feeds=['src_word_id'],
+        prefill_fetches=[boot],
+        token='gen_token',
+        logits=logits,
+        state=[('gen_hidden', h)],
+        prompt='src_word_id',
+        start_id=start_id,
+        end_id=end_id,
+        max_len=max_len)
+    if chunk is not None:
+        out.update(
+            chunk=chunk_prog,
+            chunk_startup=chunk_startup,
+            chunk_token='gen_ctok',
+            chunk_state=[('gen_hidden', chunk_h)],
+            chunk_width=chunk)
+    return out

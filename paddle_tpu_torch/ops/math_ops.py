@@ -1,14 +1,14 @@
 """Math op lowerings (counterpart of ``paddle_tpu/ops/math_ops.py``): ``mul``,
-the ``elementwise_*`` broadcast family, ``sum`` and ``scale`` (each also
-over sparse ``SparseRows`` gradients), ``mean``,
+``matmul``, the ``elementwise_*`` broadcast family, ``sum`` and ``scale``
+(each also over sparse ``SparseRows`` gradients), ``mean``,
 ``reduce_sum``, the unary ``pow`` (``x ** factor``, which the ``pow``
 activation layer builds), ``clip``, ``clip_by_norm``, ``sign`` (which
 ``fluid/clip.py`` and the L1 regularizer build) and ``cos_sim``.
 
-``mul``'s product is ``registry.amp_matmul``: ``torch.matmul``, in bf16
-under AMP, as the JAX package leaves its product to XLA.  Under AMP the
-``elementwise_*`` ops compute a bf16 activation with an f32 operand in
-bf16 (``amp_harmonize``).
+``mul``'s and ``matmul``'s product is ``registry.amp_matmul``:
+``torch.matmul``, in bf16 under AMP, as the JAX package leaves its
+product to XLA.  Under AMP the ``elementwise_*`` ops compute a bf16
+activation with an f32 operand in bf16 (``amp_harmonize``).
 """
 
 import math
@@ -42,6 +42,36 @@ def _mul(ctx, op):
     out = amp_matmul(x2, y2)
     ctx.set(op, 'Out', torch.reshape(
         out, tuple(x.shape[:split]) + tuple(y.shape[yn:])))
+
+
+@register_lowering('matmul')
+def _matmul(ctx, op):
+    """Batched matmul with ``transpose_X``/``transpose_Y`` and ``alpha``: a
+    1-D operand is promoted (a row for X, a column for Y) and squeezed back,
+    batch dims broadcast (``torch.matmul``'s rules, as ``jnp.matmul``'s).
+    The product is ``amp_matmul``, as ``mul``'s."""
+    x = ctx.get(op, 'X')
+    y = ctx.get(op, 'Y')
+    squeeze_front = x.dim() == 1
+    squeeze_back = y.dim() == 1
+    if squeeze_front:
+        x = x[None, :]
+    if squeeze_back:
+        y = y[:, None]
+    if op.attrs.get('transpose_X', False):
+        x = torch.transpose(x, -1, -2)
+    if op.attrs.get('transpose_Y', False):
+        y = torch.transpose(y, -1, -2)
+    out = amp_matmul(x, y)
+    alpha = op.attrs.get('alpha', 1.0)
+    if alpha != 1.0:
+        # alpha rounded to the product's dtype first, as jnp.asarray does
+        out = out * float(torch.tensor(alpha, dtype=out.dtype))
+    if squeeze_front:
+        out = torch.squeeze(out, -2)
+    if squeeze_back:
+        out = torch.squeeze(out, -1)
+    ctx.set(op, 'Out', out)
 
 
 def _bcast_y(x, y, axis):

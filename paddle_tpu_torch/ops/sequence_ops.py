@@ -1,6 +1,7 @@
 """Sequence op lowerings (counterpart of ``paddle_tpu/ops/sequence_ops.py``:
 ``sequence_pool`` with its first/last-step aliases, ``sequence_softmax``,
-``sequence_expand``, ``sequence_conv``, ``lstm`` and ``gru_unit``).
+``sequence_expand``, ``sequence_conv``, ``sequence_mask``, ``lstm``,
+``gru`` and ``gru_unit``).
 
 A LoD feed runs as a padded ``[B, T, ...]`` tensor with its int32 lengths
 carried beside it under ``<name>@SEQLEN`` (``registry.run_op`` propagates
@@ -19,7 +20,7 @@ import torch
 
 from .registry import register_lowering, SEQLEN_SUFFIX
 from .kernels import lstm as lstm_kernels
-from ..fluid import flags
+from ..fluid import core, flags
 
 
 def _seqlen(ctx, op, slot='X'):
@@ -286,6 +287,82 @@ def _gru_unit(ctx, op):
     ctx.set(op, 'Gate', torch.cat([g, c], dim=1))
     ctx.set(op, 'ResetHiddenPrev', r * h_prev)
     ctx.set(op, 'Hidden', h)
+
+
+@register_lowering('gru')
+def _gru(ctx, op):
+    """Dynamic GRU over the pre-projected [B, T, 3D] input, weight [D, 3D]
+    with columns [update | reset | candidate], from H0 (else zeros); a
+    row's steps past its ``@SEQLEN`` keep its hidden frozen.  The AMP
+    dtype flow is ``_lstm``'s: x and h in x's dtype for the products, the
+    gate math and the bias in f32 inside the step."""
+    x = ctx.get(op, 'Input')
+    w = ctx.get(op, 'Weight')
+    bias = ctx.get(op, 'Bias')
+    h0 = ctx.get(op, 'H0')
+    lengths = _seqlen(ctx, op, 'Input')
+    is_reverse = op.attrs.get('is_reverse', False)
+    gate_act = _act(op.attrs.get('gate_activation', 'sigmoid'))
+    cand_act = _act(op.attrs.get('activation', 'tanh'))
+
+    b_sz, t, d3 = x.shape
+    d = d3 // 3
+    cd = x.dtype
+    w_g = w[:, :2 * d].to(cd)
+    w_c = w[:, 2 * d:].to(cd)
+    if bias is not None:
+        bias = torch.reshape(bias, (1, -1)).to(torch.float32)
+        bias_g, bias_c = bias[:, :2 * d], bias[:, 2 * d:]
+    else:
+        bias_g = bias_c = 0.0
+    h = (h0.to(cd) if h0 is not None else
+         torch.zeros((b_sz, d), dtype=cd, device=x.device))
+    xs = torch.transpose(x, 0, 1)  # [T, B, 3D]
+    if is_reverse:
+        xs = torch.flip(xs, (0, ))
+    if lengths is None:
+        step_mask = torch.ones((t, b_sz), dtype=torch.float32,
+                               device=x.device)
+    else:
+        step_mask = _mask(x, lengths, torch.float32).t()  # [T, B]
+        if is_reverse:
+            step_mask = torch.flip(step_mask, (0, ))
+    hs = []
+    for x_t, m_t in zip(xs, step_mask):
+        g = gate_act((x_t[:, :2 * d] + h @ w_g).to(torch.float32) + bias_g)
+        u, r = torch.split(g, d, dim=1)
+        c = cand_act((x_t[:, 2 * d:] + (r.to(cd) * h) @ w_c).to(
+            torch.float32) + bias_c)
+        hf = h.to(torch.float32)
+        h_new = (1 - u) * hf + u * c
+        m = m_t[:, None]
+        h = (m * h_new + (1 - m) * hf).to(cd)
+        hs.append(h)
+    hs = torch.stack(hs)
+    if is_reverse:
+        hs = torch.flip(hs, (0, ))
+    out = torch.transpose(hs, 0, 1)
+    ctx.set(op, 'Hidden', out)
+    ctx.set(op, 'BatchGate', x)
+    ctx.set(op, 'BatchResetHiddenPrev', out)
+    ctx.set(op, 'BatchHidden', out)
+
+
+@register_lowering('sequence_mask')
+def _sequence_mask(ctx, op):
+    """Lengths [B] (any numeric dtype, a float position counter included)
+    -> [B, maxlen] mask in ``out_dtype``; ``maxlen`` must be static, as in
+    the JAX package."""
+    lengths = torch.reshape(ctx.get(op, 'X'), (-1, ))
+    maxlen = int(op.attrs.get('maxlen', -1))
+    if maxlen <= 0:
+        raise NotImplementedError(
+            'sequence_mask needs a static maxlen attr (a dynamic maxlen is '
+            'a data-dependent shape)')
+    m = torch.arange(maxlen, device=lengths.device)[None, :] < \
+        lengths[:, None]
+    ctx.set(op, 'Out', m.to(core.convert_dtype_to_torch(
+        op.attrs.get('out_dtype', 'int64'))))
 
 
 def _lstm_scan(xs, w_r, gate_bias, bias, h, c, step_mask, d, use_peepholes,

@@ -181,6 +181,27 @@ def _gather(ctx, op):
     ctx.set(op, 'Out', torch.index_select(ctx.get(op, 'X'), 0, index))
 
 
+@register_lowering('expand')
+def _expand(ctx, op):
+    """X tiled ``expand_times`` along each dim (``jnp.tile``)."""
+    ctx.set(op, 'Out', torch.tile(ctx.get(op, 'X'),
+                                  tuple(op.attrs['expand_times'])))
+
+
+@register_lowering('one_hot')
+def _one_hot(ctx, op):
+    """float32 rows of ``depth``: 1 where X equals the column index, as
+    ``jax.nn.one_hot`` compares X against an iota of X's own dtype, so a
+    float X (a position counter) works and a value out of range (or not
+    whole) gives a zero row.  A trailing dim of 1 is dropped first."""
+    x = ctx.get(op, 'X')
+    depth = int(op.attrs['depth'])
+    if x.dim() and x.shape[-1] == 1:
+        x = torch.reshape(x, tuple(x.shape[:-1]))
+    cols = torch.arange(depth, device=x.device).to(x.dtype)
+    ctx.set(op, 'Out', (x[..., None] == cols).to(torch.float32))
+
+
 @register_lowering('top_k')
 def _top_k(ctx, op):
     values, indices = torch.topk(ctx.get(op, 'X'), op.attrs['k'], dim=-1)

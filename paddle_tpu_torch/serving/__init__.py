@@ -13,9 +13,17 @@ named engines on one device under ``HBMArbiter``'s budget, with
 admission, LRU eviction to host memory and transparent reload.  Every
 entry point runs on ``CUDAPlace(0)`` unless given ``CPUPlace()``.
 
-Not ported yet (ROADMAP.md, Queue 1 items 7-9): generation and chunked
-prefill (``decode.py``), dp/mesh serving, row-sharded tables and
-embedding caches, ``fleet.py`` and ``loadgen.py``.
+Generation: ``InferenceEngine(generation=GenerationSpec)`` serves a
+step-decode model (``build_step_decode``) through ``submit_generate``:
+prompts prefill in lots (or, under ``prefill_chunk``, in C-token chunks),
+admit into a ``SlotStateCache`` slot and decode in K-step dispatches over
+the slot batch, chained ``decode_pipeline_depth`` deep;
+``ModelRegistry.load(generation=)`` accounts the cache as
+``<model>:decode-cache``.
+
+Not ported yet: dp/mesh serving, generation included (ROADMAP.md, Queue 1
+item 7), ``fleet.py`` and ``loadgen.py`` (item 8), row-sharded tables and
+embedding caches (item 9).
 
     reg = serving.ModelRegistry(hbm_budget_bytes=2 << 30)
     reg.load('ranker', '/models/ranker')
@@ -28,6 +36,8 @@ embedding caches, ``fleet.py`` and ``loadgen.py``.
 from .arbiter import HBMArbiter, HBMBudgetError  # noqa: F401
 from .batcher import InferenceRequest, MicroBatcher  # noqa: F401
 from .buckets import ShapeBucketSet, TrailingDimBuckets  # noqa: F401
+from .decode import GenerationRequest, GenerationSpec, \
+    SlotStateCache  # noqa: F401
 from .engine import InferenceEngine, ServingConfig  # noqa: F401
 from .errors import DeadlineExceededError, EngineClosedError, \
     OverloadedError  # noqa: F401
@@ -39,4 +49,19 @@ __all__ = ['InferenceEngine', 'ServingConfig', 'MicroBatcher',
            'InferenceRequest', 'ShapeBucketSet', 'TrailingDimBuckets',
            'EngineMetrics', 'ModelRegistry', 'HBMArbiter',
            'HBMBudgetError', 'DeadlineExceededError', 'OverloadedError',
-           'EngineClosedError', 'ServiceTimeProfile']
+           'EngineClosedError', 'ServiceTimeProfile', 'GenerationSpec',
+           'GenerationRequest', 'SlotStateCache']
+
+# the JAX package's fleet.py and loadgen.py, not ported yet
+_NOT_PORTED = {'FleetRouter': 'fleet', 'ReplicaServer': 'fleet',
+               'FleetFuture': 'fleet', 'OpenLoopLoadGen': 'loadgen',
+               'TrafficClass': 'loadgen', 'fleet': 'fleet',
+               'loadgen': 'loadgen'}
+
+
+def __getattr__(name):
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            'serving.%s: the serving tier\'s %s.py is not ported to PyTorch '
+            'yet (ROADMAP.md, Queue 1 item 8)' % (name, _NOT_PORTED[name]))
+    raise AttributeError('module %r has no attribute %r' % (__name__, name))

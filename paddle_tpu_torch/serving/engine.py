@@ -26,7 +26,19 @@ dispatch:
   4. **metrics**: queue depth, batch fill ratio, p50/p99 latency,
      dispatch and compile counts, surfaced through ``fluid.profiler``'s
      sidecar (``serving/<engine>/...`` spans, the engine's snapshot under
-     its name).
+     its name);
+  5. **generation** (``generation=GenerationSpec``, ``submit_generate``):
+     prompts prefill through the lot machinery above (or, under
+     ``prefill_chunk=C``, as C-token chunk dispatches into PREFILLING
+     slots, at most one per worker cycle after the decode dispatch), then
+     admit into a ``SlotStateCache`` slot at a step boundary and decode in
+     ``Executor._dispatch_decode_multi`` dispatches of ``decode_steps``
+     greedy steps over the whole slot batch (on the card, K replays of one
+     captured step).  At ``decode_pipeline_depth`` >= 2 dispatch N+1 is
+     queued against dispatch N's carry before N is harvested: each
+     dispatch's tokens go to the host behind an event of their own
+     (``HostCopy``), so a harvest waits for its dispatch only.
+     Admission, shedding and eviction happen at chain-flush points.
 
 Synchronous use needs no thread: an engine that was never ``start()``ed
 dispatches inline on the submitter's thread (``fluid.Inferencer`` runs
@@ -49,12 +61,9 @@ neither counted nor moved.  An engine made by ``from_saved_model``
 starts with its weights in host form, as the JAX package's loaded numpy
 arrays are, and stages them at its first dispatch.
 
-Not ported yet, each raising ``NotImplementedError``: generation
-(``generation=``, ``submit_generate``, ``generate``, and
-``ServingConfig``'s ``decode_*`` and ``prefill_chunk`` knobs: they need
-the executor's ``run_decode_multi`` and ``run_chunk_prefill``),
-dp/mesh serving (``parallel=``, ``mesh=``) and the embedding caches
-(``embed_caches=``).  ROADMAP.md, Queue 1 items 7-9.
+Not ported yet, each raising ``NotImplementedError``: dp/mesh serving,
+generation included (``parallel=``, ``mesh=``; ROADMAP.md, Queue 1 item
+7) and the embedding caches (``embed_caches=``; item 9).
 """
 
 import contextlib
@@ -70,8 +79,9 @@ import torch
 from ..fluid import core
 from ..fluid import profiler as _profiler
 from ..fluid import trace as _trace
-from ..fluid.executor import Executor, feed_signature, fetch_batch_led, \
-    prepare_feed_arrays, to_numpy, _as_tensor, _lead
+from ..fluid.executor import Executor, HostCopy, feed_signature, \
+    fetch_batch_led, prepare_feed_arrays, to_numpy, _as_tensor, _lead
+from ..fluid.shape_policy import bucketed_len
 from ..fluid.parallel_executor import pad_ragged_batch
 from ..ops import registry
 from ..ops.registry import SEQLEN_SUFFIX, SAMPLE_MASK_NAME
@@ -85,11 +95,6 @@ __all__ = ['ServingConfig', 'InferenceEngine']
 
 _ENGINE_SEQ = [0]
 _ENGINE_SEQ_LOCK = threading.Lock()
-
-_GENERATION_TODO = ('generation serving is not ported to PyTorch yet: it '
-                    'needs the executor\'s run_decode_multi and '
-                    'run_chunk_prefill (ROADMAP.md, Queue 1 item 8)')
-
 
 class ServingConfig(object):
     """Engine knobs, as in the JAX package's ``ServingConfig``.
@@ -117,9 +122,20 @@ class ServingConfig(object):
     max_trailing_buckets: bound on the active trailing set.
     watchdog_stall_s: queue-age stall threshold (seconds) of the trace
         watchdog probe a started engine registers; None registers none.
-    decode_slots, decode_steps, decode_pipeline_depth, prefill_chunk: the
-        generation lane's knobs; any value raises NotImplementedError
-        (generation is not ported yet).
+    decode_slots: slot count of the generation lane's decode cache (the
+        continuous-batching degree); meaningful with ``generation=``.
+    decode_steps: greedy decode steps per device dispatch (the K of the
+        decode loop: K replays of the captured step on the card).
+    decode_pipeline_depth: decode dispatches kept in flight.  At 2 (the
+        default) dispatch N+1 is queued against N's carry before N's
+        tokens are harvested, so the host's bookkeeping overlaps the
+        card's work; 1 is the per-dispatch-sync lane.
+    prefill_chunk: chunked prefill: every prompt is consumed in C-token
+        blocks interleaved with decode dispatches (decode first, at most
+        one chunk a worker cycle), so the longest decode stall a prompt
+        imposes is one chunk's wall.  Quantized up to the seq-len rung
+        ladder; must equal the model's ``build_step_decode(chunk=C)``
+        width.  None keeps the monolithic prefill lane.
     scheduling: 'edf' (default): highest priority first, earliest
         deadline first within a class, past-deadline requests SHED with
         DeadlineExceededError; requests without priorities or deadlines
@@ -139,8 +155,8 @@ class ServingConfig(object):
                  bucket_sizes=None, max_buckets=16,
                  trailing_buckets=True, trailing_ladders=None,
                  max_trailing_buckets=32, watchdog_stall_s=None,
-                 decode_slots=None, decode_steps=None,
-                 decode_pipeline_depth=None, prefill_chunk=None, scheduling='edf',
+                 decode_slots=8, decode_steps=4, decode_pipeline_depth=2,
+                 prefill_chunk=None, scheduling='edf',
                  admit_queue_depth=None, admit_queue_age_ms=None,
                  adaptive_admission=False, priority_aging_ms=None,
                  shed_by_class=False):
@@ -170,13 +186,22 @@ class ServingConfig(object):
         self.max_trailing_buckets = int(max_trailing_buckets)
         self.watchdog_stall_s = (float(watchdog_stall_s)
                                  if watchdog_stall_s is not None else None)
-        for knob, value in (('decode_slots', decode_slots),
-                            ('decode_steps', decode_steps),
-                            ('decode_pipeline_depth', decode_pipeline_depth),
-                            ('prefill_chunk', prefill_chunk)):
-            if value is not None:
-                raise NotImplementedError('%s: %s' % (knob,
-                                                      _GENERATION_TODO))
+        if int(decode_slots) < 1:
+            raise ValueError('decode_slots must be >= 1')
+        if int(decode_steps) < 1:
+            raise ValueError('decode_steps must be >= 1')
+        self.decode_slots = int(decode_slots)
+        self.decode_steps = int(decode_steps)
+        if int(decode_pipeline_depth) < 1:
+            raise ValueError('decode_pipeline_depth must be >= 1 '
+                             '(1 = the per-dispatch-sync lane)')
+        self.decode_pipeline_depth = int(decode_pipeline_depth)
+        if prefill_chunk is not None:
+            if int(prefill_chunk) < 1:
+                raise ValueError('prefill_chunk must be >= 1 (or None '
+                                 'for monolithic prefill)')
+            prefill_chunk = bucketed_len(int(prefill_chunk))
+        self.prefill_chunk = prefill_chunk
         self.adaptive_admission = bool(adaptive_admission)
         if scheduling not in ('edf', 'fifo'):
             raise ValueError(
@@ -281,8 +306,6 @@ class InferenceEngine(object):
                 'sharded serving (parallel=, mesh=) needs ParallelExecutor, '
                 'which is not ported to PyTorch yet (ROADMAP.md, Queue 1 '
                 'item 7)')
-        if generation is not None:
-            raise NotImplementedError('generation=: ' + _GENERATION_TODO)
         if embed_caches:
             raise NotImplementedError(
                 'embed_caches=: the two-tier embedding cache is not ported '
@@ -305,10 +328,16 @@ class InferenceEngine(object):
         # EAGERLY, one exe.run per request, no padding or coalescing
         self._eager = any(registry.is_host_op_type(op.type)
                           for op in program.global_block().ops)
-        # the model: the persistables the program reads (account,
-        # eviction and staging all cover this one set)
+        # the model: the persistables its programs read (account, eviction
+        # and staging all cover this one set)
+        programs = [program]
+        if generation is not None:
+            programs += [generation.prefill_program,
+                         generation.step_program]
+            if generation.chunk_program is not None:
+                programs.append(generation.chunk_program)
         self._model_vars = sorted(
-            {n for blk in program.blocks for op in blk.ops
+            {n for prog in programs for blk in prog.blocks for op in blk.ops
              for n in op.input_arg_names
              if getattr(blk._find_var_recursive(n), 'persistable', False)})
         if place is None:
@@ -342,6 +371,57 @@ class InferenceEngine(object):
             shed_by_class=self.config.shed_by_class)
         self._arrivals = RateWindow()
         self._drains = RateWindow()
+        # the generation lane: prompts prefill through the lot machinery,
+        # then decode in slot-batched dispatches
+        self.generation = generation
+        self._decode_cache = None
+        self._gen_ready = deque()  # (request, prefill values) awaiting a slot
+        # in-flight decode-lane dispatches not yet harvested, FIFO = device
+        # order: ('decode', HostCopy of (tokens, alive_in), None, k,
+        # t_disp, slot->request at dispatch, slot-map snapshot) or
+        # ('chunk', HostCopy of alive', None, width, t_disp, None, snap)
+        self._decode_inflight = deque()
+        # dispatch -> harvest walls: the lane's service floor
+        self._decode_walls = deque(maxlen=8)
+        # chunked prefill: prompts awaiting a prefilling slot, chunk walls
+        # (the decode-priority budget) and the stall gauge's state
+        self._chunk_pending = deque()
+        self._chunk_walls = deque(maxlen=8)
+        self._prefill_since_harvest = False
+        self._last_harvest_t = None
+        self._last_harvest_alive = frozenset()
+        self._chunking = False
+        if generation is None and self.config.prefill_chunk is not None:
+            raise ValueError(
+                'ServingConfig(prefill_chunk=) only applies to '
+                'generation= engines — there is no prefill to chunk')
+        if generation is not None:
+            if self._eager:
+                raise NotImplementedError(
+                    'generation serving cannot run host-op programs — '
+                    'the decode loop is pure compute')
+            from .decode import SlotStateCache
+            self._decode_cache = SlotStateCache(generation,
+                                                self.config.decode_slots)
+            self._gen_decode_arg = generation.decode_arg()
+            if self.config.prefill_chunk is not None:
+                if not generation.supports_chunked_prefill:
+                    raise ValueError(
+                        'ServingConfig(prefill_chunk=%d): this generation '
+                        'model has no chunk program — build it with '
+                        'build_step_decode(chunk=%d) (and run its '
+                        'chunk_startup), or drop prefill_chunk'
+                        % (self.config.prefill_chunk,
+                           self.config.prefill_chunk))
+                if generation.chunk_width != self.config.prefill_chunk:
+                    raise ValueError(
+                        'ServingConfig(prefill_chunk=%d) does not match '
+                        'the model\'s chunk width %d — the chunk block\'s '
+                        'shape is fixed at build time'
+                        % (self.config.prefill_chunk,
+                           generation.chunk_width))
+                self._gen_chunk_arg = generation.chunk_arg()
+                self._chunking = True
         self._metrics = EngineMetrics()
         self._inflight = deque()
         self._last_sync_t = 0.0  # previous drain's sync, clips FLOP windows
@@ -443,8 +523,24 @@ class InferenceEngine(object):
                     inflight.extend(r.trace_id for r in lot.requests)
         except RuntimeError:
             pass  # a drain mutated the deque mid-snapshot
-        return {'queued_trace_ids': self._batcher.pending_trace_ids(),
-                'inflight_trace_ids': inflight}
+        ctx = {'queued_trace_ids': self._batcher.pending_trace_ids(),
+               'inflight_trace_ids': inflight}
+        if self._decode_cache is not None:
+            # the decode lane's view: who holds each slot, how many
+            # prefilled requests still wait for one, and the in-flight
+            # chain (dispatched, never harvested)
+            ctx['decode_slot_map'] = self._decode_cache.snapshot()
+            ctx['decode_pending'] = len(self._gen_ready) + \
+                len(self._chunk_pending)
+            now = time.time()
+            try:
+                ctx['decode_chain'] = [
+                    {'kind': e[0], 'steps': e[3],
+                     'age_s': round(now - e[4], 4)}
+                    for e in list(self._decode_inflight)]
+            except RuntimeError:
+                ctx['decode_chain'] = None  # a harvest raced the snapshot
+        return ctx
 
     def stop(self):
         """Drain the queue and all in-flight dispatches, then join."""
@@ -476,6 +572,10 @@ class InferenceEngine(object):
             with self._cycle_lock:
                 while self._inflight:
                     self._drain_one()
+                if self._decode_cache is not None:
+                    # the decode chain counts as in flight too: flush it
+                    # to a consistent boundary before anything moves
+                    self._decode_flush()
                 yield self
 
     # ---- footprint / eviction (the ModelRegistry's arbiter hooks) ------
@@ -514,7 +614,16 @@ class InferenceEngine(object):
         Returns the number of blocks dropped."""
         if programs is None:
             programs = [self._program]
+            if self.generation is not None:
+                programs += self._generation_programs()
         return self._exe.purge_programs(programs)
+
+    def _generation_programs(self):
+        gen = self.generation
+        programs = [gen.prefill_program, gen.step_program]
+        if gen.chunk_program is not None:
+            programs.append(gen.chunk_program)
+        return programs
 
     def evict_to_host(self):
         """Demote the model to host memory: paused and under the dispatch
@@ -650,11 +759,129 @@ class InferenceEngine(object):
         """Synchronous convenience: submit + wait."""
         return self.submit(feed, return_numpy=return_numpy).result(timeout)
 
-    def submit_generate(self, *args, **kwargs):
-        raise NotImplementedError('submit_generate: ' + _GENERATION_TODO)
+    def submit_generate(self, feed, max_len=None, return_numpy=True,
+                        priority=0, deadline_ms=None):
+        """Enqueue one GENERATION request: ``feed`` is the prompt (the
+        generation spec's prefill feeds, one sequence), ``max_len`` the
+        per-request step budget (capped by the spec's).  Returns a
+        GenerationRequest future resolving to the generated token ids
+        (greedy; EOS-terminated or cut at max_len), token-identical to a
+        per-request decode of the same prefill and step programs.
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError('generate: ' + _GENERATION_TODO)
+        The prompt coalesces into PREFILL lots with other generation
+        requests (or, under ``prefill_chunk``, waits for a prefilling
+        slot); the prefilled state then admits into a free decode slot at
+        the next step boundary.  ``priority`` / ``deadline_ms`` ride the
+        prefill lot like a forward request's; the decode lane also checks
+        the deadline at every step boundary, and an expired generation
+        releases its slot and sheds."""
+        from .decode import GenerationRequest
+        if self.generation is None:
+            raise RuntimeError(
+                'submit_generate: this engine serves no generation '
+                'model — construct it with generation=GenerationSpec(...)')
+        if self._closed:
+            raise EngineClosedError('engine is closed')
+        spec = self.generation
+        if not isinstance(feed, dict) or not feed:
+            raise ValueError('feed must be a non-empty {name: data} dict')
+        missing = set(spec.prefill_feeds) - set(feed)
+        extra = set(feed) - set(spec.prefill_feeds)
+        if missing or extra:
+            raise ValueError(
+                'submit_generate: feed names %s do not match the '
+                'prefill program (missing %s, unexpected %s)'
+                % (sorted(feed), sorted(missing), sorted(extra)))
+        max_len = spec.max_len if max_len is None else int(max_len)
+        if max_len < 1:
+            raise ValueError('submit_generate: max_len must be >= 1')
+        max_len = min(max_len, spec.max_len)
+        # the typed over-length reject, measured on the raw feed before any
+        # padding touches it
+        prompt_ids = prompt_len = None
+        if spec.prompt_feed is not None and spec.prompt_feed in feed \
+                and (self._chunking or spec.max_ctx is not None):
+            prompt_ids, prompt_len = spec.prompt_ids(feed)
+        if self._chunking and prompt_len is not None and prompt_len < 1:
+            # no chunk to dispatch: the future would hang, the slot leak
+            raise ValueError(
+                'submit_generate: the prompt is empty — chunked prefill '
+                'needs at least one token to consume')
+        if spec.max_ctx is not None and prompt_len is not None:
+            if prompt_len > spec.max_ctx:
+                raise ValueError(
+                    'submit_generate: prompt length %d exceeds the decode '
+                    'context max_ctx=%d — the KV slab has no row to hold '
+                    'token %d' % (prompt_len, spec.max_ctx, spec.max_ctx))
+            if prompt_len + max_len > spec.max_ctx:
+                raise ValueError(
+                    'submit_generate: prompt length %d + max_len %d '
+                    'exceeds the decode context max_ctx=%d — generated '
+                    'tokens would write off the KV slab; shorten the '
+                    'prompt or lower max_len'
+                    % (prompt_len, max_len, spec.max_ctx))
+        if self._chunking and prompt_ids is None:
+            raise ValueError(
+                'submit_generate: chunked prefill needs the prompt feed '
+                '%r in the request' % (spec.prompt_feed, ))
+        ctx = _trace.current() or _trace.TraceContext()
+        if self._chunking:
+            # no prefill lot forms: only the one-sequence check, no padding
+            rows = self._chunk_prompt_rows(feed[spec.prompt_feed])
+            if rows != 1:
+                raise ValueError(
+                    'submit_generate: the prompt must be ONE sequence '
+                    '(got %r rows) — submit one request per sequence so '
+                    'each occupies one decode slot' % (rows, ))
+            feed, sig = None, ('gen-chunk', )
+        else:
+            t_prep = time.time()
+            feed, rows, sig, _trims = self._prepare_request(feed)
+            ctx.add_stage('pad', time.time() - t_prep)
+            if rows is None:
+                raise ValueError(
+                    'submit_generate: this prompt cannot ride the batched '
+                    'prefill path — nested (2-level) LoD prompts are '
+                    'unsupported, and LoD prompts need trailing bucketing '
+                    '(drop ServingConfig(trailing_buckets=False))')
+            if rows != 1:
+                raise ValueError(
+                    'submit_generate: the prompt must be ONE sequence '
+                    '(got %r rows) — submit one request per sequence so '
+                    'each occupies one decode slot' % (rows, ))
+            # prefill lots never share a block with forward lots
+            sig = ('gen', ) + tuple(sig)
+        req = GenerationRequest(feed, 1, sig, max_len,
+                                return_numpy=return_numpy, trace=ctx,
+                                priority=priority, deadline_ms=deadline_ms)
+        if self._chunking:
+            req.prompt_tokens = prompt_ids
+            req.prompt_len = prompt_len
+        self._metrics.note_generate()
+        self._arrivals.note()
+        ctx.mark('enqueue')
+        self._batcher.submit(req)
+        if self._thread is None:
+            self._drain_inline()
+        return req
+
+    @staticmethod
+    def _chunk_prompt_rows(v):
+        """How many sequences the prompt feed carries: an LoD prompt its
+        top-level sequences (nested LoD rejected), a dense one its leading
+        dim."""
+        if isinstance(v, core.LoDTensor) and v.lod():
+            if len(v.lod()) >= 2:
+                raise ValueError(
+                    'submit_generate: nested (2-level) LoD prompts are '
+                    'unsupported under chunked prefill')
+            return max(len(v.lod()[-1]) - 1, 0)
+        shape = _shape(v)
+        return int(shape[0]) if shape else 0
+
+    def generate(self, feed, max_len=None, timeout=None):
+        """Synchronous convenience: submit_generate + wait."""
+        return self.submit_generate(feed, max_len=max_len).result(timeout)
 
     def metrics(self):
         """Engine snapshot + bucket reports + the executor's own compile
@@ -667,7 +894,12 @@ class InferenceEngine(object):
                                     if self.trailing is not None else None)
         snap['executor_compile_count'] = self._exe.compile_count
         snap['inflight'] = len(self._inflight)
-        snap['decode'] = None
+        snap['decode'] = (self._metrics.decode_snapshot(
+            active_slots=self._decode_cache.active_slots(),
+            free_slots=self._decode_cache.free_slots(),
+            pending=len(self._gen_ready) + len(self._chunk_pending),
+            inflight_scans=len(self._decode_inflight))
+            if self._decode_cache is not None else None)
         snap['embed_cache'] = None
         snap['service_profile'] = self._profile.snapshot()
         rates = self.rate_stats()
@@ -851,6 +1083,15 @@ class InferenceEngine(object):
         if self._eager:
             return self._dispatch_eager(lots)
         t0 = time.time()
+        program, fetch_list = self._program, self._fetch_list
+        if lots[0].kind == 'generate':
+            # a prefill lot runs the spec's PREFILL program, fetching the
+            # initial decoder state
+            program = self.generation.prefill_program
+            fetch_list = self.generation.prefill_fetches
+            self._metrics.note_prefill_lot()
+            # the stall gauge's "prefill in flight" marker
+            self._prefill_since_harvest = True
         before = self._exe.compile_count
         trace_ids = [r.trace_id for lot in lots for r in lot.requests]
         # recorded BEFORE the dispatch: a dispatch that errors must show in
@@ -866,8 +1107,8 @@ class InferenceEngine(object):
                 self._stage()
                 stacked, reals, target, compiled, k = \
                     self._exe._dispatch_eval_multi(
-                        self._program, feed_list=feed_list,
-                        fetch_list=self._fetch_list, scope=self._scope)
+                        program, feed_list=feed_list,
+                        fetch_list=fetch_list, scope=self._scope)
         except Exception as exc:
             self._metrics.note_error()
             _trace.flight_recorder.dump(
@@ -1001,11 +1242,17 @@ class InferenceEngine(object):
                             real = req.trailing.get(np.shape(step)[1])
                             if real is not None:
                                 step = step[:, :real]
-                    if not req.return_numpy:
+                    if not req.return_numpy and req.kind != 'generate':
                         step = core.LoDTensor(torch.from_numpy(
                             np.ascontiguousarray(step)))
                     res.append(step)
                 offset += req.rows or 0
+                if req.kind == 'generate':
+                    # a PREFILL result: the per-request state waits for
+                    # slot admission at the next step boundary; the future
+                    # resolves when the decode lane finishes it
+                    self._gen_ready.append((req, res))
+                    continue
                 if req.trace is not None:
                     # finalize BEFORE resolving: a caller woken by result()
                     # sees a complete breakdown
@@ -1022,6 +1269,437 @@ class InferenceEngine(object):
                 self._spans + 'dispatch[x%d]' % len(lots),
                 time.time() - t0, start=t0)
 
+    # ---- decode lane ---------------------------------------------------
+
+    def _admit_ready(self):
+        """Admit prefilled generation requests into free decode slots
+        (step-boundary admission).  Returns how many were admitted."""
+        admitted = 0
+        while self._gen_ready and self._decode_cache.free_slots():
+            req, values = self._gen_ready.popleft()
+            if req.done():
+                continue  # errored upstream; nothing to decode
+            if self.config.scheduling == 'edf' and \
+                    req.deadline_t is not None and \
+                    time.time() > req.deadline_t:
+                # dead on arrival at the slot ('fifo' serves it late)
+                self._shed_request(req, where='admit')
+                continue
+            try:
+                self._decode_cache.admit(req, values)
+            except Exception as exc:
+                self._metrics.note_error()
+                req.set_error(exc)
+                continue
+            if req.trace is not None:
+                req.trace.mark('admit')
+            admitted += 1
+        return admitted
+
+    def _decode_dispatch(self):
+        """Queue ONE K-step decode dispatch against the cache's current
+        carry (mid-chain, the previous dispatch's buffers, which it updates
+        in place), and its tokens' copy to the host behind an event of
+        their own.  Returns True when a dispatch went out."""
+        cache = self._decode_cache
+        k = self.config.decode_steps
+        snap = cache.snapshot()
+        # recorded before the dispatch: a failing one must leave the slot
+        # map in the ring
+        _trace.flight_recorder.record(
+            'decode_lot', engine=self.name, steps=k,
+            chain_depth=len(self._decode_inflight), slot_map=snap)
+        try:
+            with self._gated():
+                self._stage()
+                carry, toks, alive_in, _ = \
+                    self._exe._dispatch_decode_multi(
+                        self.generation.step_program,
+                        carry=cache.carry(), steps=k,
+                        decode=self._gen_decode_arg, scope=self._scope)
+                out = HostCopy([toks, alive_in])
+        except Exception as exc:
+            self._decode_fail(exc, snap)
+            return False
+        cache.set_carry(carry)
+        # the slot -> request map AT DISPATCH: a slot released and
+        # re-admitted later must not receive this dispatch's tokens
+        reqs = [cache.request_at(s) for s in range(cache.slots)]
+        self._decode_inflight.append(
+            ('decode', out, None, k, time.time(), reqs, snap))
+        return True
+
+    # ---- chunked prefill ----------------------------------------------
+
+    def _admit_chunk_pending(self):
+        """Admit pending chunked-prefill prompts into free slots in the
+        PREFILLING phase (chain-flush points, like _admit_ready)."""
+        admitted = 0
+        while self._chunk_pending and self._decode_cache.free_slots():
+            req = self._chunk_pending.popleft()
+            if req.done():
+                continue
+            if self.config.scheduling == 'edf' and \
+                    req.deadline_t is not None and \
+                    time.time() > req.deadline_t:
+                self._shed_request(req, where='admit')
+                continue
+            self._decode_cache.admit_prefilling(req)
+            admitted += 1
+        return admitted
+
+    def _chunk_estimate(self):
+        """The expected wall of one chunk dispatch."""
+        est = self._profile.estimate(('chunk', self.config.prefill_chunk))
+        if est is None:
+            est = min(self._chunk_walls) if self._chunk_walls else 0.0
+        return est
+
+    def _chunk_should_dispatch(self):
+        """At most one prefill chunk rides each worker cycle, and only
+        when it fits the decode lane's deadline headroom: under EDF, if an
+        active decoding request's deadline lands before the next step
+        boundary plus a chunk wall, the chunk waits a cycle."""
+        if not self._chunking:
+            return False
+        cache = self._decode_cache
+        if not any(cur < req.prompt_len
+                   for _, req, cur in cache.prefilling_items()
+                   if req is not None):
+            return False
+        if self.config.scheduling == 'edf':
+            deadlines = [
+                req.deadline_t for req in cache.active_requests()
+                if not req.prefilling and req.deadline_t is not None
+                and not req.done()]
+            if deadlines:
+                est_scan = (min(self._decode_walls)
+                            if self._decode_walls else 0.0)
+                if time.time() + est_scan + self._chunk_estimate() > \
+                        min(deadlines):
+                    return False
+        return True
+
+    def _chunk_dispatch(self):
+        """Dispatch ONE C-token chunk advancing every prefilling slot,
+        queued on the cache's current carry.  Slots whose prompt ends in
+        this block turn to decoding on the device; their cursors and
+        phases are mirrored on the host.  Returns True when a chunk went
+        out."""
+        cache = self._decode_cache
+        spec = self.generation
+        c = self.config.prefill_chunk
+        s = cache.slots
+        work = [(idx, req, cur) for idx, req, cur
+                in cache.prefilling_items()
+                if req is not None and cur < req.prompt_len]
+        if not work:
+            return False
+        blk = np.zeros((s, c, 1), np.int64)
+        lens = np.zeros((s, ), np.int32)
+        active = np.zeros((s, ), bool)
+        fin = np.zeros((s, ), bool)
+        budget = np.zeros((s, ), np.int32)
+        for idx, req, cur in work:
+            n = min(c, req.prompt_len - cur)
+            blk[idx, :n, 0] = req.prompt_tokens[cur:cur + n]
+            lens[idx] = n
+            active[idx] = True
+            if cur + n >= req.prompt_len:
+                fin[idx] = True
+                budget[idx] = req.max_len
+        feed = {spec.chunk_token: blk,
+                spec.chunk_token + SEQLEN_SUFFIX: lens}
+        if spec.chunk_len is not None:
+            feed[spec.chunk_len] = lens.astype(np.float32)[:, None]
+        aux = {'active': active, 'finish': fin, 'budget': budget}
+        snap = cache.snapshot()
+        _trace.flight_recorder.record(
+            'chunk_lot', engine=self.name, width=int(c),
+            prefilling=len(work), finishing=int(fin.sum()),
+            chain_depth=len(self._decode_inflight), slot_map=snap)
+        try:
+            with self._gated():
+                self._stage()
+                carry, ok, _ = self._exe._dispatch_chunk_prefill(
+                    spec.chunk_program, feed=feed, carry=cache.carry(),
+                    aux=aux, chunk=self._gen_chunk_arg, scope=self._scope)
+                out = HostCopy([ok])
+        except Exception as exc:
+            self._decode_fail(exc, snap)
+            return False
+        cache.set_carry(carry)
+        self._metrics.note_chunk_dispatch(
+            sum(int(lens[idx]) for idx, _, _ in work))
+        self._prefill_since_harvest = True
+        t_disp = time.time()
+        for idx, req, cur in work:
+            cache.advance_prefill(idx, int(lens[idx]))
+            if fin[idx]:
+                cache.finish_prefill(idx)
+                if req.trace is not None:
+                    # decode begins at this dispatch
+                    req.trace.mark('admit', t_disp)
+        self._decode_inflight.append(
+            ('chunk', out, None, int(c), t_disp, None, snap))
+        return True
+
+    def _decode_harvest_one(self):
+        """Harvest the OLDEST in-flight decode-lane dispatch.  A 'chunk'
+        entry waits for its small completion marker (its wall feeds the
+        decode-priority budget); a 'decode' entry waits for its token
+        block, replays the loop's stop rule on the host (EOS emitted or
+        budget spent), delivers every request the dispatch finished and
+        releases their slots.  Returns True unless the chain was
+        poisoned."""
+        kind, payload, _, k, t_disp, reqs, snap = \
+            self._decode_inflight.popleft()
+        # a harvest with nothing in flight behind it idles the card: the
+        # host sync the chained lane minimizes
+        blocking = not self._decode_inflight
+        cache = self._decode_cache
+        if kind == 'chunk':
+            try:
+                payload.result()  # the sync point
+            except Exception as exc:
+                self._decode_fail(exc, snap)
+                return False
+            wall = max(time.time() - t_disp, 0.0)
+            self._chunk_walls.append(wall)
+            self._profile.observe(('chunk', self.config.prefill_chunk),
+                                  wall)
+            self._metrics.note_decode_harvest(blocking=blocking)
+            if cache.active_slots() == 0 and not self._decode_inflight:
+                self._reset_stall_gauge()
+            return True
+        try:
+            toks, alive_in = payload.result()  # the sync point
+        except Exception as exc:
+            self._decode_fail(exc, snap)
+            return False
+        self._metrics.note_decode_harvest(blocking=blocking)
+        t_sync = time.time()
+        self._decode_walls.append(max(t_sync - t_disp, 0.0))
+        # the inter-token stall gauge: the gap between consecutive token
+        # harvests while prefill work was in flight, in units of the
+        # lane's min dispatch wall, counted only when some REQUEST (by
+        # identity) decoded across the whole gap
+        alive_reqs = frozenset(
+            reqs[int(s)]
+            for s in np.nonzero(alive_in.any(axis=0))[0]
+            if reqs[int(s)] is not None)
+        if self._last_harvest_t is not None and \
+                self._prefill_since_harvest and \
+                (alive_reqs & self._last_harvest_alive):
+            gap = max(t_sync - self._last_harvest_t, 0.0)
+            floor = min(self._decode_walls) if self._decode_walls \
+                else 0.0
+            self._metrics.note_decode_stall(gap / max(floor, 1e-9), gap)
+        self._last_harvest_t = t_sync
+        self._last_harvest_alive = alive_reqs
+        self._prefill_since_harvest = False
+        end_id = self.generation.end_id
+        finished = 0
+        for s, req in enumerate(reqs):
+            if req is None or req.done():
+                continue
+            req.tokens.extend(int(t) for t in toks[alive_in[:, s], s])
+            # the loop's own stop rule, replayed on the host
+            budget = min(req.max_len, self.generation.max_len)
+            done = req.tokens and (req.tokens[-1] == end_id or
+                                   len(req.tokens) >= budget)
+            if done and req.slot == s:
+                if req.trace is not None:
+                    req.trace.mark('decode_end', t_sync)
+                cache.release(s)
+                self._finish_generate(req)
+                finished += 1
+        self._metrics.note_decode_dispatch(
+            k, int(alive_in.sum()), k * cache.slots, finished)
+        if cache.active_slots() == 0 and not self._decode_inflight:
+            # going idle: the next busy period must not count the gap
+            self._reset_stall_gauge()
+        if _profiler.is_profiler_enabled() or _trace.spans_enabled():
+            _profiler.record_event(self._spans + 'decode[x%d]' % k,
+                                   time.time() - t_sync, start=t_sync)
+        return True
+
+    def _reset_stall_gauge(self):
+        """Clear the stall gauge's episode state when the decode lane goes
+        idle (by harvest, shed or a poisoned-chain reset)."""
+        self._last_harvest_t = None
+        self._last_harvest_alive = frozenset()
+        self._prefill_since_harvest = False
+
+    def _decode_fail(self, exc, snap):
+        """A decode dispatch or harvest failed: every dispatch behind it
+        consumed the bad carry, so error every slotted request, drop the
+        chain and reset the cache to fresh host leaves; the worker
+        survives."""
+        self._metrics.note_error()
+        _trace.flight_recorder.dump(
+            'decode_error:%s' % self.name, error=repr(exc),
+            slot_map=snap, chain_depth=len(self._decode_inflight))
+        cache = self._decode_cache
+        self._decode_inflight.clear()
+        for req in cache.active_requests():
+            cache.release(req.slot)
+            if not req.done():
+                req.set_error(exc)
+        cache.reset()
+        self._reset_stall_gauge()
+
+    def _decode_flush(self):
+        """Chain-flush point: harvest every in-flight dispatch, so that
+        the slot map and the carry agree before admission, shedding or
+        eviction touch the slots.  Returns True unless the chain was
+        poisoned."""
+        flushed = bool(self._decode_inflight)
+        while self._decode_inflight:
+            if not self._decode_harvest_one():
+                return False
+        if flushed:
+            self._metrics.note_decode_flush()
+        return True
+
+    def _decode_mirror_alive(self, req):
+        """Whether ``req``'s slot can still be alive, from harvested
+        tokens only: the loop's stop rule."""
+        budget = min(req.max_len, self.generation.max_len)
+        return len(req.tokens) < budget and (
+            not req.tokens or req.tokens[-1] != self.generation.end_id)
+
+    def _decode_should_dispatch(self):
+        """Dispatch again only when some occupied, decoding slot can still
+        be alive after the dispatches in flight (a request's remaining
+        budget is known; EOS only ends it sooner)."""
+        active = self._decode_cache.active_requests()
+        if not active:
+            return False
+        for req in active:
+            if req.prefilling or not self._decode_mirror_alive(req):
+                continue
+            budget = min(req.max_len, self.generation.max_len)
+            inflight_steps = sum(
+                e[3] for e in self._decode_inflight
+                if e[0] == 'decode' and req in e[5])
+            if budget - len(req.tokens) - inflight_steps > 0:
+                return True
+        return False
+
+    def _decode_doomed(self):
+        """Active generations whose deadline lands before the next step
+        boundary (one measured dispatch wall away); EDF only.  One
+        predicate for _decode_needs_flush and the shed loop."""
+        if self.config.scheduling != 'edf':
+            return []
+        now = time.time()
+        est = min(self._decode_walls) if self._decode_walls else 0.0
+        return [req for req in self._decode_cache.active_requests()
+                if req.deadline_t is not None and
+                now + est > req.deadline_t]
+
+    def _decode_needs_flush(self):
+        """True when the next cycle must touch slots: a doomed generation
+        to shed, or prefilled requests and a free slot to admit into."""
+        cache = self._decode_cache
+        if (self._gen_ready or self._chunk_pending) and \
+                cache.free_slots():
+            return True
+        return bool(self._decode_doomed())
+
+    def _decode_cycle(self):
+        """One decode-lane turn: flush the chain when admission or
+        shedding must touch slots, queue the next decode dispatch FIRST,
+        then (decode priority) at most one prefill chunk, then harvest the
+        oldest in-flight dispatch behind them, so the harvest's host sync
+        never idles the card.  At decode_pipeline_depth 1 this is
+        dispatch, harvest, repeat.  Returns True when the lane made
+        progress."""
+        cache = self._decode_cache
+        if cache is None:
+            return False
+        progressed = False
+        if self._decode_needs_flush():
+            progressed = True
+            if not self._decode_flush():
+                return True
+            for req in self._decode_doomed():
+                slot = req.slot
+                cache.release(slot)
+                cache.deactivate(slot)
+                if req.trace is not None:
+                    req.trace.add_count('decode_steps', len(req.tokens))
+                self._shed_request(req, where='decode')
+            if cache.active_slots() == 0:
+                self._reset_stall_gauge()
+            self._admit_ready()
+            if self._chunking:
+                self._admit_chunk_pending()
+        dispatched = False
+        if self._decode_should_dispatch():
+            dispatched = self._decode_dispatch()
+            progressed = dispatched or progressed
+        if self._chunk_should_dispatch():
+            chunked = self._chunk_dispatch()
+            dispatched = dispatched or chunked
+            progressed = chunked or progressed
+        if not dispatched:
+            # nothing worth another dispatch: drain the chain so finished
+            # requests deliver and their slots free
+            while self._decode_inflight:
+                progressed = True
+                if not self._decode_harvest_one():
+                    return True
+        while len(self._decode_inflight) >= \
+                self.config.decode_pipeline_depth:
+            progressed = True
+            if not self._decode_harvest_one():
+                break
+        return progressed
+
+    def _finish_generate(self, req):
+        """Deliver one finished generation request: token ids out, trace
+        finalized (prefill/decode/detokenize and the decode_steps count)
+        before the future resolves."""
+        out = np.asarray(req.tokens, np.int64)
+        if req.trace is not None:
+            req.trace.add_count('decode_steps', len(req.tokens))
+            self._metrics.note_stages(req.trace.finalize())
+            _trace.record_span(
+                self._spans + 'generate', req.trace.t0,
+                req.trace.e2e_s, trace_id=req.trace_id)
+        req.set_result(out)
+        self._drains.note()
+        if req.latency_s is not None:
+            self._metrics.note_latency(req.latency_s)
+
+    def _gen_busy(self):
+        """True while the generation lane has work: requests awaiting
+        slots, occupied slots, or dispatches awaiting harvest."""
+        return self._decode_cache is not None and (
+            bool(self._gen_ready) or bool(self._chunk_pending) or
+            bool(self._decode_inflight) or
+            self._decode_cache.any_active())
+
+    def evict_decode_cache(self):
+        """Demote the decode slot cache to host memory, paused and under
+        the dispatch gate (bit for bit: in-flight generations resume
+        exactly once the next dispatch stages it back), drop the
+        prefill/step/chunk blocks and release their graphs, whose buffers
+        held the slabs.  Returns the bytes moved (the registry's arbiter
+        evicts an idle generation model's cache with it)."""
+        if self._decode_cache is None:
+            return 0
+        with self.paused():
+            with self._gated():
+                moved = self._decode_cache.to_host()
+                self.drop_executables(programs=self._generation_programs())
+                self._exe.release_retired()
+                if self.place.device.type == 'cuda':
+                    torch.cuda.empty_cache()
+        return moved
+
     # ---- worker -------------------------------------------------------
 
     def _safe_make_lot(self, requests):
@@ -1033,6 +1711,21 @@ class InferenceEngine(object):
             for req in requests:
                 req.set_error(exc)
             return None
+
+    def _route_chunked(self, reqs):
+        """Under ``prefill_chunk`` a generation lot never forms: the
+        requests (which still travel the batcher for wake-ups, EDF order
+        and queue sheds) wait for a PREFILLING slot instead.  Returns the
+        requests that still need a lot; None when all went to the chunk
+        lane."""
+        if not self._chunking or not reqs or reqs[0].kind != 'generate':
+            return reqs
+        now = time.time()
+        for req in reqs:
+            if req.trace is not None:
+                req.trace.mark('collect', now)
+            self._chunk_pending.append(req)
+        return None
 
     def _collect_block(self, first_lot):
         """Extend a block with already-flushable same-bucket lots, then TRIM
@@ -1073,12 +1766,17 @@ class InferenceEngine(object):
                     # an idle engine blocks on the queue's condition var
                     # OUTSIDE the cycle lock, so a paused() window never
                     # waits for traffic
+                    # (a busy decode lane keeps stepping between arrivals)
                     reqs = self._batcher.next_lot(
-                        timeout=poll if self._inflight else None)
+                        timeout=poll if (self._inflight or
+                                         self._gen_busy()) else None)
                     if reqs is None:
                         break  # closed and drained
-                # one collect->dispatch->drain cycle is the pause unit
+                # one collect->dispatch->drain->decode cycle is the pause
+                # unit
                 with self._cycle_lock:
+                    if reqs:
+                        reqs = self._route_chunked(reqs)
                     if self._carry and not reqs:
                         self._dispatch(
                             self._collect_block(self._carry.popleft()))
@@ -1086,12 +1784,19 @@ class InferenceEngine(object):
                         lot = self._safe_make_lot(reqs)
                         if lot is not None:
                             self._dispatch(self._collect_block(lot))
-                    elif self._inflight:
+                    elif self._inflight and not self._gen_busy():
                         self._drain_one()  # idle: deliver early
                     # backpressure: at most pipeline_depth dispatches in
                     # flight
                     while len(self._inflight) >= self.config.pipeline_depth:
                         self._drain_one()
+                    if self._decode_cache is not None:
+                        # deliver a finished forward or prefill dispatch
+                        # even while the decode lane is busy, then one
+                        # decode turn: neither lane starves the other
+                        if self._inflight and self._gen_busy():
+                            self._drain_one()
+                        self._decode_cycle()
             except Exception as exc:
                 # _dispatch/_drain_one error their own lots' futures;
                 # whatever still escapes must not kill the serving thread
@@ -1103,6 +1808,12 @@ class InferenceEngine(object):
                 self._dispatch([self._carry.popleft()])
             while self._inflight:
                 self._drain_one()
+            # run the generation lane dry
+            while self._gen_busy():
+                if not self._decode_cycle():
+                    break
+            if self._decode_cache is not None:
+                self._decode_flush()
 
     def _drain_inline(self):
         """Synchronous mode: flush + dispatch + deliver on the calling
@@ -1117,12 +1828,17 @@ class InferenceEngine(object):
                 else:
                     reqs = self._batcher.next_lot(timeout=0, force=True)
                     if reqs:
-                        lot = self._safe_make_lot(reqs)
-                        if lot is not None:
-                            self._dispatch(self._collect_block(lot))
+                        reqs = self._route_chunked(reqs)
+                        if reqs:
+                            lot = self._safe_make_lot(reqs)
+                            if lot is not None:
+                                self._dispatch(self._collect_block(lot))
                         progressed = True
                 while self._inflight:
                     self._drain_one()
                     progressed = True
+                # inline mode has no worker to step the lane later
+                if self._gen_busy():
+                    progressed = self._decode_cycle() or progressed
                 if not progressed and not self._carry:
                     break

@@ -29,15 +29,23 @@ in device memory, and which one is evicted when the next arrives.
     stagings and evictions on the card (no capture ever overlaps another
     engine's work, and no model hogs the card between another's
     dispatches).
+  * **generation**: ``load(..., generation=GenerationSpec)`` serves a
+    model's decode lane; its slot cache is an account of its own,
+    ``<model>:decode-cache`` (its exact slab bytes, a typed reject at
+    load when it alone cannot fit), evicted on its own (the slabs to the
+    host bit for bit, the prefill/step/chunk blocks purged and their
+    graphs, which held the slabs, released) and staged back by the next
+    decode dispatch; ``submit_generate``/``generate`` ensure the model
+    and its cache resident; ``warm(decode_prefill=)`` warms prompt-length
+    rungs and the decode step;
   * **observability**: per-model engine snapshots ride the profiler
     sidecar under the registry's metrics source; spans land in
     per-model ``serving/<model>`` timeline rows; ``metrics()`` carries
     the arbiter's eviction, reload and admission counters.
 
-Not ported yet, each raising ``NotImplementedError``: generation
-(``submit_generate``, ``generate``, ``warm(decode_prefill=)``), dp/mesh
-serving (``parallel=``, ``mesh=``), row-sharded tables and embedding
-caches (``embed_caches=``).  ROADMAP.md, Queue 1 items 7-9.
+Not ported yet, each raising ``NotImplementedError``: dp/mesh serving
+(``parallel=``, ``mesh=``; ROADMAP.md, Queue 1 item 7), row-sharded
+tables and embedding caches (``embed_caches=``; item 9).
 
     reg = serving.ModelRegistry(hbm_budget_bytes=2 << 30)
     reg.load('ranker', '/models/ranker')
@@ -57,10 +65,13 @@ from ..fluid import core
 from ..fluid import profiler as _profiler
 from ..fluid import trace as _trace
 from .arbiter import HBMArbiter, HBMBudgetError, program_seed_bytes
-from .engine import InferenceEngine, ServingConfig, _GENERATION_TODO
+from .engine import InferenceEngine, ServingConfig
 from .errors import OverloadedError
 
 __all__ = ['ModelRegistry']
+
+# the arbiter account of a model's decode slot cache
+DECODE_CACHE_SUFFIX = ':decode-cache'
 
 class _ModelEntry(object):
     __slots__ = ('name', 'engine', 'dirname', 'loaded_t', 'requests',
@@ -127,10 +138,8 @@ class ModelRegistry(object):
             raise ValueError(
                 'model name must be a non-empty string without "/" or '
                 '":" (it keys metrics sources, timeline rows, and the '
-                'arbiter account namespace), got %r' % (name, ))
-        if generation is not None:
-            raise NotImplementedError('load(generation=): ' +
-                                      _GENERATION_TODO)
+                'arbiter account namespace — the ":decode-cache" suffix '
+                'routes eviction), got %r' % (name, ))
         if embed_caches:
             raise NotImplementedError(
                 'load(embed_caches=): the two-tier embedding cache is not '
@@ -145,6 +154,13 @@ class ModelRegistry(object):
                     'requests)' % name)
             cfg = config or self.config or ServingConfig()
             if dirname is not None:
+                if generation is not None:
+                    # checked before an engine (and its profiler
+                    # registration) exists
+                    raise ValueError(
+                        'load(%r): generation= requires program= (the '
+                        'prefill/step programs reference live Variables, '
+                        'which a saved-model dir cannot carry)' % name)
                 engine = InferenceEngine.from_saved_model(
                     dirname, place=self.place,
                     model_filename=model_filename,
@@ -157,9 +173,10 @@ class ModelRegistry(object):
                 engine = InferenceEngine(
                     program, feed_names=feed_names, fetch_list=fetch_list,
                     place=self.place, scope=scope, executor=executor,
-                    config=cfg, name=name)
+                    config=cfg, name=name, generation=generation)
             else:
                 raise ValueError('load(): pass dirname= or program=')
+            cache_account = name + DECODE_CACHE_SUFFIX
             try:
                 # admission gate: seed the account from the program's
                 # var-sum estimate at the TOP bucket size (weights + the
@@ -167,14 +184,25 @@ class ModelRegistry(object):
                 seed = program_seed_bytes(engine._program,
                                           max(engine.buckets.sizes))
                 self.arbiter.admit(name, seed)
+                if engine._decode_cache is not None:
+                    # the decode cache's bytes are exact (static slot
+                    # shapes): one that alone cannot fit is a typed reject
+                    # here, not an out-of-memory error mid-generation
+                    self.arbiter.admit(
+                        cache_account,
+                        engine.generation.cache_nbytes(
+                            engine._decode_cache.slots))
                 self._models[name] = _ModelEntry(name, engine, dirname)
                 # make room NOW (evicting LRU peers), so the first
                 # request pays staging, not arbitration
                 self.arbiter.ensure(name, self._evict_to_host)
+                if engine._decode_cache is not None:
+                    self.arbiter.ensure(cache_account, self._evict_to_host)
             except Exception:
                 # ANY failure must not leak the constructed engine (its
                 # profiler registration and scope)
                 self.arbiter.drop(name)
+                self.arbiter.drop(cache_account)
                 self._models.pop(name, None)
                 engine.stop()
                 raise
@@ -191,6 +219,7 @@ class ModelRegistry(object):
             if entry is None:
                 raise KeyError('model %r is not loaded' % name)
             self.arbiter.drop(name)
+            self.arbiter.drop(name + DECODE_CACHE_SUFFIX)
         entry.engine.stop()
 
     def warm(self, name, bucket_ladder=None, trailing=None,
@@ -214,17 +243,22 @@ class ModelRegistry(object):
         warm set is len(ladder) x prod(len(extents)), which the caller
         bounds through the extents passed.
 
-        ``decode_prefill`` warms the generation lane, which is not
-        ported yet: it raises NotImplementedError.  The JAX package's
-        warm catalog and ``prewarm()`` replay are not ported either."""
+        ``decode_prefill`` warms the generation lane: one zero-filled
+        single-sequence prompt per extent runs through ``generate`` with
+        ``max_len=1``, which plans the prefill block at each prompt-length
+        rung and the decode step.  A decode-only call (no bucket_ladder or
+        trailing) skips the forward surface.  The JAX package's warm
+        catalog and ``prewarm()`` replay are not ported."""
         entry = self._entry(name)
         engine = entry.engine
         served = 0
-        if decode_prefill is not None:
-            raise NotImplementedError('warm(decode_prefill=): ' +
-                                      _GENERATION_TODO)
         trailing = {str(f): [int(e) for e in v]
                     for f, v in (trailing or {}).items()}
+        if decode_prefill is not None:
+            served += self._warm_decode(name, engine,
+                                        [int(e) for e in decode_prefill])
+            if bucket_ladder is None and not trailing:
+                return served
         ladder = list(bucket_ladder if bucket_ladder is not None
                       else engine.buckets.sizes)
         feed_names = engine._feed_names
@@ -329,6 +363,42 @@ class ModelRegistry(object):
                 served += 1
         return served
 
+    def _warm_decode(self, name, engine, extents):
+        spec = engine.generation
+        if spec is None:
+            raise ValueError(
+                'warm(%r): decode_prefill= but the model serves no '
+                'generation lane — load it with generation=' % name)
+        if not extents:
+            raise ValueError(
+                'warm(%r): decode_prefill is empty — pass at least one '
+                'prompt-length extent' % name)
+        from ..fluid.lod_tensor import create_lod_tensor
+        pblock = spec.prefill_program.global_block()
+        served = 0
+        for extent in dict.fromkeys(extents):
+            feed = {}
+            for fname in spec.prefill_feeds:
+                var = pblock.vars[fname]
+                if not getattr(var, 'lod_level', 0):
+                    raise ValueError(
+                        'warm(%r): prefill feed %r is not a sequence '
+                        '(lod_level=0) — decode_prefill warms prompt-length '
+                        'rungs; warm dense prompts with real traffic'
+                        % (name, fname))
+                shape = [int(d) for d in var.shape[1:]]
+                if any(d < 0 for d in shape):
+                    raise ValueError(
+                        'warm(%r): prefill feed %r has a non-batch dynamic '
+                        'dim %s — warm it with real traffic instead'
+                        % (name, fname, var.shape))
+                rows = np.zeros((extent, ) + tuple(shape),
+                                var.np_dtype).tolist()
+                feed[fname] = create_lod_tensor([rows], [[extent]])
+            self.generate(name, feed, max_len=1, timeout=600)
+            served += 1
+        return served
+
     def _entry(self, name):
         with self._lock:
             entry = self._models.get(name)
@@ -348,7 +418,11 @@ class ModelRegistry(object):
         """The arbiter's evict callback: pause the victim engine (its
         in-flight dispatches deliver), copy its device tensors to the host
         bitwise and release its blocks' graphs.  Returns the live bytes
-        moved (the arbiter's account correction)."""
+        moved (the arbiter's account correction).  A ``:decode-cache``
+        victim demotes its model's decode slabs instead of the weights."""
+        if victim.endswith(DECODE_CACHE_SUFFIX):
+            owner = victim[:-len(DECODE_CACHE_SUFFIX)]
+            return self._models[owner].engine.evict_decode_cache()
         moved, _ = self._models[victim].engine.evict_to_host()
         return moved
 
@@ -365,14 +439,21 @@ class ModelRegistry(object):
             live = sum(eng.device_footprint() for eng in engines)
         return self.arbiter.audit(live)
 
-    def _ensure_resident(self, name):
+    def _ensure_resident(self, name, decode=False):
         """Dispatch-time gate: budget-arbitrate ``name`` resident (LRU
         peers evict as needed), its account corrected to its live bytes
-        first."""
+        first.  ``decode=True`` (a routed generation request) also ensures
+        the model's decode-cache account; its slabs are staged back by the
+        next decode dispatch after an eviction."""
         with self._lock:
             entry = self._entry(name)
             self.arbiter.correct(name, entry.engine.device_footprint())
             self.arbiter.ensure(name, self._evict_to_host)
+            if decode:
+                cache = name + DECODE_CACHE_SUFFIX
+                self.arbiter.correct(cache,
+                                     entry.engine._decode_cache.nbytes())
+                self.arbiter.ensure(cache, self._evict_to_host)
             return entry
 
     # ---- router --------------------------------------------------------
@@ -468,16 +549,36 @@ class ModelRegistry(object):
         return self.submit(model, feed,
                            return_numpy=return_numpy).result(timeout)
 
-    def infer(self, model, feed, return_numpy=True, timeout=None):
-        """Synchronous convenience: submit + wait."""
-        return self.submit(model, feed,
-                           return_numpy=return_numpy).result(timeout)
+    def submit_generate(self, model, feed, max_len=None, priority=0,
+                        deadline_ms=None):
+        """Route one GENERATION request: admission-check the overload
+        watermarks, ensure the model AND its decode cache resident under
+        the budget, then enqueue on its engine's decode lane.  Returns the
+        engine's GenerationRequest future; its ``breakdown()`` carries the
+        arbitration window beside the prefill/decode/detokenize stages."""
+        self._check_admission(model)
+        ctx = _trace.TraceContext()
+        t0 = time.time()
+        entry = self._ensure_resident(model, decode=True)
+        ctx.add_stage('arbitration', time.time() - t0)
+        now = time.time()
+        with self._lock:
+            entry.requests += 1
+            if entry.first_req_t is None:
+                entry.first_req_t = now
+            entry.last_req_t = now
+        with _trace.attach(ctx):
+            req = entry.engine.submit_generate(feed, max_len=max_len,
+                                               priority=priority,
+                                               deadline_ms=deadline_ms)
+        with self._lock:
+            entry.rows += 1
+        return req
 
-    def submit_generate(self, *args, **kwargs):
-        raise NotImplementedError('submit_generate: ' + _GENERATION_TODO)
-
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError('generate: ' + _GENERATION_TODO)
+    def generate(self, model, feed, max_len=None, timeout=None):
+        """Synchronous convenience: submit_generate + wait."""
+        return self.submit_generate(model, feed,
+                                    max_len=max_len).result(timeout)
 
     # ---- start/stop ----------------------------------------------------
 

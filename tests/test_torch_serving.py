@@ -434,6 +434,8 @@ CONFIG_ERRORS = [
     dict(scheduling='fifo', shed_by_class=True),
     dict(admit_queue_depth=0), dict(admit_queue_age_ms=-1),
     dict(adaptive_admission=True), dict(admit_queue_age_ms=0),
+    dict(decode_slots=0), dict(decode_steps=0),
+    dict(decode_pipeline_depth=0), dict(prefill_chunk=0),
 ]
 
 
@@ -983,26 +985,15 @@ def test_queue_age_rides_engine_metrics(mlp_dir):
 
 # ---- what this slice does not port -------------------------------------
 
-@pytest.mark.parametrize('cut', ['generation', 'parallel', 'mesh',
-                                 'embed_caches', 'prefill_chunk',
-                                 'decode_slots', 'decode_steps',
-                                 'decode_pipeline_depth',
-                                 'submit_generate', 'generate'])
+@pytest.mark.parametrize('cut', ['parallel', 'mesh', 'embed_caches'])
 def test_cut_features_raise_not_implemented(mlp_dir, cut):
     eng = _mlp_engine('torch', mlp_dir)
     args = dict(fetch_list=eng._fetch_list, scope=eng._scope,
                 executor=eng._exe)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        if cut in ('prefill_chunk', 'decode_slots', 'decode_steps',
-                   'decode_pipeline_depth'):
-            tserving.ServingConfig(**{cut: 16})
-        elif cut in ('submit_generate', 'generate'):
-            getattr(eng, cut)({'img': np.zeros((1, 784), 'float32')})
-        else:
-            value = {'generation': object(), 'parallel': True,
-                     'mesh': {'dp': 2}, 'embed_caches': [object()]}[cut]
-            tserving.InferenceEngine(eng._program, **dict(args,
-                                                          **{cut: value}))
+        value = {'parallel': True, 'mesh': {'dp': 2},
+                 'embed_caches': [object()]}[cut]
+        tserving.InferenceEngine(eng._program, **dict(args, **{cut: value}))
 
 
 def test_engine_runs_on_the_card_unless_given_cpu(mlp_dir, monkeypatch):

@@ -2,8 +2,9 @@
 Inferencer held against the JAX package's on the CPU (``CPUPlace()``), and
 the executor's purge of one program's blocks that eviction rests on.
 Each registry case mirrors one of ``tests/test_model_registry.py`` or
-``tests/test_slo_serving.py`` (the mesh, sharded-table and generation ones
-excepted); the predictor cases mirror ``tests/test_inference_api.py``.
+``tests/test_slo_serving.py`` (the mesh and sharded-table ones excepted;
+the generation ones are in ``test_torch_generation.py``); the predictor
+cases mirror ``tests/test_inference_api.py``.
 
 The models are the MNIST MLP (three inference models saved by the JAX
 package, seeds 1-3, loaded by both) and the Transformer at n_layer=2 (the
@@ -793,21 +794,14 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path,
                               param_path=str(tmp_path))
 
 
-@pytest.mark.parametrize('cut', ['parallel', 'mesh', 'generation',
-                                 'embed_caches', 'submit_generate',
-                                 'decode_prefill'])
+@pytest.mark.parametrize('cut', ['parallel', 'mesh', 'embed_caches'])
 def test_registry_cut_features_raise(cut, model_dirs):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         if cut in ('parallel', 'mesh'):
             tserving.ModelRegistry(place=tfluid.CPUPlace(),
                                    **{cut: {'dp': 2}})
         reg = _registry('torch')
-        if cut in ('generation', 'embed_caches'):
-            reg.load('m', model_dirs['mA'], **{cut: [object()]})
-        reg.load('m', model_dirs['mA'])
-        if cut == 'submit_generate':
-            reg.submit_generate('m', {'img': np.zeros((1, 784))})
-        reg.warm('m', decode_prefill=[8])
+        reg.load('m', model_dirs['mA'], embed_caches=[object()])
 
 
 # ---- the executor: dropped, closed, purged ------------------------------

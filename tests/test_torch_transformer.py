@@ -225,7 +225,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             'paddle_tpu_torch.fluid.layers.math_op_patch, '
             'paddle_tpu_torch.serving, paddle_tpu_torch.serving.engine, '
             'paddle_tpu_torch.serving.registry, '
-            'paddle_tpu_torch.serving.arbiter, paddle_tpu_torch.inference, '
+            'paddle_tpu_torch.serving.arbiter, '
+            'paddle_tpu_torch.serving.decode, paddle_tpu_torch.inference, '
             'paddle_tpu_torch.fluid.inferencer, '
             'paddle_tpu_torch.fluid.parallel_executor, '
             'paddle_tpu_torch.fluid.contrib, '
