@@ -3653,9 +3653,9 @@ def phase_staleness(card, forms):
               b.program in (model['main'], model['test'])}
     check(len(blocks) == 2, 'staleness: no captured train and test blocks '
           'of the stacked LSTM')
+    bufs = {k: b._loops[b._BLOCK]['state'] for k, b in blocks.items()}
     shared = [p.name for p in model['test'].all_parameters()
-              if blocks[True]._state_bufs[p.name] is
-              blocks[False]._state_bufs[p.name]]
+              if bufs[True][p.name] is bufs[False][p.name]]
     check(len(shared) == len(model['test'].all_parameters()),
           'staleness: the stacked LSTM\'s train and test graphs share %d of '
           '%d parameter buffers' % (len(shared),
@@ -6199,6 +6199,8 @@ GEN_SLOTS = 4
 GEN_STEPS = 4
 GEN_DEPTHS = (1, 2)
 GEN_CPU_REQUESTS = 2
+# timed rounds a depth: tokens/s is given as their median and spread
+GEN_TIMED_ROUNDS = 7
 # tools/perf_gate.py's chunked_prefill cell on I1's model: one long prompt
 # among three short ones
 GEN_CHUNK = 64
@@ -6206,6 +6208,8 @@ GEN_CHUNK_LONG = 4096
 GEN_CHUNK_SHORT = [5, 7, 6]
 GEN_CHUNK_STEPS = 2
 GEN_CHUNK_MAX_LEN = 24
+# device work queued ahead of I3's dispatch pair, which must not wait for it
+GEN_BUSY_MS = 50
 # a differing greedy token is a tie when the reference's two top logits at
 # that step lie within this relative distance
 GEN_TIE_RTOL = 1e-4
@@ -6335,42 +6339,51 @@ def _check_against(tag, outs, refs):
 def gen_decode_block(card, part, kind, m, scope, exe, prompts, refs,
                      ladders=None):
     """One model through started engines as bench.py's decode block runs
-    it, at each of GEN_DEPTHS: a warm round, a timed round, a profiled
-    round; every response against ``refs``."""
+    it, at each of GEN_DEPTHS: a warm round, GEN_TIMED_ROUNDS timed rounds
+    (tokens/s their median, min and max), a profiled round; every
+    response against ``refs``."""
     results = {}
     for depth in GEN_DEPTHS:
         torch.cuda.reset_peak_memory_stats()
         before = _step_blocks(exe, m['step'])
         eng = _gen_engine(m, scope, exe, '%s-d%d' % (part, depth),
                           depth=depth, ladders=ladders)
+        rounds = []
         with eng:
             warm = [eng.submit_generate(p) for p in prompts]
             [f.result(600) for f in warm]
-            t0 = time.perf_counter()
-            futs = [eng.submit_generate(p) for p in prompts]
-            outs = [f.result(600) for f in futs]
-            elapsed = time.perf_counter() - t0
+            for _ in range(GEN_TIMED_ROUNDS):
+                t0 = time.perf_counter()
+                futs = [eng.submit_generate(p) for p in prompts]
+                outs = [f.result(600) for f in futs]
+                rounds.append((time.perf_counter() - t0, outs))
             prof = profile_run(lambda: [f.result(600) for f in [
                 eng.submit_generate(p) for p in prompts]])
         m_eng = eng.metrics()
         d = m_eng['decode']
-        check(d['dispatches'] > 0 and d['finished'] == 3 * len(prompts),
+        check(d['dispatches'] > 0 and
+              d['finished'] == (2 + GEN_TIMED_ROUNDS) * len(prompts),
               '%s: the decode lane did not finish every request: %s' %
               (part, d))
         check(d['tokens_per_dispatch'] > 1, '%s: %s' % (part, d))
-        ties = _check_against('%s depth %d' % (part, depth), outs, refs)
+        ties = []
+        for _, outs in rounds:
+            ties = _check_against('%s depth %d' % (part, depth), outs, refs)
+        tokens = sum(len(o) for o in outs)
+        rates = sorted(tokens / wall for wall, _ in rounds)
         blocks = _step_blocks(exe, m['step'])
         check(blocks['mode'] and set(blocks['mode']) == {'graph'},
               '%s: the step block runs %s, not as a graph' %
               (part, blocks['mode']))
         check(blocks['replays'] > before['replays'],
               '%s: no replay of the captured decode step' % part)
-        tokens = sum(len(o) for o in outs)
         busy = prof['busy_ms']
         record = {
             'model': kind, 'depth': depth, 'requests': len(prompts),
-            'tokens': tokens, 'tokens_per_sec': tokens / elapsed,
-            'timed_round_s': elapsed,
+            'tokens': tokens, 'timed_rounds': len(rounds),
+            'tokens_per_sec': statistics.median(rates),
+            'tokens_per_sec_min': rates[0], 'tokens_per_sec_max': rates[-1],
+            'timed_round_s': [wall for wall, _ in rounds],
             'decode_dispatches': d['dispatches'],
             'steps_per_dispatch': d['steps_per_dispatch'],
             'tokens_per_dispatch': d['tokens_per_dispatch'],
@@ -6414,6 +6427,84 @@ def _copy_params(program, scope, cpu_scope):
         scope=cpu_scope, place=fluid.CPUPlace())
 
 
+def gen_two_owners(card, m, scope, exe, prompts, refs):
+    """I1, two carries on one step block.  First, two slot batches decoded
+    through ``exe.run_decode_multi`` with no owner, alternating, against
+    each decoded alone: equal.  Then two models of one ModelRegistry on
+    I1's executor, scope and step program (depths 1 and 2), each warmed
+    alone and then decoding at the same time: every response against the
+    greedy reference, and the step block captured once more for each
+    engine's slot cache."""
+    from paddle_tpu_torch import serving
+    spec = serving.GenerationSpec.from_model(m)
+    decode = spec.decode_arg()
+    rng = np.random.RandomState(SEED + 87)
+
+    def carry():
+        return {'slots': {n: rng.standard_normal(
+                    (GEN_SLOTS, ) + spec.slot_shapes[n]).astype(
+                        spec.slot_dtypes[n]) for n in spec.slot_feeds},
+                'token': np.full((GEN_SLOTS, 1), m['start_id'], np.int64),
+                'alive': np.ones((GEN_SLOTS, ), bool),
+                'remaining': np.full((GEN_SLOTS, ), 3 * GEN_STEPS, np.int32)}
+
+    def chain(carries, order):
+        toks = {i: [] for i in carries}
+        for i in order:
+            carries[i], t, _ = exe.run_decode_multi(
+                m['step'], carry=carries[i], steps=GEN_STEPS,
+                decode=decode, scope=scope)
+            toks[i].append(t.cpu().numpy())
+        return {i: np.concatenate(t) for i, t in toks.items()}
+
+    c0, c1 = carry(), carry()
+    alone = {0: chain({0: dict(c0)}, [0, 0, 0])[0],
+             1: chain({1: dict(c1)}, [1, 1, 1])[1]}
+    mixed = chain({0: dict(c0), 1: dict(c1)}, [0, 1, 0, 1, 0, 1])
+    for i in (0, 1):
+        check(np.array_equal(mixed[i], alone[i]),
+              'I1: two carries alternating on one step block decode %s, '
+              'each alone %s' % (mixed[i].tolist(), alone[i].tolist()))
+    before = _step_blocks(exe, m['step'])
+    reg = serving.ModelRegistry(name='path-I1-shared')
+    for name, depth in (('a', 1), ('b', 2)):
+        reg.load(name, program=m['prefill'], feed_names=m['prefill_feeds'],
+                 fetch_list=m['prefill_fetches'], scope=scope, executor=exe,
+                 generation=spec, config=serving.ServingConfig(
+                     max_batch_size=1, decode_slots=GEN_SLOTS,
+                     decode_steps=GEN_STEPS, decode_pipeline_depth=depth))
+    outs = {}
+    with reg:
+        for name in ('a', 'b'):
+            # alone first: each slot cache's step is captured over its
+            # own buffers before the two decode at once
+            for _ in range(2):
+                [f.result(600) for f in [reg.submit_generate(name, p)
+                                         for p in prompts]]
+        futs = {name: [] for name in ('a', 'b')}
+        for p in prompts:
+            for name in ('a', 'b'):
+                futs[name].append(reg.submit_generate(name, p))
+        outs = {name: [list(f.result(600)) for f in fs]
+                for name, fs in futs.items()}
+        met = reg.metrics()
+    reg.stop()
+    for name in ('a', 'b'):
+        _check_against('I1 two engines, %s' % name, outs[name], refs)
+    after = _step_blocks(exe, m['step'])
+    check(after['captures'] - before['captures'] >= 2,
+          'I1: the two engines captured the step %d times' %
+          (after['captures'] - before['captures']))
+    _gen_line('I1 two owners', {
+        'alternating_carries_equal_alone': True,
+        'engines': 2, 'requests_each': len(prompts),
+        'step_captures': after['captures'] - before['captures'],
+        'decode_dispatches': {n: met['models'][n]['decode']['dispatches']
+                              for n in ('a', 'b')}}, card)
+    del reg
+    _free()
+
+
 def phase_generate_nmt(card):
     """I1: the stepwise NMT decoder at bench_nmt's widths."""
     m, scope, exe = gen_model('nmt', SEED + 81)
@@ -6423,6 +6514,7 @@ def phase_generate_nmt(card):
             for p in prompts]
     outs = gen_decode_block(card, 'I1', 'nmt', m, scope, exe, prompts, refs)
     gen_cpu_check('I1', m, scope, prompts, outs[GEN_DEPTHS[-1]])
+    gen_two_owners(card, m, scope, exe, prompts, refs)
     return m, scope, exe, prompts, refs
 
 
@@ -6497,8 +6589,64 @@ def phase_generate_chunked(card):
     same = outs[None] == outs[GEN_CHUNK]
     print('path I: I3: the chunked and the monolithic lanes decoded %s '
           'tokens' % ('the same' if same else 'tie-equivalent'), flush=True)
+    gen_no_sync(m, scope, exe)
     del m, scope, exe
     _free()
+
+
+def gen_no_sync(m, scope, exe):
+    """I3: a decode dispatch and a chunk dispatch behind it, both
+    replayed, queue with no host sync: they run behind ~GEN_BUSY_MS of
+    device work (``torch.cuda._sleep``) under
+    ``torch.cuda.set_sync_debug_mode('error')``, which raises at a
+    synchronizing call (a blocking host-to-card copy among them), and the
+    host's wall of the pair must stay under half that work."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.fluid.executor import HostCopy
+    from paddle_tpu_torch.ops.registry import SEQLEN_SUFFIX
+    spec = serving.GenerationSpec.from_model(m)
+    cache = serving.SlotStateCache(spec, GEN_SLOTS)
+    s = cache.slots
+    rng = np.random.RandomState(SEED + 88)
+    c = spec.chunk_width
+    lens = np.full((s, ), c, np.int32)
+    feed = {spec.chunk_token: rng.randint(
+                2, GEN_NMT['src_dict_dim'], (s, c, 1)).astype('int64'),
+            spec.chunk_token + SEQLEN_SUFFIX: lens}
+    if spec.chunk_len is not None:
+        feed[spec.chunk_len] = lens.astype(np.float32)[:, None]
+    aux = {'active': np.ones((s, ), bool), 'finish': np.zeros((s, ), bool),
+           'budget': np.zeros((s, ), np.int32)}
+
+    def cycle():
+        carry, toks, alive, _ = exe._dispatch_decode_multi(
+            m['step'], carry=cache.carry(), steps=GEN_CHUNK_STEPS,
+            decode=spec.decode_arg(), scope=scope, owner=cache)
+        cache.set_carry(carry)
+        carry, ok, _ = exe._dispatch_chunk_prefill(
+            m['chunk'], feed=feed, carry=cache.carry(), aux=aux,
+            chunk=spec.chunk_arg(), scope=scope, owner=cache)
+        cache.set_carry(carry)
+        return HostCopy([toks, alive, ok])
+
+    for _ in range(2):  # eager, then the captures
+        cycle().result()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(GEN_BUSY_MS * 1e-3 * 1.98e9))  # cycles at 1.98 GHz
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        t0 = time.perf_counter()
+        out = cycle()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    out.result()
+    check(wall < GEN_BUSY_MS * 1e-3 / 2,
+          'I3: the dispatch pair took the host %.2f ms behind %g ms of '
+          'device work' % (1e3 * wall, GEN_BUSY_MS))
+    print('path I: I3: a replayed decode dispatch and a chunk dispatch '
+          'behind it queued with no host sync: %.3f ms of host time behind '
+          '%g ms of device work' % (1e3 * wall, GEN_BUSY_MS), flush=True)
 
 
 def phase_generate_registry(card, nmt):

@@ -71,7 +71,11 @@ buffers are the carry (the slot slabs, the token, the alive mask and the
 step budget): the step program, the argmax, the stop masking and the
 merges of the state fetches into the slabs, ending with copies into the
 carry (the counterpart of donating it), so a dispatch of K steps is K
-replays with no host sync.
+replays with no host sync.  Each owner of a carry (a serving engine's slot
+cache) replays a graph over buffers of its own; host feeds go into the
+buffers with no host sync (``_copy_in``).  One driver,
+``_run_loop``, runs every path: a block's own step is the case with no
+carry.
 
 Not ported yet: ``py_reader`` feeds, the host ops but ``chunk_eval`` and ``print``
 (``save``, ``load``, ``save_combine``, ``load_combine``, the distributed and
@@ -541,6 +545,41 @@ class HostCopy(object):
         return [h.detach().numpy() for h in self._host]
 
 
+def upload(value, device, dtype=None):
+    """``value`` on ``device`` (as ``dtype``) with no host sync: a host
+    tensor goes by ``cudaMemcpyAsync`` from its own memory, which the
+    driver stages before the call returns, so the copy queues behind the
+    work on the stream and the host waits for none of it.  A blocking copy
+    synchronizes the stream; a pinned one costs the host more
+    (``profile_upload.py``).  The reverse of ``HostCopy``."""
+    t = _as_tensor(value)
+    if dtype is not None and t.dtype != dtype:
+        t = t.to(dtype)
+    return t.to(device, non_blocking=True)
+
+
+def _copy_in(buf, value):
+    """Copy ``value`` into the buffer ``buf`` as ``upload`` moves it, with
+    no tensor on the card between."""
+    buf.copy_(_as_tensor(value), non_blocking=True)
+
+
+def _carry_leaves(carry):
+    """[(path, tensor)] of a decode carry, in a fixed order; [] for
+    None, the block's own step."""
+    if carry is None:
+        return []
+    out = [(('slots', n), carry['slots'][n]) for n in sorted(carry['slots'])]
+    return out + [((k, ), carry[k]) for k in ('token', 'alive', 'remaining')]
+
+
+def _map_carry(fn, carry):
+    """A decode carry with ``fn`` applied to every leaf."""
+    return {'slots': {n: fn(v) for n, v in carry['slots'].items()},
+            'token': fn(carry['token']), 'alive': fn(carry['alive']),
+            'remaining': fn(carry['remaining'])}
+
+
 # ----------------------------------------------------------------------------
 # the compiled block
 # ----------------------------------------------------------------------------
@@ -789,15 +828,16 @@ class _CompiledBlock(object):
         self._chunk_widths_seen = set()
         self.last_decode_cost = None
         self.last_chunk_cost = None
-        # the captured decode step and chunk advance, by loop key
+        # the captured steps by loop key (_run_loop): the block's own, and
+        # each owner's decode step and chunk advance
         self._loops = {}
         self._loop_calls = collections.Counter()
+        self._owners = {}  # id of a carry's owner -> weakref of it
         self.calls = 0
         self.captures = 0
         self.replays = 0
         self.last_ran = None  # 'eager', 'capture' or 'replay'
         self.captured_launches = {}
-        self._graph = None
 
     def _release_plan(self, program):
         """{op index: names to drop after that op}, each name at the last op
@@ -885,15 +925,6 @@ class _CompiledBlock(object):
         return {n: _feed_value(v, self.block._find_var_recursive(n), device)
                 for n, v in feeds.items()}
 
-    def _run_eager(self, scope, feeds, generator):
-        device = self.place.device
-        env = {n: _state_value(scope, n, device) for n in self.state_in}
-        env.update(self._feeds_env(feeds, device))
-        new_state, fetches = self._execute(env, generator, scope=scope)
-        fetches = self._store(scope, new_state, fetches)
-        self.last_ran = 'eager'
-        return fetches
-
     def _store(self, scope, new_state, fetches):
         """Write an eager step's state into the scope.  A value whose scope
         tensor is a graph's state buffer of the same shape and dtype is
@@ -928,70 +959,6 @@ class _CompiledBlock(object):
                 scope.var(name).set_value(value)
         return fetches
 
-    def _capture(self, scope, feeds, generator):
-        """Capture the block as a CUDA graph over the scope's state (made
-        state buffers first where they are not yet), then replay it once."""
-        device = self.place.device
-        mem = self._memory
-        if self._graph is not None:
-            # a capture again (new state shapes): the old graph may have been
-            # its pool's last user
-            self._graph = None
-            mem.renew()
-        taken = set()
-        buffer = lambda n: self._state_buffer(scope, n, taken)
-        state = {n: buffer(n) for n in self.state_in}
-        # state written before it is read: the eager call before every
-        # capture left its value, and so its shape, in the scope
-        outs = {n: buffer(n) for n in self.state_out if n not in state}
-        feed_bufs = {n: v.clone(memory_format=torch.contiguous_format)
-                     for n, v in self._feeds_env(feeds, device).items()}
-        bufs = dict(state, **outs)
-        rw = {bufs[n].untyped_storage().data_ptr() for n in bufs
-              if n in self.state_rw or n in outs}
-        graph = torch.cuda.CUDAGraph()
-        # each replay draws afresh from the executor's generator
-        graph.register_generator_state(generator)
-        before = registry.counts()
-        with torch.cuda.graph(graph, pool=mem.pool):
-            env = dict(state)
-            env.update(feed_bufs)
-            new_state, fetches = self._execute(env, generator,
-                                               capturing=True)
-
-            def own(v, buf=None):
-                # a value that views a buffer the copies below overwrite
-                return v.clone() if isinstance(v, torch.Tensor) and \
-                    v is not buf and v.untyped_storage().data_ptr() in rw \
-                    else v
-
-            fetches = [own(f) for f in fetches]
-            new_state = {n: own(v, bufs[n]) for n, v in new_state.items()}
-            for n, v in new_state.items():
-                buf = bufs[n]
-                if v.shape != buf.shape or v.dtype != buf.dtype:
-                    raise RuntimeError(
-                        'capture: the step turns state var %r from %s %s '
-                        'into %s %s; a graph replays a fixed shape and dtype'
-                        % (n, tuple(buf.shape), buf.dtype, tuple(v.shape),
-                           v.dtype))
-                if v is not buf:
-                    buf.copy_(v)  # the counterpart of donating state_rw
-        after = registry.counts()
-        self.captured_launches = {k: after[k] - before.get(k, 0)
-                                  for k in after
-                                  if after[k] != before.get(k, 0)}
-        self._graph = graph
-        self._state_bufs = state
-        self._feed_bufs = feed_bufs
-        self._outs = {n: bufs[n] for n in self.state_out}
-        self._fetch_outs = fetches
-        self.captures += 1
-        graph.replay()
-        self._publish(scope)
-        self.last_ran = 'capture'
-        return fetches
-
     def _state_buffer(self, scope, n, taken):
         """The scope's tensor for ``n`` as a state buffer: a buffer of its
         own for each name (``taken`` holds the ids given out), even where
@@ -1007,11 +974,10 @@ class _CompiledBlock(object):
         taken.add(id(t))
         return t
 
-    def _state_ready(self, scope, bufs=None):
-        """Make every state buffer (the block graph's, or ``bufs``) hold
-        the scope's value: False when a value changed shape or dtype, and
-        the graph must be captured again."""
-        bufs = self._state_bufs if bufs is None else bufs
+    def _state_ready(self, scope, bufs):
+        """Make every state buffer of a captured step hold the scope's
+        value: False when a value changed shape or dtype, and the step must
+        be captured again."""
         for n, buf in bufs.items():
             t = _scope_tensor(scope, n)
             if t is buf:
@@ -1024,17 +990,12 @@ class _CompiledBlock(object):
             scope.var(n).set_value(buf)
         return True
 
-    def _publish(self, scope, outs=None):
-        """Point the scope at the state buffers (the block graph's, or
-        ``outs``)."""
-        for n, t in (self._outs if outs is None else outs).items():
+    def _publish(self, scope, outs):
+        """Point the scope at a captured step's state buffers."""
+        for n, t in outs.items():
             var = scope.var(n)
             if var.value() is not t:
                 var.set_value(t)
-
-    def _replay(self):
-        self._graph.replay()
-        self.replays += 1
 
     def run(self, scope, feeds, generator, eager=False):
         """One step; returns the fetch tensors (on the card, the graph's
@@ -1043,33 +1004,19 @@ class _CompiledBlock(object):
         the path a block takes before its capture, to time beside it.
         Under FLAGS_check_nan_inf the state and the fetches of a block the
         JAX package would jit are scanned after the step."""
-        fetches = self._run(scope, feeds, generator, eager)
+        got = []
+        self._run_loop(self._BLOCK, scope, feeds, None, generator, None,
+                       self._block_body(generator, scope), 1,
+                       lambda i, fetches: got.append(fetches), eager=eager)
+        self._check_step(scope, got[0])
+        return got[0]
+
+    def _check_step(self, scope, fetches):
         if flags.FLAGS.check_nan_inf and self.refusal is None:
             _check_nan_inf([(n, _scope_tensor(scope, n))
                             for n in self.state_out
                             if scope.find_var(n) is not None], 'state var')
             _check_nan_inf(zip(self.fetch_names, fetches), 'fetch')
-        return fetches
-
-    def _run(self, scope, feeds, generator, eager):
-        self.calls += 1
-        if eager or self.mode != 'graph':
-            return self._run_eager(scope, feeds, generator)
-        if self._graph is None:
-            if self.calls == 1:
-                # first call of the key: builds the kernels, sets up the
-                # libraries, and leaves every state var in the scope
-                return self._run_eager(scope, feeds, generator)
-            return self._capture(scope, feeds, generator)
-        if not self._state_ready(scope):
-            return self._capture(scope, feeds, generator)
-        for n, buf in self._feed_bufs.items():
-            buf.copy_(feeds[n])
-        self._replay()
-        self._publish(scope)
-        self.last_ran = 'replay'
-        return self._fetch_outs
-
     # ---- memory and cost ----
     def analyze(self, scope, feeds):
         """Run the block once, eagerly, to record its ops' shapes, unless a
@@ -1128,7 +1075,11 @@ class _CompiledBlock(object):
         with self._COST_LOCK:
             return dict(self._cost_entries)
 
+
     def _check_multi(self, what, steps):
+        """The one rule for every K-step path (run_multi, run_eval_multi,
+        the decode loop, the chunk advance): K >= 1, no host op, and a
+        block that can be captured."""
         if steps < 1:
             raise ValueError('%s: steps must be >= 1, got %r' % (what, steps))
         if self.host_ops:
@@ -1141,38 +1092,6 @@ class _CompiledBlock(object):
                 'one replayed loop — use run() per step' %
                 (what, self.refusal))
 
-    def _steps(self, scope, feeds, per_step, generator, steps, each):
-        """Drive ``steps`` steps; ``each(i, fetches)`` sees every step's
-        fetches before the next step runs."""
-        step_feeds = (lambda i: per_step[i]) if per_step is not None else \
-            (lambda i: feeds)
-        i = 0
-        # eager steps, and on the card the steps up to a live graph
-        while i < steps and (self.mode != 'graph' or self._graph is None
-                             or i == 0):
-            each(i, self.run(scope, step_feeds(i), generator))
-            i += 1
-        if i == steps:
-            return
-        # K replays back to back: the remaining lots go to the device in
-        # one copy each, then into the feed buffers on the stream
-        device = self.place.device
-        if per_step is not None:
-            stacked = {n: stack_steps([fa[n] for fa in per_step[i:]]).to(
-                device) for n in self._feed_bufs}
-        else:
-            for n, buf in self._feed_bufs.items():
-                buf.copy_(feeds[n])
-        for j in range(i, steps):
-            self.calls += 1
-            if per_step is not None:
-                for n, buf in self._feed_bufs.items():
-                    buf.copy_(stacked[n][j - i])
-            self._replay()
-            self.last_ran = 'replay'
-            each(j, self._fetch_outs)
-        self._publish(scope)
-
     def run_multi(self, scope, feeds, generator, steps, per_step=None):
         """``steps`` training steps, each on ``feeds`` or on per_step[i];
         the scope ends as ``steps`` run() calls leave it.  Returns the last
@@ -1183,7 +1102,9 @@ class _CompiledBlock(object):
         def keep(i, fetches):
             last[:] = fetches
 
-        self._steps(scope, feeds, per_step, generator, steps, keep)
+        self._run_loop(self._BLOCK, scope, feeds, per_step, generator, None,
+                       self._block_body(generator, scope), steps, keep,
+                       check=True)
         return last
 
     def run_eval_multi(self, scope, feeds, generator, steps, per_step=None,
@@ -1208,10 +1129,181 @@ class _CompiledBlock(object):
             for buf, f in zip(stacked, fetches):
                 buf[i].copy_(f)
 
-        self._steps(scope, feeds, per_step, generator, steps, collect)
+        self._run_loop(self._BLOCK, scope, feeds, per_step, generator, None,
+                       self._block_body(generator, scope), steps, collect,
+                       check=True)
         if not host:
             return stacked
         return [to_numpy(s, n) for s, n in zip(stacked, self.fetch_names)]
+
+    # ---- the step driver ----
+    # the loop key of the block's own step: run, run_multi, run_eval_multi
+    _BLOCK = ('block', )
+
+    def _block_body(self, generator, scope):
+        """The block's own step as ``_run_loop`` takes it: the ops over the
+        env, no carry, the fetches as the step's outputs."""
+        def make(capturing):
+            def body(env, carry):
+                new_state, fetches = self._execute(
+                    env, generator, capturing=capturing, scope=scope)
+                return new_state, None, fetches
+            return body
+        return make
+
+    def _run_loop(self, key, scope, feeds, per_step, generator, carry,
+                  make_body, steps, each, eager=False, check=False):
+        """The one driver of every path: ``steps`` applications of a step
+        (``make_body(capturing)`` gives its function of (env, carry): new
+        state, new carry, outputs), step i on per_step[i] or on ``feeds``,
+        each step's outputs handed to ``each(i, outs)`` before the next
+        step runs.  Returns the final carry (None for the block's own
+        step, which threads none).
+
+        On the CPU, under ``eager`` and for a block that cannot be
+        captured, every step runs eagerly on new tensors.  On the card the
+        first call of a loop key runs eagerly (it builds the kernels and
+        leaves every state var in the scope), the next captures the step
+        as a CUDA graph (``_capture_loop``) and replays it, and every later
+        step replays: the feeds and the carry are copied into the graph's
+        buffers first (a carry leaf that is the buffer itself stays), so
+        the carry returned is the buffers, which the key's next replay
+        overwrites.  ``check`` scans the state and the outputs of every
+        step before the replays under FLAGS_check_nan_inf."""
+        device = self.place.device
+        live = self.mode == 'graph' and not eager
+        loop = self._loops.get(key) if live else None
+        if loop is not None and not self._state_ready(scope, loop['state']):
+            # a state var changed shape or dtype: capture afresh (the old
+            # graph may have been its pool's last user)
+            del self._loops[key]
+            self._memory.renew()
+            loop = None
+        feeds_at = (lambda i: per_step[i]) if per_step is not None else \
+            (lambda i: feeds)
+        i = 0
+        while i < steps and loop is None:
+            self.calls += 1
+            self._loop_calls[key] += 1
+            if live and self._loop_calls[key] > 1:
+                loop = self._capture_loop(key, scope, feeds_at(i), generator,
+                                          carry, make_body)
+                carry, outs = loop['carry'], loop['outs']
+            else:
+                if carry is not None:
+                    carry = _map_carry(lambda t: _as_tensor(t).to(device),
+                                       carry)
+                env = {n: _state_value(scope, n, device)
+                       for n in self.state_in}
+                env.update(self._feeds_env(feeds_at(i), device))
+                new_state, carry, outs = make_body(False)(env, carry)
+                outs = self._store(scope, new_state, outs)
+                self.last_ran = 'eager'
+            if check:
+                self._check_step(scope, outs)
+            each(i, outs)
+            i += 1
+        if i == steps:
+            return carry
+        if per_step is not None:
+            # the remaining lots go to the device in one copy each, then
+            # into the feed buffers on the stream
+            stacked = {n: upload(stack_steps([fa[n] for fa in per_step[i:]]),
+                                 device) for n in loop['feeds']}
+        else:
+            for n, buf in loop['feeds'].items():
+                _copy_in(buf, feeds[n])
+        for (path, buf), (_, t) in zip(_carry_leaves(loop['carry']),
+                                       _carry_leaves(carry)):
+            if t is not buf:
+                if tuple(t.shape) != tuple(buf.shape):
+                    raise ValueError(
+                        'carry leaf %s has shape %s, the captured loop %s' %
+                        ('/'.join(path), tuple(t.shape), tuple(buf.shape)))
+                _copy_in(buf, t)
+        for j in range(i, steps):
+            self.calls += 1
+            if per_step is not None:
+                for n, buf in loop['feeds'].items():
+                    buf.copy_(stacked[n][j - i])
+            loop['graph'].replay()
+            self.replays += 1
+            self.last_ran = 'replay'
+            each(j, loop['outs'])
+        self._publish(scope, loop['outs_state'])
+        return loop['carry']
+
+    def _capture_loop(self, key, scope, feeds, generator, carry, make_body):
+        """Capture one step as a CUDA graph and replay it once.  Its
+        buffers, all allocated outside the capture: the state (the scope's
+        tensors made state buffers), the feeds, and the carry (copies of
+        the incoming carry, never the caller's own tensors, which the
+        replays would overwrite).  The step computes into temporaries and
+        ends by copying the new carry and the new state into the buffers:
+        the counterpart of donating them."""
+        device = self.place.device
+        mem = self._memory
+        taken = set()
+        state = {n: self._state_buffer(scope, n, taken)
+                 for n in self.state_in}
+        outs_state = {n: self._state_buffer(scope, n, taken)
+                      for n in self.state_out if n not in state}
+        feed_bufs = {n: v.clone(memory_format=torch.contiguous_format)
+                     for n, v in self._feeds_env(feeds, device).items()}
+        bufs = None if carry is None else _map_carry(
+            lambda t: _as_tensor(t).to(device).clone(
+                memory_format=torch.contiguous_format), carry)
+        leaves = _carry_leaves(bufs)
+        state_bufs = dict(state, **outs_state)
+        rw = {t.untyped_storage().data_ptr() for _, t in leaves}
+        rw.update(state_bufs[n].untyped_storage().data_ptr()
+                  for n in self.state_out)
+        graph = torch.cuda.CUDAGraph()
+        # each replay draws afresh from the executor's generator
+        graph.register_generator_state(generator)
+        before = registry.counts()
+        with torch.cuda.graph(graph, pool=mem.pool):
+            env = dict(state)
+            env.update(feed_bufs)
+            new_state, new_carry, outs = make_body(True)(env, bufs)
+
+            def own(v, buf=None):
+                # a value that views a buffer the copies below overwrite
+                return v.clone() if isinstance(v, torch.Tensor) and \
+                    v is not buf and v.untyped_storage().data_ptr() in rw \
+                    else v
+
+            outs = [own(o) for o in outs]
+            new_state = {n: own(v, state_bufs[n])
+                         for n, v in new_state.items()}
+            new_leaves = [own(v, b) for (_, v), (_, b) in zip(
+                _carry_leaves(new_carry), leaves)]
+            for v, (_, buf) in zip(new_leaves, leaves):
+                if v is not buf:
+                    buf.copy_(v)
+            for n, v in new_state.items():
+                buf = state_bufs[n]
+                if v.shape != buf.shape or v.dtype != buf.dtype:
+                    raise RuntimeError(
+                        'capture: the step turns state var %r from %s %s '
+                        'into %s %s; a graph replays a fixed shape and '
+                        'dtype' % (n, tuple(buf.shape), buf.dtype,
+                                   tuple(v.shape), v.dtype))
+                if v is not buf:
+                    buf.copy_(v)
+        after = registry.counts()
+        self.captured_launches = {k: after[k] - before.get(k, 0)
+                                  for k in after
+                                  if after[k] != before.get(k, 0)}
+        loop = {'graph': graph, 'state': state, 'feeds': feed_bufs,
+                'carry': bufs, 'outs': outs,
+                'outs_state': {n: state_bufs[n] for n in self.state_out}}
+        self._loops[key] = loop
+        self.captures += 1
+        graph.replay()
+        self._publish(scope, loop['outs_state'])
+        self.last_ran = 'capture'
+        return loop
 
     # ---- the decode loop and the chunk advance ----
     def note_decode_compile(self, steps, carry_sig):
@@ -1232,18 +1324,6 @@ class _CompiledBlock(object):
             return False
         seen.add(key)
         return True
-
-    def _check_loop(self, what):
-        if self.host_ops:
-            raise RuntimeError(
-                '%s: the program contains host ops (%s) and cannot run as '
-                'one on-device loop — decode-step and chunk programs must '
-                'be pure compute' % (what, self.host_ops))
-
-    def _loop_env(self, scope, feeds, device):
-        env = {n: _state_value(scope, n, device) for n in self.state_in}
-        env.update(self._feeds_env(feeds, device))
-        return env
 
     def _merge(self, mask, upd, old):
         """``upd`` where the per-slot ``mask`` holds, else ``old``, in the
@@ -1325,178 +1405,50 @@ class _CompiledBlock(object):
 
         return body
 
-    @staticmethod
-    def _carry_leaves(carry):
-        """[(path, tensor)] of a carry, in a fixed order."""
-        out = [(('slots', n), carry['slots'][n])
-               for n in sorted(carry['slots'])]
-        return out + [((k, ), carry[k])
-                      for k in ('token', 'alive', 'remaining')]
 
-    @staticmethod
-    def _carry_from(leaves):
-        carry = {'slots': {}}
-        for path, t in leaves:
-            if path[0] == 'slots':
-                carry['slots'][path[1]] = t
-            else:
-                carry[path[0]] = t
-        return carry
+    def _owner_key(self, owner):
+        """The part of a decode or chunk loop key that names the carry's
+        owner: each owner replays a captured step of its own over buffers
+        of its own, so two owners of one block (two engines on one
+        executor and step program) never decode from each other's slots.
+        None for a caller that owns no carry.  The loops of an owner that
+        died are dropped here, at the next dispatch, never inside a
+        capture."""
+        dead = [oid for oid, ref in list(self._owners.items())
+                if ref() is None]
+        for oid in dead:
+            self._owners.pop(oid, None)
+            gone = [k for k in list(self._loops) if k[1:2] == (oid, )]
+            for k in gone:
+                self._loops.pop(k, None)
+            for k in [k for k in list(self._loop_calls) if k[1:2] == (oid, )]:
+                self._loop_calls.pop(k, None)
+            if gone and self._memory is not None:
+                self._memory.renew()
+        if owner is None:
+            return None
+        self._owners.setdefault(id(owner), weakref.ref(owner))
+        return id(owner)
 
-    def _run_loop(self, key, scope, feeds, generator, carry, make_body,
-                  steps, each):
-        """``steps`` applications of a carry-threading step (``make_body``
-        gives its function of (env, carry)), each step's outputs handed to
-        ``each(i, outs)``; returns the final carry.
-
-        On the CPU, and for a block that cannot be captured, every step
-        runs eagerly on new tensors.  On the card the first step of a loop
-        key runs eagerly, the next captures it as a CUDA graph over carry
-        buffers (the incoming carry's own tensors where they lie on the
-        card, contiguous, else copies) and replays it, and every later
-        step replays: a carry that is not the graph's buffers is copied
-        into them first, so the returned carry is the buffers themselves,
-        updated in place."""
-        device = self.place.device
-        loop = self._loops.get(key)
-        if loop is not None and not self._state_ready(scope, loop['state']):
-            # a state var changed shape or dtype: capture afresh
-            del self._loops[key]
-            self._memory.renew()
-            loop = None
-        i = 0
-        while i < steps and loop is None:
-            self.calls += 1
-            self._loop_calls[key] += 1
-            if self.mode == 'graph' and self._loop_calls[key] > 1:
-                loop = self._capture_loop(key, scope, feeds, generator,
-                                          carry, make_body)
-                carry, outs = loop['carry'], loop['outs']
-            else:
-                carry = {'slots': {n: v.to(device)
-                                   for n, v in carry['slots'].items()},
-                         'token': carry['token'].to(device),
-                         'alive': carry['alive'].to(device),
-                         'remaining': carry['remaining'].to(device)}
-                env = self._loop_env(scope, feeds, device)
-                new_state, carry, outs = make_body(False)(env, carry)
-                self._store(scope, new_state, [])
-                self.last_ran = 'eager'
-            each(i, outs)
-            i += 1
-        if i == steps:
+    def _own_carry(self, owner, carry):
+        """The carry a dispatch hands back: the loop's buffers to their
+        owner; a copy to a caller that owns none, whose next call (with
+        this carry or another) must not overwrite it."""
+        if owner is not None or self.last_ran == 'eager':
             return carry
-        self._load_loop(loop, feeds, carry)
-        for j in range(i, steps):
-            self.calls += 1
-            loop['graph'].replay()
-            self.replays += 1
-            self.last_ran = 'replay'
-            each(j, loop['outs'])
-        self._publish(scope, loop['outs_state'])
-        return loop['carry']
+        return _map_carry(torch.clone, carry)
 
-    def _load_loop(self, loop, feeds, carry):
-        """Copy the feeds, and every carry leaf that is not already the
-        graph's buffer, into the captured loop's buffers."""
-        for n, buf in loop['feeds'].items():
-            buf.copy_(feeds[n])
-        for (path, buf), (_, t) in zip(
-                self._carry_leaves(loop['carry']), self._carry_leaves(carry)):
-            if t is not buf:
-                if tuple(t.shape) != tuple(buf.shape):
-                    raise ValueError(
-                        'carry leaf %s has shape %s, the captured loop %s' %
-                        ('/'.join(path), tuple(t.shape), tuple(buf.shape)))
-                buf.copy_(t)
-
-    def _capture_loop(self, key, scope, feeds, generator, carry, make_body):
-        """Capture one step of a loop as a CUDA graph and replay it once.
-        Its buffers, all allocated outside the capture: the state (as the
-        block graph's), the feeds, and the carry (its incoming tensors
-        adopted where they lie on the card and are contiguous).  The step
-        computes into temporaries and ends by copying the new carry and the
-        new state into the buffers."""
-        device = self.place.device
-        mem = self._memory
-        taken = set()
-        state = {n: self._state_buffer(scope, n, taken)
-                 for n in self.state_in}
-        outs_state = {n: self._state_buffer(scope, n, taken)
-                      for n in self.state_out if n not in state}
-        feed_bufs = {n: v.clone(memory_format=torch.contiguous_format)
-                     for n, v in self._feeds_env(feeds, device).items()}
-        leaves = []
-        for path, t in self._carry_leaves(carry):
-            if not (t.device == device and t.is_contiguous()) or \
-                    id(t) in taken:
-                t = t.to(device).clone(memory_format=torch.contiguous_format)
-            taken.add(id(t))
-            leaves.append((path, t))
-        bufs = self._carry_from(leaves)
-        state_bufs = dict(state, **outs_state)
-        rw = {t.untyped_storage().data_ptr() for _, t in leaves}
-        rw.update(state_bufs[n].untyped_storage().data_ptr()
-                  for n in self.state_out)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(generator)
-        before = registry.counts()
-        with torch.cuda.graph(graph, pool=mem.pool):
-            env = dict(state)
-            env.update(feed_bufs)
-            new_state, new_carry, outs = make_body(True)(env, bufs)
-
-            def own(v, buf=None):
-                return v.clone() if isinstance(v, torch.Tensor) and \
-                    v is not buf and v.untyped_storage().data_ptr() in rw \
-                    else v
-
-            outs = [own(o) for o in outs]
-            new_state = {n: own(v, state_bufs[n])
-                         for n, v in new_state.items()}
-            new_leaves = [(p, own(v, b)) for (p, v), (_, b) in zip(
-                self._carry_leaves(new_carry), leaves)]
-            for (path, v), (_, buf) in zip(new_leaves, leaves):
-                if v is not buf:
-                    buf.copy_(v)  # the counterpart of donating the carry
-            for n, v in new_state.items():
-                buf = state_bufs[n]
-                if v.shape != buf.shape or v.dtype != buf.dtype:
-                    raise RuntimeError(
-                        'capture: the step turns state var %r from %s %s '
-                        'into %s %s; a graph replays a fixed shape and '
-                        'dtype' % (n, tuple(buf.shape), buf.dtype,
-                                   tuple(v.shape), v.dtype))
-                if v is not buf:
-                    buf.copy_(v)
-        after = registry.counts()
-        launches = {k: after[k] - before.get(k, 0) for k in after
-                    if after[k] != before.get(k, 0)}
-        if launches:
-            self.captured_launches = launches
-        loop = {'graph': graph, 'state': state, 'feeds': feed_bufs,
-                'carry': bufs, 'outs': outs,
-                'outs_state': {n: state_bufs[n] for n in self.state_out}}
-        self._loops[key] = loop
-        self.captures += 1
-        self._load_loop(loop, feeds, carry)
-        graph.replay()
-        self._publish(scope, loop['outs_state'])
-        self.last_ran = 'capture'
-        return loop
-
-    def run_decode_multi(self, scope, feeds, generator, steps, carry, spec):
+    def run_decode_multi(self, scope, feeds, generator, steps, carry, spec,
+                         owner=None):
         """``steps`` greedy decode steps over the whole slot batch: each
         step's token comes from the previous step's argmax, a slot whose
         token was end_id or whose budget ran out freezes (its slabs and
         token keep their values).  Returns (carry', tokens [K, S], alive_in
         [K, S]): tokens[i, s] counts for slot s exactly when alive_in[i, s].
-        Nothing is synchronized; on the card carry' is the captured step's
-        buffers and the tokens are written on the device, row by row."""
-        if steps < 1:
-            raise ValueError('run_decode_multi: steps must be >= 1, got %r'
-                             % (steps, ))
-        self._check_loop('run_decode_multi')
+        Nothing is synchronized; on the card the tokens are written on the
+        device, row by row, and carry' is ``owner``'s captured step's
+        buffers (``_owner_key``), or a copy of them."""
+        self._check_multi('run_decode_multi', steps)
         device = self.place.device
         s = int(carry['token'].shape[0])
         toks = torch.empty((steps, s), dtype=carry['token'].dtype,
@@ -1507,12 +1459,13 @@ class _CompiledBlock(object):
             toks[i].copy_(outs[0])
             alive_in[i].copy_(outs[1])
 
-        key = ('decode', tuple(sorted(feeds)), spec['token'], spec['state'],
-               spec['end_id'])
+        key = ('decode', self._owner_key(owner), tuple(sorted(feeds)),
+               spec['token'], spec['state'], spec['end_id'])
         carry = self._run_loop(
-            key, scope, feeds, generator, carry,
+            key, scope, feeds, None, generator, carry,
             lambda capturing: self._decode_body(spec, generator, capturing),
             steps, each)
+        carry = self._own_carry(owner, carry)
         step_feeds = dict(feeds)
         step_feeds.update(carry['slots'])
         step_feeds[spec['token']] = carry['token']
@@ -1522,23 +1475,27 @@ class _CompiledBlock(object):
             scope, step_feeds, steps=steps)
         return carry, toks, alive_in
 
-    def run_chunk_prefill(self, scope, feeds, generator, carry, aux, spec):
+    def run_chunk_prefill(self, scope, feeds, generator, carry, aux, spec,
+                          owner=None):
         """One C-token prefill advance over the whole slot batch: each
         ``active`` slot's slabs advance by its block of prompt tokens, the
         others keep theirs, and the ``finish`` slots turn to decoding.
-        Returns (carry', alive') with nothing synchronized."""
-        self._check_loop('run_chunk_prefill')
+        Returns (carry', alive') with nothing synchronized: on the card
+        the feeds and the aux vectors reach the graph's buffers behind the
+        work already queued, with no host sync (``_copy_in``)."""
+        self._check_multi('run_chunk_prefill', 1)
         feeds = dict(feeds)
         feeds['@AUX_ACTIVE'] = _as_tensor(aux['active']).to(torch.bool)
         feeds['@AUX_FINISH'] = _as_tensor(aux['finish']).to(torch.bool)
         feeds['@AUX_BUDGET'] = _as_tensor(aux['budget'])
         got = []
-        key = ('chunk', tuple(sorted(feeds)), spec['token'], spec['state'],
-               spec['start_id'])
+        key = ('chunk', self._owner_key(owner), tuple(sorted(feeds)),
+               spec['token'], spec['state'], spec['start_id'])
         carry = self._run_loop(
-            key, scope, feeds, generator, carry,
+            key, scope, feeds, None, generator, carry,
             lambda capturing: self._chunk_body(spec, generator, capturing),
             1, lambda i, outs: got.append(outs[0].clone()))
+        carry = self._own_carry(owner, carry)
         step_feeds = {n: v for n, v in feeds.items()
                       if not n.startswith('@AUX_')}
         step_feeds.update(carry['slots'])
@@ -1550,9 +1507,6 @@ class _CompiledBlock(object):
 
     def release(self):
         """Drop the graphs and the buffers they hold."""
-        self._graph = None
-        self._state_bufs = self._feed_bufs = self._outs = None
-        self._fetch_outs = None
         self._loops = {}
 
 
@@ -1656,7 +1610,7 @@ class Executor(object):
     def _release(self, blocks):
         """Release ``blocks``' graphs and buffers; when a graph went, the
         next capture takes a fresh pool (``_GraphMemory.renew``)."""
-        graphs = any(c._graph is not None or c._loops for c in blocks)
+        graphs = any(c._loops for c in blocks)
         for compiled in blocks:
             compiled.release()
         if graphs and self._memory is not None:
@@ -1883,7 +1837,7 @@ class Executor(object):
         return go()
 
     def run_decode_multi(self, program=None, feed=None, carry=None,
-                         steps=None, decode=None, scope=None):
+                         steps=None, decode=None, scope=None, owner=None):
         """Run ``steps`` autoregressive greedy-decode iterations of a STEP
         program over a whole slot batch (the serving engine's decode-lane
         primitive).  ``decode`` names the token feed, the logits fetch
@@ -1896,16 +1850,22 @@ class Executor(object):
         [S] bool, 'remaining': [S] int32}, numpy arrays or tensors.
         feed: feeds held constant across iterations.  Returns (carry',
         tokens [K, S], alive_in [K, S]) as tensors on the place's device:
-        tokens[i, s] counts for slot s exactly when alive_in[i, s].  On the
-        card carry' is the captured step's own buffers, updated in place
-        by every dispatch of this block."""
+        tokens[i, s] counts for slot s exactly when alive_in[i, s].
+
+        ``owner`` (the port's own option; any object a weak reference can
+        point at) is the holder of the carry: on the card each owner
+        replays a captured step of its own, and carry' is that step's
+        buffers, which the owner's next dispatch updates in place (so it
+        passes carry' back and the chain runs with no copy).  With no
+        owner carry' is a copy, and any carries may alternate."""
         carry_out, toks, alive_in, _ = self._dispatch_decode_multi(
             program, feed=feed, carry=carry, steps=steps, decode=decode,
-            scope=scope)
+            scope=scope, owner=owner)
         return carry_out, toks, alive_in
 
     def _dispatch_decode_multi(self, program=None, feed=None, carry=None,
-                               steps=None, decode=None, scope=None):
+                               steps=None, decode=None, scope=None,
+                               owner=None):
         """The front half of run_decode_multi, which the engine's chained
         decode lane drives: resolve the step program's block for the
         carry's shapes and queue the K steps against a carry whose leaves
@@ -1916,9 +1876,6 @@ class Executor(object):
             raise ValueError('run_decode_multi: carry=, steps= and '
                              'decode= are required')
         steps = int(steps)
-        if steps < 1:
-            raise ValueError('run_decode_multi: steps must be >= 1, got %r'
-                             % (steps, ))
         spec = normalize_decode_spec(decode)
         check_decode_carry(carry, spec, 'run_decode_multi')
         carry = canonical_decode_carry(carry)
@@ -1939,18 +1896,20 @@ class Executor(object):
             slots=int(carry['token'].shape[0]),
             trace_id=getattr(_trace.current(), 'trace_id', None))
         carry_out, toks, alive_in = compiled.run_decode_multi(
-            scope, const, self._rng(program), steps, carry, spec)
+            scope, const, self._rng(program), steps, carry, spec,
+            owner=owner)
         return carry_out, toks, alive_in, compiled
 
     def _dispatch_chunk_prefill(self, program=None, feed=None, carry=None,
-                                aux=None, chunk=None, scope=None):
+                                aux=None, chunk=None, scope=None,
+                                owner=None):
         """One C-token prefill advance of a CHUNK program over the slot
         batch (the engine's chunk lane), queued against a carry whose
         leaves may be the decode lane's buffers.  ``feed`` carries the
         [S, C, 1] token block, its @SEQLEN companion and the optional
         per-slot length feed; ``aux`` the active/finish/budget slot
-        vectors.  Returns (carry', alive', compiled) with nothing
-        synchronized."""
+        vectors; ``owner`` as run_decode_multi's.  Returns (carry', alive',
+        compiled) with nothing synchronized."""
         if carry is None or aux is None or chunk is None:
             raise ValueError('run_chunk_prefill: carry=, aux= and chunk= '
                              'are required')
@@ -1975,7 +1934,8 @@ class Executor(object):
             slots=int(carry['token'].shape[0]),
             trace_id=getattr(_trace.current(), 'trace_id', None))
         carry_out, ok = compiled.run_chunk_prefill(
-            scope, block_feed, self._rng(program), carry, aux, spec)
+            scope, block_feed, self._rng(program), carry, aux, spec,
+            owner=owner)
         return carry_out, ok, compiled
 
     def memory_analysis(self, program=None, feed=None, fetch_list=None,

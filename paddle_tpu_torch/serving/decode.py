@@ -37,6 +37,7 @@ import threading
 import numpy as np
 import torch
 
+from ..fluid.executor import upload
 from ..ops import registry
 from .batcher import InferenceRequest
 
@@ -386,11 +387,11 @@ class SlotStateCache(object):
     def _write_row(arr, idx, row):
         """Row ``idx`` of a leaf set to ``row``: a host array in place (a
         copy first where it is read-only), a tensor in place by
-        ``index_copy_`` on its device."""
+        ``index_copy_`` on its device, the row and its index uploaded
+        behind the work queued there (no host sync)."""
         if isinstance(arr, torch.Tensor):
-            src = torch.as_tensor(np.asarray(row)).to(
-                device=arr.device, dtype=arr.dtype)
-            index = torch.tensor([int(idx)], device=arr.device)
+            src = upload(np.asarray(row), arr.device, arr.dtype)
+            index = upload(np.asarray([int(idx)], np.int64), arr.device)
             arr.index_copy_(0, index, src.reshape((1, ) + arr.shape[1:]))
             return arr
         if not arr.flags.writeable:

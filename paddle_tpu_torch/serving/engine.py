@@ -1316,7 +1316,8 @@ class InferenceEngine(object):
                     self._exe._dispatch_decode_multi(
                         self.generation.step_program,
                         carry=cache.carry(), steps=k,
-                        decode=self._gen_decode_arg, scope=self._scope)
+                        decode=self._gen_decode_arg, scope=self._scope,
+                        owner=cache)
                 out = HostCopy([toks, alive_in])
         except Exception as exc:
             self._decode_fail(exc, snap)
@@ -1423,7 +1424,8 @@ class InferenceEngine(object):
                 self._stage()
                 carry, ok, _ = self._exe._dispatch_chunk_prefill(
                     spec.chunk_program, feed=feed, carry=cache.carry(),
-                    aux=aux, chunk=self._gen_chunk_arg, scope=self._scope)
+                    aux=aux, chunk=self._gen_chunk_arg, scope=self._scope,
+                    owner=cache)
                 out = HostCopy([ok])
         except Exception as exc:
             self._decode_fail(exc, snap)

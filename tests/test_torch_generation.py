@@ -451,6 +451,84 @@ def test_run_decode_multi_compile_counts_match_jax(nmt_pair, steps):
     assert counts['torch'] == counts['jax']
 
 
+class _Owner(object):
+    """A holder of a decode carry, as an engine's slot cache is."""
+
+
+@pytest.mark.parametrize('owners', ['none', 'one_each'])
+def test_run_decode_multi_alternating_carries_like_jax(nmt_pair, owners):
+    """Two slot batches decoded on one step block, their dispatches
+    alternating, with no owner (each carry handed back is a copy) or one
+    owner each (each replays a step of its own): every slot's tokens and
+    the final hidden states equal the JAX package's decode of each batch
+    alone."""
+    rng = np.random.RandomState(3)
+    s = 3
+    budgets = np.array([4, 7, 5], np.int32)
+    h0 = [rng.standard_normal((s, DIM)).astype('float32') for _ in range(2)]
+    got = {}
+    for pkg in PKGS:
+        m, exe, scope = nmt_pair[pkg]
+        decode = {'token': 'gen_token', 'logits': m['logits'],
+                  'state': m['state'], 'end_id': m['end_id']}
+        carries = [{'slots': {'gen_hidden': h.copy()},
+                    'token': np.full((s, 1), m['start_id'], np.int64),
+                    'alive': np.ones((s, ), bool),
+                    'remaining': budgets.copy()} for h in h0]
+        order = [0, 1] * 3 if pkg == 'torch' else [0] * 3 + [1] * 3
+        owner = [_Owner() for _ in carries]
+        toks = [[] for _ in carries]
+        for i in order:
+            kw = {}
+            if pkg == 'torch' and owners == 'one_each':
+                kw['owner'] = owner[i]
+            carries[i], t, a = exe.run_decode_multi(
+                m['step'], carry=carries[i], steps=2, decode=decode,
+                scope=scope, **kw)
+            t, a = np.asarray(t), np.asarray(a)
+            toks[i].append(np.where(a, t, -1))
+        got[pkg] = ([np.concatenate(t).tolist() for t in toks],
+                    [np.asarray(c['slots']['gen_hidden']) for c in carries])
+    assert got['torch'][0] == got['jax'][0]
+    for ht, hj in zip(got['torch'][1], got['jax'][1]):
+        np.testing.assert_allclose(ht, hj, **STATE_TOL)
+
+
+def test_dead_owner_loops_are_dropped(nmt_pair):
+    """A decode loop keyed by an owner leaves the block at the first
+    dispatch after its owner died; another owner's loop stays."""
+    m, exe, scope = nmt_pair['torch']
+    carry = {'slots': {'gen_hidden': np.zeros((2, DIM), 'float32')},
+             'token': np.zeros((2, 1), np.int64),
+             'alive': np.ones((2, ), bool),
+             'remaining': np.full((2, ), 2, np.int32)}
+    _, _, _, compiled = exe._dispatch_decode_multi(
+        m['step'], carry=carry, steps=1, scope=scope,
+        decode={'token': 'gen_token', 'logits': m['logits'],
+                'state': m['state'], 'end_id': m['end_id']})
+    a, b = _Owner(), _Owner()
+    ka, kb = compiled._owner_key(a), compiled._owner_key(b)
+    compiled._loops[('decode', ka)] = 'loop of a'
+    compiled._loops[('decode', kb)] = 'loop of b'
+    del a
+    assert compiled._owner_key(None) is None
+    assert ('decode', ka) not in compiled._loops
+    assert compiled._loops[('decode', kb)] == 'loop of b'
+    del compiled._loops[('decode', kb)]
+
+
+def test_upload_on_the_cpu():
+    """``upload`` gives a host value on the place's device in the asked
+    dtype; on the CPU it pins nothing."""
+    from paddle_tpu_torch.fluid.executor import upload
+    cpu = torch.device('cpu')
+    t = upload(np.arange(6, dtype=np.int32).reshape(2, 3), cpu, torch.int64)
+    assert t.dtype == torch.int64 and t.device == cpu and not t.is_pinned()
+    assert t.tolist() == [[0, 1, 2], [3, 4, 5]]
+    x = torch.ones(3)
+    assert upload(x, cpu) is x
+
+
 @pytest.mark.parametrize('bad', ['missing_slots', 'bad_spec', 'extra_slot',
                                  'zero_steps', 'no_state'])
 def test_run_decode_multi_validates_carry_and_spec(nmt_pair, bad):

@@ -231,7 +231,7 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             'paddle_tpu_torch.fluid.parallel_executor, '
             'paddle_tpu_torch.fluid.contrib, '
             'chip_smoke, '
-            'profile_torch_slice, profile_ctr_merge, '
+            'profile_torch_slice, profile_ctr_merge, profile_upload, '
             'profile_amp_resnet_grads, probe_bench_widths; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "paddle_tpu.")) or m == "paddle_tpu"); '
