@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]   # from the repository root
     python3 chip_smoke.py --only-book | --only-flow | --only-serve |
-        --only-generate
+        --only-generate | --only-pipeline
 
 Weights, token ids, lengths and labels are drawn from ``--seed``.
 
@@ -293,6 +293,14 @@ G. control flow, tensor arrays, learning-rate schedules and the optimizers
    kernels' build and path G alone and prints no result line.
 H. the serving tier (``paddle_tpu_torch.serving``, ``inference``), run
    right after path G, f32:
+   H0. two ``InferenceEngine``s with no registry (no dispatch gate) on one
+       ``Executor``, one scope and one inference program (the MNIST MLP at
+       its published width), fed from two threads with distinct requests
+       of ``TWO_ENGINE_ROWS`` rows while the interpreter switches threads
+       every microsecond: every response against the same request served
+       alone (``TWO_ENGINE_TOL``).  The engines share one captured block;
+       without the executor's lock one engine's feeds reach the other's
+       replay (it failed so on the code before the lock).
    H1. Transformer-base's test program served by a started
        ``InferenceEngine`` on ``CUDAPlace(0)`` as bench.py's
        bench_transformer serves it: requests of ``SERVE_ROWS`` rows at
@@ -321,6 +329,10 @@ H. the serving tier (``paddle_tpu_torch.serving``, ``inference``), run
        True))`` with LoD ``PaddleTensor``s of 128 rows: 3 ``lstm_fwd`` a
        request (``_Path``), an 8-row request against a CPU predictor
        (``LSTM_PRED_RTOL``).
+   After H2's phase has returned, what still holds device memory: the
+   allocator's counts, its largest live blocks (``memory_snapshot``), the
+   CUDA tensors the collector reaches and the executors, blocks and graphs
+   alive; then the counts once cuBLAS's workspaces are released.
    Each part prints a ``path H: {...}`` line (rows or images a second,
    lots and executables, trailing padding waste, p50/p99 latency, peak
    memory, the card).  ``--only-serve`` runs the device phase, the
@@ -360,11 +372,47 @@ I. generation serving (``serving.decode``, the engine's decode and chunk
    idle share of the profiled round, peak memory, the card).
    ``--only-generate`` runs the device phase and path I alone and prints
    no result line.
+J. the input pipeline (``fluid.FeedPipeline``, ``layers.py_reader``,
+   ``recordio_writer``, ``Trainer``), run right after path I:
+   J1. Transformer-base at bench_transformer's widths (``J_BATCH`` x 256,
+       base shape) under ``amp_guard()``, trained through
+       ``FeedPipeline(source=..., steps=J_STEPS, pipeline_depth=J_DEPTH)``
+       on fresh batches as bench.py's feed_overlap block feeds it: one
+       warmup dispatch in a pipeline of its own, then ``J_TIMED`` timed
+       ones in another, timed from a synchronize to the last delivery,
+       every timed dispatch under
+       ``torch.cuda.set_sync_debug_mode('error')``; ms a step overlapped,
+       feed stall a dispatch, overlap ratio, host syncs (0);
+       the losses and the parameters bitwise those of
+       ``run_multi(feed_list=...)`` over the same batches from the same
+       start; one more dispatch under torch.profiler counting 36 bf16
+       flash forwards, 18 dQ and 18 dK/dV a step (``_Path``
+       ``feed_pipeline`` in the kernels line).
+   J2. the MNIST MLP at its published width fed by ``py_reader`` +
+       ``double_buffer`` + ``read_file`` on ``CUDAPlace(0)``:
+       ``run_multi(reader=, steps=J_STEPS)`` over two passes (two full
+       blocks, a tail, ``EOFException``, ``reset()``/``start()``), then
+       ``run_eval_multi(reader=)``, each bitwise against the feed_list
+       path over the same batches.
+   J3. ``Trainer.train`` for 2 epochs with ``steps_per_dispatch``
+       ``J_STEPS`` and a ``CheckpointConfig``, stopped at the start of the
+       second epoch and resumed by a new Trainer, bitwise against an
+       uninterrupted run.
+   J4. batches written by ``recordio_writer`` into recordio files, read
+       back through ``open_files`` into training steps on the card,
+       against the same steps fed by data layers (``J_MLP_RTOL``, printed
+       whether bitwise); it prints whether the
+       native library (``build/runtime/``) or the pure-Python recordio
+       path ran.
+   J2-J4 run no hand-written kernel.  Each part prints a ``path J:
+   {...}`` line.  ``--only-pipeline`` runs the device phase, the kernels'
+   build and path J alone and prints no result line.
 
 It imports nothing of JAX or of the JAX package ``paddle_tpu``.
 """
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import gc
@@ -375,6 +423,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 import weakref
 
 import numpy as np
@@ -6177,12 +6226,158 @@ def phase_serve_predictor(card):
     return path
 
 
+# two engines with no registry on one executor and one program (H0)
+TWO_ENGINE_REQUESTS = 200
+TWO_ENGINE_ROWS = 8
+# a request served beside another engine's against the same request
+# served alone: lots of other compositions take other cuBLAS kernels, so
+# the last bits of an f32 softmax may differ; another request's rows
+# differ by O(1)
+TWO_ENGINE_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def phase_serve_two_engines(card, place=None):
+    """H0: two InferenceEngines without a registry (no dispatch gate) on
+    one Executor, one scope and one inference program (the MNIST MLP at
+    its published width), fed from two threads with distinct requests, the
+    interpreter switching threads every microsecond; every response must
+    equal the same request served alone.  They share one captured block:
+    without the executor's lock one engine's feeds reach the other's
+    replay."""
+    import threading
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.models import mnist
+    place = place if place is not None else fluid.CUDAPlace(0)
+    with fluid.unique_name.guard():
+        m = mnist.build(nn_type='mlp')
+    m['startup'].random_seed = SEED
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(m['startup'], scope=scope)
+    program = fluid.io.get_inference_program([m['prediction']], m['test'])
+    rng = np.random.RandomState(SEED + 97)
+    reqs = [[{'img': rng.standard_normal((TWO_ENGINE_ROWS, 784)).astype(
+        'float32')} for _ in range(TWO_ENGINE_REQUESTS)] for _ in range(2)]
+    config = serving.ServingConfig(max_batch_size=TWO_ENGINE_ROWS,
+                                   bucket_sizes=[TWO_ENGINE_ROWS],
+                                   steps_per_dispatch=4, pipeline_depth=2)
+    engines = [serving.InferenceEngine(
+        program, feed_names=['img'], fetch_list=[m['prediction']],
+        scope=scope, executor=exe, place=place, config=config,
+        name='h0-%d' % i) for i in range(2)]
+    for eng in engines:
+        eng.start()
+    try:
+        # each request alone, one at a time (the first calls also capture)
+        alone = [[eng.submit(r).result(600)[0] for r in rs]
+                 for eng, rs in zip(engines, reqs)]
+        got = [None, None]
+
+        def serve(i):
+            futs = [engines[i].submit(r) for r in reqs[i]]
+            got[i] = [f.result(600)[0] for f in futs]
+
+        switch = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            threads = [threading.Thread(target=serve, args=(i, ))
+                       for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+        finally:
+            sys.setswitchinterval(switch)
+        check(not any(t.is_alive() for t in threads) and None not in got,
+              'H0: a serving thread did not finish')
+        wrong = [(i, k) for i in range(2) for k in range(len(reqs[i]))
+                 if not np.allclose(got[i][k], alone[i][k],
+                                    **TWO_ENGINE_TOL)]
+        metrics = [eng.metrics() for eng in engines]
+    finally:
+        for eng in engines:
+            eng.stop()
+    check(not wrong, 'H0: %d of %d responses of two ungated engines on one '
+          'executor differ from the same requests served alone (first: '
+          'engine %d request %d)' % (len(wrong), 2 * TWO_ENGINE_REQUESTS,
+                                     wrong[0][0], wrong[0][1])
+          if wrong else '')
+    blocks = [c for c in exe.cached_blocks() if c.program is program]
+    record = {'engines': 2, 'requests': 2 * TWO_ENGINE_REQUESTS,
+              'rows': TWO_ENGINE_ROWS,
+              'lots': [mm['lots'] for mm in metrics],
+              'dispatches': [mm['dispatches'] for mm in metrics],
+              'blocks': len(blocks),
+              'captures': sum(c.captures for c in blocks),
+              'replays': sum(c.replays for c in blocks), 'wrong': 0}
+    _serve_line('H0 two engines', record, card)
+    exe.close()
+    del engines, exe, scope
+    if place.device.type == 'cuda':
+        _free()
+
+
+def _memory_report(tag):
+    """What still holds device memory: the allocator's counts, its largest
+    live blocks (``memory_snapshot``; a pool id other than (0, 0) is a
+    graph's), the largest CUDA tensors the collector still reaches, with
+    their shapes, and the executors, blocks and graphs still alive; then,
+    with no graph alive, the counts once cuBLAS's workspaces are
+    released."""
+    gc.collect()
+    torch.cuda.synchronize()
+    blocks = []
+    for seg in torch.cuda.memory_snapshot():
+        for b in seg['blocks']:
+            if b['state'] == 'active_allocated':
+                blocks.append((b['size'], seg['segment_type'],
+                               str(seg.get('segment_pool_id'))))
+    blocks.sort(reverse=True)
+    with warnings.catch_warnings():
+        # an isinstance test of every object touches deprecated aliases
+        warnings.simplefilter('ignore', FutureWarning)
+        objects = gc.get_objects()
+        tensors = sorted(
+            ((o.untyped_storage().nbytes(), tuple(o.shape), str(o.dtype))
+             for o in objects if isinstance(o, torch.Tensor) and o.is_cuda),
+            reverse=True)
+    alive = collections.Counter(
+        type(o).__name__ for o in objects
+        if type(o).__name__ in ('Executor', '_CompiledBlock', 'CUDAGraph',
+                                'InferenceEngine', 'ModelRegistry'))
+    del objects
+    print('%s: %.1f MiB allocated, %.1f MiB reserved; %d live blocks, %.1f '
+          'MiB, the largest (bytes, segment, pool) %s; %d CUDA tensors '
+          'reachable, %.1f MiB, the largest (bytes, shape, dtype) %s; alive '
+          '%s' % (tag, torch.cuda.memory_allocated() / 2**20,
+                  torch.cuda.memory_reserved() / 2**20, len(blocks),
+                  sum(b[0] for b in blocks) / 2**20, blocks[:8],
+                  len(tensors), sum(t[0] for t in tensors) / 2**20,
+                  tensors[:8], dict(alive) or 'none'), flush=True)
+    if not alive['CUDAGraph'] and hasattr(torch._C,
+                                          '_cuda_clearCublasWorkspaces'):
+        # cuBLAS keeps a workspace for each stream it ran on (a capture's
+        # stream among them), allocated through the caching allocator;
+        # with no graph alive nothing can still use one
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        print('%s: with cuBLAS\'s workspaces released, %.1f MiB allocated, '
+              '%.1f MiB reserved' % (tag, torch.cuda.memory_allocated() /
+                                     2**20, torch.cuda.memory_reserved() /
+                                     2**20), flush=True)
+
+
 def phase_serve(card):
     """Path H: the serving tier.  Returns the launch records of its two
     parts with hand-written kernels, by path name."""
     _free()
+    phase_serve_two_engines(card)
     launches = {'serve_engine': phase_serve_transformer(card)}
     phase_serve_registry(card)
+    # after H2's function returned: its locals (the last model's program
+    # and scope among them) are gone with it
+    _free()
+    _memory_report('h2: the registry dropped')
     launches['serve_predictor'] = phase_serve_predictor(card)
     return launches
 
@@ -6729,6 +6924,510 @@ def phase_generate(card):
     print('path I: %.1f s' % (time.perf_counter() - t0), flush=True)
 
 
+# ---- path J: the input pipeline ------------------------------------------
+
+# bench.py's feed_overlap block on bench_transformer (bench.py:160-193,
+# :504): Transformer-base at batch 128 x 256 under amp_guard(), fresh
+# batches every step through FeedPipeline, K 4 steps a dispatch at depth 2;
+# one warmup dispatch (the eager step and the capture) and J_TIMED timed
+# ones, dropout 0 (the build's)
+J_BATCH = 128
+J_STEPS = 4
+J_DEPTH = 2
+J_TIMED = 3
+# the MNIST MLP at its published width (784-200-200-10, tanh, Adam at the
+# build's lr 0.01) fed by readers: J_READER_BATCHES batches of J_MLP_BATCH
+# a pass (two blocks of J_STEPS and a tail of 2), J_EVAL_BATCHES to
+# evaluate, J_EPOCH_BATCHES an epoch for the Trainer, recordio files of
+# J_FILE_BATCHES batches
+J_MLP_BATCH = 64
+J_READER_BATCHES = 10
+J_EVAL_BATCHES = 6
+J_EPOCH_BATCHES = 8
+J_FILE_BATCHES = 3
+# J4's losses, read back from recordio files, against the data-layer feed
+# path (another program and executor, the same batches and start): the
+# same steps on the card, eager, captured and replayed alike, bitwise on
+# an NVIDIA H100 80GB HBM3 at 700 W; the bound allows the last bits of an
+# f32 sum taken in another order.  J2 and J3 hold their results bitwise.
+J_MLP_RTOL = 1e-6
+J_MLP_ATOL = 1e-7
+
+
+def _host_state(program, scope):
+    """{name: CPU copy} of the program's persistable tensors."""
+    return {n: v.detach().cpu().clone()
+            for n, v in _persistables(program, scope).items()}
+
+
+def _bitwise(a, b):
+    return all(np.array_equal(np.asarray(a[n]), np.asarray(b[n]))
+               for n in a)
+
+
+def _state_diff(a, b):
+    """max over vars of max|a - b| / max(1, max|b|), and the var."""
+    names = sorted(a)
+    return _max_diff([np.asarray(a[n], np.float64) for n in names],
+                     [np.asarray(b[n], np.float64) for n in names], names)
+
+
+def _mark_end(ends):
+    """Record a timing event on the card's stream behind the work queued
+    so far (a dispatch's end), no host sync."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    ends.append(ev)
+
+
+def _steady_device_ms(ends):
+    """Device ms a step from the first dispatch end in ``ends`` to the
+    last, J_STEPS steps a dispatch: the card's own clock, so neither a
+    host blocked in a launch nor a late delivery moves it; an idle gap
+    between dispatches does.  None on the CPU."""
+    if not ends:
+        return None
+    ends[-1].synchronize()
+    return ends[0].elapsed_time(ends[-1]) / ((len(ends) - 1) * J_STEPS)
+
+
+def pipeline_transformer(card, place):
+    """J1: Transformer-base trained through FeedPipeline(source=...) under
+    amp_guard() against run_multi(feed_list=...) over the same batches
+    from the same start; ms a step overlapped, feed stall, overlap ratio,
+    the dispatch loop's host syncs (none: every timed dispatch runs under
+    ``torch.cuda.set_sync_debug_mode('error')``), and on the card one more
+    dispatch under torch.profiler counting the bf16 flash kernels.
+    Returns the path's launch record (None on the CPU)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import transformer
+    cfg = dict(TRANSFORMER_BASE)
+    cuda = place.device.type == 'cuda'
+    with fluid.unique_name.guard():
+        model = transformer.build(lr=LR, **cfg)
+    model['startup'].random_seed = SEED
+    main, loss = model['main'], model['loss']
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(model['startup'], scope=scope)
+    start = _host_state(main, scope)
+    rng = np.random.RandomState(SEED + 91)
+    seq, vocab = cfg['max_len'], cfg['trg_vocab']
+    n_dispatch = 1 + J_TIMED
+    batches = [{n: rng.randint(1, vocab, size=(J_BATCH, seq)).astype(
+        'int64') for n in model['feeds']}
+        for _ in range((n_dispatch + 1) * J_STEPS)]
+    timed = batches[:n_dispatch * J_STEPS]
+    path = _Path('feed_pipeline', exe, 'bf16').begin() if cuda else None
+
+    def pipeline(src, name):
+        return fluid.FeedPipeline(exe, fetch_list=[loss], program=main,
+                                  source=iter(src), steps=J_STEPS,
+                                  pipeline_depth=J_DEPTH, scope=scope,
+                                  name=name)
+
+    syncs = []
+    with fluid.amp_guard():
+        # the warmup dispatch (the eager step and the capture) in a
+        # pipeline of its own, delivered, and the card drained before the
+        # window opens
+        losses = [out[0] for out in
+                  pipeline(timed[:J_STEPS], 'j1-warmup').run()]
+        if cuda:
+            torch.cuda.synchronize()
+        pipe = pipeline(timed[J_STEPS:], 'j1')
+        dispatch = pipe._dispatch
+        ends = []
+
+        def no_sync_dispatch(block):
+            # a replayed dispatch queues with no host sync: a
+            # synchronizing call raises
+            if not cuda:
+                return dispatch(block)
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                dispatch(block)
+                _mark_end(ends)
+            except RuntimeError as e:
+                syncs.append(repr(e))
+                raise
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+
+        pipe._dispatch = no_sync_dispatch
+        # the window holds the first block's staging (the pipeline's
+        # fill) and ends at the last delivery, which waits for the last
+        # dispatch's fetches: every timed step's device work lies in it
+        t0, n, ahead_done, first = time.perf_counter(), 0, 0, None
+        for out in pipe:
+            if first is None:
+                first = time.perf_counter()
+            losses.append(out[0])
+            n += 1
+            # delivering a dispatch waits for its own copies only: the
+            # dispatch queued behind it is still running on the card
+            if cuda and pipe._inflight:
+                ahead_done += pipe._inflight[-1][1].done()
+        elapsed = time.perf_counter() - t0
+    m = pipe.metrics()
+    check(not ahead_done, 'J1: %d deliveries waited for the dispatch '
+          'queued behind them' % ahead_done)
+    check(not syncs and m['dispatches'] == J_TIMED and n == J_TIMED and
+          m['steps_dispatched'] == J_TIMED * J_STEPS,
+          'J1: %d timed dispatches of %d steps in all, %d delivered, host '
+          'syncs %s' % (m['dispatches'], m['steps_dispatched'], n, syncs))
+    losses = [float(np.asarray(l).reshape(-1)[0]) for l in losses]
+    check(all(np.isfinite(losses)), 'J1: losses %s' % losses)
+    after = _host_state(main, scope)
+    record = {
+        'steps_per_dispatch': J_STEPS, 'pipeline_depth': J_DEPTH,
+        'warmup_dispatches': 1, 'dispatches': m['dispatches'],
+        'ms_per_step_overlapped':
+            elapsed / (m['steps_dispatched']) * 1e3,
+        # from the first dispatch's end to the last's on the card: the
+        # pipeline full, its fill left out
+        'device_ms_per_step_steady': _steady_device_ms(ends),
+        'first_delivery_ms': (first - t0) * 1e3,
+        'stage_ms_first_block': m['stage_s_first'] * 1e3,
+        'feed_stall_ms_per_dispatch':
+            m['feed_stall_s'] / max(m['dispatches'] - 1, 1) * 1e3,
+        'overlap_ratio': m['overlap_ratio'],
+        'dispatch_loop_host_syncs': len(syncs),
+        'deliveries_after_next_done': ahead_done,
+        'captures': sum(c.captures for c in exe.cached_blocks()),
+        'losses': losses}
+    if cuda:
+        # one more dispatch, replayed, its kernels counted by name on the
+        # card: 4 steps of 36 bf16 flash forwards, 18 dQ and 18 dK/dV
+        extra = batches[n_dispatch * J_STEPS:]
+
+        def one_dispatch():
+            with fluid.amp_guard():
+                return fluid.FeedPipeline(
+                    exe, fetch_list=[loss], program=main, source=iter(extra),
+                    steps=J_STEPS, pipeline_depth=J_DEPTH, scope=scope,
+                    name='j1-profiled').run()
+
+        path.call(one_dispatch, _expect(fwd=36 * J_STEPS, dq=18 * J_STEPS,
+                                        dkv=18 * J_STEPS))
+        path.end()
+        record['launches'] = path.summary()
+    exe.close()
+    del exe, scope, pipe
+    if cuda:
+        _free()
+    # the same batches through run_multi(feed_list=...) from the same start
+    exe2, scope2 = fluid.Executor(place), fluid.Scope()
+    _load(scope2, start)
+    ref, ends = [], []
+    with fluid.amp_guard():
+        for i in range(n_dispatch):
+            if i == 1:
+                # the same window, unpipelined: each dispatch uploads its
+                # batches and returns its loss on the host before the next
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out, = exe2.run_multi(main, feed_list=timed[i * J_STEPS:
+                                                        (i + 1) * J_STEPS],
+                                  fetch_list=[loss], scope=scope2)
+            ref.append(float(np.asarray(out).reshape(-1)[0]))
+            if cuda and i >= 1:
+                _mark_end(ends)
+        record['ms_per_step_run_multi'] = \
+            (time.perf_counter() - t0) / (J_TIMED * J_STEPS) * 1e3
+        record['device_ms_per_step_run_multi_steady'] = \
+            _steady_device_ms(ends)
+    want = _host_state(main, scope2)
+    exe2.close()
+    del exe2, scope2
+    worst, at = _state_diff(after, want)
+    bitwise = ref == losses and _bitwise(after, want)
+    record.update(reference_losses=ref, bitwise=bitwise,
+                  param_max_rel=worst, param_worst=at)
+    check(bitwise, 'J1: the pipeline\'s losses %s and state against '
+          'run_multi(feed_list=)\'s %s: worst %g at %s' %
+          (losses, ref, worst, at))
+    print('path J: %s' % json.dumps(dict(part='J1 transformer', card=card,
+                                         **record)), flush=True)
+    return path
+
+
+def _mlp_programs(fluid, feed='data', train=True):
+    """The MNIST MLP (``models/mnist.py``'s ``mlp``, Adam at lr 0.01 when
+    ``train``), its image and label from data layers (``feed='data'``), a
+    double-buffered py_reader ('reader') or ``open_files`` over recordio
+    files (a list of paths).  The same parameter names in every form."""
+    from paddle_tpu_torch.models import mnist
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    shapes, dtypes = [[-1, 784], [-1, 1]], ['float32', 'int64']
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        rd = None
+        if feed == 'data':
+            img = fluid.layers.data('img', [784])
+            label = fluid.layers.data('label', [1], dtype='int64')
+        elif feed == 'reader':
+            rd = fluid.layers.py_reader(capacity=8, shapes=shapes,
+                                        dtypes=dtypes)
+            rd = fluid.layers.double_buffer(rd)
+            img, label = fluid.layers.read_file(rd)
+        else:
+            rd = fluid.layers.open_files(feed, shapes=shapes,
+                                         lod_levels=[0, 0], dtypes=dtypes,
+                                         is_test=True)
+            img, label = fluid.layers.read_file(rd)
+        pred, loss = mnist.mlp(img, label)
+        if train:
+            fluid.optimizer.Adam(learning_rate=0.01).minimize(loss)
+    return main, startup, rd, pred, loss
+
+
+def _mlp_batches(seed, n):
+    rng = np.random.RandomState(seed)
+    return [(rng.standard_normal((J_MLP_BATCH, 784)).astype('float32'),
+             rng.randint(0, 10, (J_MLP_BATCH, 1)).astype('int64'))
+            for _ in range(n)]
+
+
+def _close(tag, got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape and np.allclose(
+        got, want, rtol=J_MLP_RTOL, atol=J_MLP_ATOL),
+        '%s: %s against %s' % (tag, got.reshape(-1)[:8],
+                               want.reshape(-1)[:8]))
+
+
+def pipeline_reader(card, place):
+    """J2: py_reader + double_buffer + read_file: run_multi(reader=,
+    steps=J_STEPS) over two passes (two full blocks, a tail of 2, then
+    EOFException; reset() and start()), then run_eval_multi(reader=),
+    each bitwise against the feed_list path over the same batches."""
+    import paddle_tpu_torch.fluid as fluid
+    batches = _mlp_batches(SEED + 93, J_READER_BATCHES)
+    main, startup, rd, pred, loss = _mlp_programs(fluid, 'reader')
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(startup, scope=scope)
+    start = _host_state(main, scope)
+    rd.decorate_tensor_provider(lambda: iter(batches))
+    feeder = fluid.layers.io.get_reader_feeder(rd.name)
+    chunks = [J_STEPS, J_STEPS, J_READER_BATCHES - 2 * J_STEPS]
+    got = []
+    for _ in range(2):
+        rd.start()
+        for k in chunks:
+            out, = exe.run_multi(main, reader=rd, fetch_list=[loss],
+                                 steps=J_STEPS, scope=scope)
+            got.append(float(np.asarray(out).reshape(-1)[0]))
+        try:
+            exe.run_multi(main, reader=rd, fetch_list=[loss], steps=J_STEPS,
+                          scope=scope)
+            fail('J2: a run_multi past the pass did not raise EOFException')
+        except fluid.EOFException:
+            pass
+        rd.reset()
+    check(feeder._effective_db_place() == place,
+          'J2: double_buffer staged for %r, the executor runs on %r' %
+          (feeder._effective_db_place(), place))
+    trained = _host_state(main, scope)
+    # the feed_list path: a program of data layers, from the same start
+    dmain, _, _, dpred, dloss = _mlp_programs(fluid, 'data')
+    exe_r, scope_r = fluid.Executor(place), fluid.Scope()
+    _load(scope_r, start)
+    want, i = [], 0
+    for _ in range(2):
+        i = 0
+        for k in chunks:
+            out, = exe_r.run_multi(dmain, feed_list=[
+                {'img': x, 'label': y} for x, y in batches[i:i + k]],
+                fetch_list=[dloss], scope=scope_r)
+            want.append(float(np.asarray(out).reshape(-1)[0]))
+            i += k
+    want_state = _host_state(dmain, scope_r)
+    worst, at = _state_diff(trained, want_state)
+    check(got == want and _bitwise(trained, want_state),
+          'J2: run_multi(reader=)\'s losses %s against the feed_list '
+          'path\'s %s, parameters %g apart at %s' % (got, want, worst, at))
+    # evaluation: a reader-fed test program over the trained scope, K lots
+    # a call (a tail, then EOF), against run_eval_multi(feed_list=)
+    emain, _, erd, epred, _ = _mlp_programs(fluid, 'reader', train=False)
+    dtest, _, _, dtpred, _ = _mlp_programs(fluid, 'data', train=False)
+    ebatches = _mlp_batches(SEED + 94, J_EVAL_BATCHES)
+    erd.decorate_tensor_provider(lambda: iter(ebatches))
+    erd.start()
+    i, evals = 0, 0
+    while True:
+        try:
+            outs = exe.run_eval_multi(emain, reader=erd, fetch_list=[epred],
+                                      steps=J_STEPS, scope=scope)
+        except fluid.EOFException:
+            break
+        k = outs[0].shape[0]
+        ref = exe.run_eval_multi(dtest, feed_list=[
+            {'img': x, 'label': y} for x, y in ebatches[i:i + k]],
+            fetch_list=[dtpred], scope=scope)
+        check(np.array_equal(outs[0], ref[0]), 'J2: run_eval_multi(reader=) '
+              'against the feed_list path: max|d| %g' % float(
+                  np.abs(outs[0] - ref[0]).max()))
+        i += k
+        evals += 1
+    erd.reset()
+    check(i == J_EVAL_BATCHES and evals == 2,
+          'J2: run_eval_multi(reader=) evaluated %d lots in %d calls' %
+          (i, evals))
+    record = {'train_calls_per_pass': len(chunks), 'steps': chunks,
+              'passes': 2, 'eval_lots': i, 'eval_calls': evals,
+              'bitwise': True,
+              'prefetch_place': repr(feeder._effective_db_place())}
+    print('path J: %s' % json.dumps(dict(part='J2 py_reader', card=card,
+                                         **record)), flush=True)
+    exe.close()
+    exe_r.close()
+
+
+class _Killed(Exception):
+    """The interruption J3's event handler raises."""
+
+
+def pipeline_trainer(card, place):
+    """J3: Trainer.train for 2 epochs with steps_per_dispatch=J_STEPS and
+    a CheckpointConfig, stopped by an exception at the start of the second
+    epoch and resumed from its checkpoint by a new Trainer, against an
+    uninterrupted run, bitwise."""
+    import tempfile
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import mnist
+    rng = np.random.RandomState(SEED + 95)
+    data = [[(rng.standard_normal(784).astype('float32'),
+              int(rng.randint(0, 10))) for _ in range(J_MLP_BATCH)]
+            for _ in range(J_EPOCH_BATCHES)]
+
+    def train_func():
+        img = fluid.layers.data('img', [784])
+        label = fluid.layers.data('label', [1], dtype='int64')
+        return [mnist.mlp(img, label)[1]]
+
+    def trainer(cfg=None):
+        with fluid.unique_name.guard():
+            return fluid.Trainer(train_func,
+                                 lambda: fluid.optimizer.Adam(0.01),
+                                 place=place, checkpoint_config=cfg)
+
+    def state(tr):
+        return _host_state(tr.train_program, tr.scope)
+
+    def run(tr, epochs, handler=lambda e: None):
+        tr.train(epochs, handler, reader=lambda: iter(data),
+                 feed_order=['img', 'label'], steps_per_dispatch=J_STEPS)
+
+    whole = trainer()
+    losses = []
+    run(whole, 2, lambda e: losses.append(float(np.asarray(
+        e.metrics[0]).reshape(-1)[0])) if isinstance(
+            e, fluid.EndStepEvent) else None)
+    want = state(whole)
+    with tempfile.TemporaryDirectory() as td:
+        cfg = lambda: fluid.CheckpointConfig(td, step_interval=1)
+
+        def kill(e):
+            if isinstance(e, fluid.BeginEpochEvent) and e.epoch == 1:
+                raise _Killed()
+
+        first = trainer(cfg())
+        try:
+            run(first, 2, kill)
+            fail('J3: the first Trainer was not stopped')
+        except _Killed:
+            pass
+        saved = state(first)
+        del first
+        resumed = trainer(cfg())
+        rcfg = resumed.checkpoint_cfg
+        check(rcfg.load_serial is not None and rcfg.epoch_id == 0 and
+              rcfg.step_id == J_EPOCH_BATCHES // J_STEPS - 1,
+              'J3: resumed from serial %s, epoch %s, step %s' %
+              (rcfg.load_serial, rcfg.epoch_id, rcfg.step_id))
+        loaded = state(resumed)
+        check(_bitwise(loaded, saved), 'J3: the resumed state differs from '
+              'the state the first Trainer checkpointed')
+        run(resumed, 1)
+        got = state(resumed)
+    worst, at = _state_diff(got, want)
+    check(_bitwise(got, want), 'J3: the resumed run\'s parameters %g from '
+          'the uninterrupted run\'s at %s' % (worst, at))
+    record = {'epochs': 2, 'steps_per_dispatch': J_STEPS,
+              'dispatches_per_epoch': J_EPOCH_BATCHES // J_STEPS,
+              'losses': losses, 'resumed_serial': rcfg.load_serial,
+              'bitwise': True}
+    print('path J: %s' % json.dumps(dict(part='J3 trainer', card=card,
+                                         **record)), flush=True)
+
+
+def pipeline_recordio(card, place):
+    """J4: batches written by recordio_writer into recordio files, read
+    back through open_files into training steps on ``place``, against the
+    same steps fed by data layers."""
+    import tempfile
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.runtime import lib_available
+    native = lib_available()
+    print('path J: J4 recordio through the %s' %
+          ('native library (build/runtime/libpaddle_tpu_rt.so)' if native
+           else 'pure-Python recordio path'), flush=True)
+    batches = _mlp_batches(SEED + 96, J_EPOCH_BATCHES)
+    with tempfile.TemporaryDirectory() as td:
+        dmain, dstart, _, _, dloss = _mlp_programs(fluid, 'data')
+        feeder = fluid.DataFeeder(feed_list=['img', 'label'],
+                                  place=fluid.CPUPlace(), program=dmain)
+        files = fluid.recordio_writer.convert_reader_to_recordio_files(
+            os.path.join(td, 'mnist.recordio'), J_FILE_BATCHES,
+            lambda: iter([list(zip(x, y)) for x, y in batches]), feeder)
+        main, startup, rd, _, loss = _mlp_programs(fluid, files)
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        start = _host_state(main, scope)
+        rd.start()
+        got = []
+        while True:
+            try:
+                out, = exe.run(main, fetch_list=[loss], scope=scope)
+            except fluid.EOFException:
+                break
+            got.append(float(np.asarray(out).reshape(-1)[0]))
+        rd.reset()
+    exe_r, scope_r = fluid.Executor(place), fluid.Scope()
+    _load(scope_r, start)
+    want = [float(np.asarray(exe_r.run(
+        dmain, feed={'img': x, 'label': y}, fetch_list=[dloss],
+        scope=scope_r)[0]).reshape(-1)[0]) for x, y in batches]
+    check(len(files) == -(-J_EPOCH_BATCHES // J_FILE_BATCHES) and
+          len(got) == J_EPOCH_BATCHES,
+          'J4: %d files, %d batches read back' % (len(files), len(got)))
+    _close('J4 losses', got, want)
+    print('path J: %s' % json.dumps(dict(
+        part='J4 recordio', card=card, native=native, files=len(files),
+        batches=len(got), bitwise=got == want, losses=got)), flush=True)
+    exe.close()
+    exe_r.close()
+
+
+def phase_pipeline(card):
+    """Path J: the input pipeline on the card.  Returns J1's launch
+    record."""
+    import paddle_tpu_torch.fluid as fluid
+    place = fluid.CUDAPlace(0)
+    _free()
+    t0 = time.perf_counter()
+    launches = pipeline_transformer(card, place)
+    _zero_counts()  # J2-J4 run no hand-written kernel
+    pipeline_reader(card, place)
+    pipeline_trainer(card, place)
+    pipeline_recordio(card, place)
+    _no_launches('path J2-J4')
+    _free()
+    print('path J: %.1f s' % (time.perf_counter() - t0), flush=True)
+    return launches
+
+
 def _time_ms(fn, launches_per_sample=10, samples=20, warmup=5):
     """Median device time of one call (CUDA events around back-to-back
     launches, so host overhead between launches is hidden)."""
@@ -7258,6 +7957,9 @@ def main():
     ap.add_argument('--only-generate', action='store_true',
                     help='run the device phase and path I alone, and print '
                     'no result line (a partial run)')
+    ap.add_argument('--only-pipeline', action='store_true',
+                    help='run the device phase, the kernels\' build and path '
+                    'J alone, and print no result line (a partial run)')
     args = ap.parse_args()
     SEED = args.seed
     card = phase_device()
@@ -7289,6 +7991,12 @@ def main():
         print('chip_smoke: --only-serve: path H passed; a partial run prints '
               'no result line', flush=True)
         return
+    if args.only_pipeline:
+        phase_pipeline(card)
+        profiler_summary()
+        print('chip_smoke: --only-pipeline: path J passed; a partial run '
+              'prints no result line', flush=True)
+        return
     fwd_err = phase_kernel_vs_plain()
     bwd_err = phase_bwd_vs_plain()
     lstm_err = phase_lstm_vs_plain()
@@ -7296,10 +8004,12 @@ def main():
     phase_flow(card)
     serve_launches = phase_serve(card)
     phase_generate(card)
+    pipeline_launches = phase_pipeline(card)
     model, scope, exe = build_model()
     launches = {'serve': phase_slice(card, model, scope, exe),
                 'train': phase_train(card, model, scope, exe)}
     launches.update(serve_launches)
+    launches['feed_pipeline'] = pipeline_launches
     phase_train_card_vs_cpu(card, model, scope, exe)
     phase_transformer_capture(card, model, scope)
     launches.update(phase_amp_transformer(card, model, scope, exe))

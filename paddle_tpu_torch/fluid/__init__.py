@@ -10,6 +10,9 @@ inference path (``io.save_inference_model`` / ``load_inference_model``,
 the ``profiler`` and ``trace`` (spans, flight recorder, cost registry),
 ``DataFeeder``, the graph-state ``evaluator``s and the numpy ``metrics``,
 ``Inferencer`` (through the serving engine) and ``contrib.memory_usage``;
+the input pipeline (``layers.py_reader`` and the reader layers,
+``recordio_writer``, ``FeedPipeline``) and ``Trainer`` with its events and
+``CheckpointConfig``;
 ``Executor.run``
 interprets the program op by op on a torch device, by default the CUDA
 card (``CUDAPlace(0)``).
@@ -20,7 +23,8 @@ from .flags import FLAGS
 # environment bootstrap first, so flags govern everything imported below
 flags.try_from_env(flags.TRYFROMENV)
 from . import core
-from .core import CPUPlace, CUDAPlace, LoDTensor, Scope
+from .core import CPUPlace, CUDAPlace, CUDAPinnedPlace, LoDTensor, Scope
+from .core import EOFException
 from . import framework
 from .framework import (Program, Operator, Variable, Parameter,
                         default_main_program, default_startup_program,
@@ -55,6 +59,12 @@ from .transpiler import (InferenceTranspiler, Float16Transpiler,
 from . import contrib
 from . import inferencer
 from .inferencer import Inferencer
+from . import dataflow
+from .dataflow import FeedPipeline
+from . import recordio_writer
+from . import trainer
+from .trainer import (Trainer, BeginEpochEvent, EndEpochEvent,
+                      BeginStepEvent, EndStepEvent, CheckpointConfig)
 
 __all__ = framework.__all__ + executor.__all__ + [
     'io', 'initializer', 'layers', 'LoDTensor', 'CPUPlace', 'CUDAPlace',
@@ -65,5 +75,8 @@ __all__ = framework.__all__ + executor.__all__ + [
     'enable_amp', 'transpiler', 'InferenceTranspiler', 'Float16Transpiler',
     'memory_optimize', 'release_memory', 'profiler', 'trace',
     'data_feeder', 'DataFeeder', 'evaluator', 'metrics', 'contrib',
-    'inferencer', 'Inferencer',
+    'inferencer', 'Inferencer', 'CUDAPinnedPlace', 'EOFException',
+    'dataflow', 'FeedPipeline', 'recordio_writer', 'trainer', 'Trainer',
+    'BeginEpochEvent', 'EndEpochEvent', 'BeginStepEvent', 'EndStepEvent',
+    'CheckpointConfig',
 ]

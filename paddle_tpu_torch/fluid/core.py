@@ -23,9 +23,15 @@ Counterpart of ``paddle_tpu/fluid/core.py``.  A ``Place`` carries an explicit
 import numpy as np
 import torch
 
-__all__ = ['CPUPlace', 'CUDAPlace', 'Place', 'VarDesc', 'LoDTensor',
-           'LoDTensorArray', 'SelectedRows', 'PaddedSequence', 'Scope',
-           'global_scope']
+__all__ = ['CPUPlace', 'CUDAPlace', 'CUDAPinnedPlace', 'Place', 'VarDesc',
+           'LoDTensor', 'LoDTensorArray', 'SelectedRows', 'PaddedSequence',
+           'Scope', 'global_scope', 'EOFException']
+
+
+class EOFException(Exception):
+    """Raised by ``Executor.run`` (and the reader-fed multi paths) when a
+    program's reader is exhausted, as the reference's reader ops throw
+    it."""
 
 
 class Place(object):
@@ -55,6 +61,15 @@ class CUDAPlace(Place):
 
     def __repr__(self):
         return 'CUDAPlace(%d)' % self.device_id
+
+
+class CUDAPinnedPlace(CPUPlace):
+    """Page-locked host memory: a host place, as in the reference.  The
+    port pins what it stages for the card itself (the feed pipeline and
+    ``double_buffer``), so a value placed here lives on the CPU."""
+
+    def __repr__(self):
+        return 'CUDAPinnedPlace'
 
 
 # ----------------------------------------------------------------------------

@@ -48,7 +48,18 @@ eager path does.  Inside a capture a freed tensor goes back to the graph's
 own pool.
 
 ``run_multi`` runs K steps of a block and ``run_eval_multi`` K evaluation
-lots, on the card as K replays with no host sync between them.
+lots, on the card as K replays with no host sync between them; with
+``reader=`` each drains K distinct batches from the program's ``py_reader``
+(``fluid.dataflow``), and ``_dispatch_multi_scanned`` runs K steps over a
+block of feeds already stacked on the card (the ``FeedPipeline``'s
+dispatch).  A program's ``read`` op is satisfied on the host before the
+step: ``run`` pops one batch from its reader into the feeds, and raises
+``core.EOFException`` when the reader is exhausted; the op is never part
+of a block or a graph.  Every path of one executor runs its steps under
+one lock, from the first feed copied in to the outputs copied into
+tensors the caller owns: the graphs share one memory pool, so two threads
+(two serving engines on one executor, a feed pipeline beside them) never
+replay into each other's buffers.
 ``memory_analysis`` gives a block's argument, output and temporary bytes
 (the largest live total of its release plan), and under
 ``FLAGS_cost_accounting`` ``cost_report`` gives each block's FLOPs and
@@ -77,7 +88,7 @@ buffers with no host sync (``_copy_in``).  One driver,
 ``_run_loop``, runs every path: a block's own step is the case with no
 carry.
 
-Not ported yet: ``py_reader`` feeds, the host ops but ``chunk_eval`` and ``print``
+Not ported yet: the host ops but ``chunk_eval`` and ``print``
 (``save``, ``load``, ``save_combine``, ``load_combine``, the distributed and
 detection ones), nested (two-level) LoD feeds, ``SelectedRows`` feeds and scope
 values (the JAX package hands them only to host ops).
@@ -107,6 +118,13 @@ __all__ = ['Executor', 'global_scope', 'scope_guard']
 
 _scope_stack = [core.global_scope()]
 
+# A capture runs in CUDA's global capture mode: while one is under way no
+# other thread may make a call that can allocate or synchronize (a new
+# pinned or device block, a stream's wait).  Every capture holds this
+# lock, and so do the threads that stage feeds for the card (the feed
+# pipeline, double_buffer's prefetch) around their CUDA calls.
+CAPTURE_LOCK = threading.RLock()
+
 
 def global_scope():
     """The active scope: scope_guard swaps it."""
@@ -128,6 +146,66 @@ def _as_tensor(value):
     if isinstance(value, torch.Tensor):
         return value
     return torch.as_tensor(np.asarray(value))
+
+
+# program -> (its version, the global block's read ops): every dispatch
+# asks, and a model's block holds thousands of ops
+_READ_OPS = weakref.WeakKeyDictionary()
+
+
+def read_ops(program):
+    """The ``read`` ops of ``program``'s global block, cached for its
+    current version (every mutation of a program bumps it)."""
+    hit = _READ_OPS.get(program)
+    if hit is None or hit[0] != program._version:
+        hit = (program._version, [op for op in program.global_block().ops
+                                  if op.type == 'read'])
+        _READ_OPS[program] = hit
+    return hit[1]
+
+
+def _pop_readers_into_feed(program, feed, place=None):
+    """For each ``read`` op, pop one minibatch from its ``py_reader`` and put
+    it in the feeds: the batch is taken on the host, ahead of the step.
+    Binds the reader's prefetch target to ``place``, the executor that
+    consumes it.  Raises ``core.EOFException`` when a reader is
+    exhausted."""
+    ops = read_ops(program)
+    if not ops:
+        return
+    from .layers import io as layers_io
+    for op in ops:
+        reader_name = op.input('Reader')[0]
+        feeder = layers_io.get_reader_feeder(reader_name)
+        if feeder is None:
+            raise RuntimeError('no py_reader registered for %r' %
+                               reader_name)
+        if place is not None:
+            feeder._executor_place = place
+        batch = feeder.pop()
+        if batch is None:
+            raise core.EOFException(
+                'reader %r is exhausted — call reader.reset() and '
+                'reader.start() for the next pass' % reader_name)
+        for name, value in zip(op.output('Out'), batch):
+            feed[name] = value
+
+
+def _reject_reader_fed(program, what):
+    """The plain-feed multi paths refuse a reader-fed program: resolving it
+    would pop one minibatch and the K steps would train on it K times.
+    Each names its own reader mode, which drains K distinct batches."""
+    prog = program if program is not None else default_main_program()
+    if read_ops(prog):
+        composing = ('run_eval_multi(reader=..., steps=K)'
+                     if 'eval' in what else
+                     'run_multi(reader=..., steps=K)')
+        raise RuntimeError(
+            '%s does not compose with py_reader-fed programs through '
+            'feed=/feed_list= — pass the reader (%s drains K fresh '
+            'batches per dispatch), feed the batches explicitly, or '
+            'use run() per step' % (what, composing))
+    return prog
 
 
 def prepare_feed_arrays(feed):
@@ -528,21 +606,31 @@ class HostCopy(object):
         self._event = None
         if tensors and tensors[0].device.type == 'cuda':
             self._host = []
-            for t in tensors:
-                h = torch.empty(tuple(t.shape), dtype=t.dtype,
-                                pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                self._host.append(h)
-            self._event = torch.cuda.Event()
-            self._event.record()
+            # a new pinned block must not be allocated during a capture
+            with CAPTURE_LOCK:
+                for t in tensors:
+                    h = torch.empty(tuple(t.shape), dtype=t.dtype,
+                                    pin_memory=True)
+                    h.copy_(t, non_blocking=True)
+                    self._host.append(h)
+                self._event = torch.cuda.Event()
+                self._event.record()
         else:
             self._host = list(tensors)
 
-    def result(self):
-        """The tensors as numpy arrays, once their copies are done."""
+    def done(self):
+        """Whether the copies have finished, without waiting for them."""
+        return self._event is None or self._event.query()
+
+    def tensors(self):
+        """The tensors on the host, once their copies are done."""
         if self._event is not None:
             self._event.synchronize()
-        return [h.detach().numpy() for h in self._host]
+        return self._host
+
+    def result(self):
+        """The tensors as numpy arrays, once their copies are done."""
+        return [h.detach().numpy() for h in self.tensors()]
 
 
 def upload(value, device, dtype=None):
@@ -571,6 +659,22 @@ def _carry_leaves(carry):
         return []
     out = [(('slots', n), carry['slots'][n]) for n in sorted(carry['slots'])]
     return out + [((k, ), carry[k]) for k in ('token', 'alive', 'remaining')]
+
+
+def _owned(outs):
+    """The step's outputs copied on the stream into tensors of their own
+    (a sparse gradient's rows and values, a tensor array's elements), so
+    that the next replay, which overwrites the graph's outputs, leaves
+    them as they are."""
+    def own(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, SparseRows):
+            return SparseRows(v.rows.clone(), v.values.clone(), v.height)
+        if isinstance(v, list):
+            return [own(x) for x in v]
+        return v
+    return [own(o) for o in outs]
 
 
 def _map_carry(fn, carry):
@@ -780,14 +884,15 @@ class _CompiledBlock(object):
     declares uncapturable (``refusal``)."""
 
     def __init__(self, program, block_idx, feed_names, fetch_names, place,
-                 memory=None):
+                 memory, lock):
         self.program = program
         self.block = program.block(block_idx)
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
         self.place = place
+        # a read op's batch arrives as feeds, popped on the host
         self.ops = [op for op in self.block.ops
-                    if op.type not in ('feed', 'fetch')]
+                    if op.type not in ('feed', 'fetch', 'read')]
         self.state_in, self.state_out = _state_plan(
             self.block, self.ops, self.feed_names, self.fetch_names)
         out = set(self.state_out)
@@ -808,6 +913,8 @@ class _CompiledBlock(object):
             self.mode, self.why = 'graph', None
         self._release = self._release_plan(program)
         self._memory = memory
+        # held by _run_loop: the executor's, shared by all its blocks
+        self._lock = lock
         # one eager run's op records (registry.recording) and its argument
         # and output bytes: the cost entries and the memory stats
         self._records = None
@@ -1007,7 +1114,8 @@ class _CompiledBlock(object):
         got = []
         self._run_loop(self._BLOCK, scope, feeds, None, generator, None,
                        self._block_body(generator, scope), 1,
-                       lambda i, fetches: got.append(fetches), eager=eager)
+                       lambda i, fetches: got.append(fetches), eager=eager,
+                       own_last=True)
         self._check_step(scope, got[0])
         return got[0]
 
@@ -1092,10 +1200,13 @@ class _CompiledBlock(object):
                 'one replayed loop — use run() per step' %
                 (what, self.refusal))
 
-    def run_multi(self, scope, feeds, generator, steps, per_step=None):
-        """``steps`` training steps, each on ``feeds`` or on per_step[i];
-        the scope ends as ``steps`` run() calls leave it.  Returns the last
-        step's fetches."""
+    def run_multi(self, scope, feeds, generator, steps, per_step=None,
+                  stacked=None):
+        """``steps`` training steps, each on ``feeds``, on per_step[i] or
+        on the i-th row of ``stacked`` (feeds stacked [K, ...] on the
+        block's device); the scope ends as ``steps`` run() calls leave it.
+        Returns the last step's fetches, tensors of their own, with
+        nothing synchronized."""
         self._check_multi('run_multi', steps)
         last = []
 
@@ -1104,7 +1215,7 @@ class _CompiledBlock(object):
 
         self._run_loop(self._BLOCK, scope, feeds, per_step, generator, None,
                        self._block_body(generator, scope), steps, keep,
-                       check=True)
+                       check=True, own_last=True, stacked=stacked)
         return last
 
     def run_eval_multi(self, scope, feeds, generator, steps, per_step=None,
@@ -1152,13 +1263,20 @@ class _CompiledBlock(object):
         return make
 
     def _run_loop(self, key, scope, feeds, per_step, generator, carry,
-                  make_body, steps, each, eager=False, check=False):
+                  make_body, steps, each, eager=False, check=False,
+                  own_last=False, stacked=None):
         """The one driver of every path: ``steps`` applications of a step
         (``make_body(capturing)`` gives its function of (env, carry): new
-        state, new carry, outputs), step i on per_step[i] or on ``feeds``,
-        each step's outputs handed to ``each(i, outs)`` before the next
-        step runs.  Returns the final carry (None for the block's own
-        step, which threads none).
+        state, new carry, outputs), step i on per_step[i], on row i of
+        ``stacked`` or on ``feeds``, each step's outputs handed to
+        ``each(i, outs)`` before the next step runs; with ``own_last`` the
+        last step's outputs are copied into tensors of their own first
+        (``_owned``) where they are a graph's.  Returns the final carry
+        (None for the block's own step, which threads none).
+
+        The whole call holds the executor's lock (``_lock``): another
+        thread's steps on this executor cannot come between a feed copied
+        in and the outputs handed to ``each``, nor a capture.
 
         On the CPU, under ``eager`` and for a block that cannot be
         captured, every step runs eagerly on new tensors.  On the card the
@@ -1170,6 +1288,14 @@ class _CompiledBlock(object):
         the carry returned is the buffers, which the key's next replay
         overwrites.  ``check`` scans the state and the outputs of every
         step before the replays under FLAGS_check_nan_inf."""
+        with self._lock:
+            return self._run_loop_locked(
+                key, scope, feeds, per_step, generator, carry, make_body,
+                steps, each, eager, check, own_last, stacked)
+
+    def _run_loop_locked(self, key, scope, feeds, per_step, generator, carry,
+                         make_body, steps, each, eager, check, own_last,
+                         stacked):
         device = self.place.device
         live = self.mode == 'graph' and not eager
         loop = self._loops.get(key) if live else None
@@ -1179,8 +1305,13 @@ class _CompiledBlock(object):
             del self._loops[key]
             self._memory.renew()
             loop = None
-        feeds_at = (lambda i: per_step[i]) if per_step is not None else \
-            (lambda i: feeds)
+        if stacked is not None:
+            feeds_at = lambda i: {n: v[i] for n, v in stacked.items()}
+        elif per_step is not None:
+            feeds_at = lambda i: per_step[i]
+        else:
+            feeds_at = lambda i: feeds
+        last = steps - 1
         i = 0
         while i < steps and loop is None:
             self.calls += 1
@@ -1189,6 +1320,8 @@ class _CompiledBlock(object):
                 loop = self._capture_loop(key, scope, feeds_at(i), generator,
                                           carry, make_body)
                 carry, outs = loop['carry'], loop['outs']
+                if own_last and i == last:
+                    outs = _owned(outs)
             else:
                 if carry is not None:
                     carry = _map_carry(lambda t: _as_tensor(t).to(device),
@@ -1205,7 +1338,9 @@ class _CompiledBlock(object):
             i += 1
         if i == steps:
             return carry
-        if per_step is not None:
+        if stacked is not None:
+            stacked = {n: stacked[n][i:] for n in loop['feeds']}
+        elif per_step is not None:
             # the remaining lots go to the device in one copy each, then
             # into the feed buffers on the stream
             stacked = {n: upload(stack_steps([fa[n] for fa in per_step[i:]]),
@@ -1223,13 +1358,14 @@ class _CompiledBlock(object):
                 _copy_in(buf, t)
         for j in range(i, steps):
             self.calls += 1
-            if per_step is not None:
+            if stacked is not None:
                 for n, buf in loop['feeds'].items():
-                    buf.copy_(stacked[n][j - i])
+                    buf.copy_(stacked[n][j - i], non_blocking=True)
             loop['graph'].replay()
             self.replays += 1
             self.last_ran = 'replay'
-            each(j, loop['outs'])
+            each(j, _owned(loop['outs']) if own_last and j == last
+                 else loop['outs'])
         self._publish(scope, loop['outs_state'])
         return loop['carry']
 
@@ -1262,7 +1398,7 @@ class _CompiledBlock(object):
         # each replay draws afresh from the executor's generator
         graph.register_generator_state(generator)
         before = registry.counts()
-        with torch.cuda.graph(graph, pool=mem.pool):
+        with CAPTURE_LOCK, torch.cuda.graph(graph, pool=mem.pool):
             env = dict(state)
             env.update(feed_bufs)
             new_state, new_carry, outs = make_body(True)(env, bufs)
@@ -1413,7 +1549,8 @@ class _CompiledBlock(object):
         executor and step program) never decode from each other's slots.
         None for a caller that owns no carry.  The loops of an owner that
         died are dropped here, at the next dispatch, never inside a
-        capture."""
+        capture.  Called under ``_lock``, as ``_run_loop`` and
+        ``_own_carry`` after it are."""
         dead = [oid for oid, ref in list(self._owners.items())
                 if ref() is None]
         for oid in dead:
@@ -1433,7 +1570,9 @@ class _CompiledBlock(object):
     def _own_carry(self, owner, carry):
         """The carry a dispatch hands back: the loop's buffers to their
         owner; a copy to a caller that owns none, whose next call (with
-        this carry or another) must not overwrite it."""
+        this carry or another) must not overwrite it.  Called under
+        ``_lock``: another thread's replay of the same loop cannot come
+        between the replay and the copy."""
         if owner is not None or self.last_ran == 'eager':
             return carry
         return _map_carry(torch.clone, carry)
@@ -1459,13 +1598,15 @@ class _CompiledBlock(object):
             toks[i].copy_(outs[0])
             alive_in[i].copy_(outs[1])
 
-        key = ('decode', self._owner_key(owner), tuple(sorted(feeds)),
-               spec['token'], spec['state'], spec['end_id'])
-        carry = self._run_loop(
-            key, scope, feeds, None, generator, carry,
-            lambda capturing: self._decode_body(spec, generator, capturing),
-            steps, each)
-        carry = self._own_carry(owner, carry)
+        with self._lock:
+            key = ('decode', self._owner_key(owner), tuple(sorted(feeds)),
+                   spec['token'], spec['state'], spec['end_id'])
+            carry = self._run_loop(
+                key, scope, feeds, None, generator, carry,
+                lambda capturing: self._decode_body(spec, generator,
+                                                    capturing),
+                steps, each)
+            carry = self._own_carry(owner, carry)
         step_feeds = dict(feeds)
         step_feeds.update(carry['slots'])
         step_feeds[spec['token']] = carry['token']
@@ -1489,13 +1630,15 @@ class _CompiledBlock(object):
         feeds['@AUX_FINISH'] = _as_tensor(aux['finish']).to(torch.bool)
         feeds['@AUX_BUDGET'] = _as_tensor(aux['budget'])
         got = []
-        key = ('chunk', self._owner_key(owner), tuple(sorted(feeds)),
-               spec['token'], spec['state'], spec['start_id'])
-        carry = self._run_loop(
-            key, scope, feeds, None, generator, carry,
-            lambda capturing: self._chunk_body(spec, generator, capturing),
-            1, lambda i, outs: got.append(outs[0].clone()))
-        carry = self._own_carry(owner, carry)
+        with self._lock:
+            key = ('chunk', self._owner_key(owner), tuple(sorted(feeds)),
+                   spec['token'], spec['state'], spec['start_id'])
+            carry = self._run_loop(
+                key, scope, feeds, None, generator, carry,
+                lambda capturing: self._chunk_body(spec, generator,
+                                                   capturing),
+                1, lambda i, outs: got.append(outs[0].clone()))
+            carry = self._own_carry(owner, carry)
         step_feeds = {n: v for n, v in feeds.items()
                       if not n.startswith('@AUX_')}
         step_feeds.update(carry['slots'])
@@ -1551,6 +1694,8 @@ class Executor(object):
         # each cache miss is one plan (and on the card one capture to come)
         self.compile_count = 0
         self._cache_lock = threading.RLock()
+        # every block's steps run under it (_CompiledBlock._run_loop)
+        self._run_lock = threading.RLock()
 
     def _rng(self, program):
         if self._generator is None:
@@ -1616,9 +1761,12 @@ class Executor(object):
         if graphs and self._memory is not None:
             self._memory.renew()
 
-    def _resolve_and_compile(self, program, feed, fetch_list, scope):
+    def _resolve_and_compile(self, program, feed, fetch_list, scope,
+                             pop_readers=True):
         """Normalize the arguments, prepare and validate the feeds, and
-        find (or plan) the cached block."""
+        find (or plan) the cached block.  ``pop_readers`` pops one batch
+        of each ``read`` op's reader into the feeds (``run``); the paths
+        that drain readers themselves, or refuse them, pass False."""
         if self._closed:
             raise RuntimeError('Attempted to use a closed Executor')
         program = program if program is not None else default_main_program()
@@ -1628,7 +1776,12 @@ class Executor(object):
             fetch_list = [fetch_list]
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in fetch_list]
-        feed_arrays = prepare_feed_arrays(dict(feed or {}))
+        feed = dict(feed or {})
+        from .layers import io as layers_io
+        layers_io.note_executor_place(self.place)
+        if pop_readers:
+            _pop_readers_into_feed(program, feed, self.place)
+        feed_arrays = prepare_feed_arrays(feed)
         validate_feed(program, feed_arrays)
         sig = feed_signature(feed_arrays)
         key = (id(program), program._version, tuple(fetch_names), sig,
@@ -1642,7 +1795,7 @@ class Executor(object):
                 self.compile_count += 1
                 compiled = _CompiledBlock(program, 0, [n for n, _, _ in sig],
                                           fetch_names, self.place,
-                                          self._memory)
+                                          self._memory, self._run_lock)
                 self._cache[key] = compiled
                 if len(self._cache) > self._CACHE_MAX:
                     self._release([self._cache.popitem(last=False)[1]])
@@ -1706,13 +1859,23 @@ class Executor(object):
         the scope ends as ``steps`` run() calls would leave it.
 
         feed: one batch reused every step, OR feed_list: one batch per step,
-        all of one shape bucket (``steps`` is then len(feed_list)).  On the
-        card the steps are replays of the block's graph, back to back, each
-        lot copied into the feed buffers on the stream."""
+        all of one shape bucket (``steps`` is then len(feed_list)), OR
+        reader: the program's py_reader, from which ``steps`` distinct
+        batches drain (a stream ending mid-block trains on the shorter
+        tail, a batch of another shape bucket goes back to the stream for
+        the next call, an exhausted reader raises ``core.EOFException``).
+        On the card the steps are replays of the block's graph, back to
+        back, each lot copied into the feed buffers on the stream; the
+        overlapped form is ``fluid.FeedPipeline``."""
         if reader is not None:
-            raise NotImplementedError(
-                'run_multi(reader=...): py_reader is not ported to PyTorch '
-                'yet (ROADMAP.md, Queue 1 item 3: layers/io)')
+            from .dataflow import check_reader_args, drain_reader_feed_list
+            check_reader_args('run_multi', feed, feed_list)
+            program = program if program is not None else \
+                default_main_program()
+            feed_list = drain_reader_feed_list(program, reader, steps,
+                                               self.place)
+        else:
+            program = _reject_reader_fed(program, 'run_multi')
         if embed_caches:
             raise NotImplementedError(
                 'run_multi(embed_caches=...): the distributed embedding tier '
@@ -1724,8 +1887,9 @@ class Executor(object):
             steps, per_step = prepare_feed_list(feed_list)
             feed = per_step[0]  # keys the compile signature
         program, scope, feed_arrays, compiled = self._resolve_and_compile(
-            program, feed, fetch_list, scope)
-        self._note_multi_compile(compiled.multi_steps_seen, steps, per_step)
+            program, feed, fetch_list, scope, pop_readers=False)
+        self._note_multi_compile(compiled.multi_steps_seen, steps,
+                                 _stacked_signature(per_step))
         names = tuple(sorted(feed_arrays))
         cost_key = ((), names, int(steps)) if per_step is not None else \
             (names, (), int(steps))
@@ -1746,6 +1910,39 @@ class Executor(object):
                               steps=steps)
         return self._convert_fetches(fetches, return_numpy, compiled)
 
+    def _dispatch_multi_scanned(self, program, fetch_list, scope, sig_feed,
+                                stacked, steps, ready=None):
+        """The front half of a K-step training dispatch over feeds already
+        stacked on the block's device (the ``FeedPipeline`` drives it):
+        resolve the block keyed on ``sig_feed`` (the first prepared step's
+        feeds), make the stream wait for ``ready`` (the event recorded
+        after the stacked feeds' copy on another stream), run the K steps,
+        and return (the last step's fetches, tensors of their own on the
+        device; the block) with no host sync: the host stages block N+1
+        and delivers N-1 while N computes."""
+        program, scope, _, compiled = self._resolve_and_compile(
+            program, sig_feed, fetch_list, scope, pop_readers=False)
+        steps = int(steps)
+        # the stacked feeds' signature is _stacked_signature's of the
+        # steps they stack: one count for run_multi's feed_list and this
+        self._note_multi_compile(compiled.multi_steps_seen, steps,
+                                 feed_signature(stacked))
+        if ready is not None:
+            torch.cuda.current_stream(self.place.device).wait_event(ready)
+        if self.place.device.type == 'cuda':
+            # the caching allocator must not hand the staged block to
+            # another stream's allocation while this stream still reads it
+            stream = torch.cuda.current_stream(self.place.device)
+            for v in stacked.values():
+                v.record_stream(stream)
+        _trace.flight_recorder.record(
+            'multi_dispatch', executor='Executor', steps=steps,
+            fetch_names=list(compiled.fetch_names),
+            trace_id=getattr(_trace.current(), 'trace_id', None))
+        fetches = compiled.run_multi(scope, {}, self._rng(program), steps,
+                                     stacked=stacked)
+        return fetches, compiled
+
     def _dispatch_eval_multi(self,
                              program=None,
                              feed=None,
@@ -1761,11 +1958,20 @@ class Executor(object):
         on the block's device, nothing synchronized (``host=True``: numpy).
         The serving engine drives this, so that it delivers one dispatch
         while the card runs the next.  ``reals`` is each lot's real row
-        count (None when nothing was padded), ``target`` the padded rows."""
+        count (None when nothing was padded), ``target`` the padded rows.
+        ``reader=`` drains up to ``steps`` distinct batches from the
+        program's py_reader onto the feed_list path, as run_multi's
+        does."""
         if reader is not None:
-            raise NotImplementedError(
-                'run_eval_multi(reader=...): py_reader is not ported to '
-                'PyTorch yet (ROADMAP.md, Queue 1 item 3: layers/io)')
+            from .dataflow import check_reader_args, drain_reader_feed_list
+            check_reader_args('run_eval_multi', feed, feed_list, steps,
+                              require_steps=True)
+            program = program if program is not None else \
+                default_main_program()
+            feed_list = drain_reader_feed_list(program, reader, steps,
+                                               self.place)
+        else:
+            program = _reject_reader_fed(program, 'run_eval_multi')
         reals, target, batch_feed_names, per_step = None, None, None, None
         if feed_list is not None:
             if feed is not None:
@@ -1784,11 +1990,12 @@ class Executor(object):
             raise ValueError('run_eval_multi: pass steps= with feed=')
         steps = int(steps)
         program, scope, feed_arrays, compiled = self._resolve_and_compile(
-            program, feed, fetch_list, scope)
+            program, feed, fetch_list, scope, pop_readers=False)
         if batch_feed_names is not None and compiled._batch_feed_names is None:
             # fixed by the feed signature, which keys the block
             compiled._batch_feed_names = frozenset(batch_feed_names)
-        self._note_multi_compile(compiled.eval_steps_seen, steps, per_step)
+        self._note_multi_compile(compiled.eval_steps_seen, steps,
+                                 _stacked_signature(per_step))
         names = tuple(sorted(feed_arrays))
         cost_key = ((), names, steps) if per_step is not None else \
             (names, (), steps)
@@ -1822,7 +2029,9 @@ class Executor(object):
         feed: one batch evaluated ``steps`` times, OR feed_list: one lot per
         step.  Lots of other time extents are padded to one bucket, lots of
         other row counts to the largest with a sample mask, and trimmed on
-        the way out."""
+        the way out.  OR reader: the program's py_reader, from which up to
+        ``steps`` distinct batches drain, as run_multi's reader= drains
+        them."""
 
         def go():
             stacked, reals, target, compiled, k = self._dispatch_eval_multi(
@@ -1876,6 +2085,7 @@ class Executor(object):
             raise ValueError('run_decode_multi: carry=, steps= and '
                              'decode= are required')
         steps = int(steps)
+        program = _reject_reader_fed(program, 'run_decode_multi')
         spec = normalize_decode_spec(decode)
         check_decode_carry(carry, spec, 'run_decode_multi')
         carry = canonical_decode_carry(carry)
@@ -1884,7 +2094,7 @@ class Executor(object):
         sig_feed[spec['token']] = carry['token']
         sig_feed.update(carry['slots'])
         program, scope, feed_arrays, compiled = self._resolve_and_compile(
-            program, sig_feed, fetch_list, scope)
+            program, sig_feed, fetch_list, scope, pop_readers=False)
         const = {n: v for n, v in feed_arrays.items()
                  if n not in carry['slots'] and n != spec['token']}
         carry_sig = dict(carry['slots'])
@@ -1913,6 +2123,7 @@ class Executor(object):
         if carry is None or aux is None or chunk is None:
             raise ValueError('run_chunk_prefill: carry=, aux= and chunk= '
                              'are required')
+        program = _reject_reader_fed(program, 'run_chunk_prefill')
         spec = normalize_chunk_spec(chunk)
         carry = canonical_decode_carry(carry)
         check_chunk_aux(aux, 'run_chunk_prefill',
@@ -1921,7 +2132,7 @@ class Executor(object):
         sig_feed = dict(feed or {})
         sig_feed.update(carry['slots'])
         program, scope, feed_arrays, compiled = self._resolve_and_compile(
-            program, sig_feed, fetch_list, scope)
+            program, sig_feed, fetch_list, scope, pop_readers=False)
         block_feed = {n: v for n, v in feed_arrays.items()
                       if n not in carry['slots']}
         width = int(feed_arrays[spec['token']].shape[1])
@@ -1949,14 +2160,14 @@ class Executor(object):
         scope)."""
         program = program if program is not None else \
             default_main_program()
-        if any(op.type == 'read' for op in program.block(0).ops):
+        if read_ops(program):
             raise RuntimeError(
                 'memory_analysis: the program is reader-fed; popping a '
                 'py_reader batch here would silently drop a minibatch '
                 'from training — pass representative arrays via feed= '
                 'on a reader-free clone instead')
         program, scope, feed_arrays, compiled = self._resolve_and_compile(
-            program, feed, fetch_list, scope)
+            program, feed, fetch_list, scope, pop_readers=False)
         if compiled.host_ops:
             raise RuntimeError(
                 'memory_analysis: the program contains host ops '
@@ -1975,11 +2186,11 @@ class Executor(object):
             blocks = list(self._cache.values())
         return collect_cost_report(blocks)
 
-    def _note_multi_compile(self, seen, steps, per_step):
+    def _note_multi_compile(self, seen, steps, stacked_sig):
         """Count a (steps, stacked feed signature) pair the block has not
         run yet in ``compile_count``: the JAX package compiles one
         executable for each, and the port keeps the counts equal."""
-        key = (int(steps), _stacked_signature(per_step))
+        key = (int(steps), stacked_sig)
         if key not in seen:
             seen.add(key)
             self.compile_count += 1
@@ -1987,18 +2198,17 @@ class Executor(object):
     def _convert_fetches(self, fetches, return_numpy, compiled):
         """Fetch tensors -> numpy arrays (or LoDTensors), and a sparse
         gradient (``SparseRows``) -> a ``core.SelectedRows``.  What the
-        caller gets is its own: a graph's outputs are overwritten by its
-        next replay, and a state var fetched from an eager run may be
-        updated in place by the next step (the sparse optimizers write the
-        rows they touch into the table)."""
-        graph_owned = compiled.last_ran in ('capture', 'replay')
+        caller gets is its own: a graph's outputs come copied already
+        (``_run_loop``'s ``own_last``), and a state var fetched from an
+        eager run may be updated in place by the next step (the sparse
+        optimizers write the rows they touch into the table)."""
         state = set(compiled.state_out)
         arrays = {n for n in compiled.fetch_names
                   if getattr(compiled.block._find_var_recursive(n), 'type',
                              None) == core.VarDesc.VarType.LOD_TENSOR_ARRAY}
 
         def own(t, name):
-            return t.clone() if graph_owned or name in state else t
+            return t.clone() if name in state else t
 
         def convert(f, name):
             if isinstance(f, list) or name in arrays:

@@ -509,8 +509,9 @@ def _errors():
         'run_multi_feed_and_feed_list': (
             'run_multi', dict(feed=feed, feed_list=[feed]), ValueError,
             'feed OR feed_list'),
+        # a reader the program does not read, as the JAX package refuses it
         'run_multi_reader': ('run_multi', dict(reader=object(), steps=2),
-                             NotImplementedError, 'ROADMAP.md'),
+                             RuntimeError, 'no read op consuming reader'),
         'run_multi_embed_caches': (
             'run_multi', dict(feed=feed, embed_caches=[object()]),
             NotImplementedError, 'ROADMAP.md'),
@@ -525,7 +526,7 @@ def _errors():
             'feed OR feed_list'),
         'run_eval_multi_reader': (
             'run_eval_multi', dict(reader=object(), steps=2),
-            NotImplementedError, 'ROADMAP.md'),
+            RuntimeError, 'no read op consuming reader'),
     }
 
 
