@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]   # from the repository root
     python3 chip_smoke.py --only-book | --only-flow | --only-serve |
-        --only-generate | --only-pipeline
+        --only-generate | --only-pipeline | --only-ops
 
 Weights, token ids, lengths and labels are drawn from ``--seed``.
 
@@ -407,6 +407,44 @@ J. the input pipeline (``fluid.FeedPipeline``, ``layers.py_reader``,
    J2-J4 run no hand-written kernel.  Each part prints a ``path J:
    {...}`` line.  ``--only-pipeline`` runs the device phase, the kernels'
    build and path J alone and prints no result line.
+K. the common tensor, shape, reduce, loss and metric ops (their 52
+   lowerings, their layers and ``nets``' helpers), run right after path J,
+   f32:
+   K1. Fluid's Transformer recipe in plain layers at G1's widths
+       (``OPS_TF``: 6 layers, d_model 512, 8 heads, d_ff 2048, vocab
+       30000), BATCH x 256 (``ops_transformer_programs``): Q, K and V by
+       ``fc(num_flatten_dims=2)``, ``nets.scaled_dot_product_attention``
+       (``reshape``, ``transpose``, batched ``matmul``, ``softmax``), the
+       output ``fc``, residuals under ``layer_norm``, a ReLU FFN, the vocab
+       head, and ``reduce_mean`` of ``softmax_with_cross_entropy(
+       soft_label=True)`` against ``label_smooth(one_hot(label), 0.1)``;
+       Adam at ``OPS_LR``.  One eager call, the capture and
+       ``OPS_REPLAYS`` replays on one batch (``_Path``: no hand-written
+       kernel), the loss falling at every step; one 2 x 256 step against
+       the CPU (``TRAIN_TOL``, G1's); layer 0's attention context against
+       the ``flash_attention`` op (the f32 kernel) on its Q, K and V
+       (``TOL``); one captured step under ``amp_guard()`` within
+       ``AMP_SERVE_TOL['loss']`` of an f32 step from one state; the step
+       captured against eager and timed (``OPS_CAPTURE_CALLS``), the
+       capture's peak within ``OPS_MEMORY_RATIO`` of ``memory_analysis``'s
+       temp bytes; a ``path K: {...}`` line with ms a step eager and
+       captured, busy and idle share, peak memory and ``cost_report``'s
+       FLOPs a step.
+   K2. every lowering of the slice (``OPS_LOWERINGS``), one op at a time
+       on the cases of ``ops_cases()`` (the CPU tests' cases): card
+       against ``CPUPlace()`` (``OPS_TOL``, integer outputs exactly), the
+       generic grad where the op is differentiable, and the op captured and
+       replayed against its eager call (``CAPTURE_TOL``); the random ops by
+       distribution at 10^6 draws (``OPS_DRAW_TOL``), each replay drawing
+       anew; the count of lowerings checked, which must be the 52.
+   K3. CTR at bench_ctr's widths, its test program with ``layers.auc`` and
+       ``layers.precision_recall`` appended, on a CTR_BATCH-row request:
+       the metrics on the card against the CPU, and the request timed with
+       and without them (``OPS_CTR_CALLS`` replays each).
+   No hand-written kernel lies on path K (its counters read 0 after each
+   part; K1's flash check launches the kernel outside them).
+   ``--only-ops`` runs the device phase and path K alone and prints no
+   result line.
 
 It imports nothing of JAX or of the JAX package ``paddle_tpu``.
 """
@@ -7428,6 +7466,900 @@ def phase_pipeline(card):
     return launches
 
 
+# ---- path K: the common tensor, shape, reduce, loss and metric ops ----
+# K1: Fluid's Transformer recipe in plain layers at path G1's widths
+# (bench.py's bench_transformer base shape), batch BATCH x 256
+OPS_TF = dict(n_layer=6, d_model=512, n_head=8, d_ff=2048, vocab=30000,
+              seq=256)
+OPS_LR = 1e-3
+OPS_SMOOTH = 0.1        # label_smooth's epsilon, as Fluid's recipe sets it
+OPS_REPLAYS = 3         # K1's replays after the eager call and the capture
+OPS_CAPTURE_CALLS = 5   # K1's timed calls of each path, eager and captured
+# the capture's peak above what was allocated before it against
+# memory_analysis's temp bytes: a view (transpose, split, slice, unstack)
+# is counted as bytes of its own while it shares its base's, and keeps its
+# base alive past the base's release; the plan must still hold the peak
+# within this factor either way
+OPS_MEMORY_RATIO = 2.0
+# K2: each new lowering on the card against the CPU, f32 with TF32 off: the
+# same arithmetic, summed in another order or by another libm
+OPS_TOL = dict(rtol=1e-5, atol=1e-6)
+# 10^6 draws of each random op: the standard errors of their mean and
+# standard deviation are under 1e-3
+OPS_DRAWS = (1000, 1000)
+OPS_DRAW_TOL = 5e-3
+OPS_CROP_REPLAYS = 40   # random_crop's replays: the starts cover each dim
+# K3: CTR's request, with and without the metrics, timed calls of each
+OPS_CTR_CALLS = 10
+# the 52 lowerings of the slice: the shape, index, sort and fill ops of
+# tensor_ops and misc_ops, the random ops, the math ops, the losses and the
+# metrics
+OPS_LOWERINGS = (
+    'reshape2', 'transpose', 'transpose2', 'squeeze', 'split', 'shape',
+    'slice', 'stack', 'unstack', 'flatten', 'flatten2', 'squeeze2',
+    'unsqueeze2', 'reverse', 'pad', 'pad2d', 'multiplex', 'label_smooth',
+    'argmax', 'argmin', 'arg_max', 'arg_min', 'argsort', 'crop', 'scatter',
+    'isfinite', 'truncated_gaussian_random',
+    'uniform_random_batch_size_like', 'gaussian_random_batch_size_like',
+    'random_crop', 'reduce_mean', 'reduce_max', 'reduce_min', 'reduce_prod',
+    'elementwise_mod', 'elementwise_floordiv', 'squared_l2_norm',
+    'squared_l2_distance', 'cumsum', 'l1_norm', 'norm', 'huber_loss',
+    'smooth_l1_loss', 'log_loss', 'hinge_loss', 'rank_loss',
+    'margin_rank_loss', 'modified_huber_loss', 'kldiv_loss', 'auc',
+    'precision_recall', 'positive_negative_pair')
+OPS_RANDOM = ('truncated_gaussian_random', 'uniform_random_batch_size_like',
+              'gaussian_random_batch_size_like', 'random_crop')
+
+
+def ops_transformer_programs(fluid, n_layer=2, d_model=32, n_head=4,
+                             d_ff=64, vocab=50, seq=8, lr=OPS_LR,
+                             epsilon=OPS_SMOOTH):
+    """Fluid's Transformer recipe written in plain layers (``fluid``'s
+    package): a word embedding scaled by sqrt(d_model) plus a learned
+    position table (``create_parameter``); each encoder layer projects Q,
+    K and V with ``fc(num_flatten_dims=2)``, attends through
+    ``nets.scaled_dot_product_attention`` (``reshape``, ``transpose``,
+    batched ``matmul``, ``softmax``), projects the context, adds the
+    residual under ``layer_norm`` and does the same around a ReLU FFN; the
+    head projects onto the vocabulary, and the loss is
+    ``softmax_with_cross_entropy(soft_label=True)`` against
+    ``label_smooth(one_hot(label), epsilon)``, under ``reduce_mean``; Adam
+    at ``lr``.  Returns the programs, the feed names, the loss and each
+    layer's (Q, K, V, context) vars."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = layers.data(name='src_ids', shape=[seq], dtype='int64')
+        lbl = layers.data(name='lbl_ids', shape=[seq, 1], dtype='int64')
+        emb = layers.embedding(src, size=[vocab, d_model],
+                               param_attr=fluid.ParamAttr(name='word_emb'))
+        pos = layers.create_parameter(
+            shape=[seq, d_model], dtype='float32', name='pos_table',
+            default_initializer=fluid.initializer.Normal(0.0, 0.02))
+        x = layers.elementwise_add(
+            layers.scale(emb, scale=float(d_model) ** 0.5), pos, axis=1)
+        attention = []
+        for i in range(n_layer):
+            q, k, v = (layers.fc(x, size=d_model, num_flatten_dims=2,
+                                 bias_attr=False,
+                                 param_attr=fluid.ParamAttr(
+                                     name='enc_%d_%s.w' % (i, n)))
+                       for n in 'qkv')
+            ctx = fluid.nets.scaled_dot_product_attention(
+                q, k, v, num_heads=n_head)
+            attention.append((q, k, v, ctx))
+            out = layers.fc(ctx, size=d_model, num_flatten_dims=2)
+            x = layers.layer_norm(layers.elementwise_add(x, out),
+                                  begin_norm_axis=2)
+            ffn = layers.fc(layers.fc(x, size=d_ff, num_flatten_dims=2,
+                                      act='relu'),
+                            size=d_model, num_flatten_dims=2)
+            x = layers.layer_norm(layers.elementwise_add(x, ffn),
+                                  begin_norm_axis=2)
+        logits = layers.fc(x, size=vocab, num_flatten_dims=2)
+        smoothed = layers.label_smooth(layers.one_hot(lbl, vocab),
+                                       epsilon=epsilon)
+        cost = layers.softmax_with_cross_entropy(logits, smoothed,
+                                                 soft_label=True)
+        loss = layers.reduce_mean(cost)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return dict(main=main, startup=startup, test=test,
+                feeds=['src_ids', 'lbl_ids'], loss=loss, attention=attention)
+
+
+def ops_transformer_batch(rng, batch, seq, vocab):
+    """Token ids and next-token labels for ``ops_transformer_programs``."""
+    return {'src_ids': rng.randint(1, vocab, (batch, seq)).astype('int64'),
+            'lbl_ids': rng.randint(1, vocab, (batch, seq, 1)).astype('int64')}
+
+
+def op_rand(seed, *shape, lo=None):
+    """Seeded standard-normal f32 values (their magnitudes + ``lo`` with
+    ``lo``)."""
+    x = np.random.RandomState(seed).standard_normal(shape).astype('float32')
+    return np.abs(x) + lo if lo is not None else x
+
+
+def op_out_names(outputs):
+    """A one-op case's output var names, in slot order."""
+    return [n for v in outputs.values()
+            for n in (v if isinstance(v, list) else [v])]
+
+
+def one_op_program(fluid, op_type, inputs, outputs, attrs):
+    """A program of one op: ``inputs`` {slot: (name, array) or a list of
+    them}, ``outputs`` {slot: name or a list of names}.  Returns (program,
+    feed)."""
+    slots = {s: (v if isinstance(v, list) else [v])
+             for s, v in inputs.items()}
+    prog = fluid.Program()
+    blk = prog.global_block()
+    feed = {}
+    for pairs in slots.values():
+        for name, arr in pairs:
+            blk.create_var(name=name, shape=arr.shape, dtype=str(arr.dtype))
+            feed[name] = arr
+    for name in op_out_names(outputs):
+        if not blk.has_var(name):
+            blk.create_var(name=name, dtype='float32')
+    blk.append_op(type=op_type,
+                  inputs={s: [n for n, _ in pairs]
+                          for s, pairs in slots.items()},
+                  outputs={s: list(v) if isinstance(v, list) else [v]
+                           for s, v in outputs.items()},
+                  attrs=attrs)
+    return prog, feed
+
+
+def one_op_grad_program(fluid, case, out, wrt, cot):
+    """``case``'s one-op program with the gradients of the vars ``wrt``
+    (``calc_gradient``) for the cotangent ``cot`` fed to its output
+    ``out``.  Returns (program, feed, the gradients' names)."""
+    prog, feed = one_op_program(fluid, *case[:4])
+    with fluid.program_guard(prog, fluid.Program()):
+        blk = prog.global_block()
+        cvar = blk.create_var(name='cot', shape=cot.shape, dtype='float32')
+        feed['cot'] = cot
+        fluid.backward.calc_gradient(targets=[blk.var(out)],
+                                     inputs=[blk.var(n) for n in wrt],
+                                     target_gradients=[cvar])
+    return prog, feed, [n + '@GRAD' for n in wrt]
+
+
+def ops_cases():
+    """The deterministic lowerings' one-op cases, small and seeded: {name:
+    (op, inputs, outputs, attrs, the output a gradient's cotangent is fed
+    to or None, the inputs differentiated)}.  Ties, negative operands,
+    out-of-range slices, stable sorts and the ``*2`` ops' XShape among
+    them."""
+    x234, x2345, x2131 = op_rand(1, 2, 3, 4), op_rand(2, 2, 3, 4, 5), \
+        op_rand(3, 2, 1, 3, 1)
+    ties = np.random.RandomState(20).randint(0, 3, (4, 8)).astype('float32')
+    one_hot = np.eye(5, dtype='float32')[[0, 3, 1, 4]]
+    tied = np.array([[1.0, 3.0, 3.0, -2.0], [2.0, 2.0, 2.0, 2.0],
+                     [-1.0, -4.0, 0.5, -4.0]], 'float32')
+    near_one = (1.0 + 0.1 * op_rand(41, 2, 3, 4)).astype('float32')
+    neg_x = np.array([[-7.5, 7.5, -3.25, 5.0], [-0.5, 0.75, -9.0, 4.5]],
+                     'float32')
+    neg_y = np.array([[2.0, -2.0, -1.5, -3.0], [0.25, -0.5, 4.0, -2.5]],
+                     'float32')
+    int_x = np.array([[-7, 7, -3, 5], [-1, 0, -9, 4]], 'int32')
+    int_y = np.array([[2, -2, -2, -3], [3, -5, 4, -2]], 'int32')
+    x = op_rand(42, 3, 4, 5)
+    reduce = lambda dim, keep=False, all_=False: {
+        'dim': dim, 'keep_dim': keep, 'reduce_all': all_}
+    n = 6
+    lx, ly = op_rand(51, n, 3), op_rand(52, n, 3)
+    p = 1.0 / (1.0 + np.exp(-op_rand(53, n, 1)))
+    label = np.random.RandomState(54).randint(0, 2, (n, 1)).astype('float32')
+    log_p = op_rand(55, n, 4)
+    log_p = log_p - np.log(np.exp(log_p).sum(-1, keepdims=True))
+    target = op_rand(56, n, 4, lo=0.0)
+    target = (target / target.sum(-1, keepdims=True)).astype('float32')
+    target[0, 1] = 0.0  # a zero target: its term is 0
+    mrng = np.random.RandomState(70)
+    probs = mrng.uniform(size=(64, 2)).astype('float32')
+    auc_label = mrng.randint(0, 2, (64, 1)).astype('int64')
+    score = mrng.randint(0, 5, (24, 1)).astype('float32')  # ties
+    pairs = lambda: {'Score': ('s', score),
+                     'Label': ('l', mrng.randint(0, 3, (24, 1))
+                               .astype('float32')),
+                     'QueryID': ('q', mrng.randint(0, 3, (24, 1))
+                                 .astype('int64'))}
+    pair_outs = {'PositivePair': 'pos', 'NegativePair': 'neg',
+                 'NeutralPair': 'neu'}
+    return {
+        # shape ops
+        'reshape2': ('reshape2', {'X': ('x', x234)},
+                     {'Out': 'out', 'XShape': 'xs'}, {'shape': [0, -1]},
+                     'out', ['x']),
+        'transpose': ('transpose', {'X': ('x', x234)}, {'Out': 'out'},
+                      {'axis': [1, 0, 2]}, 'out', ['x']),
+        'transpose2': ('transpose2', {'X': ('x', x2345)},
+                       {'Out': 'out', 'XShape': 'xs'},
+                       {'axis': [0, 2, 1, 3]}, 'out', ['x']),
+        'squeeze_axes': ('squeeze', {'X': ('x', x2131)}, {'Out': 'out'},
+                         {'axes': [1, 0]}, 'out', ['x']),
+        'squeeze_all': ('squeeze', {'X': ('x', x2131)}, {'Out': 'out'},
+                        {'axes': []}, 'out', ['x']),
+        'squeeze2': ('squeeze2', {'X': ('x', x2131)},
+                     {'Out': 'out', 'XShape': 'xs'}, {'axes': [3]}, 'out',
+                     ['x']),
+        'unsqueeze2': ('unsqueeze2', {'X': ('x', x234)},
+                       {'Out': 'out', 'XShape': 'xs'}, {'axes': [0, 3]},
+                       'out', ['x']),
+        'flatten': ('flatten', {'X': ('x', x2345)}, {'Out': 'out'},
+                    {'axis': 2}, 'out', ['x']),
+        'flatten_axis0': ('flatten', {'X': ('x', x234)}, {'Out': 'out'},
+                          {'axis': 0}, 'out', ['x']),
+        'flatten2': ('flatten2', {'X': ('x', x2345)},
+                     {'Out': 'out', 'XShape': 'xs'}, {'axis': 1}, 'out',
+                     ['x']),
+        'split_num': ('split', {'X': ('x', op_rand(4, 4, 6))},
+                      {'Out': ['o0', 'o1', 'o2']},
+                      {'num': 3, 'sections': [], 'axis': 1}, 'o1', ['x']),
+        'split_sections': ('split', {'X': ('x', op_rand(5, 4, 7))},
+                           {'Out': ['o0', 'o1', 'o2']},
+                           {'num': 0, 'sections': [2, 4, 1], 'axis': 1},
+                           'o2', ['x']),
+        'shape': ('shape', {'Input': ('x', x2345)}, {'Out': 'out'}, {},
+                  None, ()),
+        'slice_out_of_range': ('slice', {'Input': ('x', op_rand(6, 4, 5, 6))},
+                               {'Out': 'out'},
+                               {'axes': [0, 2], 'starts': [1, -3],
+                                'ends': [100, -1]}, 'out', ['x']),
+        'slice_open': ('slice', {'Input': ('x', op_rand(7, 4, 5, 6))},
+                       {'Out': 'out'},
+                       {'axes': [1, 2], 'starts': [-(2**31 - 1), 2],
+                        'ends': [2**31 - 1, 4]}, 'out', ['x']),
+        'slice_empty': ('slice', {'Input': ('x', op_rand(8, 4, 5))},
+                        {'Out': 'out'},
+                        {'axes': [1], 'starts': [4], 'ends': [2]}, None,
+                        ()),
+        'stack': ('stack', {'X': [('a', op_rand(9, 2, 3)),
+                                  ('b', op_rand(10, 2, 3)),
+                                  ('c', op_rand(11, 2, 3))]},
+                  {'Y': 'y'}, {'axis': 1}, 'y', ['a', 'b', 'c']),
+        'unstack': ('unstack', {'X': ('x', op_rand(12, 3, 2, 4))},
+                    {'Y': ['y0', 'y1']}, {'axis': 1, 'num': 2}, 'y1',
+                    ['x']),
+        # index, sort and fill ops
+        'reverse': ('reverse', {'X': ('x', op_rand(21, 3, 4, 5))},
+                    {'Out': 'out'}, {'axis': [0, 2]}, 'out', ['x']),
+        'reverse_int_axis': ('reverse', {'X': ('x', op_rand(22, 3, 4))},
+                             {'Out': 'out'}, {'axis': 1}, 'out', ['x']),
+        'pad': ('pad', {'X': ('x', op_rand(23, 2, 3))}, {'Out': 'out'},
+                {'paddings': [1, 0, 2, 1], 'pad_value': 0.5}, 'out', ['x']),
+        'pad2d_constant': ('pad2d', {'X': ('x', op_rand(24, 1, 2, 4, 5))},
+                           {'Out': 'out'},
+                           {'paddings': [1, 2, 2, 1], 'mode': 'constant',
+                            'pad_value': -1.0}, 'out', ['x']),
+        'pad2d_reflect': ('pad2d', {'X': ('x', op_rand(25, 1, 2, 4, 5))},
+                          {'Out': 'out'},
+                          {'paddings': [1, 2, 2, 1], 'mode': 'reflect'},
+                          'out', ['x']),
+        'pad2d_edge': ('pad2d', {'X': ('x', op_rand(26, 1, 2, 4, 5))},
+                       {'Out': 'out'},
+                       {'paddings': [2, 0, 1, 3], 'mode': 'edge'}, 'out',
+                       ['x']),
+        'multiplex': ('multiplex',
+                      {'X': [('a', op_rand(27, 4, 5)),
+                             ('b', op_rand(28, 4, 5)),
+                             ('c', op_rand(29, 4, 5))],
+                       'Ids': ('ids', np.array([[2], [0], [1], [2]],
+                                               'int32'))},
+                      {'Out': 'out'}, {}, 'out', ['a', 'b', 'c']),
+        'label_smooth': ('label_smooth', {'X': ('x', one_hot)},
+                         {'Out': 'out'}, {'epsilon': 0.1}, 'out', ['x']),
+        'label_smooth_prior': ('label_smooth',
+                               {'X': ('x', one_hot),
+                                'PriorDist': ('d', op_rand(30, 5, lo=0.1))},
+                               {'Out': 'out'}, {'epsilon': 0.2}, 'out',
+                               ['x', 'd']),
+        'argmax_ties': ('argmax', {'X': ('x', ties)}, {'Out': 'out'},
+                        {'axis': 1}, None, ()),
+        'argmin_ties': ('argmin', {'X': ('x', ties)}, {'Out': 'out'},
+                        {'axis': 0}, None, ()),
+        'arg_max': ('arg_max', {'X': ('x', op_rand(31, 4, 6))},
+                    {'Out': 'out'}, {'axis': -1}, None, ()),
+        'arg_min': ('arg_min', {'X': ('x', op_rand(32, 4, 6))},
+                    {'Out': 'out'}, {'axis': 1}, None, ()),
+        'argsort_stable': ('argsort', {'X': ('x', ties)},
+                           {'Out': 'out', 'Indices': 'idx'}, {'axis': -1},
+                           'out', ['x']),
+        'argsort_axis0': ('argsort', {'X': ('x', ties)},
+                          {'Out': 'out', 'Indices': 'idx'}, {'axis': 0},
+                          'out', ['x']),
+        'crop': ('crop', {'X': ('x', op_rand(33, 4, 5, 6))}, {'Out': 'out'},
+                 {'offsets': [1, 0, 2], 'shape': [2, 5, 3]}, 'out', ['x']),
+        'crop_like_y': ('crop', {'X': ('x', op_rand(34, 4, 5, 6)),
+                                 'Y': ('y', op_rand(35, 3, 2, 4))},
+                        {'Out': 'out'}, {'offsets': [0, 3, 1]}, 'out',
+                        ['x']),
+        'scatter': ('scatter', {'X': ('x', op_rand(36, 6, 3)),
+                                'Ids': ('ids', np.array([4, 0, 2],
+                                                        'int64')),
+                                'Updates': ('u', op_rand(37, 3, 3))},
+                    {'Out': 'out'}, {}, 'out', ['x', 'u']),
+        'isfinite': ('isfinite', {'X': ('x', op_rand(38, 3, 4))},
+                     {'Out': 'out'}, {}, None, ()),
+        'isfinite_inf': ('isfinite',
+                         {'X': ('x', np.array([1.0, np.inf, 2.0],
+                                              'float32'))},
+                         {'Out': 'out'}, {}, None, ()),
+        # math ops
+        'reduce_mean_dim': ('reduce_mean', {'X': ('x', x)}, {'Out': 'out'},
+                            reduce([1]), 'out', ['x']),
+        'reduce_mean_keep': ('reduce_mean', {'X': ('x', x)},
+                             {'Out': 'out'}, reduce([0, -1], keep=True),
+                             'out', ['x']),
+        'reduce_mean_all': ('reduce_mean', {'X': ('x', x)},
+                            {'Out': 'out'}, reduce([0], all_=True), 'out',
+                            ['x']),
+        'reduce_max_ties': ('reduce_max', {'X': ('x', tied)},
+                            {'Out': 'out'}, reduce([1]), 'out', ['x']),
+        'reduce_max_all_ties': ('reduce_max', {'X': ('x', tied)},
+                                {'Out': 'out'}, reduce([0], all_=True),
+                                'out', ['x']),
+        'reduce_min_ties': ('reduce_min', {'X': ('x', tied)},
+                            {'Out': 'out'}, reduce([1], keep=True), 'out',
+                            ['x']),
+        'reduce_prod_dims': ('reduce_prod', {'X': ('x', near_one)},
+                             {'Out': 'out'}, reduce([0, 2]), 'out', ['x']),
+        'reduce_prod_keep': ('reduce_prod', {'X': ('x', near_one)},
+                             {'Out': 'out'}, reduce([1], keep=True), 'out',
+                             ['x']),
+        'reduce_prod_all': ('reduce_prod', {'X': ('x', near_one)},
+                            {'Out': 'out'}, reduce([0], all_=True), 'out',
+                            ['x']),
+        'mod_negative': ('elementwise_mod', {'X': ('x', neg_x),
+                                             'Y': ('y', neg_y)},
+                         {'Out': 'out'}, {'axis': -1}, 'out', ['x', 'y']),
+        'mod_negative_int': ('elementwise_mod', {'X': ('x', int_x),
+                                                 'Y': ('y', int_y)},
+                             {'Out': 'out'}, {'axis': -1}, None, ()),
+        'floordiv_negative': ('elementwise_floordiv',
+                              {'X': ('x', neg_x), 'Y': ('y', neg_y)},
+                              {'Out': 'out'}, {'axis': -1}, None, ()),
+        'floordiv_negative_int': ('elementwise_floordiv',
+                                  {'X': ('x', int_x), 'Y': ('y', int_y)},
+                                  {'Out': 'out'}, {'axis': -1}, None, ()),
+        'mod_broadcast': ('elementwise_mod',
+                          {'X': ('x', op_rand(43, 2, 3, 4) * 5),
+                           'Y': ('y', op_rand(44, 3, lo=0.5))},
+                          {'Out': 'out'}, {'axis': 1}, 'out', ['x']),
+        'squared_l2_norm': ('squared_l2_norm', {'X': ('x', x)},
+                            {'Out': 'out'}, {}, 'out', ['x']),
+        'squared_l2_distance': ('squared_l2_distance',
+                                {'X': ('x', op_rand(45, 4, 6)),
+                                 'Y': ('y', op_rand(46, 4, 6))},
+                                {'Out': 'out', 'sub_result': 'sub'}, {},
+                                'out', ['x', 'y']),
+        'squared_l2_distance_row': ('squared_l2_distance',
+                                    {'X': ('x', op_rand(47, 4, 6)),
+                                     'Y': ('y', op_rand(48, 1, 6))},
+                                    {'Out': 'out', 'sub_result': 'sub'}, {},
+                                    'out', ['x', 'y']),
+        'cumsum': ('cumsum', {'X': ('x', x)}, {'Out': 'out'}, {'axis': 1},
+                   'out', ['x']),
+        'cumsum_exclusive_reverse': ('cumsum', {'X': ('x', x)},
+                                     {'Out': 'out'},
+                                     {'axis': -1, 'exclusive': True,
+                                      'reverse': True}, 'out', ['x']),
+        'cumsum_int': ('cumsum', {'X': ('x', int_x)}, {'Out': 'out'},
+                       {'axis': 0, 'exclusive': True}, None, ()),
+        'l1_norm': ('l1_norm', {'X': ('x', x)}, {'Out': 'out'}, {}, 'out',
+                    ['x']),
+        'norm': ('norm', {'X': ('x', x)}, {'Out': 'out', 'Norm': 'n'},
+                 {'axis': 1, 'epsilon': 1e-10}, 'out', ['x']),
+        # losses
+        'huber_loss': ('huber_loss', {'X': ('x', lx), 'Y': ('y', ly)},
+                       {'Out': 'out', 'Residual': 'r'}, {'delta': 0.8},
+                       'out', ['x', 'y']),
+        'smooth_l1_loss': ('smooth_l1_loss', {'X': ('x', lx), 'Y': ('y', ly)},
+                           {'Out': 'out', 'Diff': 'd'}, {'sigma': 1.5},
+                           'out', ['x', 'y']),
+        'smooth_l1_loss_weighted': (
+            'smooth_l1_loss',
+            {'X': ('x', lx), 'Y': ('y', ly),
+             'InsideWeight': ('iw', op_rand(57, n, 3, lo=0.1)),
+             'OutsideWeight': ('ow', op_rand(58, n, 3, lo=0.1))},
+            {'Out': 'out', 'Diff': 'd'}, {'sigma': 1.0}, 'out', ['x', 'y']),
+        'log_loss': ('log_loss', {'Predicted': ('p', p),
+                                  'Labels': ('l', label)},
+                     {'Loss': 'loss'}, {'epsilon': 1e-4}, 'loss', ['p']),
+        'hinge_loss': ('hinge_loss', {'Logits': ('x', op_rand(59, n, 1)),
+                                      'Labels': ('l', label)},
+                       {'Loss': 'loss'}, {}, 'loss', ['x']),
+        'rank_loss': ('rank_loss', {'Label': ('l', label),
+                                    'Left': ('a', op_rand(60, n, 1)),
+                                    'Right': ('b', op_rand(61, n, 1))},
+                      {'Out': 'out'}, {}, 'out', ['a', 'b']),
+        'margin_rank_loss': ('margin_rank_loss',
+                             {'Label': ('l', 2 * label - 1),
+                              'X1': ('a', op_rand(62, n, 1)),
+                              'X2': ('b', op_rand(63, n, 1))},
+                             {'Out': 'out', 'Activated': 'act'},
+                             {'margin': 0.3}, 'out', ['a', 'b']),
+        'modified_huber_loss': ('modified_huber_loss',
+                                {'X': ('x', 1.5 * op_rand(64, n, 1)),
+                                 'Y': ('y', label)},
+                                {'Out': 'out', 'IntermediateVal': 'z'}, {},
+                                'out', ['x']),
+        'kldiv_loss_mean': ('kldiv_loss', {'X': ('x', log_p),
+                                           'Target': ('t', target)},
+                            {'Loss': 'loss'}, {'reduction': 'mean'}, 'loss',
+                            ['x', 't']),
+        'kldiv_loss_batchmean': ('kldiv_loss', {'X': ('x', log_p),
+                                                'Target': ('t', target)},
+                                 {'Loss': 'loss'},
+                                 {'reduction': 'batchmean'}, 'loss',
+                                 ['x']),
+        'kldiv_loss_none': ('kldiv_loss', {'X': ('x', log_p),
+                                           'Target': ('t', target)},
+                            {'Loss': 'loss'}, {'reduction': 'none'},
+                            'loss', ['x']),
+        # metrics
+        'auc': ('auc', {'Predict': ('p', probs), 'Label': ('l', auc_label)},
+                {'AUC': 'auc'}, {'curve': 'ROC', 'num_thresholds': 200},
+                None, ()),
+        'auc_50': ('auc', {'Predict': ('p', probs[:, 1]),
+                           'Label': ('l', auc_label)},
+                   {'AUC': 'auc'}, {'num_thresholds': 50}, None, ()),
+        'precision_recall': ('precision_recall',
+                             {'Indices': ('i', mrng.randint(0, 4, (32, 1))
+                                          .astype('int64')),
+                              'Labels': ('l', mrng.randint(0, 4, (32, 1))
+                                         .astype('int64'))},
+                             {'BatchMetrics': 'm'}, {'class_number': 4},
+                             None, ()),
+        'positive_negative_pair': ('positive_negative_pair', pairs(),
+                                   pair_outs, {}, None, ()),
+        'positive_negative_pair_accumulate': (
+            'positive_negative_pair',
+            dict(pairs(),
+                 AccumulatePositivePair=('ap', np.array([3.0], 'float32')),
+                 AccumulateNegativePair=('an', np.array([1.0], 'float32')),
+                 AccumulateNeutralPair=('au', np.array([2.0], 'float32'))),
+            pair_outs, {}, None, ()),
+    }
+
+
+def _ops_close(tag, got, want, tol=OPS_TOL):
+    """Each fetch of ``got`` against ``want``: the same shape, integer and
+    bool values exactly, floats within ``tol`` (atol scaled by
+    max(1, max|want|)).  Returns the worst max|d| / max(1, max|want|)."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        check(g.shape == w.shape, '%s: output %d has shape %s on the card, '
+              '%s on the CPU' % (tag, i, g.shape, w.shape))
+        if w.dtype.kind in 'biu':
+            check(np.array_equal(g, w), '%s: integer output %d differs: %s '
+                  'vs %s' % (tag, i, g.ravel()[:8], w.ravel()[:8]))
+            continue
+        if not w.size:
+            continue
+        scale = max(1.0, float(np.abs(w).max()))
+        check(np.allclose(g, w, rtol=tol['rtol'], atol=tol['atol'] * scale),
+              '%s: output %d: max|d| %g (rtol %g, atol %g x %g)' %
+              (tag, i, float(np.abs(g - w).max()), tol['rtol'], tol['atol'],
+               scale))
+        worst = max(worst, float(np.abs(g - w).max()) / scale)
+    return worst
+
+
+def phase_ops_lowerings(card):
+    """K2: every lowering of the slice, one op at a time, on the card
+    against ``CPUPlace()``: the forward (integer outputs exactly); the
+    generic grad where the op is differentiable; the op captured (its
+    second call) and replayed (its third) against its eager first call;
+    the random ops by distribution.  Fails unless every one of the
+    OPS_LOWERINGS was checked."""
+    import paddle_tpu_torch.fluid as fluid
+    gpu, cpu = fluid.CUDAPlace(0), fluid.CPUPlace()
+    checked, worst = set(), {'forward': 0.0, 'grad': 0.0, 'capture': 0.0}
+    n_grads = n_captured = 0
+    t0 = time.perf_counter()
+    for name, case in sorted(ops_cases().items()):
+        prog, feed = one_op_program(fluid, *case[:4])
+        fetch = op_out_names(case[2])
+        exe, scope = fluid.Executor(gpu), fluid.Scope()
+        runs = [exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+                for _ in range(3)]
+        block = exe.cached_blocks()[-1]
+        want = fluid.Executor(cpu).run(prog, feed=feed, fetch_list=fetch,
+                                       scope=fluid.Scope())
+        worst['forward'] = max(worst['forward'],
+                               _ops_close('K2 ' + name, runs[0], want))
+        check(block.mode == 'graph' and block.captures == 1 and
+              block.last_ran == 'replay',
+              'K2 %s: the block ran %s (%s), %d captures, last %s' %
+              (name, block.mode, block.why, block.captures, block.last_ran))
+        err = max(_max_diff(runs[1], runs[0]), _max_diff(runs[2], runs[0]))
+        check(err <= CAPTURE_TOL, 'K2 %s: captured and replayed calls '
+              'differ from the eager one by %g (tol %g)' %
+              (name, err, CAPTURE_TOL))
+        worst['capture'] = max(worst['capture'], err)
+        n_captured += 1
+        if case[4] is not None:
+            shape = np.asarray(want[fetch.index(case[4])]).shape
+            cot = np.random.RandomState(8).standard_normal(shape).astype(
+                'float32')
+            gprog, gfeed, gnames = one_op_grad_program(fluid, case, case[4],
+                                                       case[5], cot)
+            got = fluid.Executor(gpu).run(gprog, feed=gfeed,
+                                          fetch_list=gnames,
+                                          scope=fluid.Scope())
+            wantg = fluid.Executor(cpu).run(gprog, feed=gfeed,
+                                            fetch_list=gnames,
+                                            scope=fluid.Scope())
+            check(all(np.abs(w).max() > 0 for w in wantg),
+                  'K2 %s: a gradient is all 0 on the CPU' % name)
+            worst['grad'] = max(worst['grad'],
+                                _ops_close('K2 %s grad' % name, got, wantg))
+            n_grads += 1
+        checked.add(case[0])
+    checked |= phase_ops_random(card)
+    check(sorted(checked) == sorted(OPS_LOWERINGS),
+          'K2: checked %d lowerings, the slice registers %d: missing %s' %
+          (len(checked), len(OPS_LOWERINGS),
+           sorted(set(OPS_LOWERINGS) - checked)))
+    print('K2: %d lowerings checked (the %d the slice registers), %d cases: '
+          'card vs CPU forward worst %.3g, %d generic grads worst %.3g '
+          '(rtol %g, atol %g x max(1, max|v|)), integer outputs exact; %d '
+          'captured and replayed against eager, worst %.3g (tol %g); %.1f s '
+          '[%s]' % (len(checked), len(OPS_LOWERINGS), len(ops_cases()),
+                    worst['forward'], n_grads, worst['grad'], OPS_TOL['rtol'],
+                    OPS_TOL['atol'], n_captured, worst['capture'],
+                    CAPTURE_TOL, time.perf_counter() - t0, card), flush=True)
+
+
+def _draw_stats(tag, x, mean, std, lo=-np.inf, hi=np.inf):
+    """``x``'s draws in [lo, hi] with mean ``mean`` and standard deviation
+    ``std`` within OPS_DRAW_TOL."""
+    x = np.asarray(x, np.float64)
+    got_mean, got_std = float(x.mean()), float(x.std())
+    check(x.min() >= lo and x.max() <= hi and
+          abs(got_mean - mean) <= OPS_DRAW_TOL and
+          abs(got_std - std) <= OPS_DRAW_TOL,
+          '%s: draws in [%g, %g], mean %.5f (want %.5f), std %.5f (want '
+          '%.5f), tol %g, support [%g, %g]' %
+          (tag, x.min(), x.max(), got_mean, mean, got_std, std,
+           OPS_DRAW_TOL, lo, hi))
+    return got_mean, got_std
+
+
+def phase_ops_random(card):
+    """K2's random ops, by distribution at 10^6 draws on the card and on
+    the CPU: truncated_gaussian_random (support mean +- 2 std, the cut
+    normal's standard deviation 0.8796 std), the ``*_batch_size_like``
+    pair (the batch dim from Input), each captured with its replay drawing
+    anew; random_crop captured, OPS_CROP_REPLAYS replays each a window of X
+    whose starts cover every position.  Returns the op types checked."""
+    import paddle_tpu_torch.fluid as fluid
+    gpu, cpu = fluid.CUDAPlace(0), fluid.CPUPlace()
+    rows, cols = OPS_DRAWS
+    ref = ('ref', np.zeros((rows, 3), 'float32'))
+    bsl = dict(shape=[1, cols], input_dim_idx=0, output_dim_idx=0, seed=0)
+    cut_std = 0.8796256610342398  # a standard normal cut at +-2
+    cases = {
+        'truncated_gaussian_random': (
+            {}, dict(shape=[rows, cols], mean=0.5, std=2.0, seed=0),
+            (0.5, 2.0 * cut_std, -3.5, 4.5)),
+        'uniform_random_batch_size_like': (
+            {'Input': ref}, dict(bsl, min=-2.0, max=1.0),
+            (-0.5, 3.0 / math.sqrt(12.0), -2.0, 1.0)),
+        'gaussian_random_batch_size_like': (
+            {'Input': ref}, dict(bsl, mean=1.0, std=0.5),
+            (1.0, 0.5, -np.inf, np.inf)),
+    }
+    lines = []
+    for op_type, (inputs, attrs, (mean, std, lo, hi)) in cases.items():
+        prog, feed = one_op_program(fluid, op_type, inputs, {'Out': 'out'},
+                                    attrs)
+        prog.random_seed = SEED
+        exe, scope = fluid.Executor(gpu), fluid.Scope()
+        draws = [exe.run(prog, feed=feed, fetch_list=['out'],
+                         scope=scope)[0] for _ in range(3)]
+        block = exe.cached_blocks()[-1]
+        check(block.mode == 'graph' and block.last_ran == 'replay',
+              'K2 %s: the block ran %s (%s), last %s' %
+              (op_type, block.mode, block.why, block.last_ran))
+        check(not np.array_equal(draws[1], draws[2]),
+              'K2 %s: a replay drew what the capture drew' % op_type)
+        stats = [_draw_stats('K2 %s %s' % (op_type, which), d, mean, std,
+                             lo, hi)
+                 for which, d in zip(('eager', 'captured', 'replayed'),
+                                     draws)]
+        cpu_draw = fluid.Executor(cpu).run(prog, feed=feed,
+                                           fetch_list=['out'],
+                                           scope=fluid.Scope())[0]
+        stats.append(_draw_stats('K2 %s CPU' % op_type, cpu_draw, mean, std,
+                                 lo, hi))
+        check(draws[0].shape == (rows, cols) and
+              cpu_draw.shape == (rows, cols),
+              'K2 %s: shapes %s / %s' % (op_type, draws[0].shape,
+                                         cpu_draw.shape))
+        lines.append('%s mean/std eager %.4f/%.4f, replay %.4f/%.4f, CPU '
+                     '%.4f/%.4f (want %.4f/%.4f)' %
+                     ((op_type, ) + stats[0] + stats[2] + stats[3] +
+                      (mean, std)))
+    x = np.arange(2 * 6 * 7, dtype='float32').reshape(2, 6, 7)
+    prog, feed = one_op_program(fluid, 'random_crop', {'X': ('x', x)},
+                                {'Out': 'out'}, {'shape': [3, 4]})
+    prog.random_seed = SEED
+    starts = {}
+    for place in (gpu, cpu):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        seen = set()
+        for _ in range(2 + OPS_CROP_REPLAYS):
+            out, = exe.run(prog, feed=feed, fetch_list=['out'], scope=scope)
+            r, c = int(out[0, 0, 0]) // 7, int(out[0, 0, 0]) % 7
+            check(out.shape == (2, 3, 4) and
+                  np.array_equal(out, x[:, r:r + 3, c:c + 4]),
+                  'K2 random_crop: an output is no window of X')
+            seen.add((r, c))
+        starts[str(place)] = seen
+        check({r for r, _ in seen} == set(range(4)) and
+              {c for _, c in seen} == set(range(4)),
+              'K2 random_crop on %s: starts %s do not cover [0, 3] in each '
+              'dim' % (place, sorted(seen)))
+        if place == gpu:
+            block = exe.cached_blocks()[-1]
+            check(block.mode == 'graph' and block.captures == 1 and
+                  block.last_ran == 'replay',
+                  'K2 random_crop: the block ran %s (%s), last %s' %
+                  (block.mode, block.why, block.last_ran))
+    print('K2 random ops, 10^6 draws each, tol %g: %s; random_crop %d calls '
+          '(captured: %d replays) each a window of X, distinct starts %d on '
+          'the card, %d on the CPU [%s]' %
+          (OPS_DRAW_TOL, '; '.join(lines), 2 + OPS_CROP_REPLAYS,
+           OPS_CROP_REPLAYS, len(starts[str(gpu)]), len(starts[str(cpu)]),
+           card), flush=True)
+    return set(cases) | {'random_crop'}
+
+
+def phase_ops_transformer(card):
+    """K1: Fluid's Transformer recipe in plain layers at G1's widths
+    (``ops_transformer_programs(**OPS_TF)``), BATCH x 256, Adam at OPS_LR
+    from a seed: one eager call, the capture and OPS_REPLAYS replays on one
+    batch, with no hand-written kernel launched and a loss falling at every
+    step; one 2 x 256 step against the CPU (TRAIN_TOL, G1's); the first
+    layer's attention context against the port's ``flash_attention`` op
+    (the f32 kernel) on its Q, K and V (TOL); one captured step under
+    ``amp_guard()`` against an f32 step from one state
+    (``AMP_SERVE_TOL['loss']``); the step captured against eager, timed,
+    with memory_analysis against the capture's peak (OPS_MEMORY_RATIO).
+    Returns the path's launch record."""
+    import paddle_tpu_torch.fluid as fluid
+    cfg = OPS_TF
+    tag = 'K1 Transformer-base in plain layers'
+    with fluid.unique_name.guard():
+        model = ops_transformer_programs(fluid, **cfg)
+    model, scope, exe = _started('%s %s' % (tag, cfg), model)
+    main, loss = model['main'], model['loss'].name
+    seq, vocab = cfg['seq'], cfg['vocab']
+    rng = np.random.RandomState(SEED + 90)
+    feed = ops_transformer_batch(rng, BATCH, seq, vocab)
+    made = []
+    path = _Path(tag, exe, 'f32').begin()
+    fluid.FLAGS.cost_accounting = True
+    try:
+        for _ in range(2 + OPS_REPLAYS):
+            made += path.call(lambda: exe.run(main, feed=feed,
+                                              fetch_list=[loss],
+                                              scope=scope), _expect())
+    finally:
+        fluid.FLAGS.cost_accounting = False
+    path.end()
+    check(path.wrapper == _expect(), '%s: hand-written kernels launched: %s'
+          % (tag, path.wrapper))
+    block = exe.cached_blocks()[-1]
+    ran = [m[3] for m in made]
+    check(block.mode == 'graph' and block.captures == 1 and
+          ran.count('replay') >= OPS_REPLAYS,
+          '%s: the block ran %s (%s), %d captures, calls %s' %
+          (tag, block.mode, block.why, block.captures, ran))
+    losses = [float(m[0][0][0]) for m in made]
+    check(np.isfinite(losses).all() and
+          all(b < a for a, b in zip(losses, losses[1:])),
+          '%s: the loss did not fall at every step: %s' % (tag, losses))
+    flops = _cost_per_step(exe, [loss])
+    check(flops and min(flops) > 0, '%s: cost_report FLOPs %s' % (tag, flops))
+    ops = collections.Counter(op.type for op in
+                              model['test'].global_block().ops)
+    print('%s: %d Adam steps (lr %g) on one batch, loss %s; launches %s; '
+          'median replay wall %.4f s under torch.profiler; cost_report '
+          'FLOPs a step %.4e; forward ops: transpose %d, reshape %d, '
+          'matmul %d, label_smooth %d, reduce_mean %d [%s]' %
+          (tag, len(made), OPS_LR, ' -> '.join('%.6f' % l for l in losses),
+           path.summary(),
+           statistics.median(m[1] for m in made if m[3] == 'replay'),
+           flops[-1], ops['transpose'], ops['reshape'], ops['matmul'],
+           ops['label_smooth'], ops['reduce_mean'], card), flush=True)
+    small = ops_transformer_batch(rng, 2, seq, vocab)
+    compare_train_step(card, tag, '2 x %d' % seq, main, loss, small, scope,
+                       exe, OPS_LR)
+    _ops_flash_check(card, tag, model, scope, feed)
+    _ops_amp_step(card, tag, model, scope, feed)
+    timed = phase_capture(card, tag + ' step', main, feed, [loss],
+                          _persistables(main, scope), {},
+                          calls=OPS_CAPTURE_CALLS)
+    ratio = timed['memory']['capture_above'] / timed['memory']['temp']
+    check(1.0 / OPS_MEMORY_RATIO <= ratio <= OPS_MEMORY_RATIO,
+          '%s: the capture\'s peak above what was allocated before it is '
+          '%.2fx memory_analysis\'s temp bytes (within %gx either way)' %
+          (tag, ratio, OPS_MEMORY_RATIO))
+    _book_record(card, tag + ' step', timed, flops[-1], path='K',
+                 batch=BATCH, ms_eager=timed['eager']['wall'] * 1e3,
+                 ms_captured=timed['captured']['wall'] * 1e3,
+                 capture_over_temp=round(ratio, 3),
+                 tflops_captured=flops[-1] / timed['captured']['wall'] / 1e12)
+    path.exe = None  # the launch record outlives the path's executor
+    del model, scope, exe, block
+    _free()
+    return path
+
+
+def _ops_flash_check(card, tag, model, scope, feed):
+    """The first layer's attention context from the plain layers against
+    the port's ``flash_attention`` op on the same Q, K and V (the f32
+    kernel, one launch), at the kernel's tolerance TOL."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    cfg = OPS_TF
+    q, k, v, ctx = (var.name for var in model['attention'][0])
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    got = exe.run(model['test'], feed=feed, fetch_list=[q, k, v, ctx],
+                  scope=scope)
+    prog = fluid.Program()
+    with fluid.program_guard(prog, fluid.Program()):
+        qkv = [fluid.layers.data(name=n, shape=[cfg['seq'], cfg['d_model']],
+                                 dtype='float32') for n in 'qkv']
+        out = fluid.layers.flash_attention(*qkv, num_heads=cfg['n_head'])
+    before = fa.LAUNCHES
+    flash, = exe.run(prog, feed=dict(zip('qkv', got[:3])), fetch_list=[out],
+                     scope=fluid.Scope())
+    launched = fa.LAUNCHES - before
+    tol = TOL[torch.float32]
+    err = float(np.abs(flash - got[3]).max())
+    check(launched == 1 and flash.shape == got[3].shape and
+          np.allclose(flash, got[3], rtol=tol, atol=tol),
+          '%s: the plain layers\' attention context against the flash '
+          'kernel (%d launches): shapes %s / %s, max|d| %g (tol %g)' %
+          (tag, launched, got[3].shape, flash.shape, err, tol))
+    print('%s: layer 0 attention context (scaled_dot_product_attention in '
+          'plain layers, %s) against the flash_attention op on its Q, K, V '
+          '(%d f32 kernel launch, outside the path\'s counts): max|d| %.3g '
+          '(tol %g) [%s]' % (tag, got[3].shape, launched, err, tol, card),
+          flush=True)
+
+
+def _ops_amp_step(card, tag, model, scope, feed):
+    """One step from the scope's state in f32 (eager) and one captured
+    under ``amp_guard()`` from the same state (its first call eager, the
+    second the capture): the AMP loss finite and within
+    ``AMP_SERVE_TOL['loss']`` of the f32 one."""
+    import paddle_tpu_torch.fluid as fluid
+    main, loss = model['main'], model['loss'].name
+    state = _persistables(main, scope)
+    exe, amp_scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    _load(amp_scope, state)
+    f32, = eager_run(exe, main, feed, [loss], amp_scope)
+    for _ in range(2):
+        _load(amp_scope, state)
+        amp, = amp_call(exe, main, feed, [loss], amp_scope)
+    block = exe.cached_blocks()[-1]
+    rel = float(abs(amp[0] - f32[0]) / abs(f32[0]))
+    check(block.mode == 'graph' and block.last_ran == 'capture' and
+          np.isfinite(amp).all() and rel <= AMP_SERVE_TOL['loss'],
+          '%s: the AMP step ran %s (%s, last %s), loss %s against f32 %s '
+          '(rel %g, tol %g)' % (tag, block.mode, block.why, block.last_ran,
+                                amp, f32, rel, AMP_SERVE_TOL['loss']))
+    print('%s: one captured step under amp_guard() from the f32 path\'s '
+          'state: loss %.6f against f32 %.6f (rel %.3g, tol %g) [%s]' %
+          (tag, amp[0], f32[0], rel, AMP_SERVE_TOL['loss'], card),
+          flush=True)
+    del exe, amp_scope, block
+    torch.cuda.empty_cache()
+
+
+def phase_ops_ctr(card):
+    """K3: CTR at bench_ctr's widths, its test program with ``layers.auc``
+    and ``layers.precision_recall`` (over [1 - p, p]) appended, on a
+    CTR_BATCH-row request: the metrics on the card against the CPU from the
+    same state, both forms captured, and OPS_CTR_CALLS requests of each
+    timed (median wall)."""
+    import paddle_tpu_torch.fluid as fluid
+    tag = 'K3 ctr request with auc and precision_recall'
+    model, scope, exe = build_ctr(is_sparse=True)
+    test = model['test']
+    metered = test.clone()
+    with fluid.program_guard(metered, fluid.Program()):
+        blk = metered.global_block()
+        pred, label = blk.var(model['prediction'].name), blk.var('label')
+        auc = fluid.layers.auc(input=pred, label=label)
+        two = fluid.layers.concat([1.0 - pred, pred], axis=1)
+        pr = fluid.layers.precision_recall(two, label, class_number=2)
+    rng = np.random.RandomState(SEED + 91)
+    feed = ctr_batch(rng)
+    plain_fetch = [model['prediction'].name]
+    fetch = plain_fetch + [auc.name, pr.name]
+    forms = {'plain': (test, plain_fetch), 'metrics': (metered, fetch)}
+
+    def call(form):
+        prog, names = forms[form]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(prog, feed=feed, fetch_list=names, scope=scope)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _zero_counts()
+    for form in forms:  # each form's eager call and its capture
+        call(form)
+        call(form)
+        block = exe.cached_blocks()[-1]
+        check(block.mode == 'graph' and block.last_ran == 'capture',
+              '%s: the %s form ran %s (%s), last %s' %
+              (tag, form, block.mode, block.why, block.last_ran))
+    # replays in turns: plain, metrics, metrics, plain, ...
+    walls = {form: [] for form in forms}
+    for i in range(OPS_CTR_CALLS):
+        for form in (('plain', 'metrics') if i % 2 == 0 else
+                     ('metrics', 'plain')):
+            out, wall = call(form)
+            walls[form].append(wall)
+            if form == 'metrics':
+                got = out
+    _no_launches(tag)
+    check(all(b.mode == 'graph' and b.captures == 1 and b.replays
+              for b in exe.cached_blocks()[-2:]),
+          '%s: the forms\' blocks %s' %
+          (tag, [(b.mode, b.captures, b.replays)
+                 for b in exe.cached_blocks()[-2:]]))
+    walls = {form: statistics.median(w) for form, w in walls.items()}
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        metered, feed=feed, fetch_list=fetch,
+        scope=_cpu_copy(metered, scope))
+    err = _ops_close(tag, got[1:], want[1:])
+    pred_err = float(np.linalg.norm(got[0] - want[0]) /
+                     np.linalg.norm(want[0]))
+    check(pred_err <= CTR_SERVE_RTOL and 0.0 <= got[1][0] <= 1.0,
+          '%s: prediction |d| / |v| %g (tol %g), auc %s' %
+          (tag, pred_err, CTR_SERVE_RTOL, got[1]))
+    print('%s: %d rows; auc %.6f (CPU %.6f), precision/recall/F1 %s (CPU '
+          '%s), card vs CPU worst %.3g (rtol %g); request wall median of %d '
+          'replays each, in turns: %.5f s plain, %.5f s with the metrics '
+          '(%+.5f s) [%s]' %
+          (tag, CTR_BATCH, got[1][0], want[1][0],
+           np.round(got[2], 6).tolist(), np.round(want[2], 6).tolist(), err,
+           OPS_TOL['rtol'], OPS_CTR_CALLS, walls['plain'], walls['metrics'],
+           walls['metrics'] - walls['plain'], card), flush=True)
+    print('path K: %s' % json.dumps(dict(
+        path='K', phase=tag, rows=CTR_BATCH, plain_s=walls['plain'],
+        metrics_s=walls['metrics'], auc=float(got[1][0]),
+        card=card)), flush=True)
+    del model, scope, exe, test, metered, block
+    _free()
+
+
+def phase_ops(card):
+    """Path K: the common tensor, shape, reduce, loss and metric ops.
+    Returns K1's launch record."""
+    t0 = time.perf_counter()
+    _free()
+    launches = phase_ops_transformer(card)
+    _zero_counts()  # K2 and K3 run no hand-written kernel
+    phase_ops_lowerings(card)
+    phase_ops_ctr(card)
+    _no_launches('path K2-K3')
+    print('path K: %.1f s' % (time.perf_counter() - t0), flush=True)
+    return launches
+
+
 def _time_ms(fn, launches_per_sample=10, samples=20, warmup=5):
     """Median device time of one call (CUDA events around back-to-back
     launches, so host overhead between launches is hidden)."""
@@ -7960,6 +8892,9 @@ def main():
     ap.add_argument('--only-pipeline', action='store_true',
                     help='run the device phase, the kernels\' build and path '
                     'J alone, and print no result line (a partial run)')
+    ap.add_argument('--only-ops', action='store_true',
+                    help='run the device phase and path K alone, and print '
+                    'no result line (a partial run)')
     args = ap.parse_args()
     SEED = args.seed
     card = phase_device()
@@ -7969,6 +8904,12 @@ def main():
         profiler_summary()
         print('chip_smoke: --only-generate: path I passed; a partial run '
               'prints no result line', flush=True)
+        return
+    if args.only_ops:
+        phase_ops(card)
+        profiler_summary()
+        print('chip_smoke: --only-ops: path K passed; a partial run prints '
+              'no result line', flush=True)
         return
     if args.only_book:
         _scan_runs()
@@ -8005,11 +8946,13 @@ def main():
     serve_launches = phase_serve(card)
     phase_generate(card)
     pipeline_launches = phase_pipeline(card)
+    ops_launches = phase_ops(card)
     model, scope, exe = build_model()
     launches = {'serve': phase_slice(card, model, scope, exe),
                 'train': phase_train(card, model, scope, exe)}
     launches.update(serve_launches)
     launches['feed_pipeline'] = pipeline_launches
+    launches['ops'] = ops_launches
     phase_train_card_vs_cpu(card, model, scope, exe)
     phase_transformer_capture(card, model, scope)
     launches.update(phase_amp_transformer(card, model, scope, exe))

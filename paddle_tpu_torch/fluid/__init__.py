@@ -9,6 +9,8 @@ inference path (``io.save_inference_model`` / ``load_inference_model``,
 ``InferenceTranspiler``, ``Float16Transpiler``), ``memory_optimize``,
 the ``profiler`` and ``trace`` (spans, flight recorder, cost registry),
 ``DataFeeder``, the graph-state ``evaluator``s and the numpy ``metrics``,
+the common tensor, shape, reduce, loss and metric layers and ``nets``'
+``glu``, ``sequence_conv_pool`` and ``scaled_dot_product_attention``,
 ``Inferencer`` (through the serving engine) and ``contrib.memory_usage``;
 the input pipeline (``layers.py_reader`` and the reader layers,
 ``recordio_writer``, ``FeedPipeline``) and ``Trainer`` with its events and
@@ -23,25 +25,31 @@ from .flags import FLAGS
 # environment bootstrap first, so flags govern everything imported below
 flags.try_from_env(flags.TRYFROMENV)
 from . import core
-from .core import CPUPlace, CUDAPlace, CUDAPinnedPlace, LoDTensor, Scope
-from .core import EOFException
+from .core import (CPUPlace, CUDAPlace, CUDAPinnedPlace, LoDTensor,
+                   LoDTensorArray, Scope, EOFException, is_compiled_with_cuda,
+                   is_compiled_with_tpu)
 from . import framework
 from .framework import (Program, Operator, Variable, Parameter,
                         default_main_program, default_startup_program,
-                        program_guard)
+                        program_guard, name_scope, get_var)
 from . import trace
 from . import profiler
 from . import executor
-from .executor import Executor, global_scope, scope_guard
+from .executor import Executor, global_scope, scope_guard, fetch_var
 from . import initializer
 from . import layers
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
 from . import unique_name
 from . import io
-from .io import params_from_numpy, persistables_from_numpy
+from .io import (params_from_numpy, persistables_from_numpy, save_vars,
+                 save_params, save_persistables, load_vars, load_params,
+                 load_persistables, save_inference_model,
+                 load_inference_model, get_inference_program)
 from . import backward
-from .backward import append_backward
+from .backward import append_backward, calc_gradient, gradients
 from . import clip
+from .clip import (ErrorClipByValue, GradientClipByValue, GradientClipByNorm,
+                   GradientClipByGlobalNorm)
 from . import regularizer
 from . import optimizer
 from . import nets
@@ -78,5 +86,7 @@ __all__ = framework.__all__ + executor.__all__ + [
     'inferencer', 'Inferencer', 'CUDAPinnedPlace', 'EOFException',
     'dataflow', 'FeedPipeline', 'recordio_writer', 'trainer', 'Trainer',
     'BeginEpochEvent', 'EndEpochEvent', 'BeginStepEvent', 'EndStepEvent',
-    'CheckpointConfig',
+    'CheckpointConfig', 'Tensor', 'WeightNormParamAttr',
 ]
+
+Tensor = LoDTensor

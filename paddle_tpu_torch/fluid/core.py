@@ -25,13 +25,25 @@ import torch
 
 __all__ = ['CPUPlace', 'CUDAPlace', 'CUDAPinnedPlace', 'Place', 'VarDesc',
            'LoDTensor', 'LoDTensorArray', 'SelectedRows', 'PaddedSequence',
-           'Scope', 'global_scope', 'EOFException']
+           'Scope', 'global_scope', 'EOFException', 'is_compiled_with_cuda',
+           'is_compiled_with_tpu']
 
 
 class EOFException(Exception):
     """Raised by ``Executor.run`` (and the reader-fed multi paths) when a
     program's reader is exhausted, as the reference's reader ops throw
     it."""
+
+
+def is_compiled_with_cuda():
+    """Whether the torch this port runs on was built with CUDA."""
+    return torch.backends.cuda.is_built()
+
+
+def is_compiled_with_tpu():
+    """False: the port has no TPU device (the JAX package's TPUPlace has no
+    counterpart here)."""
+    return False
 
 
 class Place(object):

@@ -114,7 +114,7 @@ from .. import ops as _ops  # noqa: F401  (registers the lowerings)
 from ..ops import registry
 from ..ops.sparse import SparseRows
 
-__all__ = ['Executor', 'global_scope', 'scope_guard']
+__all__ = ['Executor', 'global_scope', 'scope_guard', 'fetch_var']
 
 _scope_stack = [core.global_scope()]
 
@@ -138,6 +138,31 @@ def scope_guard(scope):
         yield
     finally:
         _scope_stack.pop()
+
+
+def fetch_var(name, scope=None, return_numpy=True):
+    """The value of var ``name`` (a persistable one, typically) straight
+    from ``scope`` (the active scope by default), without running a
+    program: a numpy array, or with ``return_numpy=False`` a
+    ``LoDTensor``."""
+    if not isinstance(name, str):
+        raise TypeError('fetch_var: name must be a str, not %r' % (name, ))
+    if scope is None:
+        scope = global_scope()
+    var = scope.find_var(name)
+    if var is None:
+        raise ValueError(
+            'Cannot find %s in scope. Perhaps you need to make the variable '
+            'persistable by using var.persistable = True in your program.'
+            % name)
+    value = var.value()
+    tensor = _as_tensor(value)
+    if return_numpy:
+        # a copy: the scope's own tensor stays the scope's
+        return to_numpy(tensor, name).copy()
+    if isinstance(value, core.LoDTensor):
+        return value
+    return core.LoDTensor(tensor.detach().cpu())
 
 
 def _as_tensor(value):
@@ -988,6 +1013,7 @@ class _CompiledBlock(object):
                 n for n in self.feed_names
                 if (n in declared if declared is not None else
                     env[n].dim() >= 1 and env[n].shape[0] == mask.shape[0])}
+            ctx.batch_tainted = set(ctx.batch_led)
         record = self._records is None and not capturing
         args = {n: _nbytes(v) for n, v in env.items()} if record else None
         check = flags.FLAGS.check_nan_inf and not capturing

@@ -17,7 +17,7 @@ from . import unique_name
 __all__ = [
     'Program', 'Block', 'Operator', 'Variable', 'Parameter', 'program_guard',
     'default_main_program', 'default_startup_program', 'switch_main_program',
-    'switch_startup_program', 'grad_var_name',
+    'switch_startup_program', 'name_scope', 'grad_var_name',
 ]
 
 GRAD_VAR_SUFFIX = '@GRAD'
@@ -428,3 +428,28 @@ def program_guard(main_program, startup_program=None):
         switch_main_program(prev_main)
         if prev_start is not None:
             switch_startup_program(prev_start)
+
+
+_name_scope_stack = []
+
+
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    """A scope of names for the ops built inside it, as the JAX package
+    keeps it: the prefix is pushed for the block's duration and names
+    nothing."""
+    _name_scope_stack.append(prefix or '')
+    try:
+        yield
+    finally:
+        _name_scope_stack.pop()
+
+
+def get_var(name, program=None):
+    """The Variable ``name`` of ``program``'s global block (the default
+    main program's); ValueError if it has none."""
+    program = program if program is not None else default_main_program()
+    v = program.global_block().vars.get(name)
+    if v is None:
+        raise ValueError('var %r not found in program' % name)
+    return v

@@ -1,11 +1,14 @@
 """Neural-network layers (counterpart of ``paddle_tpu/fluid/layers/nn.py``,
 the layers the Transformer, stacked-LSTM, dense CV and book-model slices
-build with).
+build with, and the common tensor, shape, reduce and loss layers).
 
 Each layer appends OpDescs to the current program block; shapes are inferred
 eagerly so later layers can read ``input.shape``.
 """
 
+import builtins
+
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 from ..initializer import Constant, Normal
 from ..param_attr import ParamAttr
@@ -17,7 +20,12 @@ __all__ = [
     'conv2d', 'pool2d', 'batch_norm', 'gather', 'topk', 'concat',
     'sigmoid_cross_entropy_with_logits', 'square_error_cost',
     'linear_chain_crf', 'crf_decoding', 'cos_sim',
-    'autoincreased_step_counter', 'matmul', 'one_hot', 'expand',
+    'autoincreased_step_counter', 'matmul', 'one_hot', 'expand', 'mul',
+    'transpose', 'flatten', 'split', 'reduce_mean', 'reduce_max',
+    'reduce_min', 'reduce_prod', 'l2_normalize', 'prelu', 'maxout', 'pad',
+    'pad2d', 'stack', 'unstack', 'squeeze', 'scatter', 'slice', 'shape',
+    'label_smooth', 'smooth_l1', 'log_loss', 'multiplex', 'random_crop',
+    'crop', 'dice_loss', 'rank_loss',
 ]
 
 
@@ -373,8 +381,8 @@ def flash_attention(q, k, v, num_heads=None, causal=False, scale=None,
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper('reduce_sum', **locals())
+def _reduce(op_type, input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper(op_type, **locals())
     out = helper.create_variable_for_type_inference(dtype=input.dtype)
     if dim is not None and not isinstance(dim, (list, tuple)):
         dim = [dim]
@@ -391,7 +399,7 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
             out.shape = tuple(s for i, s in enumerate(shape)
                               if i not in dims) or (1, )
     helper.append_op(
-        type='reduce_sum',
+        type=op_type,
         inputs={'X': [input]},
         outputs={'Out': [out]},
         attrs={
@@ -400,6 +408,26 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
             'reduce_all': dim is None
         })
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_sum', input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_mean', input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_max', input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_min', input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_prod', input, dim, keep_dim, name)
 
 
 def clip(x, min, max, name=None):
@@ -771,3 +799,384 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
             attrs={'step': float(step)})
         counter.stop_gradient = True
     return counter
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper('mul', **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    out.shape = tuple(x.shape[:x_num_col_dims]) + tuple(
+        y.shape[y_num_col_dims:])
+    helper.append_op(
+        type='mul',
+        inputs={'X': [x],
+                'Y': [y]},
+        outputs={'Out': [out]},
+        attrs={
+            'x_num_col_dims': x_num_col_dims,
+            'y_num_col_dims': y_num_col_dims
+        })
+    return out
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper('transpose', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = tuple(x.shape[p] for p in perm) if x.shape else ()
+    helper.append_op(
+        type='transpose',
+        inputs={'X': [x]},
+        outputs={'Out': [out]},
+        attrs={'axis': list(perm)})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    """X as a matrix: the dims before ``axis`` times the rest, built as a
+    ``reshape`` op."""
+    helper = LayerHelper('flatten', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = (_prod(x.shape[:axis]), _prod(x.shape[axis:]))
+    helper.append_op(
+        type='reshape',
+        inputs={'X': [x]},
+        outputs={'Out': [out]},
+        attrs={'shape': [int(s) for s in out.shape]})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper('split', **locals())
+    input_shape = input.shape
+    dim_ = dim if dim >= 0 else len(input_shape) + dim
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = [input_shape[dim_] // num] * num
+    else:
+        sections = list(num_or_sections)
+    outs = []
+    for sec in sections:
+        o = helper.create_variable_for_type_inference(dtype=input.dtype)
+        s = list(input_shape)
+        s[dim_] = sec
+        o.shape = tuple(s)
+        outs.append(o)
+    helper.append_op(
+        type='split',
+        inputs={'X': [input]},
+        outputs={'Out': outs},
+        attrs={
+            'num': num_or_sections if isinstance(num_or_sections, int) else 0,
+            'sections': sections,
+            'axis': dim_
+        })
+    return outs
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """X over its 2-norm along ``axis``: a ``norm`` op."""
+    helper = LayerHelper('l2_normalize', **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    out.shape = x.shape
+    norm = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type='norm',
+        inputs={'X': [x]},
+        outputs={'Out': [out],
+                 'Norm': [norm]},
+        attrs={'axis': 1 if axis is None else axis,
+               'epsilon': epsilon})
+    return out
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    helper = LayerHelper('prelu', **locals())
+    if mode not in ('all', 'channel', 'element'):
+        raise ValueError("mode should be 'all', 'channel' or 'element'")
+    alpha_shape = [1]
+    if mode == 'channel':
+        alpha_shape = [1, x.shape[1], 1, 1]
+    elif mode == 'element':
+        alpha_shape = list(x.shape)
+    alpha = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=alpha_shape,
+        dtype='float32',
+        is_bias=False,
+        default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(
+        type='prelu',
+        inputs={'X': [x],
+                'Alpha': [alpha]},
+        outputs={'Out': [out]},
+        attrs={'mode': mode})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper('maxout', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    n, c, h, w = x.shape
+    out.shape = (n, c // groups, h, w)
+    helper.append_op(
+        type='maxout',
+        inputs={'X': [x]},
+        outputs={'Out': [out]},
+        attrs={'groups': groups})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper('pad', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if getattr(x, 'shape', None):
+        shape = list(x.shape)
+        for i in range(min(len(shape), len(paddings) // 2)):
+            if shape[i] is not None and int(shape[i]) >= 0:
+                shape[i] = int(shape[i]) + paddings[2 * i] + \
+                    paddings[2 * i + 1]
+        out.shape = tuple(shape)
+    helper.append_op(
+        type='pad',
+        inputs={'X': [x]},
+        outputs={'Out': [out]},
+        attrs={'paddings': list(paddings),
+               'pad_value': float(pad_value)})
+    return out
+
+
+def pad2d(input,
+          paddings=(0, 0, 0, 0),
+          mode='constant',
+          pad_value=0.0,
+          data_format='NCHW',
+          name=None):
+    helper = LayerHelper('pad2d', **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type='pad2d',
+        inputs={'X': [input]},
+        outputs={'Out': [out]},
+        attrs={
+            'paddings': list(paddings),
+            'mode': mode,
+            'pad_value': float(pad_value)
+        })
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper('stack', **locals())
+    if isinstance(x, Variable):
+        x = [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(
+        type='stack',
+        inputs={'X': x},
+        outputs={'Y': [out]},
+        attrs={'axis': axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper('unstack', **locals())
+    if num is None:
+        num = x.shape[axis]
+    outs = [
+        helper.create_variable_for_type_inference(x.dtype) for _ in range(num)
+    ]
+    helper.append_op(
+        type='unstack',
+        inputs={'X': [x]},
+        outputs={'Y': outs},
+        attrs={'axis': axis,
+               'num': num})
+    return outs
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper('squeeze', **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type='squeeze',
+        inputs={'X': [input]},
+        outputs={'Out': [out]},
+        attrs={'axes': list(axes)})
+    return out
+
+
+def scatter(input, index, updates, name=None):
+    helper = LayerHelper('scatter', **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type='scatter',
+        inputs={'X': [input],
+                'Ids': [index],
+                'Updates': [updates]},
+        outputs={'Out': [out]})
+    return out
+
+
+def slice(input, axes, starts, ends):
+    """Python slicing of ``input`` along ``axes``.  Its shape is inferred
+    by the runtime's rules (negative indices count from the end, an end of
+    2**31 - 1 or more is open); a dim of unknown size stays unknown."""
+    helper = LayerHelper('slice', **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if getattr(input, 'shape', None):
+        int_max = 2**31 - 1
+        shape = list(input.shape)
+        for ax, s, e in zip(axes, starts, ends):
+            if not (0 <= ax < len(shape)):
+                continue
+            dim = shape[ax]
+            if dim is None or int(dim) < 0:
+                continue
+            shape[ax] = len(range(int(dim))[builtins.slice(
+                None if s <= -int_max else s,
+                None if e >= int_max else e)])
+        out.shape = tuple(shape)
+    helper.append_op(
+        type='slice',
+        inputs={'Input': [input]},
+        outputs={'Out': [out]},
+        attrs={
+            'axes': list(axes),
+            'starts': list(starts),
+            'ends': list(ends)
+        })
+    return out
+
+
+def shape(input):
+    helper = LayerHelper('shape', **locals())
+    out = helper.create_variable_for_type_inference(dtype='int32')
+    helper.append_op(
+        type='shape', inputs={'Input': [input]}, outputs={'Out': [out]})
+    return out
+
+
+def label_smooth(label,
+                 prior_dist=None,
+                 epsilon=0.1,
+                 dtype='float32',
+                 name=None):
+    helper = LayerHelper('label_smooth', **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {'X': [label]}
+    if prior_dist is not None:
+        inputs['PriorDist'] = [prior_dist]
+    helper.append_op(
+        type='label_smooth',
+        inputs=inputs,
+        outputs={'Out': [out]},
+        attrs={'epsilon': float(epsilon)})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper('smooth_l1_loss', **locals())
+    diff = helper.create_variable_for_type_inference(dtype=x.dtype)
+    loss = helper.create_variable_for_type_inference(dtype=x.dtype)
+    inputs = {'X': [x], 'Y': [y]}
+    if inside_weight is not None:
+        inputs['InsideWeight'] = [inside_weight]
+    if outside_weight is not None:
+        inputs['OutsideWeight'] = [outside_weight]
+    helper.append_op(
+        type='smooth_l1_loss',
+        inputs=inputs,
+        outputs={'Diff': [diff],
+                 'Out': [loss]},
+        attrs={'sigma': sigma if sigma is not None else 1.0})
+    return loss
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper('log_loss', **locals())
+    loss = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type='log_loss',
+        inputs={'Predicted': [input],
+                'Labels': [label]},
+        outputs={'Loss': [loss]},
+        attrs={'epsilon': epsilon})
+    return loss
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper('multiplex', **locals())
+    out = helper.create_variable_for_type_inference(inputs[0].dtype)
+    helper.append_op(
+        type='multiplex',
+        inputs={'X': inputs,
+                'Ids': [index]},
+        outputs={'Out': [out]})
+    return out
+
+
+def random_crop(x, shape, seed=None):
+    helper = LayerHelper('random_crop', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type='random_crop',
+        inputs={'X': [x]},
+        outputs={'Out': [out]},
+        attrs={'shape': list(shape)})
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    """``x`` cropped to ``shape`` from ``offsets`` (0 by default); ``shape``
+    is a list of dims or a Variable whose shape is the target."""
+    helper = LayerHelper('crop', **locals())
+    inputs = {'X': [x]}
+    attrs = {}
+    if shape is None:
+        raise ValueError('crop: shape is required: a list of output dims or '
+                         'a Variable whose shape is the target')
+    if isinstance(shape, Variable):
+        inputs['Y'] = [shape]
+        out_shape = shape.shape
+    else:
+        attrs['shape'] = list(shape)
+        out_shape = tuple(shape)
+    if offsets is None:
+        offsets = [0] * len(x.shape)
+    attrs['offsets'] = list(offsets)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = tuple(out_shape)
+    helper.append_op(
+        type='crop', inputs=inputs, outputs={'Out': [out]}, attrs=attrs)
+    return out
+
+
+def dice_loss(input, label, epsilon=0.00001):
+    """Dice loss for segmentation: one-hot labels, each sample's
+    intersection and areas summed over every non-batch dim, 1 - 2 I / (A +
+    epsilon), averaged over the batch."""
+    label = one_hot(label, depth=input.shape[-1])
+    reduce_dim = list(range(1, len(input.shape)))
+    inse = reduce_sum(input * label, dim=reduce_dim)
+    dice_denominator = reduce_sum(input, dim=reduce_dim) + reduce_sum(
+        label, dim=reduce_dim)
+    dice_score = 1 - inse * 2 / (dice_denominator + epsilon)
+    return reduce_mean(dice_score)
+
+
+def rank_loss(label, left, right, name=None):
+    """RankNet's pairwise loss of ``left`` over ``right`` given ``label``."""
+    helper = LayerHelper('rank_loss', **locals())
+    for v, n in ((label, 'label'), (left, 'left'), (right, 'right')):
+        if not isinstance(v, Variable):
+            raise ValueError('rank_loss: %s must be a Variable' % n)
+    out = helper.create_variable_for_type_inference('float32')
+    out.shape = tuple(left.shape)
+    helper.append_op(
+        type='rank_loss',
+        inputs={'Label': [label],
+                'Left': [left],
+                'Right': [right]},
+        outputs={'Out': [out]})
+    return out

@@ -1,4 +1,5 @@
-"""Tensor layers (counterpart of ``paddle_tpu/fluid/layers/tensor.py``)."""
+"""Tensor layers (counterpart of ``paddle_tpu/fluid/layers/tensor.py``; its
+``load`` layer waits for the ``load`` host op)."""
 
 import numpy as np
 
@@ -9,7 +10,28 @@ from ..layer_helper import LayerHelper
 
 __all__ = ['assign', 'fill_constant', 'fill_constant_batch_size_like',
            'create_global_var', 'sums', 'cast', 'concat', 'create_array',
-           'zeros', 'ones']
+           'zeros', 'ones', 'create_tensor', 'create_parameter', 'sum',
+           'argmin', 'argmax', 'argsort', 'reverse']
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper('create_tensor', **locals())
+    return helper.create_variable(
+        name=helper.name, dtype=dtype, persistable=persistable)
+
+
+def create_parameter(shape,
+                     dtype,
+                     name=None,
+                     attr=None,
+                     is_bias=False,
+                     default_initializer=None):
+    from ..param_attr import ParamAttr
+    helper = LayerHelper('create_parameter', **locals())
+    if attr is None:
+        attr = ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
 
 
 def create_global_var(shape,
@@ -58,6 +80,13 @@ def sums(input, out=None):
         inputs={'X': input},
         outputs={'Out': [out]})
     return out
+
+
+def sum(x):
+    """The elementwise sum of a list of tensors (a ``sum`` op)."""
+    if isinstance(x, Variable):
+        x = [x]
+    return sums(list(x))
 
 
 def assign(input, output=None):
@@ -149,3 +178,50 @@ def ones(shape, dtype, force_cpu=False):
 
 def zeros(shape, dtype, force_cpu=False):
     return fill_constant(value=0.0, shape=shape, dtype=dtype)
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper('argmin', **locals())
+    out = helper.create_variable_for_type_inference('int64')
+    helper.append_op(
+        type='argmin',
+        inputs={'X': [x]},
+        outputs={'Out': [out]},
+        attrs={'axis': axis})
+    return out
+
+
+def argmax(x, axis=0):
+    helper = LayerHelper('argmax', **locals())
+    out = helper.create_variable_for_type_inference('int64')
+    helper.append_op(
+        type='argmax',
+        inputs={'X': [x]},
+        outputs={'Out': [out]},
+        attrs={'axis': axis})
+    return out
+
+
+def argsort(input, axis=-1, name=None):
+    """(the values sorted along ``axis``, their indices)."""
+    helper = LayerHelper('argsort', **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ids = helper.create_variable_for_type_inference('int64')
+    helper.append_op(
+        type='argsort',
+        inputs={'X': [input]},
+        outputs={'Out': [out],
+                 'Indices': [ids]},
+        attrs={'axis': axis})
+    return out, ids
+
+
+def reverse(x, axis):
+    helper = LayerHelper('reverse', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type='reverse',
+        inputs={'X': [x]},
+        outputs={'Out': [out]},
+        attrs={'axis': axis if isinstance(axis, (list, tuple)) else [axis]})
+    return out

@@ -1,9 +1,12 @@
 """Composite networks (counterpart of ``paddle_tpu/fluid/nets.py``: the
-image blocks ``simple_img_conv_pool`` and ``img_conv_group``)."""
+image blocks ``simple_img_conv_pool`` and ``img_conv_group``,
+``sequence_conv_pool``, ``glu`` and multi-head
+``scaled_dot_product_attention`` in plain layers)."""
 
 from . import layers
 
-__all__ = ['simple_img_conv_pool', 'img_conv_group']
+__all__ = ['simple_img_conv_pool', 'sequence_conv_pool', 'glu',
+           'scaled_dot_product_attention', 'img_conv_group']
 
 
 def simple_img_conv_pool(input,
@@ -83,3 +86,81 @@ def img_conv_group(input,
         pool_stride=pool_stride,
         use_cudnn=use_cudnn)
     return pool_out
+
+
+def sequence_conv_pool(input,
+                       num_filters,
+                       filter_size,
+                       param_attr=None,
+                       act='sigmoid',
+                       pool_type='max'):
+    conv_out = layers.sequence_conv(
+        input=input,
+        num_filters=num_filters,
+        filter_size=filter_size,
+        param_attr=param_attr,
+        act=act)
+    pool_out = layers.sequence_pool(input=conv_out, pool_type=pool_type)
+    return pool_out
+
+
+def glu(input, dim=-1):
+    """The gated linear unit: a * sigmoid(b), ``input`` split in two
+    halves a and b along ``dim``."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    act_b = layers.sigmoid(x=b)
+    out = layers.elementwise_mul(x=a, y=act_b)
+    return out
+
+
+def scaled_dot_product_attention(queries,
+                                 keys,
+                                 values,
+                                 num_heads=1,
+                                 dropout_rate=0.0):
+    """Multi-head scaled dot-product attention over 3-D (batch, seq, dim)
+    inputs, in plain layers: the heads split by ``reshape`` and
+    ``transpose``, the scores a batched ``matmul``, a ``softmax`` over the
+    keys, the context a second ``matmul``, the heads joined again."""
+    if not (len(queries.shape) == len(keys.shape) == len(values.shape) == 3):
+        raise ValueError('inputs must be 3-D (batch, seq, dim)')
+    if queries.shape[-1] != keys.shape[-1]:
+        raise ValueError('queries and keys hidden dims must match')
+    if keys.shape[-2] != values.shape[-2]:
+        raise ValueError('keys and values seq lens must match')
+    if queries.shape[-1] % num_heads != 0:
+        raise ValueError('hidden size must divide num_heads')
+
+    def __split_heads(x, num_heads):
+        if num_heads == 1:
+            return x
+        hidden_size = x.shape[-1]
+        reshaped = layers.reshape(
+            x=x,
+            shape=list(x.shape[:-1]) + [num_heads, hidden_size // num_heads])
+        return layers.transpose(x=reshaped, perm=[0, 2, 1, 3])
+
+    def __combine_heads(x):
+        if len(x.shape) == 3:
+            return x
+        trans_x = layers.transpose(x, perm=[0, 2, 1, 3])
+        return layers.reshape(
+            x=trans_x,
+            shape=[trans_x.shape[0], trans_x.shape[1],
+                   trans_x.shape[2] * trans_x.shape[3]])
+
+    q = __split_heads(queries, num_heads)
+    k = __split_heads(keys, num_heads)
+    v = __split_heads(values, num_heads)
+
+    key_dim_per_head = keys.shape[-1] // num_heads
+    scaled_q = layers.scale(x=q, scale=key_dim_per_head**-0.5)
+    product = layers.matmul(x=scaled_q, y=k, transpose_y=True)
+
+    weights = layers.reshape(x=product, shape=[-1, product.shape[-1]])
+    weights = layers.softmax(weights)
+    weights = layers.reshape(x=weights, shape=list(product.shape))
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate)
+    ctx_multiheads = layers.matmul(weights, v)
+    return __combine_heads(ctx_multiheads)

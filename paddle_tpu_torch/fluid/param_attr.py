@@ -2,7 +2,7 @@
 
 from .initializer import Initializer, Xavier, Constant
 
-__all__ = ['ParamAttr']
+__all__ = ['ParamAttr', 'WeightNormParamAttr']
 
 
 class ParamAttr(object):
@@ -66,3 +66,13 @@ class ParamAttr(object):
         if with_initializer:
             kwargs['initializer'] = self.initializer
         return kwargs
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A ParamAttr that also names the dim of a weight-normalized
+    parameter; the attribute is carried, and no layer reads it, as in the
+    JAX package."""
+
+    def __init__(self, dim=None, **kwargs):
+        super(WeightNormParamAttr, self).__init__(**kwargs)
+        self.dim = dim

@@ -408,24 +408,36 @@ watchdog = Watchdog()
 # argument names to ``(shape, nbytes)`` and ``children`` the records of
 # the ops it ran inside (a ``recurrent`` op's step block, every step).
 
-# ops that only move, view or make data: no arithmetic
+# ops that only move, view, index, sort or make data: no arithmetic
 _NO_FLOPS = frozenset((
     'assign', 'assign_value', 'beam_expand', 'beam_init_scores',
     'beam_search', 'beam_search_decode', 'cast', 'concat', 'feed', 'fetch',
     'fill_constant', 'fill_constant_batch_size_like', 'gather',
     'gaussian_random', 'lookup_table', 'reshape', 'sequence_expand',
     'sequence_first_step', 'sequence_last_step', 'uniform_random',
-    'unsqueeze', 'chunk_eval'))
+    'unsqueeze', 'chunk_eval', 'reshape2', 'transpose', 'transpose2',
+    'squeeze', 'squeeze2', 'unsqueeze2', 'flatten', 'flatten2', 'split',
+    'shape', 'slice', 'stack', 'unstack', 'reverse', 'pad', 'pad2d',
+    'multiplex', 'crop', 'scatter', 'argsort', 'random_crop',
+    'truncated_gaussian_random', 'uniform_random_batch_size_like',
+    'gaussian_random_batch_size_like'))
 # reductions: one FLOP per input element
-_REDUCTIONS = frozenset(('mean', 'reduce_sum', 'sequence_pool', 'top_k',
-                         'accuracy'))
+_REDUCTIONS = frozenset((
+    'mean', 'reduce_sum', 'sequence_pool', 'top_k', 'accuracy',
+    'reduce_mean', 'reduce_max', 'reduce_min', 'reduce_prod', 'argmax',
+    'argmin', 'arg_max', 'arg_min', 'isfinite', 'squared_l2_norm', 'l1_norm',
+    'auc', 'precision_recall', 'positive_negative_pair'))
 # FLOPs per output element of the ops that make several elementwise passes
-# (the optimizers' updates, the normalizations, the softmax family)
+# (the optimizers' updates, the normalizations, the softmax family, the
+# losses)
 _PASSES = {
     'sgd': 2, 'momentum': 4, 'adam': 11, 'softmax': 4,
     'sequence_softmax': 4, 'layer_norm': 8, 'batch_norm': 8, 'dropout': 2,
     'softmax_with_cross_entropy': 5, 'cross_entropy': 2,
-    'sigmoid_cross_entropy_with_logits': 4, 'sum': 1,
+    'sigmoid_cross_entropy_with_logits': 4, 'sum': 1, 'label_smooth': 2,
+    'norm': 4, 'squared_l2_distance': 3, 'huber_loss': 6,
+    'smooth_l1_loss': 8, 'log_loss': 8, 'hinge_loss': 5, 'rank_loss': 5,
+    'margin_rank_loss': 6, 'modified_huber_loss': 8, 'kldiv_loss': 5,
 }
 # FLOPs per element of each gradient a generic grad produces, beside the
 # forward op's largest output
@@ -525,6 +537,9 @@ def op_flops(op, meta, children=()):
     if kind in _REDUCTIONS:
         return float(sum(_numel(shape_of(n)) for s in op.inputs
                          for n in op.input(s) if n in meta))
+    if kind == 'kldiv_loss':
+        # its passes run over X, whatever its reduction leaves of the loss
+        return float(_PASSES[kind] * _numel(shape_of(op.input('X')[0])))
     if kind == 'gru_unit':
         h = shape_of(op.input('HiddenPrev')[0])
         return 2.0 * h[0] * h[1] * 3 * h[1] + 10.0 * _numel(h)

@@ -9,6 +9,7 @@ from .registry import register_lowering, run_op, LoweringContext  # noqa: F401
 from . import math_ops  # noqa: F401
 from . import activation_ops  # noqa: F401
 from . import tensor_ops  # noqa: F401
+from . import misc_ops  # noqa: F401
 from . import loss_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import attention_ops  # noqa: F401

@@ -1,8 +1,11 @@
 """Loss op lowerings (counterpart of ``paddle_tpu/ops/loss_ops.py``:
 ``cross_entropy`` with hard or soft labels, ``softmax_with_cross_entropy``
-with hard labels, and ``sigmoid_cross_entropy_with_logits``, computed in
-f32).  ``softmax_with_cross_entropy`` over bf16 logits (AMP) takes the
-fused path, ``FusedCEBf16``."""
+with hard or soft labels, and ``sigmoid_cross_entropy_with_logits``,
+computed in f32; the regression and ranking losses ``huber_loss``,
+``smooth_l1_loss``, ``log_loss``, ``hinge_loss``, ``rank_loss``,
+``margin_rank_loss``, ``modified_huber_loss`` and ``kldiv_loss``, each
+writing its intermediate outputs too).  ``softmax_with_cross_entropy``
+over bf16 logits (AMP) takes the fused path, ``FusedCEBf16``."""
 
 import torch
 
@@ -109,3 +112,94 @@ def _sigmoid_cross_entropy_with_logits(ctx, op):
     loss = torch.clamp_min(x, 0) - x * label + torch.log1p(
         torch.exp(-torch.abs(x)))
     ctx.set(op, 'Out', loss)
+
+
+@register_lowering('huber_loss')
+def _huber_loss(ctx, op):
+    x = ctx.get(op, 'X')
+    r = ctx.get(op, 'Y') - x
+    delta = op.attrs['delta']
+    ar = torch.abs(r)
+    ctx.set(op, 'Residual', r)
+    ctx.set(op, 'Out', torch.where(ar <= delta, 0.5 * r * r,
+                                   delta * (ar - 0.5 * delta)))
+
+
+@register_lowering('smooth_l1_loss')
+def _smooth_l1_loss(ctx, op):
+    """Each row's sum of the smooth L1 of (X - Y) (times InsideWeight),
+    times OutsideWeight, as [N, 1]; ``Diff`` the weighted difference."""
+    sigma = op.attrs.get('sigma', 1.0)
+    in_w = ctx.get(op, 'InsideWeight')
+    out_w = ctx.get(op, 'OutsideWeight')
+    s2 = sigma * sigma
+    d = ctx.get(op, 'X') - ctx.get(op, 'Y')
+    if in_w is not None:
+        d = d * in_w
+    ad = torch.abs(d)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * d * d * s2, ad - 0.5 / s2)
+    ctx.set(op, 'Diff', d)
+    if out_w is not None:
+        loss = loss * out_w
+    ctx.set(op, 'Out', torch.sum(loss, dim=tuple(range(1, loss.dim())))[:,
+                                                                      None])
+
+
+@register_lowering('log_loss')
+def _log_loss(ctx, op):
+    p = amp_upcast_f32(ctx.get(op, 'Predicted'))
+    label = ctx.get(op, 'Labels')
+    eps = op.attrs.get('epsilon', 1e-4)
+    ctx.set(op, 'Loss', -label * torch.log(p + eps) -
+            (1 - label) * torch.log(1 - p + eps))
+
+
+@register_lowering('hinge_loss')
+def _hinge_loss(ctx, op):
+    labels = ctx.get(op, 'Labels')
+    ctx.set(op, 'Loss', torch.clamp_min(
+        1.0 - (2.0 * labels - 1.0) * ctx.get(op, 'Logits'), 0.0))
+
+
+@register_lowering('rank_loss')
+def _rank_loss(ctx, op):
+    """RankNet's pairwise loss log(1 + e^d) - Label d, d = Left - Right."""
+    d = amp_upcast_f32(ctx.get(op, 'Left')) - amp_upcast_f32(
+        ctx.get(op, 'Right'))
+    ctx.set(op, 'Out', torch.log1p(torch.exp(d)) - ctx.get(op, 'Label') * d)
+
+
+@register_lowering('margin_rank_loss')
+def _margin_rank_loss(ctx, op):
+    x1 = ctx.get(op, 'X1')
+    out = torch.clamp_min(-ctx.get(op, 'Label') * (x1 - ctx.get(op, 'X2')) +
+                          op.attrs.get('margin', 0.0), 0.0)
+    ctx.set(op, 'Activated', (out > 0).to(x1.dtype))
+    ctx.set(op, 'Out', out)
+
+
+@register_lowering('modified_huber_loss')
+def _modified_huber_loss(ctx, op):
+    z = (2.0 * ctx.get(op, 'Y') - 1.0) * ctx.get(op, 'X')
+    ctx.set(op, 'IntermediateVal', z)
+    ctx.set(op, 'Out', torch.where(
+        z < -1.0, -4.0 * z,
+        torch.where(z < 1.0, torch.square(1.0 - z), torch.zeros_like(z))))
+
+
+@register_lowering('kldiv_loss')
+def _kldiv_loss(ctx, op):
+    """Target (log Target - X), X log-probabilities, reduced by
+    ``reduction``: 'mean', 'sum', 'batchmean' (the sum over the rows) or
+    'none'."""
+    x = ctx.get(op, 'X')
+    target = ctx.get(op, 'Target')
+    loss = target * (torch.log(torch.clamp_min(target, _EPS)) - x)
+    reduction = op.attrs.get('reduction', 'mean')
+    if reduction == 'mean':
+        loss = torch.mean(loss)
+    elif reduction == 'sum':
+        loss = torch.sum(loss)
+    elif reduction == 'batchmean':
+        loss = torch.sum(loss) / x.shape[0]
+    ctx.set(op, 'Loss', loss)

@@ -1,17 +1,22 @@
 """Math op lowerings (counterpart of ``paddle_tpu/ops/math_ops.py``): ``mul``,
 ``matmul``, the ``elementwise_*`` broadcast family, ``sum`` and ``scale``
-(each also over sparse ``SparseRows`` gradients), ``mean``,
-``reduce_sum``, the unary ``pow`` (``x ** factor``, which the ``pow``
-activation layer builds), ``clip``, ``clip_by_norm``, ``sign`` (which
-``fluid/clip.py`` and the L1 regularizer build) and ``cos_sim``.
+(each also over sparse ``SparseRows`` gradients), ``mean``, the
+``reduce_*`` family (sum, mean, max, min, prod), the unary ``pow``
+(``x ** factor``, which the ``pow`` activation layer builds), ``clip``,
+``clip_by_norm``, ``sign`` (which ``fluid/clip.py`` and the L1 regularizer
+build), ``cos_sim``, ``cumsum`` and the norms ``squared_l2_norm``,
+``squared_l2_distance``, ``l1_norm`` and ``norm``.
 
 ``mul``'s and ``matmul``'s product is ``registry.amp_matmul``:
 ``torch.matmul``, in bf16 under AMP, as the JAX package leaves its
 product to XLA.  Under AMP the ``elementwise_*`` ops compute a bf16
 activation with an f32 operand in bf16 (``amp_harmonize``).
+``elementwise_mod`` and ``elementwise_floordiv`` follow Python's signs
+(``jnp.mod``, ``jnp.floor_divide``), not C's.
 """
 
 import math
+import warnings
 
 import torch
 
@@ -128,6 +133,9 @@ _register_elementwise('div', torch.div)
 _register_elementwise('max', torch.maximum)
 _register_elementwise('min', torch.minimum)
 _register_elementwise('pow', torch.pow)
+_register_elementwise('mod', torch.remainder)
+_register_elementwise(
+    'floordiv', lambda x, y: torch.div(x, y, rounding_mode='floor'))
 
 
 @register_lowering('sum')
@@ -163,13 +171,25 @@ def _scale(ctx, op):
 def _batch_mask_for(ctx, op, x):
     """The ragged-batch sample mask, iff X is batch-led (run_op's
     provenance): a weight-derived tensor whose dim 0 merely coincides with
-    the padded batch never masks."""
+    the padded batch never masks.  A value of batch ancestry whose dim 0 is
+    a multiple of the batch (a batch flattened into its rows before the
+    loss) cannot be masked, and is warned of: its padding rows count."""
     mask = ctx.env.get(SAMPLE_MASK_NAME)
-    if mask is None or x.dim() < 1 or x.shape[0] != mask.shape[0] or \
-            op.input('X')[0] not in ctx.batch_led:
+    if mask is None or x.dim() < 1:
         return None
-    return torch.reshape(mask.to(x.dtype),
-                         (mask.shape[0], ) + (1, ) * (x.dim() - 1))
+    name = op.input('X')[0]
+    if x.shape[0] == mask.shape[0] and name in ctx.batch_led:
+        return torch.reshape(mask.to(x.dtype),
+                             (mask.shape[0], ) + (1, ) * (x.dim() - 1))
+    if (name in ctx.batch_tainted and x.shape[0] != mask.shape[0]
+            and x.shape[0] % mask.shape[0] == 0):
+        warnings.warn(
+            'ragged-batch mask cannot reach %r over %r: its leading dim %d '
+            'looks like a flattened batch (the mask covers %d rows), so the '
+            'padding rows count in this reduction; keep the batch on dim 0 '
+            'through the loss, or drop the ragged tail'
+            % (op.type, name, x.shape[0], mask.shape[0]))
+    return None
 
 
 @register_lowering('mean')
@@ -187,24 +207,63 @@ def _mean(ctx, op):
     ctx.set(op, 'Out', torch.reshape(torch.mean(x), (1, )))
 
 
-@register_lowering('reduce_sum')
-def _reduce_sum(ctx, op):
-    """Sum over ``dim`` (every dim with ``reduce_all``); a full reduction
-    without ``keep_dim`` gives the rank-1 [1] that fluid keeps."""
-    x = ctx.get(op, 'X')
-    keep = op.attrs.get('keep_dim', False)
-    m = _batch_mask_for(ctx, op, x)
-    dim = op.attrs.get('dim', [0])
-    dim = [dim] if isinstance(dim, int) else dim
-    if m is not None and (op.attrs.get('reduce_all', False) or
-                          0 in [d % x.dim() for d in dim]):
-        x = x * m  # a padded lot's padding rows add nothing
-    if op.attrs.get('reduce_all', False):
-        out = torch.sum(x, dim=tuple(range(x.dim())), keepdim=keep)
-        ctx.set(op, 'Out', out if keep else torch.reshape(out, (1, )))
-        return
-    ctx.set(op, 'Out', torch.sum(x, dim=tuple(d % x.dim() for d in dim),
-                                 keepdim=keep))
+def _prod_over(x, dim, keepdim):
+    """``torch.prod`` over several dims (it takes one): the reduced dims
+    moved last and flattened into one."""
+    kept = [d for d in range(x.dim()) if d not in dim]
+    flat = torch.reshape(x.permute(*kept, *dim),
+                         tuple(x.shape[d] for d in kept) + (-1, ))
+    out = torch.prod(flat, dim=-1)
+    if keepdim:
+        out = torch.reshape(out, tuple(1 if d in dim else x.shape[d]
+                                       for d in range(x.dim())))
+    return out
+
+
+_REDUCERS = {
+    'sum': torch.sum, 'mean': torch.mean,
+    # amax and amin split a tied extreme's gradient evenly, as jax.vjp of
+    # jnp.max does (torch.max(dim=) gives it all to one)
+    'max': torch.amax, 'min': torch.amin, 'prod': _prod_over,
+}
+
+
+def _register_reduce(name):
+    @register_lowering('reduce_' + name)
+    def _lower(ctx, op, fn=_REDUCERS[name]):
+        """Over ``dim`` (every dim with ``reduce_all``); a full reduction
+        without ``keep_dim`` gives the rank-1 [1] that fluid keeps.  Over
+        the batch dim of a padded lot, ``reduce_sum`` and ``reduce_mean``
+        leave the padding rows out (the mean divides by the real rows times
+        the other reduced dims); max, min and prod are not masked."""
+        x = ctx.get(op, 'X')
+        keep = op.attrs.get('keep_dim', False)
+        if op.attrs.get('reduce_all', False):
+            dims = tuple(range(x.dim()))
+        else:
+            dim = op.attrs.get('dim', [0])
+            dims = tuple(d % x.dim()
+                         for d in ([dim] if isinstance(dim, int) else dim))
+        m = None
+        if name in ('sum', 'mean') and 0 in dims:
+            m = _batch_mask_for(ctx, op, x)
+        if not dims:
+            out = x  # no dim to reduce over, as jnp's axis=()
+        elif m is not None:
+            out = torch.sum(x * m, dim=dims, keepdim=keep)
+            if name == 'mean':
+                other = math.prod(x.shape[d] for d in dims if d != 0)
+                out = out / (torch.clamp_min(torch.sum(m), 1) * other)
+        else:
+            out = fn(x, dim=dims, keepdim=keep)
+        if op.attrs.get('reduce_all', False) and not keep:
+            out = torch.reshape(out, (1, ))
+        ctx.set(op, 'Out', out)
+
+
+for _name in _REDUCERS:
+    _register_reduce(_name)
+del _name
 
 
 @register_lowering('pow')
@@ -248,3 +307,51 @@ def _cos_sim(ctx, op):
     ctx.set(op, 'Out', dot / torch.clamp_min(xn * yn, 1e-12))
     ctx.set(op, 'XNorm', xn)
     ctx.set(op, 'YNorm', yn)
+
+
+@register_lowering('squared_l2_norm')
+def _squared_l2_norm(ctx, op):
+    ctx.set(op, 'Out', torch.reshape(
+        torch.sum(torch.square(ctx.get(op, 'X'))), (1, )))
+
+
+@register_lowering('squared_l2_distance')
+def _squared_l2_distance(ctx, op):
+    """Each row's squared distance; Y broadcasts when it has one row."""
+    sub = ctx.get(op, 'X') - ctx.get(op, 'Y')
+    ctx.set(op, 'sub_result', sub)
+    ctx.set(op, 'Out', torch.sum(torch.square(sub), dim=-1, keepdim=True))
+
+
+@register_lowering('cumsum')
+def _cumsum(ctx, op):
+    """The running sum along ``axis`` in X's dtype, ``exclusive`` without
+    each element itself, ``reverse`` from the end."""
+    x = ctx.get(op, 'X')
+    axis = op.attrs.get('axis', -1)
+    reverse = op.attrs.get('reverse', False)
+    if reverse:
+        x = torch.flip(x, (axis, ))
+    out = torch.cumsum(x, dim=axis, dtype=x.dtype)
+    if op.attrs.get('exclusive', False):
+        out = out - x
+    if reverse:
+        out = torch.flip(out, (axis, ))
+    ctx.set(op, 'Out', out)
+
+
+@register_lowering('l1_norm')
+def _l1_norm(ctx, op):
+    """The sum of |X|, a 0-d tensor as the JAX package's."""
+    ctx.set(op, 'Out', torch.sum(torch.abs(ctx.get(op, 'X'))))
+
+
+@register_lowering('norm')
+def _norm(ctx, op):
+    """X over its 2-norm along ``axis`` (``epsilon`` under the root)."""
+    x = ctx.get(op, 'X')
+    norm = torch.sqrt(torch.sum(torch.square(x),
+                                dim=op.attrs.get('axis', -1), keepdim=True)
+                      + op.attrs.get('epsilon', 1e-10))
+    ctx.set(op, 'Norm', norm)
+    ctx.set(op, 'Out', x / norm)

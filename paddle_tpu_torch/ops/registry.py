@@ -205,6 +205,10 @@ class LoweringContext(object):
         # by the executor when a @SAMPLE_MASK rides along, propagated by
         # run_op; the mean lowerings mask only these.
         self.batch_led = set()
+        # ...and names of batch ancestry whatever their dim 0 now (a
+        # reshape [B, T, ..] -> [B*T, ..] leaves batch_led but not this
+        # set), so that a masked lowering can warn of a flattened batch
+        self.batch_tainted = set()
 
     @property
     def device(self):
@@ -251,6 +255,10 @@ class LoweringContext(object):
                               cond_uninit=self.cond_uninit,
                               conditional_scope=self.conditional_scope)
         sub.concrete = dict(self.concrete)
+        # a grad's replayed forward reads the forward's names: their
+        # ragged-batch provenance holds there too
+        sub.batch_led = set(self.batch_led)
+        sub.batch_tainted = set(self.batch_tainted)
         return sub
 
 
@@ -347,8 +355,10 @@ def run_op(ctx, op):
     mask = ctx.env.get(SAMPLE_MASK_NAME)
     if mask is not None and not op.type.endswith('_grad'):
         # an output is batch-led iff an input was and it still carries the
-        # batch on dim 0
+        # batch on dim 0; it is of batch ancestry iff an input was
         led = any(n in ctx.batch_led for n in op.input_arg_names)
+        tainted = led or any(n in ctx.batch_tainted
+                             for n in op.input_arg_names)
         for n in op.output_arg_names:
             v = ctx.env.get(n)
             if led and getattr(v, 'ndim', 0) >= 1 and \
@@ -356,6 +366,10 @@ def run_op(ctx, op):
                 ctx.batch_led.add(n)
             else:
                 ctx.batch_led.discard(n)
+            if tainted:
+                ctx.batch_tainted.add(n)
+            else:
+                ctx.batch_tainted.discard(n)
     if op.type in _SEQ_CONSUMERS or op.type.endswith('_grad'):
         return
     meta = None
@@ -434,6 +448,10 @@ def _make_generic_grad(fwd_type):
         seq_entries = {n + SEQLEN_SUFFIX: ctx.lookup(n + SEQLEN_SUFFIX)
                        for names in fwd_inputs.values() for n in names
                        if ctx.has(n + SEQLEN_SUFFIX)}
+        # and the ragged-batch mask, so that a masked mean's gradient
+        # leaves the padding rows out as its forward did
+        if ctx.has(SAMPLE_MASK_NAME):
+            seq_entries[SAMPLE_MASK_NAME] = ctx.lookup(SAMPLE_MASK_NAME)
 
         def primal(*diff_vals):
             env2 = dict(seq_entries)

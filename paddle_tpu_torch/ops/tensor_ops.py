@@ -5,19 +5,30 @@ Random ops draw from the context's ``torch.Generator`` (the executor seeds
 it from ``program.random_seed``), or from a generator of their own when the
 op carries a nonzero ``seed`` attr.  Torch and JAX streams differ, so the
 same seed gives other numbers than the JAX package.
+
+The shape ops (``transpose``, ``split``, ``slice``, ``unstack``, ...) give
+views where torch can; every lowering is functional, so a view is only
+ever read, and ``torch.reshape`` copies a view it cannot view again.  The
+``*2`` forms also write ``XShape``, an empty [0, *X.shape] tensor, as the
+JAX package does.
 """
 
+import math
 import weakref
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .registry import (register_lowering, register_grad_lowering,
                        fwd_structure, GRAD_SUFFIX, declare_uncapturable)
 from ..fluid import core
 
 # lowerings a CUDA graph capture cannot hold: the block runs eagerly
-for _op_type in ('uniform_random', 'gaussian_random'):
+for _op_type in ('uniform_random', 'gaussian_random',
+                 'truncated_gaussian_random',
+                 'uniform_random_batch_size_like',
+                 'gaussian_random_batch_size_like', 'random_crop'):
     declare_uncapturable(
         _op_type, 'draws from a generator of its own (a nonzero seed attr), '
         'which a replay would not draw afresh',
@@ -41,6 +52,15 @@ def _generator(ctx, op):
     return g
 
 
+def _batch_shape(op, ref):
+    """The ``*_batch_size_like`` ops' shape: the attr with its dim
+    ``output_dim_idx`` taken from Input's dim ``input_dim_idx``."""
+    shape = list(op.attrs.get('shape'))
+    shape[op.attrs.get('output_dim_idx', 0)] = \
+        ref.shape[op.attrs.get('input_dim_idx', 0)]
+    return tuple(shape)
+
+
 @register_lowering('fill_constant')
 def _fill_constant(ctx, op):
     shape = tuple(op.attrs.get('shape', [1]))
@@ -61,11 +81,8 @@ def _fill_zeros_like(ctx, op):
 def _fill_constant_batch_size_like(ctx, op):
     """A constant whose dim ``output_dim_idx`` is Input's dim
     ``input_dim_idx``."""
-    ref = ctx.get(op, 'Input')
-    shape = list(op.attrs.get('shape'))
-    shape[op.attrs.get('output_dim_idx', 0)] = \
-        ref.shape[op.attrs.get('input_dim_idx', 0)]
-    ctx.set(op, 'Out', torch.full(tuple(shape), op.attrs.get('value', 0.0),
+    ctx.set(op, 'Out', torch.full(_batch_shape(op, ctx.get(op, 'Input')),
+                                  op.attrs.get('value', 0.0),
                                   dtype=_torch_dtype(op.attrs.get('dtype')),
                                   device=ctx.device))
 
@@ -258,3 +275,269 @@ def _is_empty(ctx, op):
     host shape)."""
     ctx.set(op, 'Out', torch.full((1, ), ctx.get(op, 'X').numel() == 0,
                                   dtype=torch.bool, device=ctx.device))
+
+
+def _set_list(ctx, op, slot, values):
+    for name, value in zip(op.output(slot), values):
+        ctx.env[name] = value
+
+
+def write_xshape(ctx, op, x):
+    """The ``*2`` ops' XShape output: X's shape behind a 0 dim."""
+    ctx.set(op, 'XShape', torch.zeros((0, ) + tuple(x.shape), dtype=x.dtype,
+                                      device=x.device))
+
+
+# the standard normal's CDF at -2 and 2: truncated_gaussian_random draws
+# uniformly between them and maps back through the inverse CDF
+_PHI_LO, _PHI_HI = 0.5 * (1 + math.erf(-2 / math.sqrt(2))), \
+    0.5 * (1 + math.erf(2 / math.sqrt(2)))
+
+
+@register_lowering('truncated_gaussian_random')
+def _truncated_gaussian_random(ctx, op):
+    """mean + std * a standard normal truncated to [-2, 2], as
+    ``jax.random.truncated_normal(key, -2, 2)``: a uniform draw between
+    the normal's CDF at the bounds, through the inverse CDF."""
+    u = torch.empty(tuple(op.attrs.get('shape')), dtype=torch.float32,
+                    device=ctx.device)
+    u.uniform_(_PHI_LO, _PHI_HI, generator=_generator(ctx, op))
+    z = torch.clamp(math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0), -2.0, 2.0)
+    out = op.attrs.get('mean', 0.0) + op.attrs.get('std', 1.0) * z
+    ctx.set(op, 'Out', out.to(_torch_dtype(op.attrs.get('dtype'))))
+
+
+@register_lowering('uniform_random_batch_size_like')
+def _uniform_random_batch_size_like(ctx, op):
+    out = torch.empty(_batch_shape(op, ctx.get(op, 'Input')),
+                      dtype=torch.float32, device=ctx.device)
+    out.uniform_(op.attrs.get('min', -1.0), op.attrs.get('max', 1.0),
+                 generator=_generator(ctx, op))
+    ctx.set(op, 'Out', out.to(_torch_dtype(op.attrs.get('dtype'))))
+
+
+@register_lowering('gaussian_random_batch_size_like')
+def _gaussian_random_batch_size_like(ctx, op):
+    out = torch.empty(_batch_shape(op, ctx.get(op, 'Input')),
+                      dtype=torch.float32, device=ctx.device)
+    out.normal_(op.attrs.get('mean', 0.0), op.attrs.get('std', 1.0),
+                generator=_generator(ctx, op))
+    ctx.set(op, 'Out', out.to(_torch_dtype(op.attrs.get('dtype'))))
+
+
+@register_lowering('random_crop')
+def _random_crop(ctx, op):
+    """A window of ``shape`` over X's trailing dims at a start drawn
+    uniformly in each (the leading dims whole).  The starts stay on the
+    device: each dim is gathered at start + arange(size), so a capture
+    holds the op and every replay draws new starts."""
+    out = ctx.get(op, 'X')
+    shape = op.attrs['shape']
+    nlead = out.dim() - len(shape)
+    g = _generator(ctx, op)
+    for i, size in enumerate(shape):
+        dim = nlead + i
+        limit = max(out.shape[dim] - size, 0)
+        start = torch.randint(0, limit + 1, (1, ), generator=g,
+                              device=out.device)
+        out = torch.index_select(
+            out, dim, start + torch.arange(size, device=out.device))
+    ctx.set(op, 'Out', out)
+
+
+def _infer_shape(x, shape):
+    """``shape`` with each 0 replaced by X's dim at that place."""
+    return tuple(x.shape[i] if s == 0 else s for i, s in enumerate(shape))
+
+
+@register_lowering('reshape2')
+def _reshape2(ctx, op):
+    x = ctx.get(op, 'X')
+    ctx.set(op, 'Out', torch.reshape(x, _infer_shape(x, op.attrs['shape'])))
+    write_xshape(ctx, op, x)
+
+
+@register_lowering('transpose')
+def _transpose(ctx, op):
+    ctx.set(op, 'Out', ctx.get(op, 'X').permute(*op.attrs['axis']))
+
+
+@register_lowering('transpose2')
+def _transpose2(ctx, op):
+    x = ctx.get(op, 'X')
+    ctx.set(op, 'Out', x.permute(*op.attrs['axis']))
+    write_xshape(ctx, op, x)
+
+
+@register_lowering('squeeze')
+def _squeeze(ctx, op):
+    """The ``axes`` of size 1 dropped (the others kept), or every dim of
+    size 1 when ``axes`` is empty."""
+    x = ctx.get(op, 'X')
+    axes = op.attrs.get('axes', [])
+    if axes:
+        out = torch.squeeze(x, tuple(a for a in axes if x.shape[a] == 1))
+    else:
+        out = torch.squeeze(x)
+    ctx.set(op, 'Out', out)
+
+
+@register_lowering('split')
+def _split(ctx, op):
+    """``num`` equal parts, or parts cut where the ``sections`` sum up (the
+    last part runs to the end), as ``jnp.split``."""
+    x = ctx.get(op, 'X')
+    axis = op.attrs.get('axis', 0)
+    num = op.attrs.get('num', 0)
+    if num:
+        if x.shape[axis] % num:
+            raise ValueError('split: dim %d of size %d does not divide into '
+                             '%d equal parts' % (axis, x.shape[axis], num))
+        outs = torch.tensor_split(x, num, dim=axis)
+    else:
+        cuts = np.cumsum(op.attrs.get('sections', []))[:-1]
+        outs = torch.tensor_split(x, [int(c) for c in cuts], dim=axis)
+    _set_list(ctx, op, 'Out', outs)
+
+
+@register_lowering('shape')
+def _shape(ctx, op):
+    """Input's static shape as an int32 tensor, made by fills on the device
+    (an item assignment would copy from the host, which a capture
+    refuses), so a capture holds it."""
+    x = ctx.get(op, 'Input')
+    out = torch.empty((x.dim(), ), dtype=torch.int32, device=x.device)
+    for i, size in enumerate(x.shape):
+        out[i].fill_(size)
+    ctx.set(op, 'Out', out)
+
+
+@register_lowering('slice')
+def _slice(ctx, op):
+    """Python slicing along ``axes``: a negative start or end counts from
+    the end, and an end past the dim stops at it."""
+    x = ctx.get(op, 'Input')
+    idx = [slice(None)] * x.dim()
+    for ax, st, en in zip(op.attrs['axes'], op.attrs['starts'],
+                          op.attrs['ends']):
+        idx[ax] = slice(st, en)
+    ctx.set(op, 'Out', x[tuple(idx)])
+
+
+@register_lowering('stack')
+def _stack(ctx, op):
+    ctx.set(op, 'Y', torch.stack([ctx.env[n] for n in op.input('X')],
+                                 dim=op.attrs.get('axis', 0)))
+
+
+@register_lowering('unstack')
+def _unstack(ctx, op):
+    _set_list(ctx, op, 'Y', torch.unbind(ctx.get(op, 'X'),
+                                         dim=op.attrs.get('axis', 0)))
+
+
+@register_lowering('scatter')
+def _scatter(ctx, op):
+    """X with the rows at Ids (flattened) set to Updates' rows.  The order
+    among repeated ids is unspecified, as in the JAX package."""
+    ids = torch.reshape(ctx.get(op, 'Ids'), (-1, )).long()
+    ctx.set(op, 'Out', ctx.get(op, 'X').index_put((ids, ),
+                                                  ctx.get(op, 'Updates')))
+
+
+@register_lowering('reverse')
+def _reverse(ctx, op):
+    axes = op.attrs['axis']
+    axes = [axes] if isinstance(axes, int) else list(axes)
+    ctx.set(op, 'Out', torch.flip(ctx.get(op, 'X'), axes))
+
+
+@register_lowering('pad')
+def _pad(ctx, op):
+    """``paddings`` [before_0, after_0, before_1, ...] of ``pad_value``."""
+    x = ctx.get(op, 'X')
+    p = op.attrs['paddings']
+    flat = []
+    for i in reversed(range(x.dim())):  # F.pad takes the last dim first
+        flat += [p[2 * i], p[2 * i + 1]]
+    ctx.set(op, 'Out', F.pad(x, flat, value=op.attrs.get('pad_value', 0.0)))
+
+
+@register_lowering('pad2d')
+def _pad2d(ctx, op):
+    """NCHW padded by [top, bottom, left, right]: a constant, or the
+    ``reflect`` or ``edge`` mode of ``jnp.pad``."""
+    x = ctx.get(op, 'X')
+    p = op.attrs['paddings']
+    mode = op.attrs.get('mode', 'constant')
+    flat = [p[2], p[3], p[0], p[1]]
+    if mode == 'constant':
+        out = F.pad(x, flat, value=op.attrs.get('pad_value', 0.0))
+    else:
+        out = F.pad(x, flat, mode={'reflect': 'reflect',
+                                   'edge': 'replicate'}[mode])
+    ctx.set(op, 'Out', out)
+
+
+@register_lowering('multiplex')
+def _multiplex(ctx, op):
+    """Row i of the X chosen by Ids[i]."""
+    ids = torch.reshape(ctx.get(op, 'Ids'), (-1, )).long()
+    xs = torch.stack([ctx.env[n] for n in op.input('X')], dim=0)  # K, N, ..
+    rows = torch.arange(xs.shape[1], device=xs.device)
+    ctx.set(op, 'Out', xs[ids, rows])
+
+
+@register_lowering('label_smooth')
+def _label_smooth(ctx, op):
+    """(1 - epsilon) X + epsilon times PriorDist, or over the classes
+    evenly."""
+    x = ctx.get(op, 'X')
+    eps = op.attrs.get('epsilon', 0.0)
+    dist = ctx.get(op, 'PriorDist')
+    if dist is not None:
+        out = (1 - eps) * x + eps * torch.reshape(dist, (1, -1))
+    else:
+        out = (1 - eps) * x + eps / x.shape[-1]
+    ctx.set(op, 'Out', out)
+
+
+@register_lowering('argmax')
+def _argmax(ctx, op):
+    """The first index of the largest value along ``axis``."""
+    ctx.set(op, 'Out', torch.argmax(ctx.get(op, 'X'),
+                                    dim=op.attrs.get('axis', 0)))
+
+
+@register_lowering('argmin')
+def _argmin(ctx, op):
+    ctx.set(op, 'Out', torch.argmin(ctx.get(op, 'X'),
+                                    dim=op.attrs.get('axis', 0)))
+
+
+@register_lowering('argsort')
+def _argsort(ctx, op):
+    """The sorted values and their indices along ``axis``; equal values
+    keep their order (stable, as ``jnp.argsort``)."""
+    out, idx = torch.sort(ctx.get(op, 'X'), dim=op.attrs.get('axis', -1),
+                          stable=True)
+    ctx.set(op, 'Indices', idx)
+    ctx.set(op, 'Out', out)
+
+
+@register_lowering('crop')
+def _crop(ctx, op):
+    """X from ``offsets`` over ``shape`` (or Y's shape)."""
+    x = ctx.get(op, 'X')
+    y = ctx.get(op, 'Y')
+    shape = y.shape if y is not None else op.attrs.get('shape')
+    idx = tuple(slice(o, o + s) for o, s in zip(op.attrs.get('offsets'),
+                                                shape))
+    ctx.set(op, 'Out', x[idx])
+
+
+@register_lowering('isfinite')
+def _isfinite(ctx, op):
+    """[1] bool: every element of X is finite."""
+    ctx.set(op, 'Out', torch.reshape(
+        torch.all(torch.isfinite(ctx.get(op, 'X'))), (1, )))
