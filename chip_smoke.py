@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]   # from the repository root
     python3 chip_smoke.py --only-book | --only-flow | --only-serve |
-        --only-generate | --only-pipeline | --only-ops
+        --only-generate | --only-pipeline | --only-ops | --only-parallel
 
 Weights, token ids, lengths and labels are drawn from ``--seed``.
 
@@ -445,6 +445,43 @@ K. the common tensor, shape, reduce, loss and metric ops (their 52
    part; K1's flash check launches the kernel outside them).
    ``--only-ops`` runs the device phase and path K alone and prints no
    result line.
+L. data parallelism on ``torch.distributed`` (``fluid.ParallelExecutor``),
+   run right after path K:
+   L1. Transformer-base at G1's widths, dropout 0, Adam at ``LR``:
+       ``PAR_STEPS`` steps of the global batch BATCH x 256 trained by
+       ``PAR_RANKS`` ranks that share the card under gloo, each a
+       subprocess of this script (``--parallel-rank``) under
+       ``PAR_TIMEOUT``; rank 1 starts from other weights and takes rank
+       0's by ``bcast_params``; both ranks' replicas end bitwise equal
+       (SHA-256 of every persistable); each rank launches 36 flash
+       forwards, 18 dQ and 18 dK/dV a step; each step held against one
+       ``Executor`` step from the state the ranks started it from: on the
+       same global batch, the loss, the gradients and the parameters at
+       G1's card-step bounds (``SLICE_RTOL``, ``GRAD_*``, each element
+       within ``LR``); on each rank's half, the gradients' mean to
+       ``PAR_HALVES_TOL``, and the program's update ops on that mean to
+       every parameter within ``PAR_UPDATE_TOL``; each rank's step wall,
+       the collectives' share of it (the device synchronized on either
+       side of each), ``bcast_params``' seconds and its peak memory.
+   L2. the same model through a ``ParallelExecutor`` of world size 1 on
+       NCCL in this process: ``run_multi`` of ``PAR_K`` steps (the eager
+       step and the capture launch the kernels through their wrappers),
+       then a block of ``PAR_K`` replays under torch.profiler: one
+       capture, the replays run no collective eagerly, the NCCL kernels
+       and every flash kernel of the steps are on the card; the losses
+       and parameters bitwise ``Executor.run_multi``'s over the same
+       batches from the same state; both
+       captured steps timed (``PAR_TIMED`` blocks each).
+   L3. ResNet-50 (bench.py:347), Momentum at ``CV_LR``: ``PAR_RANKS``
+       gloo ranks of ``PAR_CV_BATCH`` images take one step against one
+       ``Executor`` step on the whole batch: the loss, the fc head's
+       gradients and every batch-norm running mean and variance
+       (``CV_TRAIN_TOL['resnet50']``; the synced batch statistics).
+   Each part prints ``path L: {...}`` lines; the kernels line's
+   ``parallel`` entries count the wrappers over L1's ranks and L2, and
+   the kernels on the card in L2's profiled replays.  ``--only-parallel``
+   runs the device phase, the kernels' build and path L alone and prints
+   no result line.
 
 It imports nothing of JAX or of the JAX package ``paddle_tpu``.
 """
@@ -2810,7 +2847,9 @@ def _max_diff(got, want, names=None):
         if g.shape != w.shape:
             worst, at = float('inf'), i
             break
-        if g.size:
+        # equal arrays differ by 0 (the f64 pass below costs seconds on a
+        # model's state)
+        if g.size and not np.array_equal(g, w):
             w64 = w.astype(np.float64)
             d = float(np.abs(g.astype(np.float64) - w64).max()) / max(
                 1.0, float(np.abs(w64).max()))
@@ -8360,6 +8399,563 @@ def phase_ops(card):
     return launches
 
 
+# ---- path L: data parallelism on torch.distributed ----
+# L1: Transformer-base at G1's widths (bench.py:506-511), Adam at LR,
+# dropout 0, PAR_STEPS steps of the global batch BATCH x 256 trained by
+# PAR_RANKS ranks that share the card under gloo, each a subprocess of this
+# script; rank 0 holds the steps against one Executor on the same global
+# batches.  L2: the same model through a ParallelExecutor of world size 1
+# on NCCL in this process, run_multi of PAR_K steps captured with its
+# collectives.  L3: ResNet-50 (bench.py:347), Momentum, PAR_CV_BATCH images
+# a rank against one Executor step at PAR_RANKS * PAR_CV_BATCH.
+PAR_RANKS = 2
+PAR_STEPS = 3
+PAR_K = 4
+PAR_CV_BATCH = 16
+PAR_TIMEOUT = 900       # a rank's limit (s); a rank that ends later fails
+PAR_TIMED = 3           # L2's timed run_multi blocks of each executor
+# L1's gradient against the mean of one process's gradients on each rank's
+# half of the batch: the same products and sums (the mean's 1/N_global is
+# 1/(2 N_half), an exact halving), the halves added last by the
+# all-reduce.  Measured bitwise, all 184 gradients at each step (NVIDIA
+# H100 80GB HBM3, 700 W); the embeddings' scatter-adds may add in another
+# order, hence not 0.  Against the whole batch the sums run in another
+# order: the loss, the gradients and each parameter's largest change are
+# held to G1's card-step bounds; the share of parameter
+# elements beyond PARAM_ATOL is printed, not held: at 16 x 256 from a fresh
+# start it was 2.6e-4-3.6e-3 (G1's PARAM_FRAC was set at 2 x 256).  The
+# parameters each step left are held to PAR_UPDATE_TOL (a hundredth of
+# the step Adam takes, about LR an element) against the program's update
+# ops alone (``_update_program``) run by one Executor on the halves' mean
+# gradient from the state the ranks started the step from: an update
+# applied twice, or to a gradient before its all-reduce, moves them by
+# about LR.  L2's losses and parameters are held bitwise to
+# Executor.run_multi (the same captured ops; a one-rank all-reduce is a
+# copy), as measured on the card.
+PAR_HALVES_TOL = 1e-6
+PAR_UPDATE_TOL = 1e-2 * LR
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def _state_digest(program, scope):
+    """A SHA-256 over the bytes of every persistable the scope holds, in
+    name order: two ranks' replicas are equal iff their digests are."""
+    import hashlib
+    h = hashlib.sha256()
+    for v in sorted(program.list_vars(), key=lambda v: v.name):
+        var = scope.find_var(v.name) if v.persistable else None
+        if var is not None and isinstance(var.value(), torch.Tensor):
+            h.update(v.name.encode())
+            h.update(var.value().detach().cpu().contiguous().view(
+                torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _update_program(main, grads):
+    """A clone of ``main`` holding only the ops after the last one that
+    writes a gradient of ``grads``: the clip, the regularizers and the
+    optimizer, run on gradients fed in."""
+    ops = main.global_block().ops
+    last = max(i for i, op in enumerate(ops)
+               if set(grads).intersection(op.output_arg_names))
+    update = main.clone()
+    for i in reversed(range(last + 1)):
+        update.global_block()._remove_op(i)
+    return update
+
+
+def _par_params_against(main, got, want, max_dp, frac=PARAM_FRAC):
+    """The trainable parameters ``got[name]`` against ``want[name]``: (the
+    largest |dp|, elements beyond PARAM_ATOL, elements); fails beyond
+    ``max_dp`` or beyond ``frac`` of the elements (None: not held)."""
+    worst, n_far, n_all = 0.0, 0, 0
+    for p in main.all_parameters():
+        if not p.trainable:
+            continue
+        d = (got[p.name].to(want[p.name].device) - want[p.name]).abs()
+        worst = max(worst, float(d.max()))
+        n_far += int((d > PARAM_ATOL).sum())
+        n_all += d.numel()
+    check(worst <= max_dp and (frac is None or n_far <= frac * n_all),
+          'path L: parameters differ from the one-process run by up to %g '
+          '(limit %g), %d of %d elements by more than %g (limit %s of them)'
+          % (worst, max_dp, n_far, n_all, PARAM_ATOL, frac))
+    return worst, n_far, n_all
+
+
+def _scope_params(main, scope):
+    return {p.name: scope.find_var(p.name).value()
+            for p in main.all_parameters()}
+
+
+def _host_state(program, scope):
+    """Host copies of the program's persistable vars the scope holds."""
+    return {n: v.cpu() for n, v in _persistables(program, scope).items()}
+
+
+def _par_transformer_model(fluid):
+    from paddle_tpu_torch.models import transformer
+    cfg = TRANSFORMER_BASE
+    with fluid.unique_name.guard():
+        return transformer.build(dropout=0.0, lr=LR, **cfg)
+
+
+def _par_token_feeds(seed, n):
+    cfg = TRANSFORMER_BASE
+    rng = np.random.RandomState(seed)
+    return [{k: rng.randint(1, cfg['trg_vocab'], size=(
+        BATCH, cfg['max_len'])).astype('int64')
+        for k in ('src_ids', 'trg_ids', 'lbl_ids')} for _ in range(n)]
+
+
+def _par_grads_against(names, got, want):
+    """Gradients ``got`` against ``want`` (host arrays, in ``names``'
+    order) at TRAIN_TOL's gradient bounds, G1's: each max|dg| within
+    GRAD_RTOL of its own max|g| plus GRAD_ATOL of the largest, and |dg| /
+    |g| over all within GRAD_NORM_TOL.  Returns (the worst max|dg| over its
+    allowance, |dg| / |g| over all)."""
+    top = max(float(np.abs(w).max()) for w in want)
+    worst, diff_sq, norm_sq = 0.0, 0.0, 0.0
+    for name, g, w in zip(names, got, want):
+        err = float(np.abs(g - w).max())
+        allowed = GRAD_RTOL * float(np.abs(w).max()) + GRAD_ATOL * top
+        worst = max(worst, err / allowed)
+        diff_sq += float(np.square(g - w, dtype=np.float64).sum())
+        norm_sq += float(np.square(w, dtype=np.float64).sum())
+    return worst, math.sqrt(diff_sq / norm_sq)
+
+
+def _par_far_params(main, got, want, top=3):
+    """The parameters with the most elements beyond PARAM_ATOL of
+    ``want``: [(name, count)], the largest counts first."""
+    far = [(p.name, int(((got[p.name].to(want[p.name].device) -
+                         want[p.name]).abs() > PARAM_ATOL).sum()))
+           for p in main.all_parameters() if p.trainable]
+    return sorted(far, key=lambda x: -x[1])[:top]
+
+
+def par_rank_transformer(card, rank):
+    """L1 on one rank: every rank fed the same global batches, rank 1
+    started from other weights (``bcast_params`` gives it rank 0's).
+    Returns its record; rank 0's holds the one-process comparisons: after
+    the steps, each step again by one Executor from the state the ranks
+    started it from (host copies), on the whole batch (its loss, every
+    parameter's gradient and the parameters it left) and on each rank's
+    half alone: the ranks' gradient is the mean of the halves' (the same
+    products and sums, the halves added last), the whole batch's another
+    order of the sums.  (Run free for several steps, two summation orders
+    drift apart wherever Adam divides a gradient of rounding noise by its
+    own size.)"""
+    import paddle_tpu_torch.fluid as fluid
+    model = _par_transformer_model(fluid)
+    model['startup'].random_seed = SEED + rank
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(model['startup'], scope=scope)
+    main, loss = model['main'], model['loss'].name
+    grads = [p.name + '@GRAD' for p in main.all_parameters() if p.trainable]
+    feeds = _par_token_feeds(SEED + 40, PAR_STEPS)
+    _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pe = fluid.ParallelExecutor(use_cuda=True, loss_name=loss,
+                                main_program=main, scope=scope)
+    bcast_s = time.perf_counter() - t0
+    digest0 = _state_digest(main, scope)
+    snaps = [_host_state(main, scope)] if rank == 0 else None
+    losses, walls, shares, got_grads = [], [], [], []
+    for feed in feeds:
+        s0 = pe.dp.seconds
+        torch.cuda.synchronize()
+        # the ranks start each timed step together (rank 0 copies its
+        # state to the host after each)
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        got = pe.run([loss] + grads, feed=feed)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        shares.append((pe.dp.seconds - s0) / walls[-1])
+        losses.append(float(got[0][0]))
+        if rank == 0:
+            snaps.append(_host_state(main, scope))
+            got_grads.append(got[1:])
+    launches = _wrapper_counts()
+    block = pe.cached_blocks()[-1]
+    rec = dict(losses=losses, walls=walls, shares=shares, launches=launches,
+               bcast_s=bcast_s, mode=block.mode, why=block.why,
+               peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+               start=digest0, end=_state_digest(main, scope),
+               collectives=pe.dp.calls, bytes=pe.dp.bytes)
+    del pe
+    if rank == 0:
+        ref_scope = fluid.Scope()
+        ref = fluid.Executor(fluid.CUDAPlace(0))
+        update = _update_program(main, grads)
+        half = BATCH // 2
+        cmp = []
+        for i, feed in enumerate(feeds):
+            runs = []
+            for f in (feed, {n: v[:half] for n, v in feed.items()},
+                      {n: v[half:] for n, v in feed.items()}):
+                _load(ref_scope, {n: v.cuda() for n, v in snaps[i].items()})
+                out = ref.run(main, feed=f, fetch_list=[loss] + grads,
+                              scope=ref_scope)
+                runs.append((float(out[0][0]), out[1:],
+                             {n: t.clone() for n, t in _scope_params(
+                                 main, ref_scope).items()}))
+            (w_loss, w_grads, w_params), (_, a, _), (_, b, _) = runs
+            halves = [(x + y) * np.float32(0.5) for x, y in zip(a, b)]
+            _load(ref_scope, {n: v.cuda() for n, v in snaps[i].items()})
+            ref.run(update, feed=dict(zip(grads, halves)), scope=ref_scope)
+            stepped = _scope_params(main, ref_scope)
+            c = dict(loss_rel=abs(losses[i] - w_loss) / abs(w_loss),
+                     want=w_loss,
+                     grads=_par_grads_against(grads, got_grads[i], w_grads),
+                     params=_par_params_against(main, snaps[i + 1],
+                                                w_params, LR, frac=None),
+                     far=_par_far_params(main, snaps[i + 1], w_params),
+                     update=_par_params_against(main, snaps[i + 1], stepped,
+                                                PAR_UPDATE_TOL, frac=None),
+                     update_bitwise=sum(int(torch.equal(
+                         snaps[i + 1][p.name].cuda(), stepped[p.name]))
+                         for p in main.all_parameters() if p.trainable),
+                     halves=_par_grads_against(grads, got_grads[i], halves),
+                     halves_bitwise=sum(int(np.array_equal(g, h)) for g, h
+                                        in zip(got_grads[i], halves)))
+            print('L1 step %d against one process: %s' % (i + 1, json.dumps(
+                c)), flush=True)
+            cmp.append(c)
+            check(c['loss_rel'] <= SLICE_RTOL and c['grads'][0] <= 1.0 and
+                  c['grads'][1] <= GRAD_NORM_TOL and
+                  c['halves'][1] <= PAR_HALVES_TOL,
+                  'L1 step %d: loss rel %g (tol %g); against the whole '
+                  'batch the worst gradient %g of its allowance, |dg| / |g| '
+                  'over all %g (tol %g); against the halves\' mean |dg| / '
+                  '|g| %g (tol %g)' %
+                  (i + 1, c['loss_rel'], SLICE_RTOL, c['grads'][0],
+                   c['grads'][1], GRAD_NORM_TOL, c['halves'][1],
+                   PAR_HALVES_TOL))
+        rec.update(cmp=cmp)
+        del ref, ref_scope, snaps
+    del scope
+    _free()
+    return rec
+
+
+def par_rank_resnet(card, rank):
+    """L3 on one rank: one Momentum step of ResNet-50 on this rank's
+    PAR_CV_BATCH of the global batch; rank 0 holds the loss, the fc head's
+    gradients and every batch-norm running statistic against one Executor
+    step on the whole batch."""
+    import paddle_tpu_torch.fluid as fluid
+    model, scope, exe = build_cv_model('resnet', lr=CV_LR, **RESNET50)
+    main, loss = model['main'], model['loss'].name
+    rng = np.random.RandomState(SEED + 41)
+    feed = image_batch(rng, PAR_RANKS * PAR_CV_BATCH,
+                       RESNET50['image_shape'], RESNET50['class_dim'])
+    head = [p.name for p in main.all_parameters()][-2:]
+    stats = sorted(n for op in main.global_block().ops
+                   if op.type == 'batch_norm'
+                   for n in op.input('Mean') + op.input('Variance'))
+    fetch = [loss] + [p + '@GRAD' for p in head]
+    start = _persistables(main, scope) if rank == 0 else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pe = fluid.ParallelExecutor(use_cuda=True, loss_name=loss,
+                                main_program=main, scope=scope)
+    s0 = pe.dp.seconds
+    t0 = time.perf_counter()
+    got = pe.run(fetch, feed=feed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = dict(loss=float(got[0][0]), wall=wall,
+               share=(pe.dp.seconds - s0) / wall,
+               peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+               end=_state_digest(main, scope), n_stats=len(stats))
+    if rank == 0:
+        tol = CV_TRAIN_TOL['resnet50']
+        ref_scope = fluid.Scope()
+        _load(ref_scope, start)
+        want = fluid.Executor(fluid.CUDAPlace(0)).run(
+            main, feed=feed, fetch_list=fetch, scope=ref_scope)
+        loss_rel = abs(got[0][0] - want[0][0]) / abs(want[0][0])
+        grad = max(float(np.linalg.norm(g - w) / np.linalg.norm(w))
+                   for g, w in zip(got[1:], want[1:]))
+        value = lambda s, n: s.find_var(n).value().double()
+        stat = max(float((value(scope, n) - value(ref_scope, n)).norm() /
+                         value(ref_scope, n).norm().clamp_min(1e-30))
+                   for n in stats)
+        check(loss_rel <= tol['loss'] and grad <= tol['grad_norm'] and
+              stat <= tol['stats'],
+              'L3: against one process at %d images: loss rel %g (tol %g), '
+              'fc head |dg| / |g| %g (tol %g), running statistics |d| / |v| '
+              '%g (tol %g)' % (PAR_RANKS * PAR_CV_BATCH, loss_rel,
+                               tol['loss'], grad, tol['grad_norm'], stat,
+                               tol['stats']))
+        rec.update(want=float(want[0][0]), loss_rel=float(loss_rel),
+                   head_grad=grad, stats=stat)
+    del pe, scope, exe
+    _free()
+    return rec
+
+
+def parallel_rank(rank, port, workdir):
+    """One rank of paths L1 and L3 (this script run with
+    ``--parallel-rank``): gloo between the ranks that share the card;
+    writes its records to ``workdir``."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.parallel import init_distributed_env
+    card = phase_device()
+    sys.path.insert(0, REPO)
+    init_distributed_env('localhost:%d' % port, PAR_RANKS, rank,
+                         backend='gloo')
+    out = {'L1': par_rank_transformer(card, rank),
+           'L3': par_rank_resnet(card, rank)}
+    dist.destroy_process_group()
+    with open(os.path.join(workdir, 'rank%d.json' % rank), 'w') as f:
+        json.dump(out, f)
+
+
+def _par_ranks(card):
+    """L1 and L3: PAR_RANKS subprocesses of this script, each under
+    PAR_TIMEOUT; a rank that fails or times out fails the run.  Returns
+    the ranks' records."""
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix='chip_smoke_parallel_')
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--parallel-rank',
+         str(r), '--parallel-port', str(port), '--parallel-dir', workdir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(PAR_RANKS)]
+    logs = [None] * PAR_RANKS
+    try:
+        with concurrent.futures.ThreadPoolExecutor(PAR_RANKS) as pool:
+            futures = [pool.submit(p.communicate, timeout=PAR_TIMEOUT)
+                       for p in procs]
+            for r, fut in enumerate(futures):
+                try:
+                    logs[r] = fut.result()[0]
+                except subprocess.TimeoutExpired:
+                    for p in procs:
+                        p.kill()
+                    fail('path L: rank %d did not end within %d s' %
+                         (r, PAR_TIMEOUT))
+    finally:
+        for p in procs:
+            p.kill()
+    for r, log in enumerate(logs):
+        for line in (log or '').splitlines():
+            if not line.startswith(card):
+                print('path L rank %d | %s' % (r, line), flush=True)
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, 'path L: rank %d exited %s' %
+              (r, p.returncode))
+    recs = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(workdir, 'rank%d.json' % r)) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+class _Launches(object):
+    """A path's launch counts for the kernels line: ``wrapper`` (the
+    wrappers' counters over the path) and ``device`` (kernels counted on
+    the card by name)."""
+
+    def __init__(self, wrapper, device):
+        self.wrapper, self.device = wrapper, device
+
+
+def par_nccl(card):
+    """L2: Transformer-base through a ParallelExecutor of world size 1 on
+    NCCL: run_multi of PAR_K steps, eager then captured with the
+    collectives inside the graph, then a block of replays under
+    torch.profiler; the losses and parameters against Executor.run_multi
+    over the same batches from the same state; both captured steps timed.
+    The Executor is fed the all-ones sample mask that the
+    ParallelExecutor adds, so that both take the masked mean.  Returns
+    (wrapper counts, device counts)."""
+    import torch.distributed as dist
+    import paddle_tpu_torch.fluid as fluid
+    dist.init_process_group('nccl', init_method='tcp://localhost:%d' %
+                            _free_port(), world_size=1, rank=0)
+    try:
+        model, scope, exe = _started('L2 Transformer-base',
+                                     _par_transformer_model(fluid))
+        main, loss = model['main'], model['loss'].name
+        start = _persistables(main, scope)
+        blocks = [_par_token_feeds(SEED + 42 + i, PAR_K) for i in range(2)]
+        n_flash = 3 * TRANSFORMER_BASE['n_layer']
+        step = _expect(fwd=2 * n_flash, dq=n_flash, dkv=n_flash)
+        _zero_counts()
+        pe = fluid.ParallelExecutor(use_cuda=True, loss_name=loss,
+                                    main_program=main, scope=scope)
+        first, = pe.run_multi([loss], feed_list=blocks[0])
+        lowered = _wrapper_counts()
+        check(lowered == {k: 2 * v for k, v in step.items()},
+              'L2: the eager step and the capture launched %s, expected '
+              'twice %s' % (lowered, step))
+        calls = pe.dp.calls
+        with _profiled() as session:
+            t0 = time.perf_counter()
+            last, = pe.run_multi([loss], feed_list=blocks[1])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        seen, device, _ = _device_kernels(session.prof)
+        nccl = [e for e in session.prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and
+                'nccl' in e.name.lower()]
+        nccl_ms = sum(e.time_range.elapsed_us() for e in nccl) / 1e3
+        block = pe.cached_blocks()[-1]
+        check(block.mode == 'graph' and block.captures == 1 and
+              block.replays >= 2 * PAR_K - 2 and pe.dp.calls == calls and
+              pe.dp.captured > 0 and _wrapper_counts() == lowered and
+              seen == {k: PAR_K * v for k, v in step.items()},
+              'L2: block %s (%s), %d captures, %d replays; collectives '
+              'captured %d, run eagerly in the replays %d; wrappers %s; on '
+              'the card %s' %
+              (block.mode, block.why, block.captures, block.replays,
+               pe.dp.captured, pe.dp.calls - calls, _wrapper_counts(),
+               seen))
+        from paddle_tpu_torch.ops import registry
+        ones = np.ones((BATCH, ), 'float32')
+        masked = [[dict(f, **{registry.SAMPLE_MASK_NAME: ones}) for f in b]
+                  for b in blocks]
+        ref_scope = fluid.Scope()
+        _load(ref_scope, start)
+        ref = fluid.Executor(fluid.CUDAPlace(0))
+        want = [ref.run_multi(main, feed_list=b, fetch_list=[loss],
+                              scope=ref_scope)[0] for b in masked]
+        got = [first, last]
+        rel = max(float(abs(g[0] - w[0]) / abs(w[0]))
+                  for g, w in zip(got, want))
+        bitwise = all(np.array_equal(g, w) for g, w in zip(got, want))
+        check(rel <= SLICE_RTOL, 'L2: losses %s against Executor.run_multi '
+              '%s (rel %g, tol %g)' % (got, want, rel, SLICE_RTOL))
+        check(bitwise, 'L2: losses %s, Executor.run_multi\'s %s: not '
+              'bitwise' % (got, want))
+        params = _par_params_against(
+            main, _scope_params(main, scope), _scope_params(main, ref_scope),
+            0.0, frac=None)
+
+        def timed(run):
+            ms = []
+            for b in range(PAR_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(b % 2)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3 / PAR_K)
+            return statistics.median(ms), ms
+
+        pe_ms = timed(lambda i: pe.run_multi([loss], feed_list=blocks[i]))
+        exe_ms = timed(lambda i: ref.run_multi(
+            main, feed_list=masked[i], fetch_list=[loss], scope=ref_scope))
+        print('path L: %s' % json.dumps({
+            'part': 'L2', 'backend': 'nccl', 'world': 1,
+            'captures': block.captures, 'replays': block.replays,
+            'collectives_eager': calls - pe.dp.captured,
+            'collectives_captured': pe.dp.captured,
+            'nccl_kernels_a_block': len(nccl),
+            'nccl_ms_a_block': nccl_ms, 'profiled_block_s': wall,
+            'loss_rel': rel, 'losses_bitwise': bitwise,
+            'params_bitwise': params[0] == 0.0, 'param_max_dp': params[0],
+            'param_far': params[1], 'param_elements': params[2],
+            'captured_ms_a_step': pe_ms[0], 'captured_ms': pe_ms[1],
+            'executor_captured_ms_a_step': exe_ms[0],
+            'executor_ms': exe_ms[1],
+            'peak_mib': torch.cuda.max_memory_allocated() / 2**20,
+            'card': card}), flush=True)
+        device_counts = seen
+        del pe, ref, scope, ref_scope, exe, start
+        return lowered, device_counts
+    finally:
+        dist.destroy_process_group()
+        _free()
+
+
+def phase_parallel(card):
+    """Path L: data parallelism on torch.distributed.  Returns its launch
+    record (``parallel`` in the kernels line): the wrappers' counts over
+    L1's ranks and L2, and the kernels counted on the card in L2's
+    profiled block of replays."""
+    t0 = time.perf_counter()
+    _free()
+    recs = _par_ranks(card)
+    n_flash = 3 * TRANSFORMER_BASE['n_layer']
+    step = _expect(fwd=2 * n_flash, dq=n_flash, dkv=n_flash)
+    wrapper = _expect()
+    for r, rec in enumerate(recs):
+        l1 = rec['L1']
+        check(l1['launches'] == {k: PAR_STEPS * v for k, v in step.items()},
+              'L1: rank %d launched %s, expected %d steps of %s' %
+              (r, l1['launches'], PAR_STEPS, step))
+        check(l1['mode'] == 'eager' and 'gloo' in (l1['why'] or ''),
+              'L1: rank %d ran its block %s (%s)' % (r, l1['mode'],
+                                                    l1['why']))
+        for k in KERNEL_KEYS:
+            wrapper[k] += l1['launches'][k]
+    l1, l3 = recs[0]['L1'], recs[0]['L3']
+    check(all(rec['L1']['start'] == l1['start'] and
+              rec['L1']['end'] == l1['end'] and
+              rec['L3']['end'] == l3['end'] for rec in recs),
+          'path L: the ranks\' replicas differ (start %s, end %s, L3 %s)' %
+          ([rec['L1']['start'][:12] for rec in recs],
+           [rec['L1']['end'][:12] for rec in recs],
+           [rec['L3']['end'][:12] for rec in recs]))
+    for r, rec in enumerate(recs):
+        print('path L: %s' % json.dumps({
+            'part': 'L1', 'rank': r, 'backend': 'gloo',
+            'ranks': PAR_RANKS, 'global_batch': [BATCH,
+                                                 TRANSFORMER_BASE['max_len']],
+            'losses': rec['L1']['losses'], 'step_s': rec['L1']['walls'],
+            'allreduce_share': rec['L1']['shares'],
+            'bcast_params_s': rec['L1']['bcast_s'],
+            'collectives': rec['L1']['collectives'],
+            'collective_bytes': rec['L1']['bytes'],
+            'launches': {k: v for k, v in rec['L1']['launches'].items()
+                         if v},
+            'block': '%s (%s)' % (rec['L1']['mode'], rec['L1']['why']),
+            'peak_mib': rec['L1']['peak_mib'], 'card': card}), flush=True)
+    print('path L: %s' % json.dumps({
+        'part': 'L1', 'against': 'one Executor on the global batches, each '
+        'step from the state the ranks started it from',
+        'want': [c['want'] for c in l1['cmp']],
+        'loss_rel': [c['loss_rel'] for c in l1['cmp']],
+        'grad_allowance': [c['grads'][0] for c in l1['cmp']],
+        'grad_rel': [c['grads'][1] for c in l1['cmp']],
+        'param_max_dp': [c['params'][0] for c in l1['cmp']],
+        'param_far': [c['params'][1] for c in l1['cmp']],
+        'param_elements': l1['cmp'][0]['params'][2],
+        'halves_grad_rel': [c['halves'][1] for c in l1['cmp']],
+        'halves_bitwise_grads': [c['halves_bitwise'] for c in l1['cmp']],
+        'update_max_dp': [c['update'][0] for c in l1['cmp']],
+        'update_tol': PAR_UPDATE_TOL,
+        'update_bitwise_params': [c['update_bitwise'] for c in l1['cmp']],
+        'replicas_equal': True, 'card': card}), flush=True)
+    print('path L: %s' % json.dumps({
+        'part': 'L3', 'ranks': PAR_RANKS, 'images_a_rank': PAR_CV_BATCH,
+        'loss': l3['loss'], 'want': l3['want'], 'loss_rel': l3['loss_rel'],
+        'fc_head_grad_rel': l3['head_grad'],
+        'running_stats_rel': l3['stats'], 'running_stats': l3['n_stats'],
+        'step_s': [rec['L3']['wall'] for rec in recs],
+        'allreduce_share': [rec['L3']['share'] for rec in recs],
+        'peak_mib': [rec['L3']['peak_mib'] for rec in recs],
+        'card': card}), flush=True)
+    lowered, device = par_nccl(card)
+    for k in KERNEL_KEYS:
+        wrapper[k] += lowered[k]
+    print('path L: %.1f s' % (time.perf_counter() - t0), flush=True)
+    return _Launches(wrapper, device)
+
+
 def _time_ms(fn, launches_per_sample=10, samples=20, warmup=5):
     """Median device time of one call (CUDA events around back-to-back
     launches, so host overhead between launches is hidden)."""
@@ -8895,8 +9491,19 @@ def main():
     ap.add_argument('--only-ops', action='store_true',
                     help='run the device phase and path K alone, and print '
                     'no result line (a partial run)')
+    ap.add_argument('--only-parallel', action='store_true',
+                    help='run the device phase, the kernels\' build and '
+                    'path L alone, and print no result line (a partial run)')
+    # one rank of path L, started by path L itself
+    ap.add_argument('--parallel-rank', type=int, help=argparse.SUPPRESS)
+    ap.add_argument('--parallel-port', type=int, help=argparse.SUPPRESS)
+    ap.add_argument('--parallel-dir', help=argparse.SUPPRESS)
     args = ap.parse_args()
     SEED = args.seed
+    if args.parallel_rank is not None:
+        parallel_rank(args.parallel_rank, args.parallel_port,
+                      args.parallel_dir)
+        return
     card = phase_device()
     sys.path.insert(0, REPO)
     if args.only_generate:
@@ -8938,26 +9545,51 @@ def main():
         print('chip_smoke: --only-pipeline: path J passed; a partial run '
               'prints no result line', flush=True)
         return
+    if args.only_parallel:
+        phase_parallel(card)
+        profiler_summary()
+        print('chip_smoke: --only-parallel: path L passed; a partial run '
+              'prints no result line', flush=True)
+        return
+    since = [time.perf_counter()]
+
+    def took(what):
+        # each group of phases' seconds, to see where the script's time goes
+        now = time.perf_counter()
+        print('time: %s %.1f s' % (what, now - since[0]), flush=True)
+        since[0] = now
+
     fwd_err = phase_kernel_vs_plain()
     bwd_err = phase_bwd_vs_plain()
     lstm_err = phase_lstm_vs_plain()
+    took('kernels vs plain')
     phase_book(card)
+    took('path F')
     phase_flow(card)
+    took('path G')
     serve_launches = phase_serve(card)
+    took('path H')
     phase_generate(card)
+    took('path I')
     pipeline_launches = phase_pipeline(card)
+    took('path J')
     ops_launches = phase_ops(card)
+    took('path K')
+    parallel_launches = phase_parallel(card)
+    took('path L')
     model, scope, exe = build_model()
     launches = {'serve': phase_slice(card, model, scope, exe),
                 'train': phase_train(card, model, scope, exe)}
     launches.update(serve_launches)
     launches['feed_pipeline'] = pipeline_launches
     launches['ops'] = ops_launches
+    launches['parallel'] = parallel_launches
     phase_train_card_vs_cpu(card, model, scope, exe)
     phase_transformer_capture(card, model, scope)
     launches.update(phase_amp_transformer(card, model, scope, exe))
     del model, scope, exe
     torch.cuda.empty_cache()
+    took('Transformer phases')
     forms = build_lstm_models()
     launches['lstm_serve'] = phase_lstm_serve(card, forms)
     launches['lstm_train'] = phase_lstm_train(card, forms)
@@ -8969,6 +9601,7 @@ def main():
     launches.update(phase_amp_lstm(card, forms))
     del forms
     torch.cuda.empty_cache()
+    took('stacked-LSTM phases')
     nmt = build_nmt_models()
     launches['nmt_serve'] = phase_nmt_serve(card, nmt)
     launches['nmt_train'] = phase_nmt_train(card, nmt)
@@ -8976,6 +9609,7 @@ def main():
     phase_nmt_capture(card, nmt)
     del nmt
     torch.cuda.empty_cache()
+    took('NMT phases')
     resnet = build_cv_model('resnet', lr=CV_LR, **RESNET50)
     phase_resnet_serve(card, *resnet)
     phase_resnet_train(card, *resnet)
@@ -8986,8 +9620,10 @@ def main():
     phase_resnet_infer_bf16(card, resnet[0])
     del resnet
     torch.cuda.empty_cache()
+    took('ResNet-50 phases')
     phase_mnist(card)
     phase_vgg(card)
+    took('MNIST and VGG-16')
     sparse, scope, exe = build_ctr(is_sparse=True)
     start = _persistables(sparse['main'], scope)
     phase_ctr_serve(card, sparse, scope, exe)
@@ -8999,7 +9635,9 @@ def main():
                       _persistables(sparse['main'], scope))
     del sparse, dense, scope, exe, start
     _free()
+    took('CTR phases')
     phase_bench_widths(card)
+    took('path E')
     kernels = phase_times(card, launches, fwd_err, bwd_err)
     kernels += phase_lstm_times(card, launches, lstm_err)
     kernels += phase_lstm_times(card, launches, None, b=NMT_BATCH,
@@ -9012,6 +9650,7 @@ def main():
     kernels += phase_lstm_times(card, launches, None, path='amp_lstm_train',
                                 suffix='_bf16', extras=False,
                                 dtype=torch.bfloat16)
+    took('kernel times')
     profiler_summary()
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -14,7 +14,9 @@ the common tensor, shape, reduce, loss and metric layers and ``nets``'
 ``Inferencer`` (through the serving engine) and ``contrib.memory_usage``;
 the input pipeline (``layers.py_reader`` and the reader layers,
 ``recordio_writer``, ``FeedPipeline``) and ``Trainer`` with its events and
-``CheckpointConfig``;
+``CheckpointConfig``; data parallelism on ``torch.distributed``
+(``ParallelExecutor``, ``ExecutionStrategy``, ``BuildStrategy``,
+``DistributeTranspiler``);
 ``Executor.run``
 interprets the program op by op on a torch device, by default the CUDA
 card (``CUDAPlace(0)``).
@@ -36,6 +38,9 @@ from . import trace
 from . import profiler
 from . import executor
 from .executor import Executor, global_scope, scope_guard, fetch_var
+from . import parallel_executor
+from .parallel_executor import ParallelExecutor, ExecutionStrategy, \
+    BuildStrategy
 from . import initializer
 from . import layers
 from .param_attr import ParamAttr, WeightNormParamAttr
@@ -63,7 +68,8 @@ from .data_feeder import DataFeeder
 from . import evaluator
 from . import metrics
 from .transpiler import (InferenceTranspiler, Float16Transpiler,
-                         memory_optimize, release_memory)
+                         memory_optimize, release_memory,
+                         DistributeTranspiler, DistributeTranspilerConfig)
 from . import contrib
 from . import inferencer
 from .inferencer import Inferencer
@@ -87,6 +93,8 @@ __all__ = framework.__all__ + executor.__all__ + [
     'dataflow', 'FeedPipeline', 'recordio_writer', 'trainer', 'Trainer',
     'BeginEpochEvent', 'EndEpochEvent', 'BeginStepEvent', 'EndStepEvent',
     'CheckpointConfig', 'Tensor', 'WeightNormParamAttr',
+    'parallel_executor', 'ParallelExecutor', 'ExecutionStrategy',
+    'BuildStrategy', 'DistributeTranspiler', 'DistributeTranspilerConfig',
 ]
 
 Tensor = LoDTensor

@@ -5,7 +5,8 @@ python/paddle/fluid/data_feeder.py:83).
 ``feed`` gives one ``core.LoDTensor`` a feed var, with a one-level LoD for
 a sequence var, which ``Executor.run`` pads to [B, T, ...] with its
 ``@SEQLEN`` lengths.  ``feed_parallel`` and
-``decorate_reader(multi_devices=True)`` wait for ``ParallelExecutor``.
+``decorate_reader(multi_devices=True)`` deal a batch's samples to several
+places, as the reference does.
 """
 
 import numpy as np
@@ -119,23 +120,35 @@ class DataFeeder(object):
     def decorate_reader(self, reader, multi_devices=False, num_places=None,
                         drop_last=True):
         """Wrap a batched sample reader into one yielding ready feed
-        dicts (reference data_feeder.py decorate_reader)."""
-        if multi_devices:
-            _no_parallel('decorate_reader(multi_devices=True)')
+        dicts (reference data_feeder.py decorate_reader); with
+        ``multi_devices`` each batch is dealt to ``num_places`` places
+        (``feed_parallel``), its remainder dropped under ``drop_last``."""
 
         def decorated():
+            n_places = num_places or 1
             for batch in reader():
-                yield self.feed(batch)
+                if multi_devices:
+                    batch = list(batch)
+                    rem = len(batch) % n_places
+                    if rem and drop_last:
+                        # uneven shards would give the places mismatched
+                        # shapes: drop the remainder
+                        batch = batch[:len(batch) - rem]
+                    if len(batch) < n_places:
+                        continue  # cannot cover every place
+                    yield self.feed_parallel(batch, n_places)
+                else:
+                    yield self.feed(batch)
 
         return decorated
 
     def feed_parallel(self, iterable, num_places=None):
-        """Split a batch across devices (reference data_feeder.py:201)."""
-        _no_parallel('feed_parallel')
-
-
-def _no_parallel(what):
-    raise NotImplementedError(
-        'DataFeeder.%s: splitting a batch across devices needs '
-        'ParallelExecutor, which the PyTorch port does not have yet '
-        '(ROADMAP.md, Queue 1 item 7)' % what)
+        """Deal a batch's samples round-robin to ``num_places`` places, one
+        feed dict each (reference data_feeder.py:201).  A
+        ``ParallelExecutor`` takes the global batch and splits it itself."""
+        if num_places is None:
+            num_places = 1
+        batches = [[] for _ in range(num_places)]
+        for i, sample in enumerate(iterable):
+            batches[i % num_places].append(sample)
+        return [self.feed(b) for b in batches if b]

@@ -240,8 +240,9 @@ class FeedPipeline(object):
             raise ValueError('FeedPipeline: max_open_buckets must be >= 1')
         if not isinstance(executor, Executor):
             raise NotImplementedError(
-                'FeedPipeline over a ParallelExecutor: the SPMD pipeline '
-                'is not ported to PyTorch yet (ROADMAP.md, Queue 1 item 7)')
+                'FeedPipeline over a ParallelExecutor: the data-parallel '
+                'pipeline is not ported to PyTorch yet (ROADMAP.md, Queue 1 '
+                'item 7)')
         if embed_caches:
             raise NotImplementedError(
                 'FeedPipeline(embed_caches=...): the distributed embedding '

@@ -74,6 +74,11 @@ at the next resolve; ``close()`` releases every graph at once, and a
 dropped executor frees its blocks with it (the cache's finalizers hold it
 weakly).
 
+A ``ParallelExecutor``'s executor plans ``_DPCompiledBlock``s: one data-
+parallel rank's block, whose lowerings see the ranks (``registry.
+DataParallel``) and whose parameter gradients are all-reduced after the
+last op that writes one.
+
 ``run_decode_multi`` runs K greedy decode steps of a step program over a
 slot batch (the generation serving lane's dispatch) and
 ``_dispatch_chunk_prefill`` one C-token prefill advance of a chunk
@@ -405,51 +410,6 @@ def _lead(v):
     else:
         shape = np.shape(v)
     return int(shape[0]) if len(shape) >= 1 else None
-
-
-def _pad_rows(fa, batch_names, target):
-    """One lot with its batch feeds padded to ``target`` rows by repeating
-    the last real row, and the ``registry.SAMPLE_MASK_NAME`` feed (1.0 a
-    real row, 0.0 padding), so the mean lowerings count the real rows only.
-    Returns (lot, real rows)."""
-    rows = sorted({_lead(fa[n]) for n in batch_names
-                   if _lead(fa[n]) is not None})
-    if len(rows) != 1 or not rows[0]:
-        raise ValueError('ragged lot is ambiguous or empty: batch feeds %s '
-                         'have rows %s' % (sorted(batch_names), rows))
-    b = rows[0]
-    out = dict(fa)
-    for n in batch_names:
-        v = fa[n]
-        if v.dim() >= 1 and b < target:
-            out[n] = torch.cat(
-                [v, v[-1:].expand((target - b, ) + tuple(v.shape[1:]))])
-    mask = torch.zeros((target, ), dtype=torch.float32)
-    mask[:b] = 1.0
-    out[registry.SAMPLE_MASK_NAME] = mask
-    return out, b
-
-
-def normalize_ragged_feed_list(per_step):
-    """When any lot is ragged (lots disagree in rows: a lot's rows are its
-    largest leading dim), pad all of them to the largest with a sample mask
-    so that one block runs them all.  The batch feeds are those whose rows
-    vary across lots.  Returns (per_step, reals, target, batch_feed_names);
-    ``reals`` is each lot's real row count, None when nothing was
-    padded."""
-    leads = [max([_lead(v) for v in fa.values() if _lead(v) is not None],
-                 default=0) for fa in per_step]
-    target = max(leads)
-    if all(b == target for b in leads):
-        return per_step, None, target, None
-    batch_names = {
-        n for n in per_step[0]
-        if len({_lead(fa[n]) for fa in per_step}) > 1
-    } or {n for n, v in per_step[0].items() if _lead(v) == leads[0]}
-    batch_names = {n for n in batch_names if _lead(per_step[0][n]) is not None}
-    padded = [_pad_rows(fa, batch_names, target) for fa in per_step]
-    return ([p[0] for p in padded], [p[1] for p in padded], target,
-            batch_names)
 
 
 def fetch_batch_led(compiled, n):
@@ -937,6 +897,9 @@ class _CompiledBlock(object):
         else:
             self.mode, self.why = 'graph', None
         self._release = self._release_plan(program)
+        # the index of the op after which a data-parallel rank sums the
+        # gradients over the ranks (_DPCompiledBlock._reduce_grads)
+        self._grads_at = None
         self._memory = memory
         # held by _run_loop: the executor's, shared by all its blocks
         self._lock = lock
@@ -1006,14 +969,8 @@ class _CompiledBlock(object):
         host op gets ``scope``."""
         ctx = registry.LoweringContext(self.block, env, self.place,
                                        generator=generator)
-        mask = env.get(registry.SAMPLE_MASK_NAME)
-        if mask is not None:
-            declared = self._batch_feed_names
-            ctx.batch_led = {
-                n for n in self.feed_names
-                if (n in declared if declared is not None else
-                    env[n].dim() >= 1 and env[n].shape[0] == mask.shape[0])}
-            ctx.batch_tainted = set(ctx.batch_led)
+        self._seed_provenance(ctx, env)
+        grads_at = self._grads_at
         record = self._records is None and not capturing
         args = {n: _nbytes(v) for n, v in env.items()} if record else None
         check = flags.FLAGS.check_nan_inf and not capturing
@@ -1037,9 +994,11 @@ class _CompiledBlock(object):
                         _check_nan_inf(
                             [(n, env[n]) for n in op.output_arg_names
                              if n in env], 'output of op %r' % op.type)
+                if i == grads_at:
+                    self._reduce_grads(ctx)
                 for n in release.get(i, ()):
                     env.pop(n, None)
-        self._fetch_batch_led = [n in ctx.batch_led for n in self.fetch_names]
+        self._note_fetches(ctx)
         registry.check_cond_uninit(ctx, self.fetch_names, 'fetch')
         missing = [n for n in self.fetch_names if n not in env]
         if missing:
@@ -1053,6 +1012,22 @@ class _CompiledBlock(object):
             self._io_bytes = (sum(args.values()),
                               sum(_nbytes(v) for v in outs.values()), args)
         return new_state, fetches
+
+    def _seed_provenance(self, ctx, env):
+        """Seed the ragged-batch provenance when a sample mask rides
+        along: the feeds the padding declared batch-led, or else those
+        whose dim 0 is the mask's."""
+        mask = env.get(registry.SAMPLE_MASK_NAME)
+        if mask is not None:
+            declared = self._batch_feed_names
+            ctx.batch_led = {
+                n for n in self.feed_names
+                if (n in declared if declared is not None else
+                    env[n].dim() >= 1 and env[n].shape[0] == mask.shape[0])}
+            ctx.batch_tainted = set(ctx.batch_led)
+
+    def _note_fetches(self, ctx):
+        self._fetch_batch_led = [n in ctx.batch_led for n in self.fetch_names]
 
     def _feeds_env(self, feeds, device):
         return {n: _feed_value(v, self.block._find_var_recursive(n), device)
@@ -1679,6 +1654,95 @@ class _CompiledBlock(object):
         self._loops = {}
 
 
+def replicated_feeds(block, names):
+    """The feeds of ``names`` that data-parallel ranks each take whole: their
+    var (or the var of their ``@SEQLEN`` side-band) is annotated with an
+    all-None ``PartitionSpec`` (``parallel.shard(var)``).  Every other feed
+    is split on dim 0."""
+    from ..parallel.api import sharding_of
+    out = []
+    for n in names:
+        v = block._find_var_recursive(n.split(registry.SEQLEN_SUFFIX)[0])
+        spec = sharding_of(v) if v is not None else None
+        if spec is not None and all(a is None for a in spec):
+            out.append(n)
+    return out
+
+
+class _DPCompiledBlock(_CompiledBlock):
+    """A ``_CompiledBlock`` run by one data-parallel rank (the counterpart
+    of the JAX package's ``_SpmdCompiledBlock``): its feeds are this rank's
+    split of the global batch's rows, its state a replica.
+
+    The lowerings' context carries ``dp`` (``registry.DataParallel``) and
+    the provenance of the split rows: every split feed seeds
+    ``batch_tainted``, so that a reduction over the rows is global
+    (``registry.declare_dp_aware``) or raises.  Right after the last op
+    that writes a parameter's ``@GRAD`` one all-reduce sums every dense
+    parameter gradient, a flat bucket for each dtype, before the clip, the
+    regularizers and the optimizer read them: with global-count means each
+    rank's gradient is a partial sum of the global one.
+
+    On the card under NCCL the collectives are captured in the block's
+    CUDA graph with the rest of the step.  Gloo's cannot be captured: under
+    gloo the block is declared eager before any capture (``mode``,
+    ``why``), and ``run_multi`` runs its steps eagerly."""
+
+    def __init__(self, program, block_idx, feed_names, fetch_names, place,
+                 memory, lock, dp):
+        super(_DPCompiledBlock, self).__init__(
+            program, block_idx, feed_names, fetch_names, place, memory, lock)
+        self.dp = dp
+        self._replicated = frozenset(replicated_feeds(self.block,
+                                                      self.feed_names))
+        grads = {p.name + registry.GRAD_SUFFIX
+                 for p in program.all_parameters()}
+        writes = [i for i, op in enumerate(self.ops)
+                  if grads.intersection(op.output_arg_names)]
+        self._grads = sorted(grads)
+        if writes:
+            self._grads_at = writes[-1]
+        self._fetch_split = None
+        if self.mode == 'graph' and dp.backend == 'gloo':
+            self.mode, self.why = 'eager', (
+                'its collectives run on gloo, which a CUDA graph cannot '
+                'capture')
+
+    def _seed_provenance(self, ctx, env):
+        super(_DPCompiledBlock, self)._seed_provenance(ctx, env)
+        ctx.dp = self.dp
+        split = [n for n in self.feed_names
+                 if n not in self._replicated and env[n].dim() >= 1]
+        ctx.batch_tainted = set(split) - {registry.SAMPLE_MASK_NAME}
+        ctx.dp_rows = tuple(sorted({int(env[n].shape[0]) for n in split}))
+
+    def _reduce_grads(self, ctx):
+        """The gradient all-reduce: every parameter's dense @GRAD summed
+        over the ranks."""
+        names = [n for n in self._grads if n in ctx.env]
+        sparse = [n for n in names if isinstance(ctx.env[n], SparseRows)]
+        if sparse:
+            raise NotImplementedError(
+                'sparse (SelectedRows) gradients %s under data parallelism '
+                'are not ported to PyTorch yet (ROADMAP.md, Queue 1 item 7)'
+                % sparse)
+        for n, g in zip(names, self.dp.all_reduce([ctx.env[n]
+                                                   for n in names])):
+            ctx.env[n] = g
+
+    def _note_fetches(self, ctx):
+        super(_DPCompiledBlock, self)._note_fetches(ctx)
+        # an activation's gradient is split as the activation is
+        split = lambda n: n.split(registry.GRAD_SUFFIX)[0] \
+            in ctx.batch_tainted
+        self._fetch_split = [split(n) for n in self.fetch_names]
+
+    def fetch_split(self):
+        """Which fetches hold this rank's split of the rows (gathered over
+        the ranks on the way out), by the last run's provenance."""
+        return self._fetch_split or [False] * len(self.fetch_names)
+
+
 class Executor(object):
     """Program runner on one place.
 
@@ -1722,11 +1786,18 @@ class Executor(object):
         self._cache_lock = threading.RLock()
         # every block's steps run under it (_CompiledBlock._run_loop)
         self._run_lock = threading.RLock()
+        # a data-parallel rank's executor (ParallelExecutor's): its blocks
+        # are _DPCompiledBlocks over this registry.DataParallel
+        self._dp = None
 
     def _rng(self, program):
         if self._generator is None:
             g = torch.Generator(device=self.place.device)
-            g.manual_seed(int(program.random_seed or 0) & 0xffffffffffffffff)
+            # each data-parallel rank draws a stream of its own (rank 0
+            # the single-process one)
+            rank = self._dp.rank if self._dp is not None else 0
+            g.manual_seed((int(program.random_seed or 0) + rank *
+                           0x9E3779B97F4A7C15) & 0xffffffffffffffff)
             self._generator = g
         return self._generator
 
@@ -1819,9 +1890,10 @@ class Executor(object):
             compiled = self._cache.get(key)
             if compiled is None:
                 self.compile_count += 1
-                compiled = _CompiledBlock(program, 0, [n for n, _, _ in sig],
-                                          fetch_names, self.place,
-                                          self._memory, self._run_lock)
+                args = (program, 0, [n for n, _, _ in sig], fetch_names,
+                        self.place, self._memory, self._run_lock)
+                compiled = _CompiledBlock(*args) if self._dp is None else \
+                    _DPCompiledBlock(*args, dp=self._dp)
                 self._cache[key] = compiled
                 if len(self._cache) > self._CACHE_MAX:
                     self._release([self._cache.popitem(last=False)[1]])
@@ -2007,8 +2079,11 @@ class Executor(object):
             per_step = [prepare_feed_arrays(dict(f)) for f in feed_list]
             check_feed_list_names(per_step, 'run_eval_multi')
             normalize_trailing_feed_list(per_step)
+            from .parallel_executor import pad_ragged_batch, \
+                normalize_ragged_feed_list
             per_step, reals, target, batch_feed_names = \
-                normalize_ragged_feed_list(per_step)
+                normalize_ragged_feed_list(
+                    per_step, lambda fa, **kw: pad_ragged_batch(fa, 1, **kw))
             steps = len(per_step)
             check_feed_list_uniform(per_step, 'run_eval_multi')
             feed = per_step[0]

@@ -4,8 +4,12 @@ reference: python/paddle/fluid/inferencer.py:31).
 ``infer()`` routes through the serving engine's synchronous (inline)
 mode: the same micro-batch padding and trim, shape buckets and
 run_eval_multi dispatch as the request-facing server, so the two
-surfaces cannot drift.  Runs on ``CUDAPlace(0)`` unless given a place;
-``parallel=True`` (dp-sharded eval) waits for ``ParallelExecutor``.
+surfaces cannot drift.  Runs on ``CUDAPlace(0)`` unless given a place.
+``parallel=True`` evaluates on a ``ParallelExecutor`` instead: every rank
+of the process group (one without one) is given the same inputs and
+returns the predictions of all of them.  (The JAX package routes it
+through its engine's dp serving, which is not ported: ROADMAP.md, Queue 1
+item 8.)
 """
 
 from . import core
@@ -22,10 +26,6 @@ class Inferencer(object):
         """infer_func rebuilds the inference program; param_path holds the
         persistables saved by ``io.save_persistables`` (the reference's
         Trainer.save_params)."""
-        if parallel:
-            raise NotImplementedError(
-                'Inferencer(parallel=True) needs ParallelExecutor, which is '
-                'not ported to PyTorch yet (ROADMAP.md, Queue 1 item 7)')
         self.param_path = param_path
         self.scope = core.Scope()
         self.parallel = parallel
@@ -46,6 +46,13 @@ class Inferencer(object):
 
         self.inference_program = self.inference_program.clone(for_test=True)
 
+        if parallel:
+            from .parallel_executor import ParallelExecutor
+            self._pe = ParallelExecutor(
+                use_cuda=self.place.device.type == 'cuda',
+                main_program=self.inference_program, scope=self.scope)
+            return
+
         # the serving package imports fluid submodules: import it here
         from .. import serving
         self._engine = serving.InferenceEngine(
@@ -62,5 +69,8 @@ class Inferencer(object):
         whose leading (batch) dims disagree raise a clear ValueError."""
         if not isinstance(inputs, dict):
             raise ValueError('inputs should be a dict of {name: data}')
+        if self.parallel:
+            return self._pe.run([self.predict_var], feed=inputs,
+                                return_numpy=return_numpy)
         with scope_guard(self.scope):
             return self._engine.infer(inputs, return_numpy=return_numpy)

@@ -350,7 +350,7 @@ def flash_attention(q, k, v, num_heads=None, causal=False, scale=None,
     q, k, v: [batch, seq, heads, head_dim] Variables, or
              [batch, seq, heads*head_dim] with num_heads given.
     impl: 'auto' | 'pallas' (the flash kernel where the shapes allow it) |
-          'dense'; 'ring' and 'ulysses' wait for the parallel slice.
+          'dense'; 'ring' and 'ulysses' (the 'sp' mesh axis) raise.
     Returns a Variable with q's shape.
     """
     helper = LayerHelper('flash_attention', **locals())

@@ -9,8 +9,7 @@ The reference's event-driven surface (``BeginEpochEvent`` ...
 atomic manifest commit, bounded retention, the write on a background
 thread.  A checkpoint of the earlier layout (``<dir>/<serial>/``, a file a
 var) still resumes.  Runs on ``CUDAPlace(0)`` unless given a place;
-``parallel=True`` waits for ``ParallelExecutor`` (ROADMAP.md, Queue 1
-item 7).
+``parallel=True`` raises (ROADMAP.md, Queue 1 item 7).
 """
 
 import os
@@ -96,8 +95,8 @@ class Trainer(object):
                  checkpoint_config=None):
         if parallel:
             raise NotImplementedError(
-                'Trainer(parallel=True) needs ParallelExecutor, which is '
-                'not ported to PyTorch yet (ROADMAP.md, Queue 1 item 7)')
+                'Trainer(parallel=True) over a ParallelExecutor is not '
+                'ported to PyTorch yet (ROADMAP.md, Queue 1 item 7)')
         self.__stop = False
         self.parallel = parallel
         self.place = place if place is not None else core.CUDAPlace(0)

@@ -14,7 +14,8 @@ card and is not used here.  V's head_dim differing from Q's runs
 the kernel, whose wrapper raises on a CUDA tensor for a head_dim outside
 ``SUPPORTED_HEAD_DIMS`` rather than taking the plain version.
 ``impl='dense'`` asks for the dense path explicitly.  ``'ring'`` and
-``'ulysses'`` wait for the parallel slice of the port.
+``'ulysses'`` (the 'sp' mesh axis) raise: the port runs data parallelism
+only (ROADMAP.md, Queue 1 item 7).
 
 Layout: Q, K, V are [batch, seq, heads, head_dim].  K's ``@SEQLEN``
 side-band, when present, masks K/V columns past each row's length.
@@ -30,8 +31,9 @@ def _pick_impl(op, q, v):
     impl = op.attrs.get('impl', 'auto')
     if impl in ('ring', 'ulysses'):
         raise NotImplementedError(
-            'flash_attention impl=%r needs the parallel slice of the '
-            'PyTorch port, which does not exist yet' % impl)
+            'flash_attention impl=%r needs the \'sp\' mesh axis, which the '
+            'PyTorch port does not run yet (ROADMAP.md, Queue 1 item 7)'
+            % impl)
     if impl == 'dense':
         return 'dense'
     if impl not in ('auto', 'pallas'):

@@ -5,11 +5,14 @@ computed in f32; the regression and ranking losses ``huber_loss``,
 ``smooth_l1_loss``, ``log_loss``, ``hinge_loss``, ``rank_loss``,
 ``margin_rank_loss``, ``modified_huber_loss`` and ``kldiv_loss``, each
 writing its intermediate outputs too).  ``softmax_with_cross_entropy``
-over bf16 logits (AMP) takes the fused path, ``FusedCEBf16``."""
+over bf16 logits (AMP) takes the fused path, ``FusedCEBf16``.  Under data
+parallelism ``kldiv_loss``'s 'mean', 'sum' and 'batchmean' reduce the
+global batch."""
 
 import torch
 
-from .registry import register_lowering, amp_upcast_f32
+from .registry import (register_lowering, register_grad_lowering,
+                       amp_upcast_f32, declare_dp_aware, dp_scaled_grad)
 
 _EPS = 1e-12
 
@@ -196,10 +199,25 @@ def _kldiv_loss(ctx, op):
     target = ctx.get(op, 'Target')
     loss = target * (torch.log(torch.clamp_min(target, _EPS)) - x)
     reduction = op.attrs.get('reduction', 'mean')
-    if reduction == 'mean':
+    if reduction != 'none' and ctx.dp_split(op.input('X')[0]):
+        # the global batch's reduction: the sum all-reduced, over every
+        # rank's elements (rows for 'batchmean'); the grad of a mean
+        # scales its cotangent by the local count over the global one
+        loss, = ctx.global_sum(torch.sum(loss))
+        if reduction != 'sum':
+            n = x.numel() if reduction == 'mean' else x.shape[0]
+            loss = loss / (n * ctx.dp.world)
+            ctx.dp_grad_scale[op.output('Loss')[0]] = torch.full(
+                (), 1.0 / ctx.dp.world, device=x.device)
+    elif reduction == 'mean':
         loss = torch.mean(loss)
     elif reduction == 'sum':
         loss = torch.sum(loss)
     elif reduction == 'batchmean':
         loss = torch.sum(loss) / x.shape[0]
     ctx.set(op, 'Loss', loss)
+
+
+register_grad_lowering('kldiv_loss')(dp_scaled_grad('kldiv_loss', 'Loss'))
+declare_dp_aware('kldiv_loss', rows=lambda ctx, op: (
+    ('Loss', ) if op.attrs.get('reduction', 'mean') == 'none' else ()))

@@ -13,6 +13,14 @@ product to XLA.  Under AMP the ``elementwise_*`` ops compute a bf16
 activation with an f32 operand in bf16 (``amp_harmonize``).
 ``elementwise_mod`` and ``elementwise_floordiv`` follow Python's signs
 (``jnp.mod``, ``jnp.floor_divide``), not C's.
+
+Under data parallelism ``mean``, ``reduce_sum`` and ``reduce_mean`` over
+the rows that ranks split reduce the global batch: local sums and counts
+all-reduced in one collective, divided by the global count; the means'
+grads scale the cotangent by the local count over the global one
+(``registry.dp_scaled_grad``), and ``reduce_sum``'s generic grad, the
+broadcast of its cotangent, needs nothing.  ``reduce_max``, ``reduce_min``
+and ``reduce_prod`` over those rows raise.
 """
 
 import math
@@ -20,8 +28,9 @@ import warnings
 
 import torch
 
-from .registry import (register_lowering, amp_matmul, amp_harmonize,
-                       SAMPLE_MASK_NAME)
+from .registry import (register_lowering, register_grad_lowering,
+                       amp_matmul, amp_harmonize, declare_dp_aware,
+                       dp_scaled_grad, SAMPLE_MASK_NAME)
 from .sparse import SparseRows, sparse_add
 
 
@@ -192,19 +201,43 @@ def _batch_mask_for(ctx, op, x):
     return None
 
 
+def _dp_mean(ctx, op, total, count, local_denom, count_scale=1):
+    """Under data parallelism: the global mean from this rank's ``total``
+    and ``count`` (all-reduced together; the denominator is the global
+    count, at least 1, times ``count_scale``), with the cotangent scale of
+    its grad, ``local_denom`` over the global denominator, left for
+    ``dp_scaled_grad``."""
+    total, count = ctx.global_sum(total, count.to(total.dtype))
+    denom = torch.clamp_min(count, 1) * count_scale
+    ctx.dp_grad_scale[op.output('Out')[0]] = local_denom / denom
+    return total / denom
+
+
 @register_lowering('mean')
 def _mean(ctx, op):
     # fluid MeanOp fixes the output dim to {1}
     x = ctx.get(op, 'X')
     m = _batch_mask_for(ctx, op, x)
+    split = ctx.dp_split(op.input('X')[0])
     if m is not None:
         # a padded lot: the padding rows count neither in the sum nor in
         # the number of elements
         per_row = math.prod(x.shape[1:])
-        denom = torch.clamp_min(torch.sum(m), 1) * per_row
-        ctx.set(op, 'Out', torch.reshape(torch.sum(x * m) / denom, (1, )))
+        total, count = torch.sum(x * m), torch.sum(m)
+        denom = torch.clamp_min(count, 1) * per_row
+        out = _dp_mean(ctx, op, total, count, denom, per_row) if split \
+            else total / denom
+        ctx.set(op, 'Out', torch.reshape(out, (1, )))
         return
-    ctx.set(op, 'Out', torch.reshape(torch.mean(x), (1, )))
+    if split:
+        n = torch.full((), x.numel(), dtype=x.dtype, device=x.device)
+        out = _dp_mean(ctx, op, torch.sum(x), n, n)
+    else:
+        out = torch.mean(x)
+    ctx.set(op, 'Out', torch.reshape(out, (1, )))
+
+
+register_grad_lowering('mean')(dp_scaled_grad('mean', 'Out'))
 
 
 def _prod_over(x, dim, keepdim):
@@ -245,6 +278,12 @@ def _register_reduce(name):
             dims = tuple(d % x.dim()
                          for d in ([dim] if isinstance(dim, int) else dim))
         m = None
+        split = 0 in dims and ctx.dp_split(op.input('X')[0])
+        if split and name not in ('sum', 'mean'):
+            raise NotImplementedError(
+                'reduce_%s over the rows that data-parallel ranks split is '
+                'not dp-aware: its local value would pass for the global '
+                'one' % name)
         if name in ('sum', 'mean') and 0 in dims:
             m = _batch_mask_for(ctx, op, x)
         if not dims:
@@ -253,7 +292,20 @@ def _register_reduce(name):
             out = torch.sum(x * m, dim=dims, keepdim=keep)
             if name == 'mean':
                 other = math.prod(x.shape[d] for d in dims if d != 0)
-                out = out / (torch.clamp_min(torch.sum(m), 1) * other)
+                count = torch.sum(m)
+                denom = torch.clamp_min(count, 1) * other
+                out = _dp_mean(ctx, op, out, count, denom, other) if split \
+                    else out / denom
+            elif split:
+                out, = ctx.global_sum(out)
+        elif split:
+            out = torch.sum(x, dim=dims, keepdim=keep)
+            if name == 'mean':
+                n = torch.full((), math.prod(x.shape[d] for d in dims),
+                               dtype=x.dtype, device=x.device)
+                out = _dp_mean(ctx, op, out, n, n)
+            else:
+                out, = ctx.global_sum(out)
         else:
             out = fn(x, dim=dims, keepdim=keep)
         if op.attrs.get('reduce_all', False) and not keep:
@@ -264,6 +316,21 @@ def _register_reduce(name):
 for _name in _REDUCERS:
     _register_reduce(_name)
 del _name
+register_grad_lowering('reduce_mean')(dp_scaled_grad('reduce_mean', 'Out'))
+declare_dp_aware('mean')
+
+
+def _reduce_keeps_rows(ctx, op):
+    """A reduction over other dims than dim 0 keeps the split rows."""
+    ndim = ctx.env[op.input('X')[0]].dim()
+    dim = op.attrs.get('dim', [0])
+    dims = {d % ndim for d in ([dim] if isinstance(dim, int) else dim)}
+    keeps = not op.attrs.get('reduce_all', False) and 0 not in dims
+    return ('Out', ) if keeps else ()
+
+
+declare_dp_aware(*('reduce_' + n for n in _REDUCERS),
+                 rows=_reduce_keeps_rows)
 
 
 @register_lowering('pow')

@@ -1,11 +1,16 @@
 """Metric op lowerings (counterpart of ``paddle_tpu/ops/metric_ops.py``:
 ``accuracy``, ``auc``, ``precision_recall`` and
 ``positive_negative_pair``), each computed on the device.  No gradient:
-``backward.append_backward`` reaches no metric op from a loss."""
+``backward.append_backward`` reaches no metric op from a loss.
+
+Under data parallelism ``accuracy``, ``auc`` and ``precision_recall`` over
+rows the ranks split count over the global batch: their counts are
+all-reduced before the ratios.  ``positive_negative_pair`` pairs rows with
+each other and is not dp-aware."""
 
 import torch
 
-from .registry import register_lowering
+from .registry import register_lowering, declare_dp_aware
 
 
 @register_lowering('accuracy')
@@ -19,6 +24,8 @@ def _accuracy(ctx, op):
     # a fill on the device, not a copy from the host: a capture holds it
     total = torch.full((), indices.shape[0], dtype=torch.int64,
                        device=indices.device)
+    if ctx.dp_split(op.input('Indices')[0]):
+        correct, total = ctx.global_sum(correct, total)
     ctx.set(op, 'Accuracy',
             torch.reshape(correct.to(torch.float32) / total, (1, )))
     ctx.set(op, 'Correct', torch.reshape(correct, (1, )))
@@ -45,6 +52,8 @@ def _auc(ctx, op):
 
     tp, fp = count(pred & pos[None, :]), count(pred & ~pos[None, :])
     fn, tn = count(~pred & pos[None, :]), count(~pred & ~pos[None, :])
+    if ctx.dp_split(op.input('Label')[0]):
+        tp, fp, fn, tn = ctx.global_sum(tp, fp, fn, tn)
     tpr = tp / torch.clamp_min(tp + fn, 1e-12)
     fpr = fp / torch.clamp_min(fp + tn, 1e-12)
     auc = torch.sum((fpr[:-1] - fpr[1:]) * (tpr[:-1] + tpr[1:]) / 2.0)
@@ -66,11 +75,16 @@ def _precision_recall(ctx, op):
 
     tp, fp, fn = count(pred & truth), count(pred & ~truth), \
         count(~pred & truth)
+    if ctx.dp_split(op.input('Labels')[0]):
+        tp, fp, fn = ctx.global_sum(tp, fp, fn)
     precision = tp / torch.clamp_min(tp + fp, 1e-12)
     recall = tp / torch.clamp_min(tp + fn, 1e-12)
     f1 = 2 * precision * recall / torch.clamp_min(precision + recall, 1e-12)
     ctx.set(op, 'BatchMetrics', torch.stack(
         [torch.mean(precision), torch.mean(recall), torch.mean(f1)]))
+
+
+declare_dp_aware('accuracy', 'auc', 'precision_recall')
 
 
 @register_lowering('positive_negative_pair')

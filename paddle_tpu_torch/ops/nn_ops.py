@@ -7,6 +7,15 @@ on the card; OIHW filters), ``pool2d``, ``batch_norm``, ``layer_norm``,
 JAX package.  Under AMP the convolutions run in bf16 and land bf16;
 ``batch_norm`` and ``layer_norm`` take their statistics in f32 and give
 their output in X's dtype.
+
+Under data parallelism a training ``batch_norm`` over rows the ranks split
+takes the global batch's statistics, as the JAX package's one program over
+the global batch does: the per-channel sums of x and x^2 all-reduced with
+the rows, the running statistics updated from them.  Its explicit grad then
+all-reduces its two per-channel sums (of dy, and of dy times the
+normalized x) for dX; the Scale and Bias gradients stay this rank's partial
+sums, which the executor's gradient all-reduce completes.  Without dp the
+grad is the generic one.
 """
 
 import math
@@ -16,7 +25,8 @@ import torch.nn.functional as F
 
 from .registry import (register_lowering, register_grad_lowering,
                        amp_cast_in, amp_cast_out, amp_upcast_f32,
-                       fwd_structure, GRAD_SUFFIX)
+                       fwd_structure, declare_dp_aware, store_grad,
+                       _make_generic_grad, GRAD_SUFFIX)
 
 
 def _pair(v):
@@ -147,8 +157,19 @@ def _batch_norm(ctx, op):
         mean, var = mean_in, var_in
         mean_out, var_out = mean_in, var_in
     else:
-        mean = torch.mean(xs, dim=axes)
-        var = torch.mean(torch.square(xs), dim=axes) - torch.square(mean)
+        if ctx.dp_split(op.input('X')[0]):
+            # the global batch's statistics: E[x] and E[x^2] over every
+            # rank's rows (padding rows count, as the JAX package's do)
+            n = xs.numel() // xs.shape[channel] * ctx.dp.world
+            total, squares = ctx.global_sum(
+                torch.sum(xs, dim=axes), torch.sum(torch.square(xs),
+                                                   dim=axes))
+            mean = total / n
+            var = squares / n - torch.square(mean)
+        else:
+            mean = torch.mean(xs, dim=axes)
+            var = torch.mean(torch.square(xs), dim=axes) - \
+                torch.square(mean)
         if update_running:
             mean_out = momentum * mean_in + (1 - momentum) * mean.detach()
             var_out = momentum * var_in + (1 - momentum) * var.detach()
@@ -162,6 +183,59 @@ def _batch_norm(ctx, op):
     ctx.set(op, 'VarianceOut', var_out)
     ctx.set(op, 'SavedMean', mean)
     ctx.set(op, 'SavedVariance', var)
+
+
+_batch_norm_generic_grad = []
+
+
+@register_grad_lowering('batch_norm')
+def _batch_norm_grad(ctx, op):
+    """Training batch norm over rows that data-parallel ranks split: dX
+    from the global statistics (SavedMean, SavedVariance) and the global
+    sums of dy and of dy times x-hat over the channel, all-reduced in one
+    collective; dScale and dBias this rank's partial sums.  Otherwise (no
+    dp, running statistics) the generic grad."""
+    fwd_in, fwd_out, attrs = fwd_structure(op)
+    x_name = fwd_in['X'][0]
+    ugs = attrs.get('use_global_stats', None)
+    use_running = bool(ugs) if ugs is not None else \
+        bool(attrs.get('is_test', False))
+    if use_running or not ctx.dp_split(x_name):
+        if not _batch_norm_generic_grad:
+            _batch_norm_generic_grad.append(_make_generic_grad('batch_norm'))
+        return _batch_norm_generic_grad[0](ctx, op)
+    x = ctx.lookup(x_name)
+    y_ct = fwd_out['Y'][0] + GRAD_SUFFIX
+    scale = ctx.lookup(fwd_in['Scale'][0])
+    mean = ctx.lookup(fwd_out['SavedMean'][0])
+    var = ctx.lookup(fwd_out['SavedVariance'][0])
+    eps = attrs.get('epsilon', 1e-5)
+    channel = 1 if attrs.get('data_layout', 'NCHW') == 'NCHW' \
+        else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != channel)
+    bshape = [1] * x.dim()
+    bshape[channel] = -1
+    xs = amp_upcast_f32(x)
+    dy = ctx.lookup(y_ct).to(xs.dtype) if ctx.has(y_ct) else \
+        torch.zeros_like(xs)
+    inv_std = torch.rsqrt(var + eps)
+    xhat = (xs - torch.reshape(mean, bshape)) * torch.reshape(inv_std, bshape)
+    dbias = torch.sum(dy, dim=axes)
+    dscale = torch.sum(dy * xhat, dim=axes)
+    n = xs.numel() // xs.shape[channel] * ctx.dp.world
+    sum_dy, sum_dy_xhat = ctx.global_sum(dbias, dscale)
+    dx = torch.reshape(scale * inv_std / n, bshape) * (
+        n * dy - torch.reshape(sum_dy, bshape) -
+        xhat * torch.reshape(sum_dy_xhat, bshape))
+    grads = (('X', dx.to(x.dtype)), ('Scale', dscale.to(scale.dtype)),
+             ('Bias', dbias.to(scale.dtype)))
+    for slot, g in grads:
+        for gname in op.output(slot + GRAD_SUFFIX)[:1]:
+            if gname:
+                store_grad(ctx, gname, g, cotangents={y_ct})
+
+
+declare_dp_aware('batch_norm', rows=lambda ctx, op: ('Y', ))
 
 
 @register_lowering('layer_norm')

@@ -38,8 +38,10 @@ captured tensor, and no ``.item()`` or ``.numpy()`` of a differentiated
 value.
 """
 
+import collections
 import contextlib
 import threading
+import time
 
 import torch
 
@@ -51,7 +53,9 @@ __all__ = ['register_lowering', 'register_grad_lowering', 'get_lowering',
            'check_cond_uninit',
            'capture_refusal', 'register_counter', 'counts', 'set_amp',
            'amp_enabled', 'amp_cast_in', 'amp_cast_out', 'amp_upcast_f32',
-           'amp_harmonize', 'amp_matmul']
+           'amp_harmonize', 'amp_matmul', 'DataParallel', 'declare_dp_aware',
+           'declare_row_wise',
+           'store_grad', 'dp_scaled_grad']
 
 _LOWERINGS = {}
 _GRAD_LOWERINGS = {}
@@ -60,6 +64,15 @@ _UNCAPTURABLE = {}  # op type -> (reason, predicate over the op or None)
 # eager walk in place of a lowering
 _HOST_OPS = {}
 _COUNTERS = []  # callables -> {name: count}
+# under data parallelism (``DataParallel``), the ops that may read the rows
+# the ranks split; any other op that reads them raises (``_dp_kept``).
+# dp-aware lowerings reduce over the split rows as over the global batch:
+# op type -> fn(ctx, op) giving the output slots that still hold split rows.
+# Row-wise ones keep the rows on dim 0, each row computed from its own:
+# op type -> when(ctx, op), whether this op (its attrs, which inputs are
+# split, the shapes) does
+_DP_AWARE = {}
+_ROW_WISE = {}
 
 SEQLEN_SUFFIX = '@SEQLEN'
 # the ragged-batch sample mask the executor feeds beside padded lots
@@ -108,6 +121,27 @@ def get_host_op(op_type):
 
 def is_host_op_type(op_type):
     return op_type in _HOST_OPS
+
+
+def declare_dp_aware(*op_types, rows=None):
+    """Declare that the lowerings of ``op_types`` handle row-split inputs
+    under data parallelism: a reduction over the rows all-reduces its sums
+    and counts (``LoweringContext.global_sum``).  ``rows(ctx, op)`` gives
+    the output slots that still hold the split rows (None: none do); every
+    other output is global."""
+    for t in op_types:
+        _DP_AWARE[t] = rows or (lambda ctx, op: ())
+
+
+def declare_row_wise(*op_types, when=None):
+    """Declare that, under data parallelism, ``op_types`` compute each row
+    of their outputs' dim 0 from the same row of their split inputs, so
+    that the outputs hold the split rows too.  ``when(ctx, op)``, run
+    after the op, says whether this op does (its axis attrs, which inputs
+    are split, the shapes); by default, whether every output's dim 0 is
+    the split inputs' (``same_rows``)."""
+    for t in op_types:
+        _ROW_WISE[t] = when or same_rows
 
 
 def declare_uncapturable(op_type, reason, when=None):
@@ -207,8 +241,16 @@ class LoweringContext(object):
         self.batch_led = set()
         # ...and names of batch ancestry whatever their dim 0 now (a
         # reshape [B, T, ..] -> [B*T, ..] leaves batch_led but not this
-        # set), so that a masked lowering can warn of a flattened batch
+        # set), so that a masked lowering can warn of a flattened batch.
+        # Under data parallelism (``dp``) it holds the names whose dim 0 is
+        # split over the ranks, every split feed seeding it, and ``dp_rows``
+        # the local rows of those feeds
         self.batch_tainted = set()
+        self.dp = None
+        self.dp_rows = ()
+        # a mean's cotangent scale under dp, by its output name: its
+        # local denominator over the global one (``dp_scaled_grad``)
+        self.dp_grad_scale = {}
 
     @property
     def device(self):
@@ -259,7 +301,122 @@ class LoweringContext(object):
         # ragged-batch provenance holds there too
         sub.batch_led = set(self.batch_led)
         sub.batch_tainted = set(self.batch_tainted)
+        # no collective runs in a replay: a dp-aware lowering replayed
+        # there reduces its local rows, which its grad scales
         return sub
+
+    def dp_split(self, name):
+        """Whether ``name``'s dim 0 is split over data-parallel ranks."""
+        return self.dp is not None and name in self.batch_tainted
+
+    def global_sum(self, *tensors):
+        """The tensors summed over the data-parallel ranks in one
+        collective (each as it is without dp)."""
+        if self.dp is None:
+            return tensors
+        return tuple(self.dp.all_reduce(list(tensors), exact=True))
+
+
+class DataParallel(object):
+    """The data-parallel ranks a block runs over (``LoweringContext.dp``):
+    one process a rank, each holding its split of every feed's rows and a
+    replica of the state, on ``torch.distributed``'s ``group`` (None for
+    one rank without a process group, where every collective is the
+    identity).
+
+    ``calls`` and ``bytes`` count the collectives issued, ``seconds`` the
+    host wall time of those run eagerly (on the card the device is
+    synchronized on either side, so that the work queued before a
+    collective is not counted in it), ``captured`` those issued inside a
+    CUDA graph capture (each then runs at every replay, counted
+    nowhere)."""
+
+    def __init__(self, group, rank, world, backend=None):
+        self.group, self.rank, self.world = group, int(rank), int(world)
+        self.backend = backend
+        self.seconds, self.calls, self.bytes, self.captured = 0.0, 0, 0, 0
+
+    def _note(self, t0, nbytes, tensors):
+        if t0 is not None:
+            if tensors[0].is_cuda:
+                torch.cuda.synchronize(tensors[0].device)
+            self.seconds += time.perf_counter() - t0
+        else:
+            self.captured += 1
+        self.calls += 1
+        self.bytes += nbytes
+
+    @staticmethod
+    def _timed(tensors):
+        """The start of an eager collective over ``tensors`` (None inside
+        a capture), the device's queued work done first."""
+        if tensors[0].is_cuda:
+            if torch.cuda.is_current_stream_capturing():
+                return None
+            torch.cuda.synchronize(tensors[0].device)
+        return time.perf_counter()
+
+    def all_reduce(self, tensors, exact=False):
+        """The sums of ``tensors`` over the ranks, as new tensors: one
+        collective for each dtype over a flat buffer of them all (with
+        ``exact``, one over all of them in f64: counts and small sums)."""
+        if self.group is None or not tensors:
+            return list(tensors)
+        import torch.distributed as dist
+        t0 = self._timed(tensors)
+        groups = collections.OrderedDict()
+        for i, t in enumerate(tensors):
+            key = torch.float64 if exact else t.dtype
+            groups.setdefault(key, []).append(i)
+        out = [None] * len(tensors)
+        nbytes = 0
+        for dtype, idx in groups.items():
+            flat = torch.cat([torch.reshape(tensors[i], (-1, )).to(dtype)
+                              for i in idx])
+            dist.all_reduce(flat, group=self.group)
+            nbytes += flat.numel() * flat.element_size()
+            at = 0
+            for i in idx:
+                t = tensors[i]
+                out[i] = torch.reshape(flat[at:at + t.numel()],
+                                       t.shape).to(t.dtype)
+                at += t.numel()
+        self._note(t0, nbytes, tensors)
+        return out
+
+    def broadcast_(self, tensors, src=0):
+        """Overwrite ``tensors`` in place with rank ``src``'s values: one
+        collective for each dtype over a flat buffer."""
+        if self.group is None or not tensors:
+            return
+        import torch.distributed as dist
+        t0 = self._timed(tensors)
+        groups = collections.OrderedDict()
+        for t in tensors:
+            groups.setdefault(t.dtype, []).append(t)
+        nbytes = 0
+        for ts in groups.values():
+            flat = torch.cat([torch.reshape(t, (-1, )) for t in ts])
+            dist.broadcast(flat, src, group=self.group)
+            nbytes += flat.numel() * flat.element_size()
+            at = 0
+            for t in ts:
+                t.copy_(torch.reshape(flat[at:at + t.numel()], t.shape))
+                at += t.numel()
+        self._note(t0, nbytes, tensors)
+
+    def gather_rows(self, tensor, dim=0):
+        """Every rank's ``tensor`` concatenated on ``dim`` in rank order."""
+        if self.group is None:
+            return tensor
+        import torch.distributed as dist
+        t0 = self._timed([tensor])
+        tensor = tensor.contiguous()
+        parts = [torch.empty_like(tensor) for _ in range(self.world)]
+        dist.all_gather(parts, tensor, group=self.group)
+        self._note(t0, tensor.numel() * tensor.element_size() * self.world,
+                   [tensor])
+        return torch.cat(parts, dim=dim)
 
 
 _RECORDING = threading.local()
@@ -359,6 +516,8 @@ def run_op(ctx, op):
         led = any(n in ctx.batch_led for n in op.input_arg_names)
         tainted = led or any(n in ctx.batch_tainted
                              for n in op.input_arg_names)
+        kept = _dp_kept(ctx, op) if tainted and ctx.dp is not None \
+            else None
         for n in op.output_arg_names:
             v = ctx.env.get(n)
             if led and getattr(v, 'ndim', 0) >= 1 and \
@@ -366,7 +525,7 @@ def run_op(ctx, op):
                 ctx.batch_led.add(n)
             else:
                 ctx.batch_led.discard(n)
-            if tainted:
+            if tainted if kept is None else n in kept:
                 ctx.batch_tainted.add(n)
             else:
                 ctx.batch_tainted.discard(n)
@@ -380,6 +539,247 @@ def run_op(ctx, op):
     if meta is not None:
         for n in op.output_arg_names:
             ctx.env.setdefault(n + SEQLEN_SUFFIX, meta)
+
+
+def _dp_kept(ctx, op):
+    """Under data parallelism, the output names of ``op``, which read rows
+    the ranks split, that hold split rows too: those its dp-aware lowering
+    names, or every output of a row-wise op (``declare_row_wise``), but
+    for the ``*2`` ops' XShape.  Any other op raises: its value from the
+    local rows would pass for the global one.  Every rank raises at the
+    same op, before any later collective."""
+    if not any(ctx.dp_split(n) for n in op.input_arg_names):
+        return set()
+    rows = _DP_AWARE.get(op.type)
+    if rows is not None:
+        return {n for slot in rows(ctx, op) for n in op.output(slot)}
+    when = _ROW_WISE.get(op.type)
+    if when is not None and when(ctx, op):
+        return set(op.output_arg_names) - set(op.output('XShape'))
+    raise NotImplementedError(
+        'op %r reads the rows that data-parallel ranks split, and is '
+        'neither dp-aware nor row-wise for these attrs and inputs: each '
+        'rank would hold a local value for the global one.  Run it with '
+        'fluid.Executor, or make its lowering all-reduce over the ranks '
+        '(registry.declare_dp_aware)' % op.type)
+
+
+def _values(ctx, names):
+    return [ctx.env.get(n) for n in names]
+
+
+def _split_rows(ctx, op):
+    """Dim 0 of each split input of ``op``."""
+    return {int(v.shape[0]) for n, v in zip(op.input_arg_names, _values(
+        ctx, op.input_arg_names)) if ctx.dp_split(n)
+        and isinstance(v, torch.Tensor) and v.dim() >= 1}
+
+
+def _outputs(op):
+    return [n for n in op.output_arg_names if n not in op.output('XShape')]
+
+
+def same_rows(ctx, op):
+    """Whether every output of ``op`` is a tensor whose dim 0 is its split
+    inputs' (one size among them)."""
+    rows = _split_rows(ctx, op)
+    outs = _values(ctx, _outputs(op))
+    return len(rows) == 1 and all(
+        isinstance(v, torch.Tensor) and v.dim() >= 1 and
+        int(v.shape[0]) in rows for v in outs if v is not None)
+
+
+def _all_split(ctx, names):
+    return all(ctx.dp_split(n) for n in names)
+
+
+def _axis(op, ndim, name='axis', default=0):
+    return op.attrs.get(name, default) % max(ndim, 1)
+
+
+def _ndim(ctx, op, slot='X'):
+    return ctx.env[op.input(slot)[0]].dim()
+
+
+def _rows_on_axis(name='axis', default=0, slot='X', extra=0):
+    """Row-wise iff the op's ``name`` attr (its ``slot`` input's rank
+    plus ``extra``) is not dim 0, and the outputs keep the rows."""
+    def when(ctx, op):
+        ndim = _ndim(ctx, op, slot) + extra
+        return ndim >= 2 and _axis(op, ndim, name, default) != 0 and \
+            same_rows(ctx, op)
+    return when
+
+
+def _rows_off_axes(name='axes', slot='X', extra=0):
+    """Row-wise iff none of the op's ``name`` attr axes is dim 0."""
+    def when(ctx, op):
+        ndim = _ndim(ctx, op, slot) + extra
+        axes = op.attrs.get(name, [])
+        axes = [axes] if isinstance(axes, int) else axes
+        return all(a % ndim != 0 for a in axes) and same_rows(ctx, op)
+    return when
+
+
+def _binary_rows(ctx, op):
+    """An elementwise op of X and Y: X holds the split rows, and Y does
+    not, or lines up with them on dim 0 (the elementwise lowerings'
+    alignment: ``axis``, or the trailing dims)."""
+    xn, yn = op.input('X')[0], op.input('Y')[0]
+    if not ctx.dp_split(xn):
+        return False
+    if ctx.dp_split(yn):
+        x, y = ctx.env[xn], ctx.env[yn]
+        axis = op.attrs.get('axis', -1)
+        xd = ctx.var_desc(xn)
+        if axis == -1 or (xd is not None and xd.shape and
+                          len(xd.shape) != x.dim()):
+            axis = x.dim() - y.dim()
+        if axis != 0:
+            return False
+    return same_rows(ctx, op)
+
+
+def _matmul_rows(ctx, op):
+    """A product whose split operands' dim 0 is a batch dim: X's rows (2-D
+    X untransposed, or any X of rank 3 or more) times an unsplit Y of rank
+    2 at most, or batched products of split operands."""
+    (xn, ), (yn, ) = op.input('X'), op.input('Y')
+    x, y = ctx.env[xn], ctx.env[yn]
+    xs, ys = ctx.dp_split(xn), ctx.dp_split(yn)
+    if xs and ys:
+        ok = x.dim() >= 3 and y.dim() >= 3
+    elif xs:
+        ok = y.dim() <= 2 and (x.dim() >= 3 or
+                               not op.attrs.get('transpose_X', False))
+    else:
+        ok = x.dim() <= 2 and y.dim() >= 3
+    return ok and same_rows(ctx, op)
+
+
+def _unsplit(*slots):
+    """Row-wise iff none of ``slots`` (parameters: a filter, a table, a
+    weight) holds split rows."""
+    def when(ctx, op):
+        return not any(ctx.dp_split(n) for s in slots
+                       for n in op.input(s)) and same_rows(ctx, op)
+    return when
+
+
+def _reshape_rows(ctx, op):
+    """A reshape keeps the rows, flattened into dim 0 or split out of it,
+    iff its shape after dim 0 does not depend on the rows: no Shape input
+    and no -1 there."""
+    shape = op.attrs.get('shape', [])
+    return not any(op.input(s) for s in ('Shape', 'ShapeTensor')) and \
+        len(shape) >= 1 and all(s != -1 for s in shape[1:])
+
+
+declare_row_wise(
+    # elementwise, one input
+    'abs', 'brelu', 'ceil', 'cos', 'elu', 'exp', 'floor', 'hard_shrink',
+    'hard_sigmoid', 'leaky_relu', 'log', 'logsigmoid', 'reciprocal', 'relu',
+    'relu6', 'round', 'sigmoid', 'sign', 'sin', 'soft_relu', 'softplus',
+    'softshrink', 'softsign', 'sqrt', 'square', 'stanh', 'swish', 'tanh',
+    'tanh_shrink', 'thresholded_relu', 'pow', 'scale', 'cast', 'clip',
+    'dropout', 'assign', 'fill_zeros_like', 'logical_not', 'one_hot',
+    # each row's loss from its own logits and labels
+    'cross_entropy', 'softmax_with_cross_entropy',
+    'sigmoid_cross_entropy_with_logits', 'log_loss', 'hinge_loss',
+    'huber_loss', 'modified_huber_loss', 'smooth_l1_loss', 'rank_loss',
+    'margin_rank_loss', 'squared_l2_distance',
+    # over each sample's own dims: pixels, steps, heads
+    'pool2d', 'pad2d', 'maxout', 'flash_attention', 'sequence_pool',
+    'sequence_first_step', 'sequence_last_step', 'sequence_softmax')
+declare_row_wise(
+    *(['elementwise_' + n for n in ('add', 'sub', 'mul', 'div', 'max',
+                                    'min', 'pow', 'mod', 'floordiv')] +
+      ['equal', 'not_equal', 'less_than', 'less_equal', 'greater_than',
+       'greater_equal', 'logical_and', 'logical_or', 'logical_xor']),
+    when=_binary_rows)
+declare_row_wise('matmul', when=_matmul_rows)
+declare_row_wise('mul', when=_unsplit('Y'))
+declare_row_wise('conv2d', 'depthwise_conv2d', 'sequence_conv',
+                 when=_unsplit('Filter'))
+declare_row_wise('lookup_table', when=_unsplit('W'))
+declare_row_wise('gather', when=_unsplit('X'))
+declare_row_wise('prelu', when=_unsplit('Alpha'))
+declare_row_wise('label_smooth', when=_unsplit('PriorDist'))
+declare_row_wise('lstm', 'gru', when=_unsplit('Weight', 'Bias'))
+declare_row_wise('gru_unit', when=_unsplit('Weight', 'Bias'))
+declare_row_wise('layer_norm', when=lambda ctx, op: op.attrs.get(
+    'begin_norm_axis', 1) >= 1 and same_rows(ctx, op))
+declare_row_wise('softmax', 'top_k', when=lambda ctx, op: _ndim(
+    ctx, op) >= 2 and same_rows(ctx, op))
+declare_row_wise('sum', 'multiplex', when=lambda ctx, op: _all_split(
+    ctx, op.input_arg_names) and same_rows(ctx, op))
+declare_row_wise('concat', when=lambda ctx, op: _all_split(
+    ctx, op.input('X')) and _rows_on_axis()(ctx, op))
+declare_row_wise('stack', when=lambda ctx, op: _all_split(
+    ctx, op.input('X')) and _rows_on_axis(extra=1)(ctx, op))
+declare_row_wise('split', 'unstack', when=_rows_on_axis())
+declare_row_wise('cumsum', 'argsort', 'norm',
+                 when=_rows_on_axis(default=-1))
+declare_row_wise('argmax', 'arg_max', 'argmin', 'arg_min',
+                 when=_rows_on_axis())
+declare_row_wise('slice', when=_rows_off_axes(slot='Input'))
+declare_row_wise('reverse', when=_rows_off_axes('axis'))
+declare_row_wise('squeeze', 'squeeze2', when=lambda ctx, op: bool(
+    op.attrs.get('axes')) and _rows_off_axes()(ctx, op))
+declare_row_wise('unsqueeze', 'unsqueeze2', when=lambda ctx, op:
+                 _rows_off_axes(extra=len(op.attrs['axes']))(ctx, op))
+declare_row_wise('transpose', 'transpose2', when=lambda ctx, op: list(
+    op.attrs['axis'])[:1] == [0] and same_rows(ctx, op))
+declare_row_wise('flatten', 'flatten2',
+                 when=lambda ctx, op: op.attrs.get('axis', 1) >= 1)
+declare_row_wise('reshape', 'reshape2', when=_reshape_rows)
+declare_row_wise('expand', when=lambda ctx, op: list(
+    op.attrs['expand_times'])[:1] == [1] and same_rows(ctx, op))
+declare_row_wise('pad', when=lambda ctx, op: list(
+    op.attrs['paddings'])[:2] == [0, 0] and same_rows(ctx, op))
+declare_row_wise(
+    'fill_constant_batch_size_like', 'uniform_random_batch_size_like',
+    'gaussian_random_batch_size_like', when=lambda ctx, op: op.attrs.get(
+        'input_dim_idx', 0) == 0 and op.attrs.get('output_dim_idx', 0) == 0)
+declare_row_wise('sequence_mask', when=lambda ctx, op: op.attrs.get(
+    'maxlen', -1) > 0 and same_rows(ctx, op))
+
+
+def store_grad(ctx, gname, g, cotangents=()):
+    """Write a gradient as the generic grad writes it: added to a value
+    the name already holds (a contribution the rename pass did not split),
+    unless the name is one of the op's own ``cotangents``."""
+    if ctx.has(gname) and gname not in cotangents:
+        g = _tree_add(ctx.lookup(gname), g)
+    ctx.store(gname, g)
+
+
+def dp_scaled_grad(fwd_type, out_slot):
+    """The grad of a dp-aware mean-type reduction ``fwd_type``: the
+    generic grad, whose replay reduces the local rows only, with the
+    cotangent of ``out_slot`` scaled by the local denominator over the
+    global one, which the forward left in ``ctx.dp_grad_scale``.  Without
+    dp it is the generic grad.  No collective runs: the output is global
+    and its cotangent the same on every rank."""
+    generic = []
+
+    def grad(ctx, op):
+        if not generic:
+            generic.append(_make_generic_grad(fwd_type))
+        out = op.input(out_slot)[0]
+        scale = ctx.dp_grad_scale.get(out)
+        ct = out + GRAD_SUFFIX
+        if scale is None or not ctx.has(ct):
+            return generic[0](ctx, op)
+        old = ctx.lookup(ct)
+        ctx.store(ct, old * scale.to(old.dtype))
+        try:
+            generic[0](ctx, op)
+        finally:
+            if ctx.has(ct):
+                ctx.store(ct, old)
+
+    return grad
 
 
 GRAD_SUFFIX = '@GRAD'

@@ -1,7 +1,7 @@
 """Attention references (counterpart of
 ``paddle_tpu/parallel/context_parallel.py``).  Ring and Ulysses attention
-come with the parallel slice of the port; this holds the single-device
-dense path.  Layout: [batch, seq, heads, head_dim]."""
+(the 'sp' mesh axis) are not ported yet and raise (``parallel``; ROADMAP.md,
+Queue 1 item 7); this holds the single-device dense path.  Layout: [batch, seq, heads, head_dim]."""
 
 import torch
 

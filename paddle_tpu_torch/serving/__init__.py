@@ -21,8 +21,8 @@ the slot batch, chained ``decode_pipeline_depth`` deep;
 ``ModelRegistry.load(generation=)`` accounts the cache as
 ``<model>:decode-cache``.
 
-Not ported yet: dp/mesh serving, generation included (ROADMAP.md, Queue 1
-item 7), ``fleet.py`` and ``loadgen.py`` (item 8), row-sharded tables and
+Not ported yet: dp/mesh serving, generation included, ``fleet.py`` and
+``loadgen.py`` (ROADMAP.md, Queue 1 item 8), row-sharded tables and
 embedding caches (item 9).
 
     reg = serving.ModelRegistry(hbm_budget_bytes=2 << 30)

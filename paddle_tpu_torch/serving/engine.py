@@ -303,9 +303,8 @@ class InferenceEngine(object):
                              'load_inference_model)')
         if parallel or mesh is not None:
             raise NotImplementedError(
-                'sharded serving (parallel=, mesh=) needs ParallelExecutor, '
-                'which is not ported to PyTorch yet (ROADMAP.md, Queue 1 '
-                'item 7)')
+                'sharded serving (parallel=, mesh=) on ParallelExecutor is '
+                'not ported to PyTorch yet (ROADMAP.md, Queue 1 item 8)')
         if embed_caches:
             raise NotImplementedError(
                 'embed_caches=: the two-tier embedding cache is not ported '
@@ -1063,7 +1062,8 @@ class InferenceEngine(object):
                     for n in names}
         # the mask rides every lot, so a full lot and a padded lot run
         # the same block (mask all ones vs ragged)
-        feed, real, target = pad_ragged_batch(feed, bucket, names)
+        feed, real, target = pad_ragged_batch(
+            feed, 1, target=bucket, force_mask=True, batch_names=names)
         deadline_flush = rows < self.config.max_batch_size
         self._metrics.note_lot(real, target, deadline_flush)
         t_lot = time.time()

@@ -44,7 +44,7 @@ in device memory, and which one is evicted when the next arrives.
     the arbiter's eviction, reload and admission counters.
 
 Not ported yet, each raising ``NotImplementedError``: dp/mesh serving
-(``parallel=``, ``mesh=``; ROADMAP.md, Queue 1 item 7), row-sharded
+(``parallel=``, ``mesh=``; ROADMAP.md, Queue 1 item 8), row-sharded
 tables and embedding caches (``embed_caches=``; item 9).
 
     reg = serving.ModelRegistry(hbm_budget_bytes=2 << 30)
@@ -97,9 +97,8 @@ class ModelRegistry(object):
                  mesh=None, config=None, name=None):
         if parallel or mesh is not None:
             raise NotImplementedError(
-                'sharded serving (parallel=, mesh=) needs ParallelExecutor, '
-                'which is not ported to PyTorch yet (ROADMAP.md, Queue 1 '
-                'item 7)')
+                'sharded serving (parallel=, mesh=) on ParallelExecutor is '
+                'not ported to PyTorch yet (ROADMAP.md, Queue 1 item 8)')
         self.place = place if place is not None else core.CUDAPlace(0)
         self.parallel = False
         self.mesh = None

@@ -153,15 +153,30 @@ def test_data_feeder_matches_jax(model):
 
 
 def test_data_feeder_decorate_reader_and_parallel():
+    """decorate_reader, and feed_parallel / decorate_reader(multi_devices)
+    dealing a batch's samples to places, as the JAX package's do."""
     tm = torch_fit.build()
     feeder = _feeder(tfluid, tm['main'], ['x', 'y'])
     reader = paddle_tpu_torch.batch(tuci.train(n=45), 20)
     dicts = list(feeder.decorate_reader(reader)())
     assert [d['x'].shape() for d in dicts] == [[20, 13], [20, 13], [5, 13]]
-    for call in (lambda: feeder.decorate_reader(reader, multi_devices=True),
-                 lambda: feeder.feed_parallel(next(reader()), 2)):
-        with pytest.raises(NotImplementedError, match='ParallelExecutor'):
-            call()
+    jfeeder = _feeder(jfluid, jax_fit.build()['main'], ['x', 'y'])
+    jreader_ = paddle_tpu.batch(juci.train(n=45), 20)
+    for got, want in (
+            (feeder.feed_parallel(next(reader()), 3),
+             jfeeder.feed_parallel(next(jreader_()), 3)),
+            (list(feeder.decorate_reader(reader, multi_devices=True,
+                                         num_places=2)()),
+             list(jfeeder.decorate_reader(jreader_, multi_devices=True,
+                                          num_places=2)()))):
+        got = got if isinstance(got[0], dict) else sum(got, [])
+        want = want if isinstance(want[0], dict) else sum(want, [])
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            for n in g:
+                np.testing.assert_array_equal(g[n].numpy(),
+                                              np.asarray(w[n]), err_msg=n)
 
 
 def _book_feed(jm, tm, names, mb):

@@ -31,10 +31,8 @@ ROADMAP = os.path.join(REPO, 'ROADMAP.md')
 # item 3a lists the same, with the item that brings each family)
 PENDING = {
     'fluid': [
-        'BuildStrategy', 'DistributeTranspiler', 'DistributeTranspilerConfig',
-        'ExecutionStrategy', 'Go', 'ParallelExecutor', 'Select', 'TPUPlace',
-        'channel_close', 'channel_recv', 'channel_send', 'concurrency',
-        'debugger', 'make_channel', 'parallel_executor'],
+        'Go', 'Select', 'TPUPlace', 'channel_close', 'channel_recv',
+        'channel_send', 'concurrency', 'debugger', 'make_channel'],
     'fluid.layers': [
         'anchor_generator', 'bipartite_match', 'box_coder',
         'conv2d_transpose', 'conv3d', 'conv3d_transpose',

@@ -1085,11 +1085,11 @@ def test_generation_entry_points_default_to_the_card(nmt_pair, monkeypatch,
                                  'FleetRouter', 'ReplicaServer',
                                  'OpenLoopLoadGen', 'TrafficClass'])
 def test_cut_generation_features_raise_not_implemented(nmt_pair, cut):
-    """dp/mesh generation (item 7), the embedding caches (item 9), and the
-    fleet and the load generator (item 8) raise NotImplementedError
-    naming their ROADMAP item."""
+    """dp/mesh generation, the fleet and the load generator (item 8) and
+    the embedding caches (item 9) raise NotImplementedError naming their
+    ROADMAP item."""
     m, exe, scope = nmt_pair['torch']
-    item = {'parallel': 7, 'mesh': 7, 'embed_caches': 9}.get(cut, 8)
+    item = {'embed_caches': 9}.get(cut, 8)
     with pytest.raises(NotImplementedError, match='item %d' % item):
         if cut in ('parallel', 'mesh', 'embed_caches'):
             value = {'parallel': True, 'mesh': {'dp': 2},

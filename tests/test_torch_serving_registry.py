@@ -746,7 +746,8 @@ def test_inferencer_rides_the_engine_like_jax(tmp_path):
     """fluid.Inferencer serves through the engine's inline mode: feeds
     that disagree on rows raise, agreeing ones serve, as the JAX
     package's Inferencer does (the port reads the JAX package's saved
-    persistables)."""
+    persistables); with parallel=True it evaluates on a
+    ParallelExecutor."""
     pdir = str(tmp_path)
     _param_dir(jfluid, pdir)
     outs = {}
@@ -770,9 +771,14 @@ def test_inferencer_rides_the_engine_like_jax(tmp_path):
         assert inf._engine.metrics()['requests'] == 1
         outs[pkg] = out[0]
     np.testing.assert_allclose(outs['torch'], outs['jax'], **MLP_TOL)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tfluid.Inferencer(infer_func=lambda: None, param_path=pdir,
-                          parallel=True)
+    # parallel=True evaluates on a ParallelExecutor (one rank here): the
+    # same predictions
+    inf = tfluid.Inferencer(infer_func=infer_func, param_path=pdir,
+                            place=tfluid.CPUPlace(), parallel=True)
+    rng = np.random.RandomState(1)
+    out = inf.infer({'a': rng.rand(3, 4).astype('float32'),
+                     'b': rng.rand(3, 4).astype('float32')})
+    np.testing.assert_array_equal(out[0], outs['torch'])
 
 
 @pytest.mark.parametrize('entry', ['registry', 'inferencer', 'predictor'])

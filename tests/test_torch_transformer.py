@@ -229,6 +229,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             'paddle_tpu_torch.serving.decode, paddle_tpu_torch.inference, '
             'paddle_tpu_torch.fluid.inferencer, '
             'paddle_tpu_torch.fluid.parallel_executor, '
+            'paddle_tpu_torch.parallel, paddle_tpu_torch.parallel.mesh, '
+            'paddle_tpu_torch.parallel.api, '
+            'paddle_tpu_torch.parallel.multihost, '
+            'paddle_tpu_torch.fluid.transpiler.distribute_transpiler, '
+            'paddle_tpu_torch.fluid.transpiler.ps_dispatcher, '
             'paddle_tpu_torch.fluid.contrib, '
             'chip_smoke, '
             'profile_torch_slice, profile_ctr_merge, profile_upload, '
