@@ -29,10 +29,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEEDS = (20261016, 20261116, 20261216, 1, 7)
 
 
-def f64_program(program):
+def f64_program(program, core=None):
     """A copy of ``program`` computing in f64: every f32 var and every f32
-    ``dtype`` attr made f64."""
-    from paddle_tpu_torch.fluid import core
+    ``dtype`` attr made f64.  ``core``: the ``fluid.core`` of the program's
+    package (the port's by default)."""
+    if core is None:
+        from paddle_tpu_torch.fluid import core
     f32, f64 = core.VarDesc.VarType.FP32, core.VarDesc.VarType.FP64
     p = program.clone()
     for blk in p.blocks:

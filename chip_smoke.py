@@ -482,6 +482,37 @@ L. data parallelism on ``torch.distributed`` (``fluid.ParallelExecutor``),
    the kernels on the card in L2's profiled replays.  ``--only-parallel``
    runs the device phase, the kernels' build and path L alone and prints
    no result line.
+M. the detection family, run right after path L, f32:
+   M1. MobileNet-SSD (``mobilenet_ssd_programs``: PaddlePaddle models'
+       fluid/object_detection/mobilenet_ssd.py at scale 1.0, 300 x 300,
+       21 classes, 1917 priors), reduce_sum(ssd_loss), RMSProp at
+       ``SSD_LR`` with L2Decay(``SSD_L2``), ``SSD_BATCH`` seeded images
+       with 1 to ``SSD_MAX_GT`` boxes each as LoD feeds: ``SSD_STEPS``
+       steps on one batch (``_Path``: the eager call, the capture and
+       replays; no hand-written kernel), the loss falling; one
+       ``SSD_CPU_BATCH`` step against the CPU from the same state
+       (``SSD_TRAIN_TOL``); the step captured against eager and timed
+       (``SSD_CAPTURE_CALLS``, cuDNN's deterministic algorithms) with busy
+       and idle share, peak memory
+       against ``memory_analysis`` and ``cost_report``'s FLOPs on a
+       ``path M: {...}`` line.
+   M2. its test program (``clone(for_test=True)``) with
+       ``detection_output`` (NMS at ``SSD_NMS_THRESHOLD``) and an 11-point
+       ``detection_map`` accumulating over ``SSD_EVAL_BATCHES`` batches,
+       eager (host ops): each batch's host ops run again on the CPU on the
+       arrays the card fed them, bitwise equal (detections, LoD, mAP,
+       state); the first ``SSD_EVAL_CPU_IMAGES`` images through the test
+       program on the CPU: ``locs`` and ``confs`` within
+       ``CV_SERVE_RTOL``, the detections that differ counted; the host
+       ops' seconds beside each batch's wall and the mAP.
+   M3. the RPN stages (``rpn_programs``, ``RPN``: a stride-16 map of a
+       600 x 800 image, 15 anchors a cell, 2 images): ``anchor_generator``,
+       ``generate_proposals``, ``rpn_target_assign`` and
+       ``generate_proposal_labels`` with ``fix_seed``, every output bitwise
+       the same program's on the CPU, and the host ops' seconds.
+   Each part prints ``path M: {...}`` lines; the kernels line's
+   ``detect`` entries are 0.  ``--only-detect`` runs the device phase and
+   path M alone and prints no result line.
 
 It imports nothing of JAX or of the JAX package ``paddle_tpu``.
 """
@@ -2811,7 +2842,7 @@ def phase_vgg(card):
 # ----------------------------------------------------------------------------
 # the captured path: each block captured once as a CUDA graph and replayed
 # ----------------------------------------------------------------------------
-CAPTURE_CALLS = 20  # timed calls of each path, eager and captured
+CAPTURE_CALLS = 8   # timed calls of each path, eager and captured
 MULTI_K = 8         # steps of the run_multi and run_eval_multi phases
 DROPOUT_P = 0.1
 DROPOUT_ROWS, DROPOUT_WIDTH = 256, 4096
@@ -4583,7 +4614,7 @@ FIT_BATCH = 20
 FIT_EPOCHS = 5        # of uci_housing.train()'s 20 batches of 20: the loss
                       # of the last epoch's steps against the first's
 FIT_TRAIN_TOL = REC_TRAIN_TOL
-BOOK_CAPTURE_CALLS = 10  # timed calls of each path F block, eager and captured
+BOOK_CAPTURE_CALLS = 5  # timed calls of each path F block, eager and captured
 
 
 def _book_model(module, **kwargs):
@@ -8956,6 +8987,603 @@ def phase_parallel(card):
     return _Launches(wrapper, device)
 
 
+# ---- path M: the detection family, MobileNet-SSD 300 ----
+# M1: MobileNet-SSD as PaddlePaddle models' fluid/object_detection/
+# mobilenet_ssd.py builds it (``mobilenet_ssd_programs``: scale 1.0, 300 x
+# 300, 21 VOC classes, 1917 priors over the 19^2 ... 1^2 maps),
+# reduce_sum(ssd_loss), RMSProp at SSD_LR with L2Decay(SSD_L2), on
+# SSD_BATCH seeded images each with 1 to SSD_MAX_GT boxes (labels 1-20, a
+# tenth difficult) as LoD feeds.  M2: its test program (``clone(
+# for_test=True)``) with ``detection_output`` (NMS at SSD_NMS_THRESHOLD)
+# and an accumulating 11-point ``detection_map`` over SSD_EVAL_BATCHES
+# batches, eager (host ops).  M3: the RPN stages at a Faster R-CNN
+# stride-16 map of a 600 x 800 image (RPN).
+SSD = dict(scale=1.0, size=300, num_classes=21)
+SSD_LR, SSD_L2 = 1e-3, 5e-5
+SSD_RMSPROP_RHO = 0.95  # fluid.optimizer.RMSProp's default decay
+SSD_BATCH = 32
+SSD_CPU_BATCH = 8       # M1's step against the CPU
+SSD_STEPS = 5           # M1's profiled steps: eager, capture, 3 replays
+SSD_CAPTURE_CALLS = 10  # M1's timed calls of each path, eager and captured
+SSD_MAX_GT = 8
+SSD_EVAL_BATCHES = 4
+SSD_EVAL_CPU_IMAGES = 4  # M2's images run on the CPU too
+SSD_NMS_THRESHOLD = 0.45
+# M1's step against the CPU: the loss, gradients and batch-norm statistics
+# at ResNet-50's card-step bounds (CV_TRAIN_TOL: depthwise convolutions and
+# 35 batch norms over 8 images, f32 sums in other orders).  The parameters:
+# RMSProp's first step from a zero mean square moves an element by lr g /
+# sqrt((1 - rho) g^2), up to lr / sqrt(1 - rho) whatever the size of g, so
+# a gradient of rounding noise may move it that far either way on each side
+# (param_max, twice that); at most param_frac of the elements beyond lr /
+# 10, as VGG-16's Adam step is held.
+SSD_TRAIN_TOL = dict(CV_TRAIN_TOL['resnet50'],
+                     param_max=2 * SSD_LR / math.sqrt(1 - SSD_RMSPROP_RHO),
+                     param_atol=SSD_LR / 10)
+# Faster R-CNN's RPN on a 600 x 800 image (the reference's
+# rpn_target_assign and generate_proposals defaults): a stride-16 map of
+# 38 x 50 cells, 5 sizes x 3 ratios = 15 anchors a cell, 2 images with 1
+# to RPN_MAX_GT boxes, 81 COCO classes for generate_proposal_labels
+RPN = dict(image=(600, 800), stride=16.0,
+           sizes=[32.0, 64.0, 128.0, 256.0, 512.0], ratios=[0.5, 1.0, 2.0],
+           images=2, class_nums=81)
+RPN_MAX_GT = 8
+
+
+def mobilenet_ssd_programs(fluid, scale=1.0, size=300, num_classes=21,
+                           lr=SSD_LR, l2=SSD_L2):
+    """MobileNet-SSD (PaddlePaddle models, fluid/object_detection/
+    mobilenet_ssd.py, at ``scale``): ``conv_bn`` 32/2, depthwise-separable
+    blocks 64, 128/2, 128, 256/2, 256, 512/2, 5 x 512, 1024/2, 1024, extra
+    blocks 256->512, 128->256, 128->256, 64->128, each /2; every conv
+    without bias, MSRA-uniform, at a tenth of the learning rate, under a
+    ReLU batch norm; ``multi_box_head`` over the 19^2 ... 1^2 maps (at 300)
+    with min sizes 60-285 and max sizes 150-300 (in proportion at another
+    ``size``), ratios [2] then [2, 3], flip, offset 0.5.  The main program
+    trains reduce_sum(ssd_loss) with RMSProp at ``lr`` and L2Decay(``l2``);
+    the test program is its ``clone(for_test=True)`` with
+    ``detection_output`` (NMS at SSD_NMS_THRESHOLD) and an 11-point
+    ``detection_map`` (overlap 0.5, difficult boxes not evaluated) that
+    accumulates its state in three persistable vars while ``has_state`` is
+    fed 1."""
+    L = fluid.layers
+
+    def conv_bn(x, filter_size, num_filters, stride, padding, groups=1):
+        fan_in = int(x.shape[1]) // groups * filter_size * filter_size
+        limit = math.sqrt(6.0 / fan_in)
+        conv = L.conv2d(x, num_filters=num_filters, filter_size=filter_size,
+                        stride=stride, padding=padding, groups=groups,
+                        param_attr=fluid.ParamAttr(
+                            learning_rate=0.1,
+                            initializer=fluid.initializer.Uniform(-limit,
+                                                                  limit)),
+                        bias_attr=False)
+        return L.batch_norm(conv, act='relu')
+
+    def separable(x, f1, f2, stride):
+        dw = conv_bn(x, 3, int(f1 * scale), stride, 1,
+                     groups=int(f1 * scale))
+        return conv_bn(dw, 1, int(f2 * scale), 1, 0)
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        image = L.data(name='image', shape=[3, size, size], dtype='float32')
+        gt_box = L.data(name='gt_box', shape=[4], dtype='float32',
+                        lod_level=1)
+        gt_label = L.data(name='gt_label', shape=[1], dtype='int32',
+                          lod_level=1)
+        x = conv_bn(image, 3, int(32 * scale), 2, 1)
+        for f1, f2, stride in ((32, 64, 1), (64, 128, 2), (128, 128, 1),
+                               (128, 256, 2), (256, 256, 1), (256, 512, 2)) \
+                + ((512, 512, 1), ) * 5:
+            x = separable(x, f1, f2, stride)
+        maps = [x]
+        maps.append(separable(separable(x, 512, 1024, 2), 1024, 1024, 1))
+        for f1, f2 in ((256, 512), (128, 256), (128, 256), (64, 128)):
+            maps.append(conv_bn(conv_bn(maps[-1], 1, int(f1 * scale), 1, 0),
+                                3, int(f2 * scale), 2, 1))
+        k = size / 300.0
+        locs, confs, box, box_var = L.multi_box_head(
+            inputs=maps, image=image, base_size=size,
+            num_classes=num_classes, min_ratio=20, max_ratio=90,
+            min_sizes=[k * s for s in (60.0, 105.0, 150.0, 195.0, 240.0,
+                                       285.0)],
+            max_sizes=[[]] + [k * s for s in (150.0, 195.0, 240.0, 285.0,
+                                              300.0)],
+            aspect_ratios=[[2.0]] + [[2.0, 3.0]] * 5, offset=0.5, flip=True)
+        loss = L.reduce_sum(L.ssd_loss(locs, confs, gt_box, gt_label, box,
+                                       box_var))
+        test = main.clone(for_test=True)
+        fluid.optimizer.RMSProp(
+            learning_rate=lr,
+            regularization=fluid.regularizer.L2Decay(l2)).minimize(loss)
+    with fluid.program_guard(test, fluid.Program()):
+        blk = test.global_block()
+        nmsed = L.detection_output(*(blk.var(v.name) for v in (
+            locs, confs, box, box_var)), nms_threshold=SSD_NMS_THRESHOLD)
+        difficult = L.data(name='gt_difficult', shape=[1], dtype='int32',
+                           lod_level=1)
+        label = L.concat([L.cast(blk.var(gt_label.name), 'float32'),
+                          blk.var(gt_box.name), L.cast(difficult, 'float32')],
+                         axis=-1)
+        has_state = L.data(name='has_state', shape=[1], dtype='int32',
+                           append_batch_size=False)
+        states = [blk.create_var(name='map_accum_' + n, persistable=True)
+                  for n in ('pos_count', 'true_pos', 'false_pos')]
+        m_ap = L.detection_map(nmsed, label, num_classes, background_label=0,
+                               overlap_threshold=0.5,
+                               evaluate_difficult=False, has_state=has_state,
+                               input_states=states, out_states=states,
+                               ap_version='11point')
+    return dict(main=main, startup=startup, test=test, loss=loss, locs=locs,
+                confs=confs, nmsed=nmsed, map=m_ap,
+                states=[s.name for s in states],
+                feeds=['image', 'gt_box', 'gt_label'])
+
+
+def lod_tensor(fluid, rows, dtype):
+    """A one-level LoD tensor of ``fluid``'s package from per-sequence
+    [n, d] arrays."""
+    lt = fluid.core.LoDTensor(np.concatenate(rows).astype(dtype))
+    lt.set_recursive_sequence_lengths([[len(r) for r in rows]])
+    return lt
+
+
+def ssd_batch(fluid, rng, batch, size=300, num_classes=21,
+              max_gt=SSD_MAX_GT):
+    """``batch`` seeded images, each with 1 to ``max_gt`` normalized boxes
+    (labels 1 to num_classes - 1, a tenth difficult): (the feed of every
+    data var of ``mobilenet_ssd_programs`` but ``has_state``, the rows of
+    each image's ``detection_map`` label [label, box, difficult])."""
+    image = rng.standard_normal((batch, 3, size, size)).astype('float32')
+    boxes, labels, difficult = [], [], []
+    for n in rng.randint(1, max_gt + 1, batch):
+        centre = rng.uniform(0.15, 0.85, (n, 2))
+        half = rng.uniform(0.05, 0.25, (n, 2))
+        boxes.append(np.clip(np.concatenate([centre - half, centre + half],
+                                            1), 0.0, 1.0).astype('float32'))
+        labels.append(rng.randint(1, num_classes, (n, 1)).astype('int32'))
+        difficult.append((rng.rand(n, 1) < 0.1).astype('int32'))
+    rows = [np.concatenate([l.astype('float32'), b, d.astype('float32')], 1)
+            for b, l, d in zip(boxes, labels, difficult)]
+    return {'image': image, 'gt_box': lod_tensor(fluid, boxes, 'float32'),
+            'gt_label': lod_tensor(fluid, labels, 'int32'),
+            'gt_difficult': lod_tensor(fluid, difficult, 'int32')}, rows
+
+
+def ssd_host_program(fluid, test, shapes):
+    """The host ops of ``mobilenet_ssd_programs``' test program alone, fed
+    the arrays they read there (``bboxes`` and ``scores`` of ``shapes``,
+    the label rows as a LoD feed, ``has_state``), with the same attrs and
+    their own state vars."""
+    L = fluid.layers
+    ops = {op.type: op for op in test.global_block().ops}
+    nms, dmap = ops['multiclass_nms'], ops['detection_map']
+    prog = fluid.Program()
+    with fluid.program_guard(prog, fluid.Program()):
+        bboxes = L.data(name='bboxes', shape=list(shapes[0][1:]),
+                        dtype='float32')
+        scores = L.data(name='scores', shape=list(shapes[1][1:]),
+                        dtype='float32')
+        label = L.data(name='label', shape=[6], dtype='float32', lod_level=1)
+        has_state = L.data(name='has_state', shape=[1], dtype='int32',
+                           append_batch_size=False)
+        states = [prog.global_block().create_var(
+            name='host_' + n, persistable=True) for n in dmap.output(
+                'AccumPosCount') + dmap.output('AccumTruePos') +
+            dmap.output('AccumFalsePos')]
+        out = L.multiclass_nms(bboxes, scores, score_threshold=0.0,
+                               nms_top_k=0, keep_top_k=0)
+        m_ap = L.detection_map(out, label, 0, has_state=has_state,
+                               input_states=states, out_states=states)
+    for op in prog.global_block().ops:
+        op.attrs.update(nms.attrs if op.type == 'multiclass_nms' else
+                        dmap.attrs)
+    return dict(program=prog, nmsed=out, map=m_ap,
+                states=[s.name for s in states])
+
+
+def rpn_programs(fluid, cfg=RPN):
+    """Faster R-CNN's RPN stages (``cfg``): ``anchor_generator`` on a
+    [N, 8, H / 16, W / 16] map; ``generate_proposals`` over the fed scores
+    and deltas (the reference's defaults: pre-NMS top 6000, post-NMS top
+    1000, NMS at 0.7); ``rpn_target_assign`` of the anchors against the
+    LoD ground truth (256 a image, a quarter positive, with ``fix_seed``);
+    ``generate_proposal_labels`` of the proposals (512 RoIs a image at a
+    quarter foreground, without random sampling, ``class_nums``)."""
+    L = fluid.layers
+    h, w = cfg['image']
+    fh, fw = (int(math.ceil(s / cfg['stride'])) for s in (h, w))
+    na = len(cfg['sizes']) * len(cfg['ratios'])
+    prog = fluid.Program()
+    with fluid.program_guard(prog, fluid.Program()):
+        feat = L.data(name='rpn_feat', shape=[8, fh, fw], dtype='float32')
+        anchors, variances = L.anchor_generator(
+            feat, anchor_sizes=cfg['sizes'], aspect_ratios=cfg['ratios'],
+            variance=[1.0, 1.0, 1.0, 1.0],
+            stride=[cfg['stride'], cfg['stride']])
+        scores = L.data(name='rpn_scores', shape=[na, fh, fw],
+                        dtype='float32')
+        deltas = L.data(name='rpn_deltas', shape=[4 * na, fh, fw],
+                        dtype='float32')
+        im_info = L.data(name='im_info', shape=[3], dtype='float32')
+        gt_box = L.data(name='rpn_gt_box', shape=[4], dtype='float32',
+                        lod_level=1)
+        gt_class = L.data(name='rpn_gt_class', shape=[1], dtype='int32',
+                          lod_level=1)
+        crowd = L.data(name='rpn_is_crowd', shape=[1], dtype='int32',
+                       lod_level=1)
+        rois, probs = L.generate_proposals(scores, deltas, im_info, anchors,
+                                           variances)
+        assign = L.rpn_target_assign(
+            deltas, scores, L.reshape(anchors, shape=[-1, 4]), gt_box,
+            fix_seed=True, seed=SEED % 1000)
+        labels = L.generate_proposal_labels(
+            rois, gt_class, crowd, gt_box, im_info, batch_size_per_im=512,
+            class_nums=cfg['class_nums'], use_random=False)
+    return dict(program=prog, fetch=[anchors, variances, rois, probs] +
+                list(assign) + list(labels),
+                lod=[rois.name, probs.name] + [v.name for v in labels])
+
+
+def rpn_feed(fluid, rng, cfg=RPN):
+    """Seeded inputs of ``rpn_programs``: objectness probabilities and
+    deltas (0.1 of a normal draw) at each anchor, im_info (the image at
+    scale 1), and 1 to RPN_MAX_GT ground-truth boxes an image in pixels,
+    a tenth of them crowd."""
+    h, w = cfg['image']
+    n = cfg['images']
+    fh, fw = (int(math.ceil(s / cfg['stride'])) for s in (h, w))
+    na = len(cfg['sizes']) * len(cfg['ratios'])
+    boxes, classes, crowd = [], [], []
+    for k in rng.randint(1, RPN_MAX_GT + 1, n):
+        x0 = rng.uniform(0, w - 64, (k, 1))
+        y0 = rng.uniform(0, h - 64, (k, 1))
+        bw = rng.uniform(32, 400, (k, 1))
+        bh = rng.uniform(32, 400, (k, 1))
+        boxes.append(np.concatenate([x0, y0, np.minimum(x0 + bw, w - 1),
+                                     np.minimum(y0 + bh, h - 1)],
+                                    1).astype('float32'))
+        classes.append(rng.randint(1, cfg['class_nums'], (k, 1)).astype(
+            'int32'))
+        crowd.append((rng.rand(k, 1) < 0.1).astype('int32'))
+    logits = rng.standard_normal((n, na, fh, fw))
+    return {'rpn_feat': np.zeros((n, 8, fh, fw), 'float32'),
+            'rpn_scores': (1.0 / (1.0 + np.exp(-logits))).astype('float32'),
+            'rpn_deltas': (0.1 * rng.standard_normal(
+                (n, 4 * na, fh, fw))).astype('float32'),
+            'im_info': np.tile(np.asarray([[h, w, 1.0]], 'float32'), (n, 1)),
+            'rpn_gt_box': lod_tensor(fluid, boxes, 'float32'),
+            'rpn_gt_class': lod_tensor(fluid, classes, 'int32'),
+            'rpn_is_crowd': lod_tensor(fluid, crowd, 'int32')}
+
+
+@contextlib.contextmanager
+def _host_op_seconds(types):
+    """The host wall each host op of ``types`` takes while active, summed
+    by type (each registered function wrapped in a timer)."""
+    from paddle_tpu_torch.ops import registry
+    spent = dict.fromkeys(types, 0.0)
+    saved = {t: registry._HOST_OPS[t] for t in types}
+
+    def timed(t, fn):
+        def run(ctx, op, scope):
+            t0 = time.perf_counter()
+            try:
+                return fn(ctx, op, scope)
+            finally:
+                spent[t] += time.perf_counter() - t0
+        return run
+
+    registry._HOST_OPS.update({t: timed(t, fn) for t, fn in saved.items()})
+    try:
+        yield spent
+    finally:
+        registry._HOST_OPS.update(saved)
+
+
+def phase_detect_train(card):
+    """M1: MobileNet-SSD (``SSD``) trained on SSD_BATCH images: SSD_STEPS
+    profiled steps on one batch (``_Path``: the eager call, the capture and
+    replays; no hand-written kernel), the loss finite and the last below the
+    first; one SSD_CPU_BATCH step against the CPU from the same state
+    (``SSD_TRAIN_TOL``); the step captured against eager and timed
+    (SSD_CAPTURE_CALLS) with cuDNN's deterministic algorithms, with
+    ``cost_report()``'s FLOPs and the capture's peak against
+    ``memory_analysis``.  Returns (the model, its scope, the
+    path's launch record)."""
+    import paddle_tpu_torch.fluid as fluid
+    tag = 'M1 MobileNet-SSD %d' % SSD['size']
+    with fluid.unique_name.guard():
+        model = mobilenet_ssd_programs(fluid, **SSD)
+    model, scope, exe = _started('%s %s' % (tag, SSD), model)
+    main, loss = model['main'], model['loss'].name
+    rng = np.random.RandomState(SEED + 100)
+    feed, _ = ssd_batch(fluid, rng, SSD_BATCH, SSD['size'],
+                        SSD['num_classes'])
+    feed = {k: feed[k] for k in model['feeds']}
+    made = []
+    path = _Path(tag, exe, 'f32').begin()
+    fluid.FLAGS.cost_accounting = True
+    try:
+        for _ in range(SSD_STEPS):
+            made += path.call(lambda: exe.run(main, feed=feed,
+                                              fetch_list=[loss],
+                                              scope=scope), _expect())
+    finally:
+        fluid.FLAGS.cost_accounting = False
+    path.end()
+    check(path.wrapper == _expect(), '%s: hand-written kernels launched: %s'
+          % (tag, path.wrapper))
+    block = exe.cached_blocks()[-1]
+    ran = [m[3] for m in made]
+    check(block.mode == 'graph' and block.captures == 1 and
+          ran.count('replay') >= SSD_STEPS - 2,
+          '%s: the block ran %s (%s), %d captures, calls %s' %
+          (tag, block.mode, block.why, block.captures, ran))
+    losses = [float(m[0][0][0]) for m in made]
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          '%s: the loss did not fall: %s' % (tag, losses))
+    flops = _cost_per_step(exe, [loss])
+    check(flops and min(flops) > 0, '%s: cost_report FLOPs %s' % (tag, flops))
+    ops = collections.Counter(op.type for op in
+                              model['test'].global_block().ops)
+    print('%s: %d RMSProp steps (lr %g) on one %d-image batch, loss %s; '
+          'launches %s; cost_report FLOPs a step %.4e; %d parameters of %d '
+          'elements; test program ops: conv2d %d, depthwise_conv2d %d, '
+          'batch_norm %d, prior_box %d, ssd_loss %d, multiclass_nms %d, '
+          'detection_map %d [%s]' %
+          (tag, len(made), SSD_LR, SSD_BATCH,
+           ' -> '.join('%.4f' % l for l in losses), path.summary(),
+           flops[-1], len(main.all_parameters()),
+           sum(int(np.prod(p.shape)) for p in main.all_parameters()),
+           ops['conv2d'], ops['depthwise_conv2d'], ops['batch_norm'],
+           ops['prior_box'], ops['ssd_loss'], ops['multiclass_nms'],
+           ops['detection_map'], card), flush=True)
+    small, _ = ssd_batch(fluid, rng, SSD_CPU_BATCH, SSD['size'],
+                         SSD['num_classes'])
+    with cpu_ftz():
+        compare_train_step(card, tag, '%d x 3 x %d x %d' % (
+            SSD_CPU_BATCH, SSD['size'], SSD['size']), main, loss,
+            {k: small[k] for k in model['feeds']}, scope, exe, SSD_LR,
+            SSD_TRAIN_TOL)
+    # cuDNN's deterministic algorithms for the capture against eager and
+    # their times: its default weight gradients sum in no fixed order, and
+    # through 35 batch norms that order can move the step by more than
+    # twice what it moves it from one eager run to the next, the capture's
+    # tolerance
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        timed = phase_capture(card, tag + ' step', main, feed, [loss],
+                              _persistables(main, scope), {},
+                              calls=SSD_CAPTURE_CALLS)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    ratio = timed['memory']['capture_above'] / timed['memory']['temp']
+    _book_record(card, tag + ' step', timed, flops[-1], path='M',
+                 batch=SSD_BATCH, ms_eager=timed['eager']['wall'] * 1e3,
+                 ms_captured=timed['captured']['wall'] * 1e3,
+                 capture_over_temp=round(ratio, 3),
+                 tflops_captured=flops[-1] / timed['captured']['wall'] / 1e12)
+    path.exe = None  # the launch record outlives the path's executor
+    del exe, block
+    return model, scope, path
+
+
+def _detections_apart(got, want, tol=1e-4):
+    """How many detection rows [label, score, box] of one image are in only
+    one of ``got`` and ``want``: rows matched greedily within ``tol`` by
+    label, score and box."""
+    got = [r for r in np.asarray(got).reshape(-1, 6)]
+    left = [r for r in np.asarray(want).reshape(-1, 6)]
+    apart = 0
+    for r in got:
+        hit = next((i for i, w in enumerate(left) if w[0] == r[0] and
+                    np.abs(w[1:] - r[1:]).max() <= tol), None)
+        if hit is None:
+            apart += 1
+        else:
+            left.pop(hit)
+    return apart + len(left)
+
+
+def _image_rows(arr, lod, i):
+    return np.asarray(arr)[lod[i]:lod[i + 1]]
+
+
+def phase_detect_eval(card, model, scope):
+    """M2: the test program over SSD_EVAL_BATCHES batches of SSD_BATCH on
+    the card, eager (its host ops), the map's state accumulating; each
+    batch's host ops run again on the CPU (``ssd_host_program``) on the
+    arrays the card fed them, bitwise equal (detections, their LoD, the mAP
+    and the state); the first SSD_EVAL_CPU_IMAGES images of the first
+    batch through the test program on the CPU: ``locs`` and ``confs``
+    within CV_SERVE_RTOL (ratios of 2-norms), and the count of detections
+    that differ printed."""
+    import paddle_tpu_torch.fluid as fluid
+    tag = 'M2 MobileNet-SSD evaluation'
+    test = model['test']
+    ops = {op.type: op for op in test.global_block().ops}
+    rng = np.random.RandomState(SEED + 101)
+    fetch = [model['nmsed'].name, model['map'].name,
+             ops['multiclass_nms'].input('BBoxes')[0],
+             ops['multiclass_nms'].input('Scores')[0],
+             model['locs'].name, model['confs'].name]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    host_scope = fluid.Scope()
+    walls, host_s, maps, counts, first = [], [], [], [], None
+    types = ('multiclass_nms', 'detection_map')
+    card_s = dict.fromkeys(types, 0.0)  # the card's runs' alone
+    _zero_counts()
+    with _host_op_seconds(types) as spent:
+        for i in range(SSD_EVAL_BATCHES):
+            feed, rows = ssd_batch(fluid, rng, SSD_BATCH, SSD['size'],
+                                   SSD['num_classes'])
+            state = np.full((1, ), int(i > 0), 'int32')
+            before = dict(spent)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = exe.run(test, feed=dict(feed, has_state=state),
+                          fetch_list=fetch, scope=scope)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            for t in types:
+                card_s[t] += spent[t] - before[t]
+            host_s.append(sum(spent[t] - before[t] for t in types))
+            lod = scope.find_var(model['nmsed'].name).value().lod()[0]
+            accum = [fluid.fetch_var(n, scope) for n in model['states']]
+            # the same host ops on the CPU, on the arrays the card fed them
+            if i == 0:
+                host = ssd_host_program(fluid, test, (got[2].shape,
+                                                      got[3].shape))
+            want = cpu_exe.run(host['program'], feed={
+                'bboxes': got[2], 'scores': got[3], 'has_state': state,
+                'label': lod_tensor(fluid, rows, 'float32')},
+                fetch_list=[host['nmsed'], host['map']], scope=host_scope)
+            want_lod = host_scope.find_var(host['nmsed'].name).value().lod()
+            want_accum = [fluid.fetch_var(n, host_scope)
+                          for n in host['states']]
+            same = [lod] == want_lod and all(
+                np.array_equal(g, w) for g, w in
+                zip(got[:2] + accum, want + want_accum))
+            check(same, '%s: batch %d: the card\'s host ops differ from the '
+                  'same ops on the CPU on the same arrays (detections %s / '
+                  '%s, LoD %s / %s, mAP %s / %s)' %
+                  (tag, i, got[0].shape, want[0].shape, lod[-1],
+                   want_lod[0][-1], got[1], want[1]))
+            block = exe.cached_blocks()[-1]
+            check(block.mode == 'eager' and got[0].shape[1:] == (6, ) and
+                  np.isfinite(got[0]).all() and
+                  np.isin(got[0][:, 0], np.arange(1, SSD['num_classes'])).all()
+                  and 0.0 <= got[1][0] <= 1.0,
+                  '%s: batch %d ran %s (%s): detections %s, mAP %s' %
+                  (tag, i, block.mode, block.why, got[0].shape, got[1]))
+            maps.append(float(got[1][0]))
+            counts.append(int(got[0].shape[0]))
+            if first is None:
+                first = (feed, rows, got, lod)
+    _no_launches(tag)
+    # the first images through the test program on the CPU
+    feed, rows, got, lod = first
+    n = SSD_EVAL_CPU_IMAGES
+    cut = {'image': feed['image'][:n], 'has_state': np.zeros((1, ), 'int32')}
+    for name, dtype, col in (('gt_box', 'float32', slice(1, 5)),
+                             ('gt_label', 'int32', slice(0, 1)),
+                             ('gt_difficult', 'int32', slice(5, 6))):
+        cut[name] = lod_tensor(fluid, [r[:, col] for r in rows[:n]], dtype)
+    cpu_scope = _cpu_copy(model['main'], scope)
+    t0 = time.perf_counter()
+    want = cpu_exe.run(test, feed=cut, fetch_list=[
+        model['nmsed'].name, model['locs'].name, model['confs'].name],
+        scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    want_lod = cpu_scope.find_var(model['nmsed'].name).value().lod()[0]
+    rel = [float(np.linalg.norm(g[:n] - w) / np.linalg.norm(w))
+           for g, w in zip(got[4:], want[1:])]
+    check(max(rel) <= CV_SERVE_RTOL, '%s: locs, confs on the card against '
+          'the CPU |d| / |v| %s (tol %g)' % (tag, rel, CV_SERVE_RTOL))
+    apart = sum(_detections_apart(_image_rows(got[0], lod, i),
+                                  _image_rows(want[0], want_lod, i))
+                for i in range(n))
+    print('%s: %d batches of %d images, eager (host ops): detections %s, '
+          'mAP (11-point, accumulated) %s; the host ops bitwise the same '
+          'ops on the CPU on the card\'s arrays in every batch; batch wall '
+          '%s s, of which host ops %s s (multiclass_nms %.3f s, '
+          'detection_map %.3f s in all), the device block the rest; the '
+          'first %d images on the CPU (%.2f s): locs, confs |d| / |v| %s '
+          '(tol %g), %d of %d detections differ (CPU %d) [%s]' %
+          (tag, SSD_EVAL_BATCHES, SSD_BATCH, counts,
+           ['%.6f' % m for m in maps], ['%.3f' % w for w in walls],
+           ['%.3f' % s for s in host_s], card_s['multiclass_nms'],
+           card_s['detection_map'], n, cpu_s,
+           ['%.3g' % r for r in rel], CV_SERVE_RTOL, apart, lod[n],
+           want_lod[n], card), flush=True)
+    print('path M: %s' % json.dumps(dict(
+        path='M', phase=tag, batches=SSD_EVAL_BATCHES, batch=SSD_BATCH,
+        detections=counts, map=maps, batch_s=walls, host_op_s=host_s,
+        nms_s=card_s['multiclass_nms'], map_s=card_s['detection_map'],
+        cpu_locs_confs_rel=rel, detections_apart=apart, card=card)),
+        flush=True)
+
+
+def phase_detect_rpn(card):
+    """M3: the RPN stages (``rpn_programs``) on the card and on the CPU from
+    the same seeded inputs: every output bitwise (the anchors and the IoU
+    are exact f32 arithmetic on both, the host ops numpy on the same
+    arrays, with ``fix_seed``), each host op's seconds on the card's
+    run."""
+    import paddle_tpu_torch.fluid as fluid
+    tag = 'M3 RPN stages'
+    rng = np.random.RandomState(SEED + 102)
+    model = rpn_programs(fluid, RPN)
+    feed = rpn_feed(fluid, rng, RPN)
+    types = ('rpn_target_assign', 'generate_proposals',
+             'generate_proposal_labels')
+    outs = {}
+    _zero_counts()
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        with _host_op_seconds(types) as spent:
+            t0 = time.perf_counter()
+            got = fluid.Executor(place).run(
+                model['program'], feed=feed, fetch_list=model['fetch'],
+                scope=scope)
+            wall = time.perf_counter() - t0
+        lods = [scope.find_var(n).value().lod() for n in model['lod']]
+        outs[place.device.type] = (got, lods, dict(spent), wall)
+    _no_launches(tag)
+    (got, lods, spent, wall), (want, want_lods, cpu_spent, cpu_wall) = \
+        outs['cuda'], outs['cpu']
+    names = [v.name for v in model['fetch']]
+    differ = [n for n, g, w in zip(names, got, want)
+              if not np.array_equal(g, w)]
+    check(not differ and lods == want_lods,
+          '%s: the card and the CPU differ in %s (LoD equal: %s)' %
+          (tag, differ, lods == want_lods))
+    anchors, rois, labels = got[0], got[2], got[9]
+    check(anchors.shape == tuple(
+        [int(math.ceil(s / RPN['stride'])) for s in RPN['image']] +
+        [len(RPN['sizes']) * len(RPN['ratios']), 4]) and
+        len(lods[0][0]) == RPN['images'] + 1 and rois.shape[1] == 4,
+        '%s: anchors %s, proposals %s, LoD %s' %
+        (tag, anchors.shape, rois.shape, lods[0]))
+    print('%s: anchors %s on a %s image (stride %g), %d proposals (LoD %s), '
+          '%d sampled anchors (%d positive), %d RoIs (%d foreground), '
+          'bitwise the CPU\'s in all %d outputs; host seconds on the card\'s '
+          'run %s (wall %.3f s; the CPU run %s, wall %.3f s) [%s]' %
+          (tag, anchors.shape, RPN['image'], RPN['stride'], rois.shape[0],
+           lods[0][0], got[5].shape[0], got[4].shape[0], labels.shape[0],
+           int((labels > 0).sum()), len(names),
+           {k: round(v, 4) for k, v in spent.items()}, wall,
+           {k: round(v, 4) for k, v in cpu_spent.items()}, cpu_wall, card),
+          flush=True)
+    print('path M: %s' % json.dumps(dict(
+        path='M', phase=tag, proposals=int(rois.shape[0]),
+        rois=int(labels.shape[0]), host_s=spent, wall_s=wall, card=card)),
+        flush=True)
+
+
+def phase_detect(card):
+    """Path M: the detection family.  Returns M1's launch record (no
+    hand-written kernel lies on the path)."""
+    marks = [time.perf_counter()]
+    _free()
+    model, scope, launches = phase_detect_train(card)
+    marks.append(time.perf_counter())
+    phase_detect_eval(card, model, scope)
+    del model, scope
+    _free()
+    marks.append(time.perf_counter())
+    phase_detect_rpn(card)
+    marks.append(time.perf_counter())
+    print('path M: %.1f s (M1 %.1f s, M2 %.1f s, M3 %.1f s)' % (
+        (marks[-1] - marks[0], ) + tuple(b - a for a, b in zip(
+            marks, marks[1:]))), flush=True)
+    return launches
+
+
 def _time_ms(fn, launches_per_sample=10, samples=20, warmup=5):
     """Median device time of one call (CUDA events around back-to-back
     launches, so host overhead between launches is hidden)."""
@@ -9494,6 +10122,9 @@ def main():
     ap.add_argument('--only-parallel', action='store_true',
                     help='run the device phase, the kernels\' build and '
                     'path L alone, and print no result line (a partial run)')
+    ap.add_argument('--only-detect', action='store_true',
+                    help='run the device phase and path M alone, and print '
+                    'no result line (a partial run)')
     # one rank of path L, started by path L itself
     ap.add_argument('--parallel-rank', type=int, help=argparse.SUPPRESS)
     ap.add_argument('--parallel-port', type=int, help=argparse.SUPPRESS)
@@ -9510,6 +10141,12 @@ def main():
         phase_generate(card)
         profiler_summary()
         print('chip_smoke: --only-generate: path I passed; a partial run '
+              'prints no result line', flush=True)
+        return
+    if args.only_detect:
+        phase_detect(card)
+        profiler_summary()
+        print('chip_smoke: --only-detect: path M passed; a partial run '
               'prints no result line', flush=True)
         return
     if args.only_ops:
@@ -9577,6 +10214,8 @@ def main():
     took('path K')
     parallel_launches = phase_parallel(card)
     took('path L')
+    detect_launches = phase_detect(card)
+    took('path M')
     model, scope, exe = build_model()
     launches = {'serve': phase_slice(card, model, scope, exe),
                 'train': phase_train(card, model, scope, exe)}
@@ -9584,6 +10223,7 @@ def main():
     launches['feed_pipeline'] = pipeline_launches
     launches['ops'] = ops_launches
     launches['parallel'] = parallel_launches
+    launches['detect'] = detect_launches
     phase_train_card_vs_cpu(card, model, scope, exe)
     phase_transformer_capture(card, model, scope)
     launches.update(phase_amp_transformer(card, model, scope, exe))

@@ -19,8 +19,10 @@ from . import control_flow
 from .control_flow import *
 from . import learning_rate_scheduler
 from .learning_rate_scheduler import *
+from . import detection
+from .detection import *
 from . import math_op_patch  # noqa: F401  (Variable's operator overloads)
 
 __all__ = (nn.__all__ + io.__all__ + tensor.__all__ + ops.__all__ +
            sequence.__all__ + metric_op.__all__ + control_flow.__all__ +
-           learning_rate_scheduler.__all__)
+           learning_rate_scheduler.__all__ + detection.__all__)

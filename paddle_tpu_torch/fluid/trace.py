@@ -420,7 +420,8 @@ _NO_FLOPS = frozenset((
     'shape', 'slice', 'stack', 'unstack', 'reverse', 'pad', 'pad2d',
     'multiplex', 'crop', 'scatter', 'argsort', 'random_crop',
     'truncated_gaussian_random', 'uniform_random_batch_size_like',
-    'gaussian_random_batch_size_like'))
+    'gaussian_random_batch_size_like', 'prior_box', 'anchor_generator',
+    'target_assign'))
 # reductions: one FLOP per input element
 _REDUCTIONS = frozenset((
     'mean', 'reduce_sum', 'sequence_pool', 'top_k', 'accuracy',
@@ -438,6 +439,7 @@ _PASSES = {
     'norm': 4, 'squared_l2_distance': 3, 'huber_loss': 6,
     'smooth_l1_loss': 8, 'log_loss': 8, 'hinge_loss': 5, 'rank_loss': 5,
     'margin_rank_loss': 6, 'modified_huber_loss': 8, 'kldiv_loss': 5,
+    'box_coder': 8, 'iou_similarity': 14, 'polygon_box_transform': 1,
 }
 # FLOPs per element of each gradient a generic grad produces, beside the
 # forward op's largest output
@@ -492,6 +494,25 @@ def _kernel_flops(op, shape_of):
     return 2.0 * flops if grad else flops
 
 
+def _detection_flops(op, shape_of):
+    """The matching ops: the greedy match's G passes over the [B, G, M]
+    distances (a masked arg-max each); mining's two passes a prior (the
+    sort's comparisons not counted); ``ssd_loss``'s IoU (iou_similarity's
+    passes), match, softmax cross-entropy over its [B, M, C] confidences,
+    box encoding, smooth-L1 and mining (32 FLOPs a prior)."""
+    kind = op.type
+    if kind == 'bipartite_match':
+        b, g, m = ([1] + list(shape_of(op.input('DistMat')[0])))[-3:]
+        return float(g * b * g * m)
+    if kind == 'mine_hard_examples':
+        return 2.0 * _numel(shape_of(op.input('ClsLoss')[0]))
+    b, m, c = shape_of(op.input('Confidence')[0])
+    g = shape_of(op.input('GtBox')[0])
+    g = g[1] if len(g) == 3 else g[0]
+    return float(b * g * m * (_PASSES['iou_similarity'] + g) +
+                 b * m * (_PASSES['softmax_with_cross_entropy'] * c + 32))
+
+
 _PRODUCTS = frozenset(('mul', 'matmul', 'conv2d', 'depthwise_conv2d',
                        'sequence_conv'))
 _BLOCK_OPS = frozenset(('recurrent', 'while', 'conditional_block', 'ifelse',
@@ -540,6 +561,8 @@ def op_flops(op, meta, children=()):
     if kind == 'kldiv_loss':
         # its passes run over X, whatever its reduction leaves of the loss
         return float(_PASSES[kind] * _numel(shape_of(op.input('X')[0])))
+    if kind in ('bipartite_match', 'mine_hard_examples', 'ssd_loss'):
+        return _detection_flops(op, shape_of)
     if kind == 'gru_unit':
         h = shape_of(op.input('HiddenPrev')[0])
         return 2.0 * h[0] * h[1] * 3 * h[1] + 10.0 * _numel(h)

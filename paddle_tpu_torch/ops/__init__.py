@@ -20,6 +20,7 @@ from . import control_flow_ops  # noqa: F401
 from . import beam_search_ops  # noqa: F401
 from . import crf_ops  # noqa: F401
 from . import host_ops  # noqa: F401
+from . import detection_ops  # noqa: F401
 from . import sparse  # noqa: F401
 
 # the optimizers that take a SparseRows gradient, as the reference has a

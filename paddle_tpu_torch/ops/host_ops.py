@@ -7,7 +7,8 @@ A host op works on numpy: the executor's eager walk copies the op's inputs
 puts what it wrote back on the block's device.  A block that holds one is
 refused capture (``registry.register_host_op``) and runs op by op.  The
 JAX package's ``save``, ``load``, ``save_combine``, ``load_combine`` and
-its distributed and detection host ops are not ported yet.
+its distributed host ops are not ported yet; its detection host ops are
+in ``detection_ops``.
 """
 
 import numpy as np

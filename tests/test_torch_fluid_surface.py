@@ -34,43 +34,33 @@ PENDING = {
         'Go', 'Select', 'TPUPlace', 'channel_close', 'channel_recv',
         'channel_send', 'concurrency', 'debugger', 'make_channel'],
     'fluid.layers': [
-        'anchor_generator', 'bipartite_match', 'box_coder',
-        'conv2d_transpose', 'conv3d', 'conv3d_transpose',
-        'ctc_greedy_decoder', 'detection', 'detection_map',
-        'detection_output', 'dynamic_lstmp', 'edit_distance',
-        'generate_proposal_labels', 'generate_proposals', 'hsigmoid',
-        'im2sequence', 'image_resize', 'image_resize_short',
-        'iou_similarity', 'load', 'lod_reset', 'lrn', 'lstm_unit',
-        'mean_iou', 'moe_ffn', 'multi_box_head', 'multiclass_nms', 'nce',
-        'pad_constant_like', 'polygon_box_transform', 'pool3d', 'prior_box',
-        'resize_bilinear', 'roi_pool', 'row_conv', 'rpn_target_assign',
-        'sampling_id', 'sequence_concat', 'sequence_enumerate',
-        'sequence_erase', 'sequence_pad', 'sequence_reshape',
-        'sequence_reverse', 'sequence_slice', 'ssd_loss', 'target_assign',
-        'warpctc'],
+        'conv2d_transpose', 'conv3d', 'conv3d_transpose', 'ctc_greedy_decoder',
+        'dynamic_lstmp', 'edit_distance', 'hsigmoid', 'im2sequence',
+        'image_resize', 'image_resize_short', 'load', 'lod_reset', 'lrn',
+        'lstm_unit', 'mean_iou', 'moe_ffn', 'nce', 'pad_constant_like',
+        'pool3d', 'resize_bilinear', 'roi_pool', 'row_conv', 'sampling_id',
+        'sequence_concat', 'sequence_enumerate', 'sequence_erase',
+        'sequence_pad', 'sequence_reshape', 'sequence_reverse',
+        'sequence_slice', 'warpctc'],
     'fluid.nets': [],
     'lowerings': [
-        'anchor_generator', 'attention_lstm', 'bilinear_interp',
-        'bilinear_tensor_product', 'bipartite_match', 'box_coder',
+        'attention_lstm', 'bilinear_interp', 'bilinear_tensor_product',
         'context_project', 'conv2d_transpose', 'conv3d', 'conv3d_transpose',
-        'conv_shift', 'cross_entropy_over_beam',
-        'depthwise_conv2d_transpose', 'dynamic_conv2d',
-        'fake_dequantize_max_abs', 'fake_quantize_abs_max',
+        'conv_shift', 'cross_entropy_over_beam', 'depthwise_conv2d_transpose',
+        'dynamic_conv2d', 'fake_dequantize_max_abs', 'fake_quantize_abs_max',
         'fake_quantize_range_abs_max', 'fc', 'fill',
         'fused_elemwise_activation', 'fusion_gru', 'fusion_lstm',
         'fusion_seqexpand_concat_fc', 'hierarchical_sigmoid', 'hsigmoid',
-        'im2sequence', 'iou_similarity', 'kmax_seq_score', 'lod_reset',
-        'lrn', 'lstm_unit', 'lstmp', 'max_pool2d_with_index',
-        'max_pool3d_with_index', 'mean_iou', 'mine_hard_examples', 'minus',
-        'moe_ffn', 'nce', 'nearest_interp', 'pad_constant_like',
-        'polygon_box_transform', 'pool3d', 'prior_box', 'roi_pool',
-        'row_conv', 'sampling_id', 'scale_sub_region', 'sequence_concat',
-        'sequence_enumerate', 'sequence_erase', 'sequence_pad',
-        'sequence_reshape', 'sequence_reverse', 'sequence_slice',
-        'sequence_unpad', 'spp', 'ssd_loss', 'sub_nested_seq',
-        'target_assign', 'unpool', 'warpctc'],
+        'im2sequence', 'kmax_seq_score', 'lod_reset', 'lrn', 'lstm_unit',
+        'lstmp', 'max_pool2d_with_index', 'max_pool3d_with_index', 'mean_iou',
+        'minus', 'moe_ffn', 'nce', 'nearest_interp', 'pad_constant_like',
+        'pool3d', 'roi_pool', 'row_conv', 'sampling_id', 'scale_sub_region',
+        'sequence_concat', 'sequence_enumerate', 'sequence_erase',
+        'sequence_pad', 'sequence_reshape', 'sequence_reverse',
+        'sequence_slice', 'sequence_unpad', 'spp', 'sub_nested_seq', 'unpool',
+        'warpctc'],
 }
-PORTED_LOWERINGS, REFERENCE_LOWERINGS = 183, 245
+PORTED_LOWERINGS, REFERENCE_LOWERINGS = 192, 245
 
 
 # the surfaces as a fresh interpreter sees them right after importing the
